@@ -1,0 +1,493 @@
+"""Communicator-centric collective API over an in-process PE cube
+(PID-Comm §IV, Table II).
+
+The counterpart of ``repro.core.comm``. A tensor on the cube carries the
+cube's leading axes ``(*cube.dim_sizes, *payload)``, and a collective over a
+dim selection is a data movement across those leading axes on one device:
+one independent instance per cube slice (§IV-B3), group members linearized
+cube-major over the selected dims (the ``lax.axis_index`` order). Payload
+axis arguments (``axis``) are payload-relative, exactly the per-shard axis
+numbers of the JAX package.
+
+Every executable flow is a registered algorithm, and each Table II stage is
+a distinct data movement:
+
+  naive   the replicated ``(G, G, ...)`` host buffer (every member receives
+          every member's full payload), then a source-by-source sequential
+          combine (or, for all_gather, a masked sum of G full-size buffers);
+  pr      the same replicated buffer, reduced vertically over the stacked
+          source axis in one op (or reordered by one move of the block axis);
+  im/cm   the direct reduction or concatenation over the group.
+
+``algorithm="auto"`` dispatches the planner's pick; the pick is cached per
+(primitive, request, payload bytes, op) on the communicator, so eager decode
+loops do not re-plan every step. Every dispatch appends a :class:`CommEvent`
+to any active :class:`CommTrace`.
+
+Ported so far: all_reduce, all_gather and reduce_scatter. all_to_all, the
+rooted four (scatter / gather / reduce / broadcast) and the non-stage flows
+(hierarchical, compressed, ring, tree, the fused ring flows) raise
+``NotImplementedError`` until their slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.core import planner
+from repro_torch.core.hypercube import Hypercube
+
+# Canonical Table II stage ladder, weakest to strongest.
+STAGE_ORDER = ("naive", "pr", "im", "cm")
+
+PRIMITIVES = ("all_to_all", "reduce_scatter", "all_reduce", "all_gather",
+              "scatter", "gather", "reduce", "broadcast")
+
+# op -> (sequential combine, reduction over one axis)
+_REDUCERS = {
+    "add": (torch.add, lambda x, dim: torch.sum(x, dim=dim)),
+    "max": (torch.maximum, lambda x, dim: torch.amax(x, dim=dim)),
+    "min": (torch.minimum, lambda x, dim: torch.amin(x, dim=dim)),
+}
+
+# registry flows of the JAX package that wait for a later slice of the port
+_NOT_PORTED = ("hierarchical", "compressed", "ring", "tree", "ring_fused",
+               "ag_prologue", "rs_epilogue")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ported: all_reduce, "
+        "all_gather and reduce_scatter with the Table II stages)")
+
+
+# ============================================================ the registry
+@dataclasses.dataclass(frozen=True)
+class AlgorithmSpec:
+    """One registered collective flow: a Table II stage's body."""
+    primitive: str
+    stage: str           # registry key ("naive", "pr", "im", "cm")
+    fn: Callable         # body: fn(comm, x, **kwargs) -> Tensor
+
+
+_REGISTRY: dict[str, dict[str, AlgorithmSpec]] = {p: {} for p in PRIMITIVES}
+
+
+def register_algorithm(primitive: str, stage: str):
+    """Decorator registering the body of one Table II stage."""
+    if primitive not in _REGISTRY:
+        raise ValueError(f"unknown primitive {primitive!r}")
+    if stage not in STAGE_ORDER:
+        raise ValueError(f"{stage!r} is not a Table II stage {STAGE_ORDER}")
+
+    def deco(fn):
+        if stage in _REGISTRY[primitive]:
+            raise ValueError(
+                f"stage {stage!r} already registered for {primitive!r}")
+        _REGISTRY[primitive][stage] = AlgorithmSpec(primitive, stage, fn)
+        return fn
+
+    return deco
+
+
+def get_algorithm(primitive: str, name: str) -> AlgorithmSpec:
+    try:
+        return _REGISTRY[primitive][name]
+    except KeyError:
+        if name in _NOT_PORTED:
+            raise _not_ported(f"the {name!r} flow of {primitive}") from None
+        raise ValueError(
+            f"no algorithm {name!r} registered for {primitive!r}; have "
+            f"{sorted(_REGISTRY.get(primitive, ()))}") from None
+
+
+def applicability() -> dict[str, tuple[str, ...]]:
+    """Paper Table II, derived from the registry: the ordered tuple of
+    stages registered per primitive."""
+    return {prim: tuple(s for s in STAGE_ORDER if s in algs)
+            for prim, algs in _REGISTRY.items()}
+
+
+def resolve_stage(primitive: str, algorithm: str) -> str:
+    """Resolve an algorithm request against Table II: ``pidcomm`` means the
+    strongest applicable stage; an inapplicable request falls back to the
+    strongest applicable stage at or below it."""
+    stages = applicability()[primitive]
+    if not stages:
+        raise _not_ported(primitive)
+    if algorithm == "pidcomm":
+        return stages[-1]
+    if algorithm not in STAGE_ORDER:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    req = STAGE_ORDER.index(algorithm)
+    best = stages[0]
+    for s in stages:
+        if STAGE_ORDER.index(s) <= req:
+            best = s
+    return best
+
+
+# ======================================================== instrumentation
+@dataclasses.dataclass(frozen=True)
+class CommEvent:
+    """One dispatched collective."""
+    primitive: str
+    bitmap: str                  # dim selection in paper bitmap form
+    dims: tuple[str, ...]
+    algorithm: str               # what the caller requested ("auto", ...)
+    flow: str                    # the registry algorithm actually executed
+    stage: str                   # Table II stage of that flow
+    group_size: int
+    num_instances: int
+    payload_bytes: int           # per-PE payload
+    ici_bytes: float             # planner estimate, per PE
+    dcn_bytes: float
+    seconds: float | None        # unset until a measured profile prices it
+
+
+_TRACES: list["CommTrace"] = []
+
+
+class CommTrace:
+    """Context manager collecting :class:`CommEvent` s from every dispatch
+    (eager: one event per executed collective)."""
+
+    def __init__(self):
+        self.events: list[CommEvent] = []
+
+    def __enter__(self) -> "CommTrace":
+        _TRACES.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _TRACES.remove(self)
+        return False
+
+    def record(self, event: CommEvent) -> None:
+        self.events.append(event)
+
+    def total_bytes(self) -> tuple[float, float]:
+        return (sum(e.ici_bytes for e in self.events),
+                sum(e.dcn_bytes for e in self.events))
+
+    def summary(self) -> dict:
+        """JSON-serializable per-(primitive, flow) aggregate."""
+        by: dict[str, dict] = {}
+        for e in self.events:
+            d = by.setdefault(f"{e.primitive}/{e.flow}", {
+                "count": 0, "stage": e.stage, "payload_bytes": 0,
+                "ici_bytes": 0.0, "dcn_bytes": 0.0})
+            d["count"] += 1
+            d["payload_bytes"] += e.payload_bytes
+            d["ici_bytes"] += e.ici_bytes
+            d["dcn_bytes"] += e.dcn_bytes
+        ici, dcn = self.total_bytes()
+        return {"events": len(self.events), "ici_bytes": ici,
+                "dcn_bytes": dcn, "by_flow": by}
+
+
+# ========================================================== communicator
+class Communicator:
+    """The PID-Comm primitives bound to one (cube, dim selection).
+
+    Built via :meth:`repro_torch.core.hypercube.Hypercube.comm`. Inputs and
+    outputs are cube tensors ``(*cube.dim_sizes, *payload)``; every result
+    is a freshly materialized tensor (never a broadcast view), so callers may
+    write into it.
+    """
+
+    def __init__(self, cube: Hypercube, dims):
+        self.cube = cube
+        self.dims: tuple[str, ...] = cube.resolve_dims(dims)
+        self.bitmap = "".join(
+            "1" if d in self.dims else "0" for d in cube.dim_names)
+        self.group_size: int = cube.group_size(self.dims)
+        self.num_instances: int = cube.num_instances(self.dims)
+        self.fast_dims, self.slow_dims = cube.split_fast_slow(self.dims)
+        self.group_axes = tuple(cube.dim_names.index(d) for d in self.dims)
+        self.inst_axes = tuple(i for i in range(cube.ndim)
+                               if i not in self.group_axes)
+        self._flows: dict[tuple, tuple[str, planner.CommEstimate | None]] = {}
+
+    # ------------------------------------------------------ group layout
+    def group_view(self, x: torch.Tensor) -> torch.Tensor:
+        """(*cube, *payload) -> (G, *instance, *payload): group axes to the
+        front in cube order, flattened to member index r."""
+        c = self.cube.ndim
+        perm = self.group_axes + self.inst_axes + tuple(range(c, x.dim()))
+        y = x.permute(perm)
+        return y.reshape((self.group_size,) + y.shape[len(self.group_axes):])
+
+    def from_group_view(self, z: torch.Tensor) -> torch.Tensor:
+        """(G, *instance, *payload') -> (*cube, *payload'), materialized."""
+        c = self.cube.ndim
+        gshape = tuple(self.cube.dim_sizes[a] for a in self.group_axes)
+        z = z.reshape(gshape + tuple(z.shape[1:]))
+        perm = self.group_axes + self.inst_axes + tuple(range(c, z.dim()))
+        inv = sorted(range(len(perm)), key=perm.__getitem__)
+        return z.permute(inv).contiguous()
+
+    def payload_dim(self, axis: int) -> int:
+        """Index of payload ``axis`` in the group view."""
+        return 1 + len(self.inst_axes) + axis
+
+    # ------------------------------------------------------------ dispatch
+    def _resolve_flow(self, primitive: str, algorithm: str,
+                      payload_bytes: int, op: str = "add"):
+        """Map an algorithm request onto a registry flow name. Returns
+        (flow_name, planner_estimate_or_None); cached per request."""
+        key = (primitive, algorithm, payload_bytes, op)
+        got = self._flows.get(key)
+        if got is None:
+            got = self._flows[key] = self._resolve_flow_uncached(
+                primitive, algorithm, payload_bytes, op)
+        return got
+
+    def _resolve_flow_uncached(self, primitive, algorithm, payload_bytes, op):
+        if algorithm == "auto":
+            est = planner.plan(self.cube, primitive, self.dims, payload_bytes)
+            if est.algorithm == "naive":
+                return "naive", est
+            if (est.algorithm == "hierarchical" and primitive == "all_reduce"
+                    and op == "add"):
+                return "hierarchical", est
+            if est.algorithm != "direct":
+                est = None
+            return self._escalate(primitive,
+                                  resolve_stage(primitive, "pidcomm"),
+                                  op), est
+        if algorithm == "pidcomm" or algorithm in STAGE_ORDER:
+            return self._escalate(primitive,
+                                  resolve_stage(primitive, algorithm),
+                                  op), None
+        if algorithm in _REGISTRY[primitive] or algorithm in _NOT_PORTED:
+            return algorithm, None
+        raise ValueError(
+            f"unknown algorithm {algorithm!r} for {primitive!r}; expected "
+            f"'auto', 'pidcomm', a stage {STAGE_ORDER}, or one of "
+            f"{sorted(_REGISTRY[primitive])}")
+
+    def _escalate(self, primitive: str, stage: str, op: str) -> str:
+        """A DCN-crossing additive ``im`` all_reduce takes the §IX-A
+        hierarchical split (``repro.core.comm._escalate``)."""
+        if (primitive == "all_reduce" and stage == "im" and op == "add"
+                and self.fast_dims and self.slow_dims):
+            return "hierarchical"
+        return stage
+
+    def _dispatch(self, primitive: str, x: torch.Tensor, *,
+                  algorithm: str | None, op: str = "add", **kwargs):
+        alg = "auto" if algorithm is None else algorithm
+        if op not in _REDUCERS:
+            raise ValueError(f"unknown op {op!r}; expected {sorted(_REDUCERS)}")
+        payload = _payload_bytes(x, self.cube.ndim)
+        flow, est = self._resolve_flow(primitive, alg, payload, op)
+        spec = get_algorithm(primitive, flow)
+        if _TRACES:
+            if est is None:
+                est = planner.estimate(
+                    self.cube, primitive, self.dims, payload,
+                    algorithm="naive" if flow == "naive" else "direct")
+            event = CommEvent(
+                primitive=primitive, bitmap=self.bitmap, dims=self.dims,
+                algorithm=alg, flow=flow, stage=spec.stage,
+                group_size=self.group_size,
+                num_instances=self.num_instances, payload_bytes=payload,
+                ici_bytes=est.ici_bytes, dcn_bytes=est.dcn_bytes,
+                seconds=est.seconds)
+            for t in _TRACES:
+                t.record(event)
+        if primitive in ("all_reduce", "reduce_scatter"):
+            return spec.fn(self, x, op=op, **kwargs)
+        return spec.fn(self, x, **kwargs)
+
+    def _check(self, x: torch.Tensor):
+        if tuple(x.shape[:self.cube.ndim]) != self.cube.dim_sizes:
+            raise ValueError(
+                f"cube tensor must lead with {self.cube.dim_sizes}, got "
+                f"shape {tuple(x.shape)}")
+
+    # ---------------------------------------------------- PE<->PE primitives
+    def reduce_scatter(self, x: torch.Tensor, *, axis: int, op: str = "add",
+                       algorithm: str | None = None) -> torch.Tensor:
+        self._check(x)
+        if self.group_size == 1:
+            return x
+        return self._dispatch("reduce_scatter", x, algorithm=algorithm,
+                              op=op, axis=axis)
+
+    def all_gather(self, x: torch.Tensor, *, axis: int,
+                   algorithm: str | None = None) -> torch.Tensor:
+        self._check(x)
+        if self.group_size == 1:
+            return x
+        return self._dispatch("all_gather", x, algorithm=algorithm, axis=axis)
+
+    def all_reduce(self, x: torch.Tensor, *, op: str = "add",
+                   algorithm: str | None = None) -> torch.Tensor:
+        self._check(x)
+        if self.group_size == 1:
+            return x
+        return self._dispatch("all_reduce", x, algorithm=algorithm, op=op)
+
+    def all_to_all(self, x, *, split_axis: int, concat_axis: int,
+                   algorithm: str | None = None):
+        raise _not_ported("all_to_all")
+
+    def scatter(self, host_value, **kwargs):
+        raise _not_ported("the rooted scatter")
+
+    def gather(self, x, **kwargs):
+        raise _not_ported("the rooted gather")
+
+    def reduce(self, x, **kwargs):
+        raise _not_ported("the rooted reduce")
+
+    def broadcast(self, host_value, **kwargs):
+        raise _not_ported("the rooted broadcast")
+
+
+def _payload_bytes(x: torch.Tensor, cube_ndim: int) -> int:
+    """Per-PE payload bytes of a cube tensor."""
+    n = 1
+    for s in x.shape[cube_ndim:]:
+        n *= int(s)
+    return n * x.element_size()
+
+
+# ===================================================== algorithm bodies
+def _replicated(y: torch.Tensor) -> torch.Tensor:
+    """The naive/pr host buffer: every member receives every member's full
+    payload -- (G_member, G_src, ...), materialized."""
+    g = y.shape[0]
+    return y.unsqueeze(0).expand((g,) + tuple(y.shape)).contiguous()
+
+
+def _to_members(comm, full: torch.Tensor) -> torch.Tensor:
+    """One group result (*instance, *payload) delivered to every member."""
+    g = comm.group_size
+    return comm.from_group_view(
+        full.unsqueeze(0).expand((g,) + tuple(full.shape)))
+
+
+def _merge_blocks(z: torch.Tensor, src_dim: int, pay_dim: int
+                  ) -> torch.Tensor:
+    """Concatenate the blocks stacked on ``src_dim`` along ``pay_dim``
+    (indices as in ``z`` with ``src_dim`` removed), block-major."""
+    z = z.movedim(src_dim, pay_dim)
+    shape = tuple(z.shape)
+    return z.reshape(shape[:pay_dim] + (shape[pay_dim] * shape[pay_dim + 1],)
+                     + shape[pay_dim + 2:])
+
+
+def _split_blocks(y: torch.Tensor, pay_dim: int, g: int) -> torch.Tensor:
+    """(..., G*b, ...) at ``pay_dim`` -> blocks stacked at dim 1 of the
+    group view: (G_src, G_blk, ..., b, ...)."""
+    n = y.shape[pay_dim]
+    if n % g:
+        raise ValueError(f"payload dim of size {n} not divisible by {g}")
+    shape = tuple(y.shape)
+    y = y.reshape(shape[:pay_dim] + (g, n // g) + shape[pay_dim + 1:])
+    return y.movedim(pay_dim, 1)
+
+
+# ------------------------------------------------------- reduce_scatter
+def _rs_columns(comm, x, axis):
+    """Every member's column of the replicated block buffer:
+    (G_member, G_src, *instance, *payload/G)."""
+    y = comm.group_view(x)
+    blocks = _split_blocks(y, comm.payload_dim(axis), comm.group_size)
+    gathered = _replicated(blocks)             # (G_mem, G_src, G_blk, ...)
+    me = torch.arange(comm.group_size, device=x.device)
+    return gathered[me, :, me]                 # member m <- block m of all
+
+
+@register_algorithm("reduce_scatter", "naive")
+def _rs_naive(comm, x, *, axis, op):
+    # horizontal, source-by-source sequential reduction
+    col = _rs_columns(comm, x, axis)
+    comb = _REDUCERS[op][0]
+    acc = col[:, 0]
+    for s in range(1, comm.group_size):
+        acc = comb(acc, col[:, s])
+    return comm.from_group_view(acc)
+
+
+@register_algorithm("reduce_scatter", "pr")
+def _rs_pr(comm, x, *, axis, op):
+    # vertical (vectorized) reduction over the stacked source axis
+    col = _rs_columns(comm, x, axis)
+    return comm.from_group_view(_REDUCERS[op][1](col, 1))
+
+
+@register_algorithm("reduce_scatter", "im")
+def _rs_direct(comm, x, *, axis, op):
+    # direct reduction, then member r keeps block r
+    y = comm.group_view(x)
+    red = _REDUCERS[op][1](y, 0).unsqueeze(0)  # (1, *inst, *payload)
+    blocks = _split_blocks(red, comm.payload_dim(axis), comm.group_size)
+    return comm.from_group_view(blocks[0])
+
+
+# ----------------------------------------------------------- all_gather
+@register_algorithm("all_gather", "naive")
+def _ag_naive(comm, x, *, axis):
+    # root collects then broadcasts full copies: a masked sum carrying G
+    # full-size buffers, one per member, each holding only its own slot
+    y = comm.group_view(x)
+    g = comm.group_size
+    stacked = y.new_zeros((g,) + tuple(y.shape))   # (G_member, G_slot, ...)
+    me = torch.arange(g, device=x.device)
+    stacked[me, me] = y
+    full = stacked.sum(0)                          # (G_slot, *inst, *pay)
+    return _to_members(comm, _merge_blocks(full, 0, comm.payload_dim(axis) - 1))
+
+
+@register_algorithm("all_gather", "pr")
+def _ag_pr(comm, x, *, axis):
+    # replicated buffer, then each member reorders the stacked blocks
+    gathered = _replicated(comm.group_view(x))     # (G_mem, G_src, ...)
+    return comm.from_group_view(
+        _merge_blocks(gathered, 1, comm.payload_dim(axis)))
+
+
+@register_algorithm("all_gather", "im")
+def _ag_direct(comm, x, *, axis):
+    # direct concatenation in group order, delivered to every member
+    y = comm.group_view(x)
+    full = torch.cat(y.unbind(0), dim=comm.payload_dim(axis) - 1)
+    return _to_members(comm, full)
+
+
+register_algorithm("all_gather", "cm")(_ag_direct)
+
+
+# ----------------------------------------------------------- all_reduce
+@register_algorithm("all_reduce", "naive")
+def _ar_naive(comm, x, *, op):
+    gathered = _replicated(comm.group_view(x))
+    comb = _REDUCERS[op][0]
+    acc = gathered[:, 0]
+    for s in range(1, comm.group_size):
+        acc = comb(acc, gathered[:, s])
+    return comm.from_group_view(acc)
+
+
+@register_algorithm("all_reduce", "pr")
+def _ar_pr(comm, x, *, op):
+    gathered = _replicated(comm.group_view(x))
+    return comm.from_group_view(_REDUCERS[op][1](gathered, 1))
+
+
+@register_algorithm("all_reduce", "im")
+def _ar_direct(comm, x, *, op):
+    return _to_members(comm, _REDUCERS[op][1](comm.group_view(x), 0))
+
+
+__all__ = [
+    "AlgorithmSpec", "CommEvent", "CommTrace", "Communicator",
+    "PRIMITIVES", "STAGE_ORDER", "applicability", "get_algorithm",
+    "register_algorithm", "resolve_stage",
+]

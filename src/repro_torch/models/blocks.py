@@ -1,0 +1,214 @@
+"""Sharded transformer blocks over the in-process PE cube.
+
+The counterpart of ``repro.models.blocks``: the same per-shard math, batched
+over the cube's leading axes, with every cross-PE transfer going through a
+topology-bound :class:`repro_torch.core.comm.Communicator`
+(``topo.comm(axes)``). AllGather/ReduceScatter implement Megatron-style
+sequence-parallel tensor parallelism; max and additive all-reduces implement
+the flash-decode LSE combine.
+
+Training-path activations are sequence-sharded over ``topo.sp`` between
+blocks; decode-path activations are replicated over the model axes with the
+KV cache sequence-sharded (flash-decode). Both attention sites run the flash
+kernel (``layers.chunked_attention``).
+
+Ported: attention (self, without the fused-comm routing) and the dense FFN.
+The int8 KV cache, cross-attention, MoE, Mamba and RWKV wait for later
+slices.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    rms_norm, rope, chunked_attention, finish_partial_attention,
+    cube_matmul, pe_slice)
+from repro_torch.models.params import kv_is_sharded
+from repro_torch.models.topology import Topology
+
+
+# ------------------------------------------------------------- param gather
+def gather_params(w: dict, specs: dict, topo: Topology,
+                  dtype: torch.dtype) -> dict:
+    """FSDP: cast each leaf to ``dtype`` then AllGather it over ``data``
+    (casting before the gather halves FSDP traffic)."""
+    out = {}
+    for k, v in w.items():
+        spec = tuple(specs[k])
+        v = v.to(dtype)
+        if "data" in spec:
+            v = topo.comm(("data",)).all_gather(v, axis=spec.index("data"))
+        out[k] = v
+    return out
+
+
+# ---------------------------------------------------------------- attention
+def _split_qkv(cfg: ModelConfig, topo: Topology, hn_q, hn_kv, w):
+    """Project and reshape q/k/v with GQA head bookkeeping. Returns
+    q: (*cube, B, Sq, Hl, hd), k, v: (*cube, B, Sk, KVl, hd)."""
+    cn = topo.cube.ndim
+    cube = topo.cube.dim_sizes
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    t = topo.tp_size
+    Hl = H // t
+    q = cube_matmul(hn_q, w["wq"], cn)
+    B, Sq = q.shape[cn], q.shape[cn + 1]
+    q = q.reshape(cube + (B, Sq, Hl, hd))
+    # wkv columns are laid out (KV, 2, hd): whole kv heads stay contiguous
+    # so column-sharding over tp slices whole (k, v) head pairs
+    kvp = cube_matmul(hn_kv, w["wkv"], cn)
+    Sk = kvp.shape[cn + 1]
+    if kv_is_sharded(cfg, topo):
+        kv = kvp.reshape(cube + (B, Sk, KV // t, 2, hd))
+        k, v = kv[..., 0, :], kv[..., 1, :]
+    else:
+        kv = kvp.reshape(cube + (B, Sk, KV, 2, hd))
+        kf, vf = kv[..., 0, :], kv[..., 1, :]
+        G = H // KV
+        me = topo.axis_index(topo.tp, hn_q.device)
+        if Hl >= G:
+            cnt = Hl // G
+            lo = me * cnt
+        else:
+            cnt = 1
+            lo = (me * Hl) // G
+        k = pe_slice(kf, lo, cnt, 2, cn)
+        v = pe_slice(vf, lo, cnt, 2, cn)
+    return q, k, v
+
+
+def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
+               window: int, causal: bool = True):
+    """Sequence-parallel attention block. x_sp: (*cube, B, S_sp, D)."""
+    cn = topo.cube.ndim
+    tpc = topo.comm(topo.tp)
+    h = tpc.all_gather(x_sp, axis=1)                          # (.., B, S_cp, D)
+    hn = rms_norm(h, w["ln"], cfg.norm_eps)
+    if topo.cp:
+        full = topo.comm(topo.cp).all_gather(h, axis=1)       # (.., B, S, D)
+        kv_src = rms_norm(full, w["ln"], cfg.norm_eps)
+    else:
+        kv_src = hn
+    q, k, v = _split_qkv(cfg, topo, hn, kv_src, w)
+    B, Sq = q.shape[cn], q.shape[cn + 1]
+    if cfg.qk_norm:
+        q = rms_norm(q, w["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, w["k_norm"], cfg.norm_eps)
+    dev = x_sp.device
+    q_off = topo.axis_index(topo.cp, dev) * Sq                # (*cube)
+    q = rope(q, q_off[..., None, None] + torch.arange(Sq, device=dev),
+             cfg.rope_theta)
+    k = rope(k, torch.arange(k.shape[cn + 1], device=dev), cfg.rope_theta)
+    o = chunked_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_off[..., None])
+    o = o.reshape(topo.cube.dim_sizes + (B, Sq, -1))
+    out = cube_matmul(o, w["wo"], cn)                         # partial over tp
+    out = tpc.reduce_scatter(out, axis=1)
+    return x_sp + out
+
+
+def _write_slots(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
+                 in_rng: torch.Tensor, cn: int) -> None:
+    """In place: ``cache[pe, b, idx[pe, b]] = new[pe, b]`` where
+    ``in_rng[pe, b]``. cache: (*cube, B, S_loc, KV, hd); new:
+    (*cube, B, KV, hd); idx, in_rng: (*cube, B)."""
+    lead = tuple(cache.shape[:cn + 1])
+    ix = tuple(torch.arange(s, device=cache.device).reshape(
+        (1,) * a + (s,) + (1,) * (cn - a)) for a, s in enumerate(lead))
+    key = ix + (idx,)
+    cache[key] = torch.where(in_rng[..., None, None],
+                             new.to(cache.dtype), cache[key])
+
+
+def attn_decode(cfg: ModelConfig, topo: Topology, w: dict, x, c: dict, pos,
+                *, window: int, kv_axes, rolling: bool, dtype: torch.dtype):
+    """Flash-decode one token. x: (*cube, B, D) replicated over the model
+    axes; c["k"], c["v"]: (*cube, B, S_loc, KV, hd) cache chunks,
+    sequence-sharded over ``kv_axes``, written IN PLACE (the new token's
+    slot); pos: (*cube, B) per-request positions. ``rolling``: cache length
+    < context (sliding window), slot = pos % S_cache. Returns the new x."""
+    cn = topo.cube.ndim
+    cube = topo.cube.dim_sizes
+    cache_k, cache_v = c["k"], c["v"]
+    tpc = topo.comm(topo.tp)
+    kvc = topo.comm(kv_axes)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B = x.shape[cn]
+    dev = x.device
+    hn = rms_norm(x.unsqueeze(-2), w["ln"], cfg.norm_eps)    # (.., B, 1, D)
+    t = topo.tp_size
+
+    # q: local columns -> gather flat then reshape (supports tp > heads)
+    q = cube_matmul(hn, w["wq"], cn)                           # (.., B, 1, cols)
+    q = tpc.all_gather(q, axis=2).reshape(cube + (B, 1, H, hd))
+    kvp = cube_matmul(hn, w["wkv"], cn)
+    if kv_is_sharded(cfg, topo):
+        kvp = tpc.all_gather(kvp, axis=2)
+    kvp = kvp.reshape(cube + (B, 1, KV, 2, hd))
+    k_new, v_new = kvp[..., 0, :, 0, :], kvp[..., 0, :, 1, :]  # (.., B, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, w["q_norm"], cfg.norm_eps)
+        k_new = rms_norm(k_new, w["k_norm"], cfg.norm_eps)
+    q = _rope_decode(q, pos, cfg.rope_theta)
+    k_new = _rope_decode(k_new.unsqueeze(-3), pos, cfg.rope_theta).squeeze(-3)
+
+    # write into my cache chunk
+    n_shards = topo.size(kv_axes)
+    S_loc = cache_k.shape[cn + 1]
+    S_cache = S_loc * n_shards
+    my_lo = topo.axis_index(kv_axes, dev) * S_loc              # (*cube)
+    slot = (pos % S_cache) if rolling else pos                 # (*cube, B)
+    loc = slot - my_lo[..., None]
+    in_rng = (loc >= 0) & (loc < S_loc)
+    idx = loc.clamp(0, S_loc - 1)
+    _write_slots(cache_k, k_new, idx, in_rng, cn)
+    _write_slots(cache_v, v_new, idx, in_rng, cn)
+    # key positions of my slots
+    slots = my_lo[..., None] + torch.arange(S_loc, device=dev)  # (*cube, S)
+    if rolling:
+        k_pos = pos[..., None] - (pos[..., None] - slots[..., None, :]) \
+            % S_cache
+    else:
+        k_pos = slots[..., None, :].expand(cube + (B, S_loc))
+
+    # partial attention over my chunk (all heads), LSE-combined over shards
+    acc, m, l = chunked_attention(q, cache_k, cache_v, causal=True,
+                                  window=window, q_pos=pos[..., None],
+                                  k_pos=k_pos, partial=True)
+    o = finish_partial_attention(acc, m, l, comm=kvc, dtype=dtype)
+
+    # out projection: my slice of the flattened head dim (wo row shard)
+    me = topo.axis_index(topo.tp, dev)
+    rows = (H * hd) // t
+    o_loc = pe_slice(o.reshape(cube + (B, H * hd)), me * rows, rows, 1, cn)
+    out = tpc.all_reduce(cube_matmul(o_loc, w["wo"], cn))
+    return x + out.to(x.dtype)
+
+
+def _rope_decode(q, pos, theta):
+    """q: (*cube, B, 1, H, hd) at per-row positions pos (*cube, B)."""
+    return rope(q, pos[..., None], theta)
+
+
+# --------------------------------------------------------------------- FFNs
+def _swiglu(cn, hn, wg, wu, wd):
+    return cube_matmul(F.silu(cube_matmul(hn, wg, cn))
+                       * cube_matmul(hn, wu, cn), wd, cn)
+
+
+def dense_ffn(cfg, topo, w, x_sp):
+    cn = topo.cube.ndim
+    tpc = topo.comm(topo.tp)
+    h = tpc.all_gather(x_sp, axis=1)
+    hn = rms_norm(h, w["fln"], cfg.norm_eps)
+    out = _swiglu(cn, hn, w["wg"], w["wu"], w["wd"])
+    return x_sp + tpc.reduce_scatter(out, axis=1)
+
+
+def dense_ffn_decode(cfg, topo, w, x):
+    cn = topo.cube.ndim
+    hn = rms_norm(x, w["fln"], cfg.norm_eps)
+    out = _swiglu(cn, hn, w["wg"], w["wu"], w["wd"])
+    return x + topo.comm(topo.tp).all_reduce(out).to(x.dtype)

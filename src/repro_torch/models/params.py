@@ -1,0 +1,207 @@
+"""Parameter definitions: global shapes, shardings, init, and the weight
+converter from the JAX package.
+
+The counterpart of ``repro.models.params``. A spec is a tuple with one entry
+per array axis (None / dim name / tuple of dim names), the port's
+``PartitionSpec``. Parameters live on the cube: each leaf is a cube tensor
+``(*cube.dim_sizes, *local_shape)`` holding every PE's block of the global
+array under its spec (``Hypercube.to_cube``); dims a spec does not name
+replicate as read-only broadcast views, so the cube holds the global bytes
+once. Master weights are f32; ``blocks.gather_params`` casts each layer to
+the compute dtype on use.
+
+Ported defs: attention and dense FFN (the dense-decoder families). The other
+mixers and FFNs raise until their slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig, ATTN, DENSE
+from repro_torch.models.topology import Topology
+
+MASTER_DTYPE = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple
+    spec: tuple
+    init: str = "normal"       # normal | zeros | ones | out_proj | embed
+    dtype: Any = MASTER_DTYPE
+
+
+def _round_up(x: int, m: int) -> int:
+    return int(math.ceil(x / m) * m)
+
+
+def kv_is_sharded(cfg: ModelConfig, topo: Topology) -> bool:
+    t = topo.tp_size
+    return cfg.n_kv_heads >= t and cfg.n_kv_heads % t == 0
+
+
+def vocab_padded(cfg: ModelConfig, topo: Topology) -> int:
+    return _round_up(cfg.vocab_size, topo.tp_size)
+
+
+# --------------------------------------------------------------------- defs
+def _attn_defs(cfg, topo):
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tp = topo.tp
+    kv_spec = ("data", tp) if kv_is_sharded(cfg, topo) else ("data", None)
+    d = {
+        "ln": ParamDef((D,), ("data",), "zeros"),
+        "wq": ParamDef((D, H * hd), ("data", tp)),
+        "wkv": ParamDef((D, 2 * KV * hd), kv_spec),
+        "wo": ParamDef((H * hd, D), (tp, "data"), "out_proj"),
+    }
+    if cfg.qk_norm:
+        d["q_norm"] = ParamDef((hd,), (None,), "zeros")
+        d["k_norm"] = ParamDef((hd,), (None,), "zeros")
+    return d
+
+
+def _dense_ffn_defs(cfg, topo):
+    D, F = cfg.d_model, cfg.d_ff
+    tp = topo.tp
+    return {
+        "fln": ParamDef((D,), ("data",), "zeros"),
+        "wg": ParamDef((D, F), ("data", tp)),
+        "wu": ParamDef((D, F), ("data", tp)),
+        "wd": ParamDef((F, D), (tp, "data"), "out_proj"),
+    }
+
+
+_MIXER_DEFS = {ATTN: _attn_defs}
+_FFN_DEFS = {DENSE: _dense_ffn_defs}
+
+
+def _not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{cfg.name}: {what} layers are not ported to repro_torch yet "
+        "(ported: attention mixers with dense FFNs)")
+
+
+def _stack(defs: dict, n: int) -> dict:
+    """Prepend the unit-stack dimension to every leaf."""
+    return {k: ParamDef((n,) + d.shape, (None,) + tuple(d.spec), d.init,
+                        d.dtype)
+            for k, d in defs.items()}
+
+
+def param_defs(cfg: ModelConfig, topo: Topology) -> dict:
+    tp = topo.tp
+    D = cfg.d_model
+    Vp = vocab_padded(cfg, topo)
+    unit = cfg.unit()
+    n_units = cfg.n_layers // unit
+    mixers, ffns = cfg.mixers(), cfg.ffns()
+    if cfg.is_encoder_decoder:
+        raise _not_ported(cfg, "encoder-decoder")
+    if cfg.frontend:
+        raise _not_ported(cfg, f"{cfg.frontend!r} frontend")
+
+    units = {}
+    for pos in range(unit):
+        if mixers[pos] not in _MIXER_DEFS:
+            raise _not_ported(cfg, f"{mixers[pos]!r} mixer")
+        if ffns[pos] not in _FFN_DEFS:
+            raise _not_ported(cfg, f"{ffns[pos]!r} FFN")
+        d = dict(_MIXER_DEFS[mixers[pos]](cfg, topo))
+        d.update(_FFN_DEFS[ffns[pos]](cfg, topo))
+        units[f"p{pos}"] = _stack(d, n_units)
+
+    tree = {
+        "embed": ParamDef((Vp, D), (tp, "data"), "embed"),
+        "units": units,
+        "final_norm": ParamDef((D,), ("data",), "zeros"),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ParamDef((D, Vp), ("data", tp))
+    return tree
+
+
+def _leaves(tree: dict, path: tuple = ()):
+    """(path, leaf) pairs of a nested dict, keys in sorted order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _set(tree: dict, path: tuple, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _get(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def param_specs(cfg: ModelConfig, topo: Topology) -> dict:
+    out: dict = {}
+    for path, d in _leaves(param_defs(cfg, topo)):
+        _set(out, path, d.spec)
+    return out
+
+
+# --------------------------------------------------------------------- init
+def _init_leaf(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
+               device) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
+    scale = 0.02
+    if d.init == "out_proj":
+        scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    elif d.init == "embed":
+        scale = 1.0 / math.sqrt(cfg.d_model)
+    elif d.init != "normal":
+        raise ValueError(f"unknown init {d.init!r}")
+    x = torch.randn(d.shape, generator=gen, dtype=d.dtype, device=device)
+    return x.mul_(scale)
+
+
+def init_params(cfg: ModelConfig, topo: Topology, seed: int = 0, *,
+                device) -> dict:
+    """Random master weights placed on the cube, made leaf by leaf on
+    ``device`` from one ``torch.Generator`` seeded with ``seed``. The global
+    values depend only on (cfg, seed, padded vocab), not on the cube, so two
+    topologies with the same padded vocab hold the same model."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out: dict = {}
+    for path, d in _leaves(param_defs(cfg, topo)):
+        glob = _init_leaf(d, cfg, gen, device)
+        _set(out, path, topo.cube.to_cube(glob, d.spec))
+        del glob
+    return out
+
+
+def from_jax_params(cfg: ModelConfig, topo: Topology, tree, *,
+                    device) -> dict:
+    """Place the JAX package's global parameter arrays on the port's cube.
+
+    ``tree`` mirrors ``repro.models.params.init_params`` with every leaf as
+    a NumPy array (``np.asarray`` of the JAX leaf); each one lands under its
+    ``ParamDef.spec``, so both packages compute the same model."""
+    out: dict = {}
+    for path, d in _leaves(param_defs(cfg, topo)):
+        arr = np.asarray(_get(tree, path))
+        if tuple(arr.shape) != tuple(d.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != "
+                             f"{d.shape} of the port's def")
+        glob = torch.tensor(arr, dtype=d.dtype, device=device)
+        _set(out, path, topo.cube.to_cube(glob, d.spec))
+    return out
