@@ -14,17 +14,25 @@ a distinct data movement:
 
   naive   the replicated ``(G, G, ...)`` host buffer (every member receives
           every member's full payload), then a source-by-source sequential
-          combine (or, for all_gather, a masked sum of G full-size buffers);
+          combine (or, for all_gather, a masked sum of G full-size buffers;
+          for all_to_all, a per-word gather from the flattened buffer);
   pr      the same replicated buffer, reduced vertically over the stacked
-          source axis in one op (or reordered by one move of the block axis);
-  im/cm   the direct reduction or concatenation over the group.
+          source axis in one op (or reordered by one move of the block axis;
+          for all_to_all, the sources first pre-arrange their blocks on the
+          reorder kernel, then each member takes one slice of the buffer);
+  im/cm   the direct reduction or concatenation over the group; the
+          all_to_all ``im`` is a (G-1)-step ladder of one block per step,
+          and its ``cm`` is one launch of the reorder kernel
+          (``repro_torch.kernels.reorder``) over the stored cube tensor:
+          in the cube layout an all_to_all over a group, across all its
+          instances, is one permutation of contiguous blocks.
 
 ``algorithm="auto"`` dispatches the planner's pick; the pick is cached per
 (primitive, request, payload bytes, op) on the communicator, so eager decode
 loops do not re-plan every step. Every dispatch appends a :class:`CommEvent`
 to any active :class:`CommTrace`.
 
-Ported so far: all_reduce, all_gather and reduce_scatter. all_to_all, the
+Ported so far: all_reduce, all_gather, reduce_scatter and all_to_all. The
 rooted four (scatter / gather / reduce / broadcast) and the non-stage flows
 (hierarchical, compressed, ring, tree, the fused ring flows) raise
 ``NotImplementedError`` until their slice of the port.
@@ -32,12 +40,14 @@ rooted four (scatter / gather / reduce / broadcast) and the non-stage flows
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
 
 from repro_torch.core import planner
 from repro_torch.core.hypercube import Hypercube
+from repro_torch.kernels.reorder import ops as reorder_ops
 
 # Canonical Table II stage ladder, weakest to strongest.
 STAGE_ORDER = ("naive", "pr", "im", "cm")
@@ -60,7 +70,8 @@ _NOT_PORTED = ("hierarchical", "compressed", "ring", "tree", "ring_fused",
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ported: all_reduce, "
-        "all_gather and reduce_scatter with the Table II stages)")
+        "all_gather, reduce_scatter and all_to_all with the Table II "
+        "stages)")
 
 
 # ============================================================ the registry
@@ -210,6 +221,8 @@ class Communicator:
         self.inst_axes = tuple(i for i in range(cube.ndim)
                                if i not in self.group_axes)
         self._flows: dict[tuple, tuple[str, planner.CommEstimate | None]] = {}
+        # block permutations of the reorder kernel (``block_perm``)
+        self._perms: dict[tuple, tuple[torch.Tensor, int]] = {}
 
     # ------------------------------------------------------ group layout
     def group_view(self, x: torch.Tensor) -> torch.Tensor:
@@ -332,9 +345,51 @@ class Communicator:
             return x
         return self._dispatch("all_reduce", x, algorithm=algorithm, op=op)
 
-    def all_to_all(self, x, *, split_axis: int, concat_axis: int,
-                   algorithm: str | None = None):
-        raise _not_ported("all_to_all")
+    def all_to_all(self, x: torch.Tensor, *, split_axis: int,
+                   concat_axis: int,
+                   algorithm: str | None = None) -> torch.Tensor:
+        """Member j's output block i along ``concat_axis`` is member i's
+        input block j along ``split_axis`` (the paper's transpose)."""
+        self._check(x)
+        npay = x.dim() - self.cube.ndim
+        for name, a in (("split_axis", split_axis),
+                        ("concat_axis", concat_axis)):
+            if not 0 <= a < npay:
+                raise ValueError(f"{name}={a} outside the {npay} payload "
+                                 "axes")
+        if x.shape[self.cube.ndim + split_axis] % self.group_size:
+            raise ValueError(
+                f"split axis {split_axis} of payload "
+                f"{tuple(x.shape[self.cube.ndim:])} not divisible by "
+                f"{self.group_size}")
+        if self.group_size == 1:
+            return x
+        return self._dispatch("all_to_all", x, algorithm=algorithm,
+                              split_axis=split_axis, concat_axis=concat_axis)
+
+    def block_perm(self, move_key: tuple, x: torch.Tensor, axis: int,
+                   splits: bool, move: Callable) -> tuple[torch.Tensor, int]:
+        """The reorder kernel's permutation for ``move``, a pure data
+        movement of cube tensors shaped like ``x`` (named by ``move_key``),
+        computed once and cached on x's device per (move_key, shape,
+        device): it moves unit indices, so every dtype shares it. Its unit is the contiguous tail of the payload below
+        payload ``axis`` with, at ``axis``, one group block if the move
+        ``splits`` that axis, else the whole axis. ``move`` runs once, on a
+        tensor of unit indices; returns (perm int32 on the device, unit
+        elements)."""
+        key = (move_key, tuple(x.shape), x.device)
+        got = self._perms.get(key)
+        if got is None:
+            c = self.cube.ndim
+            pay = tuple(x.shape[c:])
+            k = self.group_size if splits else 1
+            lead = tuple(x.shape[:c]) + pay[:axis]
+            idx = torch.arange(math.prod(lead) * k).reshape(lead + (k,))
+            perm = move(idx).reshape(-1).to(device=x.device,
+                                            dtype=torch.int32)
+            unit = pay[axis] // k * math.prod(pay[axis + 1:])
+            got = self._perms[key] = (perm, unit)
+        return got
 
     def scatter(self, host_value, **kwargs):
         raise _not_ported("the rooted scatter")
@@ -462,6 +517,88 @@ def _ag_direct(comm, x, *, axis):
 
 
 register_algorithm("all_gather", "cm")(_ag_direct)
+
+
+# ----------------------------------------------------------- all_to_all
+def _a2a_blocks(comm, x, split_axis):
+    """(*cube, *payload) -> the group's blocks (G_src, G_blk, *instance,
+    *payload with ``split_axis`` cut to b), a view."""
+    y = comm.group_view(x)
+    return _split_blocks(y, comm.payload_dim(split_axis), comm.group_size)
+
+
+def _a2a_out(comm, mine, concat_axis):
+    """(G_member, G_src, *instance, *payload) -> each member's blocks
+    concatenated in source order along ``concat_axis``, on the cube."""
+    return comm.from_group_view(
+        _merge_blocks(mine, 1, comm.payload_dim(concat_axis)))
+
+
+def _a2a_transpose(comm, x, split_axis, concat_axis):
+    """The all_to_all as views and one copy (the ``cm`` permutation's
+    definition): member j <- block j of every source."""
+    blocks = _a2a_blocks(comm, x, split_axis)
+    return _a2a_out(comm, blocks.transpose(0, 1), concat_axis)
+
+
+def _a2a_shape(comm, x, split_axis, concat_axis):
+    g, c = comm.group_size, comm.cube.ndim
+    shape = list(x.shape)
+    shape[c + split_axis] //= g
+    shape[c + concat_axis] *= g
+    return tuple(shape)
+
+
+@register_algorithm("all_to_all", "naive")
+def _aa_naive(comm, x, *, split_axis, concat_axis):
+    # replicated buffer of every source's blocks, then per-word modulation:
+    # a data-dependent gather from the flattened (G_src * G_blk) buffer
+    g = comm.group_size
+    gathered = _replicated(_a2a_blocks(comm, x, split_axis))
+    flat = gathered.reshape((g, g * g) + tuple(gathered.shape[3:]))
+    me = torch.arange(g, device=x.device)
+    idx = torch.arange(g, device=x.device)[None, :] * g + me[:, None]
+    return _a2a_out(comm, flat[me[:, None], idx], concat_axis)
+
+
+@register_algorithm("all_to_all", "pr")
+def _aa_pr(comm, x, *, split_axis, concat_axis):
+    # PE-assisted reordering: every source pre-arranges its blocks
+    # destination-major (one reorder-kernel launch over the cube tensor),
+    # then each member takes its column of the replicated buffer in one
+    # slice
+    blocks = _a2a_blocks(comm, x, split_axis)
+    perm, unit = comm.block_perm(
+        ("pr", split_axis), x, split_axis, True,
+        lambda idx: _a2a_blocks(comm, idx, split_axis).contiguous())
+    pre = reorder_ops.tile_swizzle(x.contiguous().reshape(-1, unit), perm)
+    gathered = _replicated(pre.reshape(blocks.shape))  # (G_mem, G_src, ...)
+    me = torch.arange(comm.group_size, device=x.device)
+    return _a2a_out(comm, gathered[me, :, me], concat_axis)
+
+
+@register_algorithm("all_to_all", "im")
+def _aa_ladder(comm, x, *, split_axis, concat_axis):
+    # (G-1)-step ladder, one destination block per step and no replicated
+    # buffer: at step s member m receives block m of source (m + s) % G
+    g = comm.group_size
+    blocks = _a2a_blocks(comm, x, split_axis)
+    me = torch.arange(g, device=x.device)
+    slots = torch.stack([blocks[(me + s) % g, me] for s in range(g)], dim=1)
+    idx = (me[None, :] - me[:, None]) % g         # out[j] = slot (j - m) % G
+    return _a2a_out(comm, slots[me[:, None], idx], concat_axis)
+
+
+@register_algorithm("all_to_all", "cm")
+def _aa_swizzle(comm, x, *, split_axis, concat_axis):
+    # the whole all_to_all, across all instances, as one launch of the
+    # reorder kernel over the stored cube tensor
+    axis = max(split_axis, concat_axis)
+    perm, unit = comm.block_perm(
+        ("cm", split_axis, concat_axis), x, axis, axis == split_axis,
+        lambda idx: _a2a_transpose(comm, idx, split_axis, concat_axis))
+    out = reorder_ops.tile_swizzle(x.contiguous().reshape(-1, unit), perm)
+    return out.reshape(_a2a_shape(comm, x, split_axis, concat_axis))
 
 
 # ----------------------------------------------------------- all_reduce

@@ -195,6 +195,12 @@ class Hypercube:
         ``NamedSharding`` with this spec would give it (multi-name entries
         linearize with the first name slowest). Dims the spec does not name
         replicate as a stride-0 view: the result is read-only there."""
+        y = self.place(x, spec)
+        return y.expand(self.dim_sizes + tuple(y.shape[self.ndim:]))
+
+    def place(self, x: torch.Tensor, spec) -> torch.Tensor:
+        """:meth:`to_cube` before the replication: dims the spec does not
+        name keep size 1 (a contiguous tensor)."""
         entries, names_at = self._split_plan(x.dim(), spec)
         local = self.local_shape(x.shape, spec)
         split = []
@@ -208,7 +214,7 @@ class Hypercube:
         for a, d in enumerate(self.dim_names):
             if d not in cube_pos:
                 y = y.unsqueeze(a)
-        return y.expand(self.dim_sizes + tuple(y.shape[self.ndim:]))
+        return y
 
     def from_cube(self, x: torch.Tensor, spec) -> torch.Tensor:
         """Assemble the global tensor from cube layout under ``spec`` (the

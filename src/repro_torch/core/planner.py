@@ -35,6 +35,7 @@ def _group_bytes(primitive: str, payload: float, g: int) -> float:
         return 0.0
     frac = (g - 1) / g
     return {
+        "all_to_all": payload * frac,
         "reduce_scatter": payload * frac,
         "all_gather": payload * (g - 1),   # payload = per-PE shard bytes
         "all_reduce": 2 * payload * frac,

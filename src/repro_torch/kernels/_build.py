@@ -23,6 +23,7 @@ _KERNELS = Path(__file__).resolve().parent
 # kernel library name -> its source, relative to repro_torch/kernels
 SOURCES = {
     "flash": "attention/csrc/flash.cu",
+    "reorder": "reorder/csrc/reorder.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -7,7 +7,8 @@ generation, on a virtual PE cube held in one process.
 The port of ``repro.launch.serve``: ``--pes N`` (default 1) stands in for
 the JAX launcher's device count. It runs on CUDA unless ``--device cpu`` is
 given, and raises when no GPU is visible. Prints the decode ms per step,
-tokens/s and the flash kernel's launch count.
+tokens/s and the launch counts of the flash and reorder kernels (an MoE
+model's all_to_alls run on the reorder kernel).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.kernels.attention import flash
+from repro_torch.kernels.reorder import reorder
 from repro_torch.models.params import init_params
 from repro_torch.models.serving import Server, init_cache, make_serve_plan
 from repro_torch.models.topology import build_serve_topology
@@ -35,7 +37,8 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     Returns the run's record: ``tokens`` (B, prompt_len + gen) -- the
     prompt, then the greedy tokens -- ``step_ms`` per decode step,
     ``ms_per_step`` (median after the first step), ``tok_per_s`` (B tokens
-    per step over the whole decode loop), ``flash_launches``, and with
+    per step over the whole decode loop), ``flash_launches``,
+    ``reorder_launches``, and with
     ``keep_logits`` every step's global logits (B, V_padded)."""
     dev = resolve_device(device)
     cfg = configs.get(arch)
@@ -60,7 +63,7 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    launches0 = flash.LAUNCHES
+    launches0 = flash.LAUNCHES, reorder.LAUNCHES
     step_ms, all_logits = [], []
     sync()
     t_start = time.perf_counter()
@@ -86,7 +89,8 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         "step_ms": step_ms,
         "ms_per_step": float(np.median(step_ms[1:] or step_ms)),
         "tok_per_s": batch * len(step_ms) / wall,
-        "flash_launches": flash.LAUNCHES - launches0,
+        "flash_launches": flash.LAUNCHES - launches0[0],
+        "reorder_launches": reorder.LAUNCHES - launches0[1],
         "logits": all_logits,
     }
 
@@ -115,7 +119,8 @@ def main(argv=None):
     print(f"generated {gen.shape} tokens; sample row: {gen[0][:12]}")
     print(f"decode {run['ms_per_step']:.3f} ms/step, "
           f"{run['tok_per_s']:.1f} tok/s, "
-          f"flash kernel launches={run['flash_launches']}")
+          f"flash kernel launches={run['flash_launches']}, "
+          f"reorder kernel launches={run['reorder_launches']}")
     return run
 
 

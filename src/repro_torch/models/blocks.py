@@ -4,19 +4,23 @@ The counterpart of ``repro.models.blocks``: the same per-shard math, batched
 over the cube's leading axes, with every cross-PE transfer going through a
 topology-bound :class:`repro_torch.core.comm.Communicator`
 (``topo.comm(axes)``). AllGather/ReduceScatter implement Megatron-style
-sequence-parallel tensor parallelism; max and additive all-reduces implement
-the flash-decode LSE combine.
+sequence-parallel tensor parallelism, AlltoAll implements expert-parallel
+MoE dispatch (one launch of the reorder kernel per all_to_all), and max and
+additive all-reduces implement the flash-decode LSE combine.
 
 Training-path activations are sequence-sharded over ``topo.sp`` between
 blocks; decode-path activations are replicated over the model axes with the
 KV cache sequence-sharded (flash-decode). Both attention sites run the flash
 kernel (``layers.chunked_attention``).
 
-Ported: attention (self, without the fused-comm routing) and the dense FFN.
-The int8 KV cache, cross-attention, MoE, Mamba and RWKV wait for later
+Ported: attention (self, without the fused-comm routing), the dense FFN and
+the MoE FFN with the configured ``"scatter"`` dispatch. The int8 KV cache,
+cross-attention, the ``"sort"`` MoE dispatch, Mamba and RWKV wait for later
 slices.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -212,3 +216,112 @@ def dense_ffn_decode(cfg, topo, w, x):
     hn = rms_norm(x, w["fln"], cfg.norm_eps)
     out = _swiglu(cn, hn, w["wg"], w["wu"], w["wd"])
     return x + topo.comm(topo.tp).all_reduce(out).to(x.dtype)
+
+
+# ---------------------------------------------------------------------- MoE
+def _route(cfg, hn2d, router, cn: int):
+    """Top-k routing per PE. hn2d: (*cube, T, D). Returns topi (*cube, T, k)
+    int64, topv in hn2d's dtype, and the f32 router probabilities. Ties go
+    to the lowest expert index, the rule of ``lax.top_k``."""
+    logits = cube_matmul(hn2d, router, cn)
+    probs = torch.softmax(logits.float(), dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :cfg.top_k], topi[..., :cfg.top_k]
+    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+    return topi, topv.to(hn2d.dtype), probs
+
+
+def _expert_ffn(cfg, topo, w, h2, topi, topv, C: int):
+    """Scatter dispatch into (Ep, C) slots, AlltoAll over ep, the local
+    experts, AlltoAll back, and the weighted combine. h2: (*cube, T, D);
+    topi/topv: (*cube, T, k). A choice past its expert's capacity ``C`` is
+    dropped (one-hot cumsum slots, the JAX package's "scatter" dispatch).
+    Returns (*cube, T, D)."""
+    cn = topo.cube.ndim
+    lead = tuple(h2.shape[:cn])
+    n = math.prod(lead)
+    T, D = h2.shape[cn:]
+    k, Ep = cfg.top_k, cfg.n_experts_padded
+    flat_e = topi.reshape(n, T * k)
+    oh = F.one_hot(flat_e, Ep)
+    pos = (oh.cumsum(1) - oh).gather(2, flat_e[..., None])[..., 0]
+    keep = pos < C
+    # kept choices own distinct slots; dropped ones land in a spare row
+    slot = torch.where(keep, flat_e * C + pos, Ep * C)
+    disp = h2.new_zeros((n, Ep * C + 1, D))
+    disp.scatter_(1, slot[..., None].expand(n, T * k, D),
+                  h2.reshape(n, T, D).repeat_interleave(k, dim=1))
+    disp = disp[:, :Ep * C].reshape(lead + (Ep, C, D))
+
+    epc = topo.comm(topo.ep)
+    # (Ep, C, D) -> (E_loc, ep * C, D): my experts' slots from every source
+    recv = epc.all_to_all(disp, split_axis=0, concat_axis=1)
+    E, R = recv.shape[cn], recv.shape[cn + 1]
+    r = recv.reshape(n * E, R, D)
+    wg, wu, wd = (w[key].reshape((n * E,) + tuple(w[key].shape[cn + 1:]))
+                  for key in ("we_g", "we_u", "we_d"))
+    hh = F.silu(torch.bmm(r, wg)) * torch.bmm(r, wu)
+    oo = torch.bmm(hh, wd).reshape(lead + (E, R, D))
+    if topo.size(topo.etp) > 1:
+        oo = topo.comm(topo.etp).all_reduce(oo)
+    back = epc.all_to_all(oo, split_axis=1, concat_axis=0)    # (Ep, C, D)
+
+    src = (flat_e * C + pos.clamp(max=C - 1))[..., None].expand(n, T * k, D)
+    vals = back.reshape(n, Ep * C, D).gather(1, src)
+    vals = torch.where(keep[..., None], vals, torch.zeros_like(vals))
+    vals = vals * topv.reshape(n, T * k, 1)
+    return vals.reshape(n, T, k, D).sum(2).reshape(lead + (T, D))
+
+
+def moe_ffn(cfg, topo, w, x_sp):
+    """Expert-parallel MoE over the sequence-parallel activations
+    (*cube, B, S_sp, D), with AlltoAll dispatch. Returns (new x_sp, the
+    switch-style aux load-balance loss per PE (*cube))."""
+    if cfg.moe_dispatch != "scatter":
+        raise NotImplementedError(
+            f"moe_dispatch={cfg.moe_dispatch!r} is not ported to repro_torch "
+            "yet (ported: 'scatter')")
+    cn = topo.cube.ndim
+    lead = tuple(x_sp.shape[:cn])
+    etp_size = topo.size(topo.etp)
+    Ep = cfg.n_experts_padded
+    x_e = x_sp
+    if etp_size > 1:
+        x_e = topo.comm(topo.etp).all_gather(x_sp, axis=1)
+    B, S_e, D = x_e.shape[cn:]
+    hn = rms_norm(x_e, w["fln"], cfg.norm_eps)
+    T = B * S_e
+    h2 = hn.reshape(lead + (T, D))
+    topi, topv, probs = _route(cfg, h2, w["router"], cn)
+
+    # aux load-balance loss (switch-style), over the real experts only
+    ne = cfg.n_experts
+    pe = probs[..., :ne].mean(-2)
+    fe = F.one_hot(topi.clamp(0, ne - 1).reshape(lead + (-1,)), ne).sum(-2)
+    aux = ne * (pe * (fe.float() / (T * cfg.top_k))).sum(-1)
+
+    C = int(math.ceil(T * cfg.top_k / Ep * cfg.capacity_factor))
+    out = _expert_ffn(cfg, topo, w, h2, topi, topv, C).reshape(
+        lead + (B, S_e, D))
+    if cfg.n_shared_experts:
+        out = out + _swiglu(cn, hn, w["ws_g"], w["ws_u"], w["ws_d"])
+    if etp_size > 1:
+        S_sp = x_sp.shape[cn + 1]
+        me = topo.axis_index(topo.etp, x_sp.device)
+        out = pe_slice(out, me * S_sp, S_sp, 1, cn)
+    return x_sp + out, aux
+
+
+def moe_ffn_decode(cfg, topo, w, x):
+    """Decode-path MoE: tokens (*cube, B, D) replicated over the model axes;
+    dispatch over ep."""
+    cn = topo.cube.ndim
+    B = x.shape[cn]
+    Ep = cfg.n_experts_padded
+    hn = rms_norm(x, w["fln"], cfg.norm_eps)
+    topi, topv, _ = _route(cfg, hn, w["router"], cn)
+    C = max(int(math.ceil(B * cfg.top_k / Ep * cfg.capacity_factor)), 1)
+    out = _expert_ffn(cfg, topo, w, hn, topi, topv, C)
+    if cfg.n_shared_experts:
+        out = out + _swiglu(cn, hn, w["ws_g"], w["ws_u"], w["ws_d"])
+    return x + out.to(x.dtype)

@@ -10,8 +10,8 @@ replicate as read-only broadcast views, so the cube holds the global bytes
 once. Master weights are f32; ``blocks.gather_params`` casts each layer to
 the compute dtype on use.
 
-Ported defs: attention and dense FFN (the dense-decoder families). The other
-mixers and FFNs raise until their slice of the port.
+Ported defs: attention, dense FFN and MoE FFN (the dense-decoder and MoE
+families). The other mixers and FFNs raise until their slice of the port.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.config import ModelConfig, ATTN, DENSE
+from repro_torch.models.config import ModelConfig, ATTN, DENSE, MOE
 from repro_torch.models.topology import Topology
 
 MASTER_DTYPE = torch.float32
@@ -77,14 +77,33 @@ def _dense_ffn_defs(cfg, topo):
     }
 
 
+def _moe_ffn_defs(cfg, topo):
+    D, Fe = cfg.d_model, cfg.d_ff_expert
+    Ep = cfg.n_experts_padded
+    ep, etp = topo.ep, topo.etp
+    d = {
+        "fln": ParamDef((D,), ("data",), "zeros"),
+        "router": ParamDef((D, Ep), ("data", None)),
+        "we_g": ParamDef((Ep, D, Fe), (ep, "data", etp)),
+        "we_u": ParamDef((Ep, D, Fe), (ep, "data", etp)),
+        "we_d": ParamDef((Ep, Fe, D), (ep, etp, "data"), "out_proj"),
+    }
+    if cfg.n_shared_experts:
+        Fs = cfg.n_shared_experts * Fe
+        d["ws_g"] = ParamDef((D, Fs), ("data", None))
+        d["ws_u"] = ParamDef((D, Fs), ("data", None))
+        d["ws_d"] = ParamDef((Fs, D), (None, "data"), "out_proj")
+    return d
+
+
 _MIXER_DEFS = {ATTN: _attn_defs}
-_FFN_DEFS = {DENSE: _dense_ffn_defs}
+_FFN_DEFS = {DENSE: _dense_ffn_defs, MOE: _moe_ffn_defs}
 
 
 def _not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{cfg.name}: {what} layers are not ported to repro_torch yet "
-        "(ported: attention mixers with dense FFNs)")
+        "(ported: attention mixers with dense or MoE FFNs)")
 
 
 def _stack(defs: dict, n: int) -> dict:
@@ -175,17 +194,33 @@ def _init_leaf(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
 
 def init_params(cfg: ModelConfig, topo: Topology, seed: int = 0, *,
                 device) -> dict:
-    """Random master weights placed on the cube, made leaf by leaf on
-    ``device`` from one ``torch.Generator`` seeded with ``seed``. The global
+    """Random master weights placed on the cube, made on ``device`` from one
+    ``torch.Generator`` seeded with ``seed``: leaf by leaf, and a stacked
+    leaf unit by unit straight into its cube layout, so the peak beyond the
+    weights is one unit's global slice and its placed copy (an MoE model's
+    three expert leaves hold most of its bytes). The global
     values depend only on (cfg, seed, padded vocab), not on the cube, so two
     topologies with the same padded vocab hold the same model."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    cube = topo.cube
     out: dict = {}
     for path, d in _leaves(param_defs(cfg, topo)):
-        glob = _init_leaf(d, cfg, gen, device)
-        _set(out, path, topo.cube.to_cube(glob, d.spec))
-        del glob
+        if path[0] != "units":
+            _set(out, path, cube.to_cube(_init_leaf(d, cfg, gen, device),
+                                         d.spec))
+            continue
+        unit = dataclasses.replace(d, shape=d.shape[1:], spec=d.spec[1:])
+        c, placed = cube.ndim, None
+        for u in range(d.shape[0]):
+            y = cube.place(_init_leaf(unit, cfg, gen, device), unit.spec)
+            if placed is None:      # the stack of units, in place's layout
+                placed = y.new_empty(y.shape[:c] + (d.shape[0],)
+                                     + y.shape[c:])
+            placed.select(c, u).copy_(y)
+            del y                   # before the next unit is made
+        _set(out, path, placed.expand(cube.dim_sizes
+                                      + tuple(placed.shape[c:])))
     return out
 
 

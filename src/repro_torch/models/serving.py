@@ -7,8 +7,9 @@ sequence-sharded over them, and every layer's partial attention (the flash
 kernel's ``(acc, m, l)``) is LSE-combined with one max and two additive
 all-reduces over the cache axes.
 
-Ported: the bf16 (compute-dtype) attention cache and ``decode_shard``. The
-int8 cache, SSM / RWKV states and ``prefill_shard`` wait for later slices.
+Ported: the bf16 (compute-dtype) attention cache and ``decode_shard`` for
+attention layers with dense or MoE FFNs. The int8 cache, SSM / RWKV states
+and ``prefill_shard`` wait for later slices.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import math
 import torch
 
 from repro_torch.models import blocks
-from repro_torch.models.config import ModelConfig, ATTN, DENSE
+from repro_torch.models.config import ModelConfig, ATTN, DENSE, MOE
 from repro_torch.models.layers import rms_norm, cube_matmul
 from repro_torch.models.lm import Model
 from repro_torch.models.topology import Topology
@@ -73,7 +74,7 @@ def cache_defs(cfg: ModelConfig, topo: Topology, plan: ServePlan,
     tree = {}
     for p, (mixer, ffn) in enumerate(zip(cfg.mixers()[:unit],
                                          cfg.ffns()[:unit])):
-        if mixer != ATTN or ffn != DENSE:
+        if mixer != ATTN or ffn not in (DENSE, MOE):
             raise NotImplementedError(
                 f"{cfg.name}: {mixer}/{ffn} decode caches are not ported to "
                 "repro_torch yet")
@@ -122,7 +123,10 @@ class Server:
                 x = blocks.attn_decode(
                     cfg, topo, w, x, c, pos, window=int(m.windows[u, p]),
                     kv_axes=plan.kv_axes, rolling=rolling, dtype=self.dtype)
-                x = blocks.dense_ffn_decode(cfg, topo, w, x)
+                if m.ffns[p] == MOE:
+                    x = blocks.moe_ffn_decode(cfg, topo, w, x)
+                else:
+                    x = blocks.dense_ffn_decode(cfg, topo, w, x)
         hn = rms_norm(x, m.final_norm(params), cfg.norm_eps)
         logits = cube_matmul(hn, m._head(params), cn).float()
         return logits, cache

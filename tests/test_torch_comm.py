@@ -1,8 +1,10 @@
 """Conformance of the port's ported collectives: every Table II stage of
-all_reduce, all_gather and reduce_scatter, bit-identical to the NumPy
-oracles of ``repro.testing.oracles`` on integer-valued payloads (so every
-reduction order is exact), on the conformance cubes of the JAX suite:
-``ring8``, ``2x4`` with ``01`` and ``2x2x2`` with ``010``/``110``/``011``.
+all_reduce, all_gather, reduce_scatter and all_to_all, bit-identical to the
+NumPy oracles of ``repro.testing.oracles`` on integer-valued payloads (so
+every reduction order is exact), on the conformance cubes of the JAX suite:
+``ring8``, ``2x4`` with ``01`` and ``2x2x2`` with ``010``/``110``/``011``,
+and for all_to_all also the 16-PE shapes ``4d16``, ``ring16`` and
+``pod2x4x2``.
 """
 import numpy as np
 import pytest
@@ -19,16 +21,23 @@ CUBES = {
     "ring8": {"d": 8},
     "2x4": {"r": 2, "c": 4},
     "2x2x2": {"a": 2, "b": 2, "c": 2},
+    "4d16": {"w": 2, "x": 2, "y": 2, "z": 2},
+    "ring16": {"d": 16},
+    "pod2x4x2": {"pod": 2, "dp": 4, "tp": 2},
 }
 CELLS = [("ring8", "1"), ("2x4", "01"), ("2x2x2", "010"), ("2x2x2", "110"),
          ("2x2x2", "011")]
+CELLS16 = [("4d16", "1100"), ("4d16", "0110"), ("4d16", "1010"),
+           ("4d16", "1111"), ("ring16", "1"), ("pod2x4x2", "110"),
+           ("pod2x4x2", "011"), ("pod2x4x2", "100")]
 OPS = ["add", "max", "min"]
 PAYLOAD = (8, 8)                 # both axes divisible by every group
 
 
-def _setup(cube_name, bitmap, seed=0, dtype=np.float32):
-    cube = Hypercube.build(CUBES[cube_name])
-    x = integer_payload(cube, PAYLOAD, dtype=dtype, seed=seed)
+def _setup(cube_name, bitmap, seed=0, dtype=np.float32, payload=PAYLOAD):
+    cube = Hypercube.build(CUBES[cube_name],
+                           pods=2 if cube_name.startswith("pod") else 1)
+    x = integer_payload(cube, payload, dtype=dtype, seed=seed)
     axes = [i for i, b in enumerate(bitmap) if b == "1"]
     return cube, cube.comm(bitmap), x, axes
 
@@ -68,6 +77,86 @@ def test_all_gather(cube_name, bitmap, stage, axis):
     got = _run(lambda t: c.all_gather(t, axis=axis, algorithm=stage), x)
     np.testing.assert_array_equal(
         got, oracles.all_gather(x, cube.ndim, axes, axis=axis))
+
+
+A2A_STAGES = ["naive", "pr", "im", "cm", "auto", "pidcomm"]
+# (split_axis, concat_axis): both orders, the same axis, and the MoE
+# dispatch / combine pair of a (E, C, D) payload
+A2A_AXES = [(0, 1), (1, 0), (0, 0), (1, 1), (2, 2), (1, 2)]
+A2A_DTYPES = {"float32": torch.float32, "int32": torch.int32,
+              "bfloat16": torch.bfloat16}
+
+
+def _a2a_case(cube_name, bitmap, seed, dtype):
+    """An integer payload (E, C, D) whose first two axes split over the
+    group; the oracle runs on its f32 (or int32) copy."""
+    cube = Hypercube.build(CUBES[cube_name],
+                           pods=2 if cube_name.startswith("pod") else 1)
+    g = cube.group_size(cube.dims_from_bitmap(bitmap))
+    x = integer_payload(cube, (2 * g, g, 4 * g), seed=seed,
+                        dtype=np.int32 if dtype == "int32" else np.float32)
+    axes = [i for i, b in enumerate(bitmap) if b == "1"]
+    return cube, cube.comm(bitmap), x, axes
+
+
+@pytest.mark.parametrize("cube_name,bitmap", CELLS + CELLS16)
+@pytest.mark.parametrize("stage", A2A_STAGES)
+@pytest.mark.parametrize("dtype", sorted(A2A_DTYPES))
+def test_all_to_all(cube_name, bitmap, stage, dtype):
+    cube, c, x, axes = _a2a_case(cube_name, bitmap, 4, dtype)
+    t = torch.from_numpy(x).to(A2A_DTYPES[dtype])
+    for sa, ca in A2A_AXES:
+        got = c.all_to_all(t, split_axis=sa, concat_axis=ca, algorithm=stage)
+        assert got.dtype == t.dtype
+        want = oracles.all_to_all(x, cube.ndim, axes, split_axis=sa,
+                                  concat_axis=ca)
+        np.testing.assert_array_equal(
+            got.to(torch.float32 if dtype == "bfloat16" else got.dtype)
+            .numpy(), want, err_msg=f"split {sa} concat {ca}")
+
+
+def test_all_to_all_auto_runs_cm_on_one_kernel_launch(monkeypatch):
+    """``auto`` plans the direct flow, which resolves to ``cm``: the whole
+    all_to_all across every instance is one reorder call, whose block
+    permutation is computed once per request and kept on the device."""
+    from repro_torch.kernels.reorder import ops as reorder_ops
+    calls = []
+    swizzle = reorder_ops.tile_swizzle
+
+    def counting(x, perm):
+        calls.append((tuple(x.shape), perm.dtype))
+        return swizzle(x, perm)
+
+    monkeypatch.setattr(reorder_ops, "tile_swizzle", counting)
+    cube, c, x, axes = _a2a_case("2x2x2", "011", 5, "float32")
+    t = torch.from_numpy(x)
+    with CommTrace() as tr:
+        for _ in range(2):
+            c.all_to_all(t, split_axis=0, concat_axis=1)
+        c.all_to_all(t, split_axis=1, concat_axis=0, algorithm="naive")
+    assert [e.flow for e in tr.events] == ["cm", "cm", "naive"]
+    assert [e.stage for e in tr.events] == ["cm", "cm", "naive"]
+    assert tr.events[0].num_instances == 2 and tr.events[0].group_size == 4
+    assert tr.events[0].ici_bytes < tr.events[2].ici_bytes
+    # one launch per cm all_to_all over the whole cube tensor (8 PEs x 8
+    # experts, units of C * D); naive and im move no block through it
+    assert calls == [((64, 4 * 16), torch.int32)] * 2
+    assert len(c._perms) == 1
+    c.all_to_all(t, split_axis=1, concat_axis=0, algorithm="pr")
+    assert len(calls) == 3 and len(c._perms) == 2
+    assert comm_mod.applicability()["all_to_all"] == ("naive", "pr", "im",
+                                                      "cm")
+
+
+def test_all_to_all_group_of_one_and_bad_axes():
+    cube = Hypercube.build({"a": 1, "b": 4})
+    x = torch.from_numpy(integer_payload(cube, (4, 4)))
+    assert cube.comm("10").all_to_all(x, split_axis=0, concat_axis=1) is x
+    c = cube.comm("01")
+    with pytest.raises(ValueError, match="payload"):
+        c.all_to_all(x, split_axis=2, concat_axis=0)
+    with pytest.raises(ValueError, match="divisible"):
+        c.all_to_all(x[..., :3, :], split_axis=0, concat_axis=1)
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
@@ -125,7 +214,8 @@ def test_unported_flows_raise():
     cube, c, x, _ = _setup("ring8", "1")
     t = torch.from_numpy(x)
     with pytest.raises(NotImplementedError, match="not ported"):
-        c.all_to_all(t, split_axis=0, concat_axis=0)
+        c.all_to_all(t, split_axis=0, concat_axis=0,
+                     algorithm="hierarchical")
     for name in ("scatter", "gather", "reduce", "broadcast"):
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(c, name)(t)

@@ -130,7 +130,7 @@ SIZES = [64, 4096, 2 ** 20, 64 * 2 ** 20]
 
 @pytest.mark.parametrize("shape,names,dims", CUBES)
 @pytest.mark.parametrize("primitive", ["all_reduce", "all_gather",
-                                       "reduce_scatter"])
+                                       "reduce_scatter", "all_to_all"])
 def test_planner_picks_match_jax(shape, names, dims, primitive):
     """Ranking by (DCN bytes, ICI bytes) picks what the reference's
     seconds-based ``plan`` picks, with the same byte estimates."""
