@@ -15,7 +15,13 @@ Phases, each printed as one JSON line:
           entirely masked decode chunk; and the reorder kernel (tile_swizzle) against its plain
           version bit for bit: f32 / bf16 / int32, G in {4, 8, 16}, b in
           {1, 8, 16}, D in {64, 128, 2048}, random perms, block_transpose,
-          unaligned base pointers and an out-of-range perm entry;
+          unaligned base pointers and an out-of-range perm entry; and the
+          RWKV6 kernel against its plain version on o and the final state
+          (f32 within 5e-4, bf16 within 5e-2 of max(1, max|plain|)): the
+          JAX kernel sweep's shapes under its strong decay, the full head
+          shape (4, 512, 64, 64) over 8 chunks with a state coming in
+          (also timed, with its plain version and bound), S = 144 (chunks
+          of 72), the served shapes, one u per folded PE;
   comm    every ported stage of all_reduce / all_gather / reduce_scatter on
           virtual 8-PE cubes on the card, and every stage of all_to_all on
           the 8-PE cubes and the 16-PE shapes, bit-identical to a plain
@@ -41,11 +47,38 @@ Phases, each printed as one JSON line:
   serve_moe_f32  the same in f32 (TF32 off): 1-PE and 8-PE logits within
           1e-4 * max(1, max|ref|), identical greedy tokens, and identical
           top-k expert ids at every (step, layer, request);
+  serve_rwkv  full-width rwkv6-7b (bf16, 32 layers, 64 heads of 64) at 1
+          and 8 PEs, one topology's weights on the card at a time: the
+          launcher's loop (which decodes with the one-token recurrence and
+          launches the RWKV6 kernel 0 times), forward_logits on the served
+          tokens, and prefill_shard of the prompt followed by decode from
+          its cache. The kernel must launch 32 times per forward and 32 per
+          prefill, and each launch is held against the plain version on its
+          inputs (5e-2). The witness: the same forward and prefill with the
+          plain version in the kernel's place (only the recurrence
+          differs); the kernel's paths -- forward logits, prefill's
+          last-position logits, state and shifts -- within 0.25 x max(1,
+          max|ref|) of it (bf16 rounding flips alone move this random-weight
+          model by about 0.12 of max over 32 layers), and prefill +
+          decode's greedy tokens the loop's or a tie within that bound.
+          Decode vs forward and prefill vs the loop are reported beside
+          5e-2 x max(1, max|ref|), which they do not meet (bf16 vs f32 of
+          the same tokens, also reported, is about a third of max). The
+          inputs of the kernel's last launch on each path are kept;
+  serve_rwkv_f32  the same in f32 (TF32 off): 1-PE and 8-PE logits within
+          1e-4 * max(1, max|ref|) and identical greedy tokens; every
+          launch against the plain version (5e-4) and the one-token
+          recurrence (1e-4); the kernel's paths against the plain
+          witness within 1e-4 * max(1, max|ref|); prefill's last logits
+          and cache against the teacher-forced loop within 2e-4 * max(1,
+          max|ref|) (1e-4 and the plain prefill's own distance reported
+          beside it); prefill + decode's greedy tokens the loop's;
   main_path  each kernel on the inputs the serve phases kept (the shapes and
           positions the serving path gives it): checked against the plain
           version, then timed with the plain version, the bound, and one
           PyTorch call as the library yardstick (SDPA for flash attention,
-          index_select for the reorder), which the port never calls.
+          index_select for the reorder; none computes the RWKV6
+          recurrence), which the port never calls.
 
 Then the card's name and power limit, the kernels' JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -85,6 +118,19 @@ TPU_KERNEL = "src/repro/kernels/attention/flash.py:115"
 KERNEL_SOURCE = "src/repro_torch/kernels/attention/csrc/flash.cu"
 REORDER_TPU_KERNEL = "src/repro/kernels/reorder/reorder.py:46"
 REORDER_SOURCE = "src/repro_torch/kernels/reorder/csrc/reorder.cu"
+RWKV_ARCH = "rwkv6-7b"
+# RWKV6 kernel vs its plain version, x max(1, max|plain|), on o and state
+RWKV6_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
+# rwkv6-7b's forward and prefill with the kernel against the same paths
+# with its plain version in its place, x max(1, max|ref|); bf16 rounding
+# flips alone move the bf16 model by about 0.12 of max over 32 layers
+RWKV_PATH_TOL = {torch.float32: F32_TOL, torch.bfloat16: 0.25}
+# f32 prefill (last logits, cache) against the teacher-forced loop's,
+# x max(1, max|ref|): the chunked form and the one-token steps round apart
+# by up to 1.2e-4 of max at 8 PEs, on the plain version as on the kernel
+RWKV_LOOP_F32_TOL = 2e-4
+RWKV6_TPU_KERNEL = "src/repro/kernels/rwkv6/rwkv6.py:73"
+RWKV6_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu"
 
 
 def emit(phase: str, **fields) -> None:
@@ -243,8 +289,94 @@ def phase_kernel(dev) -> dict:
                            "partial": c["partial"], "window": c["window"],
                            "err": err, "ok": ok})
     reorder = _reorder_checks(dev)
-    return {"ok": worst_ok and reorder["ok"], "checks": checks,
-            "reorder": reorder}
+    rwkv = _rwkv6_checks(dev)
+    return {"ok": worst_ok and reorder["ok"] and rwkv["ok"],
+            "checks": checks, "reorder": reorder, "rwkv6": rwkv}
+
+
+def _rwkv6_inputs(gen, dev, dtype, B, S, H, K, *, strong, state, G=0):
+    """r, k, v ~ N(0, 1) and u ~ 0.1 N(0, 1) in ``dtype``; f32 logw, either
+    the JAX kernel sweep's strong decay -exp(0.5 N(0, 1)) or the model's
+    range -exp(U(-6, -1)); an f32 N(0, 1) state coming in, or None; u per
+    group of rows when G (the cube's PEs folded into the batch)."""
+    r, k, v = (torch.randn(B, S, H, K, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    if strong:
+        logw = -torch.exp(0.5 * torch.randn(B, S, H, K, generator=gen,
+                                            device=dev))
+    else:
+        logw = -torch.exp(torch.empty(B, S, H, K, device=dev).uniform_(
+            -6.0, -1.0, generator=gen))
+    u = (0.1 * torch.randn(((G,) if G else ()) + (H, K), generator=gen,
+                           device=dev)).to(dtype)
+    s0 = (torch.randn(B, H, K, K, generator=gen, device=dev) if state
+          else None)
+    return r, k, v, logw, u, s0
+
+
+def _rwkv6_compare(got, want) -> float:
+    """Largest |kernel - plain| over max(1, max|plain|), of o and state."""
+    return max(float((g.float() - w.float()).abs().max())
+               / max(1.0, float(w.float().abs().max()))
+               for g, w in zip(got, want))
+
+
+def _rwkv6_checks(dev) -> dict:
+    """The RWKV6 kernel against its plain version on o and the final state,
+    f32 within 5e-4 and bf16 within 5e-2 of max(1, max|plain|): the JAX
+    kernel sweep's shapes under its strong decay, the full head shape over
+    8 chunks of 64 with a state coming in, S = 144 (chunks of 72), the
+    served forward and prefill shapes, one u per folded PE, and a length
+    no chunk divides (the kernel takes any). Under the strong decay the
+    plain version runs chunks of 16, the kernel's own sub-chunk: a chunk
+    of 64 can take e^{-cum} past f32's range in the reference form. The
+    full-head-shape case is also timed, with its plain version and its
+    bound (``timed``)."""
+    from repro_torch.kernels.rwkv6 import ref, rwkv6
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    timed_shape = (4, 512, 64, 64)
+    cases = [  # B, S, H, K, chunk, strong decay, state in, G
+        (1, 128, 2, 16, 32, True, False, 0),
+        (2, 64, 4, 32, 64, True, False, 0),
+        (1, 256, 1, 64, 64, True, False, 0),
+        (4, 512, 64, 64, 64, False, True, 0),
+        (2, 144, 4, 64, 64, False, True, 0),
+        (4, 48, 64, 64, 64, False, False, 0),
+        (32, 32, 8, 64, 64, False, False, 8),
+        (4, 37, 2, 64, 37, False, True, 2),
+    ]
+    checks, timed, ok_all = [], [], True
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, K, chunk, strong, state, G in cases:
+            x = _rwkv6_inputs(gen, dev, dtype, B, S, H, K, strong=strong,
+                              state=state, G=G)
+            got = rwkv6.rwkv6_chunked(*x)
+            torch.cuda.synchronize()
+            if strong:
+                chunk = 16
+            want = ref.rwkv6_chunked(*x, chunk=chunk)
+            if (B, S, H, K) == timed_shape:
+                timed.append({
+                    "dtype": str(dtype).split(".")[-1], "shape": [B, S, H, K],
+                    "state_in": state,
+                    "ms": time_ms(lambda: rwkv6.rwkv6_chunked(*x)),
+                    "plain_ms": time_ms(lambda: ref.rwkv6_chunked(*x)),
+                    **_rwkv6_bound(*x)})
+            finite = all(bool(torch.isfinite(t.float()).all())
+                         for t in want + got)
+            err = _rwkv6_compare(got, want)
+            ok = finite and err <= RWKV6_TOL[dtype]
+            ok_all &= ok
+            checks.append({"dtype": str(dtype).split(".")[-1],
+                           "shape": [B, S, H, K], "chunk": chunk,
+                           "strong_decay": strong, "state_in": state,
+                           "u_groups": G, "err": err, "finite": finite,
+                           "ok": ok})
+    return {"ok": ok_all, "cases": len(checks),
+            "worst_err": max(c["err"] for c in checks),
+            "failed": [c for c in checks if not c["ok"]][:10],
+            "timed": timed, "checks": checks}
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -431,59 +563,73 @@ def phase_comm(dev) -> dict:
 
 # ------------------------------------------------------------------- serve
 @contextlib.contextmanager
+def patched(module, name: str, wrap):
+    """While open, ``module.<name>`` is ``wrap(original)``."""
+    original = getattr(module, name)
+    setattr(module, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
 def keep_kernel_inputs(kept: dict, label: str):
     """While open, every launch of the flash wrapper also stores its inputs
     under ``label`` (the last launch wins), so the kernel can be checked and
     timed afterwards on exactly what the serving path gave it."""
     from repro_torch.kernels.attention import flash
-    launch = flash.flash_attention
 
-    def keeping(q, k, v, q_pos, k_pos, **kw):
-        kept[label] = (q, k, v, q_pos, k_pos, kw)
-        return launch(q, k, v, q_pos, k_pos, **kw)
+    def wrap(launch):
+        def keeping(q, k, v, q_pos, k_pos, **kw):
+            kept[label] = (q, k, v, q_pos, k_pos, kw)
+            return launch(q, k, v, q_pos, k_pos, **kw)
+        return keeping
 
-    flash.flash_attention = keeping
-    try:
-        yield
-    finally:
-        flash.flash_attention = launch
+    return patched(flash, "flash_attention", wrap)
 
 
-@contextlib.contextmanager
 def keep_reorder_inputs(kept: dict, label: str):
     """While open, every launch of the reorder wrapper also stores its
     inputs under ``label`` (the last launch wins)."""
     from repro_torch.kernels.reorder import reorder
-    launch = reorder.tile_swizzle
 
-    def keeping(x, perm):
-        kept[label] = (x, perm)
-        return launch(x, perm)
+    def wrap(launch):
+        def keeping(x, perm):
+            kept[label] = (x, perm)
+            return launch(x, perm)
+        return keeping
 
-    reorder.tile_swizzle = keeping
-    try:
-        yield
-    finally:
-        reorder.tile_swizzle = launch
+    return patched(reorder, "tile_swizzle", wrap)
 
 
-@contextlib.contextmanager
+def watch_rwkv6(on_launch):
+    """While open, every launch of the RWKV6 wrapper also calls
+    ``on_launch(inputs, outputs)``."""
+    from repro_torch.kernels.rwkv6 import rwkv6
+
+    def wrap(launch):
+        def watching(r, k, v, logw, u, state=None):
+            out = launch(r, k, v, logw, u, state)
+            on_launch((r, k, v, logw, u, state), out)
+            return out
+        return watching
+
+    return patched(rwkv6, "rwkv6_chunked", wrap)
+
+
 def record_routes(calls: list):
     """While open, every MoE routing appends its top-k expert ids per PE,
     ``(PEs, tokens, k)``, to ``calls`` (device tensors: no sync)."""
     from repro_torch.models import blocks
-    route = blocks._route
 
-    def recording(cfg, hn2d, router, cn):
-        topi, topv, probs = route(cfg, hn2d, router, cn)
-        calls.append(topi.reshape((-1,) + tuple(topi.shape[cn:])))
-        return topi, topv, probs
+    def wrap(route):
+        def recording(cfg, hn2d, router, cn):
+            topi, topv, probs = route(cfg, hn2d, router, cn)
+            calls.append(topi.reshape((-1,) + tuple(topi.shape[cn:])))
+            return topi, topv, probs
+        return recording
 
-    blocks._route = recording
-    try:
-        yield
-    finally:
-        blocks._route = route
+    return patched(blocks, "_route", wrap)
 
 
 def _routes(calls: list, steps: int) -> torch.Tensor:
@@ -496,7 +642,8 @@ def _routes(calls: list, steps: int) -> torch.Tensor:
 
 
 # device kernels of the port, by the name of their CUDA function
-KERNEL_NAMES = {"flash": "flash_fwd", "reorder": "tile_swizzle"}
+KERNEL_NAMES = {"flash": "flash_fwd", "reorder": "tile_swizzle",
+                "rwkv6": "rwkv6_fwd"}
 
 
 def profile_decode(run, dev, steps: int = 3) -> dict:
@@ -769,6 +916,436 @@ def phase_serve_moe_f32(dev) -> dict:
             "runs": sums}
 
 
+# -------------------------------------------------------------------- RWKV
+def plain_rwkv6():
+    """While open, the model's RWKV6 recurrence runs the kernel's plain
+    version on the card (a reference computation: no launch)."""
+    from repro_torch.kernels.rwkv6 import ops, ref
+    return patched(ops, "rwkv6_chunked", lambda _: ref.rwkv6_chunked)
+
+
+def _rwkv_tokens_ok(ref_logits, ref_tokens, got_tokens, bound) -> dict:
+    """Greedy tokens of prefill + decode against the teacher-forced loop.
+    Identical, or the first that differs is a tie within ``bound`` in the
+    loop's logits at that step (after it the inputs differ, so nothing
+    later is compared). ref_logits: (B, gen, V); tokens: (B, gen)."""
+    diff = ref_tokens != got_tokens
+    if not bool(diff.any()):
+        return {"identical": True, "ok": True}
+    step = int(diff.any(0).nonzero()[0])
+    rows = diff[:, step]
+    lg = ref_logits[:, step][rows]
+    picked = lg.gather(1, got_tokens[:, step][rows][:, None])[:, 0]
+    gap = float((lg.max(-1).values - picked).max())
+    return {"identical": False, "first_divergence": step,
+            "tie_gap": gap, "ok": gap <= bound}
+
+
+def _held(got, want, tol: float) -> dict:
+    """|got - want| against ``tol`` x max(1, max|want|)."""
+    want = want.float()
+    bound = tol * max(1.0, float(want.abs().max()))
+    err = float((got.float() - want).abs().max())
+    return {"err": err, "bound": bound, "ok": err <= bound}
+
+
+def _global_cache(run, cache) -> dict:
+    """A copy of the p0 cache leaves as global tensors: state (layers, B,
+    H, K, V) f32, shift and cm_shift (layers, B, D)."""
+    cube = run["topo"].cube
+    return {k: cube.from_cube(v, (None, None, "tp") if k == "state" else ())
+            .clone() for k, v in cache["p0"].items()}
+
+
+def _rwkv_prefill(run, dev, dtype, watch) -> dict:
+    """``prefill_shard`` of the run's prompt on the run's server geometry:
+    the last prompt position's global logits, the cache (cube layout), the
+    kernel's launches and the wall time. ``watch``: a context open around
+    the prefill."""
+    from repro_torch.kernels.rwkv6 import rwkv6
+    from repro_torch.models.serving import Server
+    topo, plan = run["topo"], run["plan"]
+    cube, ba = topo.cube, plan.batch_axes or None
+    server = Server(run["cfg"], topo, plan, dtype=dtype)
+    toks = torch.from_numpy(run["tokens"][:, :PROMPT]).to(dev)
+    n0 = rwkv6.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with watch:
+        logits, cache = server.prefill_shard(
+            run["params"], {"tokens": cube.to_cube(toks, (topo.dp, None))})
+    torch.cuda.synchronize()
+    return {"last": cube.from_cube(logits, (ba, topo.tp)), "cache": cache,
+            "launches": rwkv6.LAUNCHES - n0,
+            "prefill_s": time.perf_counter() - t0, "server": server}
+
+
+def _rwkv_prefill_decode(run, dev, dtype, watch) -> dict:
+    """Prefill of the run's prompt, then decode of the generated tokens from
+    its cache: ``_rwkv_prefill``'s fields with the cache prefill made as
+    global tensors (decode then writes into the original) and the greedy
+    tokens."""
+    pd = _rwkv_prefill(run, dev, dtype, watch)
+    server, cache = pd.pop("server"), pd["cache"]
+    pd["cache"] = _global_cache(run, cache)
+    topo, plan = run["topo"], run["plan"]
+    cube, ba = topo.cube, plan.batch_axes or None
+    out = [pd["last"].argmax(-1)]
+    for t in range(PROMPT, PROMPT + GEN - 1):
+        pos = torch.full((BATCH,), t, dtype=torch.int64, device=dev)
+        lg, cache = server.decode_shard(
+            run["params"], cache, cube.to_cube(out[-1], (ba,)),
+            cube.to_cube(pos, (ba,)))
+        out.append(cube.from_cube(lg, (ba, topo.tp)).argmax(-1))
+    pd["tokens"] = torch.stack(out, 1)
+    return pd
+
+
+def _launch_checks(calls: list, dtype) -> dict:
+    """Each recorded launch (inputs, outputs) against the plain version on
+    the same inputs, o and final state within RWKV6_TOL x max(1,
+    max|plain|); in f32 also against the one-token recurrence step by
+    step (``ssm.rwkv6_reference``) within 1e-4 x max(1, max|ref|)."""
+    from repro_torch.kernels.rwkv6 import ref
+    from repro_torch.models import ssm
+    worst_plain = worst_steps = 0.0
+    for x, got in calls:
+        worst_plain = max(worst_plain, _rwkv6_compare(got,
+                                                      ref.rwkv6_chunked(*x)))
+        if dtype == torch.float32:
+            r, k, v, logw, u, state = x
+            if u.dim() == 3:            # one u per PE: rows of its batch
+                u = u.repeat_interleave(r.shape[0] // u.shape[0], dim=0)
+            worst_steps = max(worst_steps, _rwkv6_compare(
+                got, ssm.rwkv6_reference(r, k, v, logw, u, state)))
+    out = {"launches": len(calls), "vs_plain_err": worst_plain,
+           "ok": bool(calls) and worst_plain <= RWKV6_TOL[dtype]}
+    if dtype == torch.float32:
+        out["vs_steps_err"] = worst_steps
+        out["ok"] &= worst_steps <= F32_TOL
+    return out
+
+
+def _rwkv_run(dev, pes, dtype) -> dict:
+    """One full-width RWKV6 serve at ``pes`` PEs through the launcher's
+    function, then ``forward_logits`` on the served tokens and prefill +
+    decode of its prompt, every kernel launch of the forward and the
+    prefill checked against the plain version on its inputs. Then the
+    witness: the same forward and prefill with the kernel's plain version
+    in place of the kernel (only the recurrence differs), which the
+    kernel's paths are held to within RWKV_PATH_TOL. In bf16 also the f32
+    forward of the same tokens on the plain version, for the size of bf16
+    rounding alone (reported)."""
+    from repro_torch.kernels.rwkv6 import rwkv6
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.lm import Model
+    from repro_torch.models.topology import build_topology
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    run = serve(RWKV_ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, pes=pes,
+                device=dev, seed=0, dtype=dtype, keep_logits=True)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(run["cfg"], tp=pes)
+    ftopo = build_topology(cfg, pes)
+    if ftopo.cube != run["topo"].cube:
+        raise RuntimeError("forward and serve cubes differ")
+    toks = run["tokens"]
+    batch = {"tokens": ftopo.cube.to_cube(torch.from_numpy(toks).to(dev),
+                                          (ftopo.dp, None))}
+
+    def forward(dt):
+        out = Model(cfg, ftopo, dtype=dt).forward_logits(run["params"], batch)
+        return ftopo.cube.from_cube(out, (ftopo.dp, None, ftopo.tp))[:, :-1]
+
+    calls = {"forward": [], "prefill": []}
+
+    def watch(path):
+        return watch_rwkv6(lambda x, y: calls[path].append((x, y)))
+
+    n0 = rwkv6.LAUNCHES
+    t0 = time.perf_counter()
+    with watch("forward"):
+        fwd = forward(dtype)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    n_fwd = rwkv6.LAUNCHES - n0
+    pd = _rwkv_prefill_decode(run, dev, dtype, watch("prefill"))
+    n0 = rwkv6.LAUNCHES
+    with plain_rwkv6():
+        fwd_plain = forward(dtype)
+        pre_plain = _rwkv_prefill(run, dev, dtype, contextlib.nullcontext())
+        if dtype == torch.bfloat16:
+            fwd32 = forward(torch.float32)
+    torch.cuda.synchronize()
+    n_plain = rwkv6.LAUNCHES - n0
+    plain_cache = _global_cache(run, pre_plain["cache"])
+    del pre_plain["cache"], pre_plain["server"]
+    run["plain_cache"] = plain_cache
+    dec = torch.stack(run["logits"], dim=1)               # (B, S-1, Vp)
+    ref_tok = torch.from_numpy(toks[:, PROMPT:]).to(dev)
+    tol = RWKV_PATH_TOL[dtype]
+    stated = SERVE_TOL if dtype == torch.bfloat16 else F32_TOL
+    witness = {"forward_logits": _held(fwd, fwd_plain, tol),
+               "prefill_last_logits": _held(pd["last"], pre_plain["last"],
+                                            tol)}
+    witness.update({f"prefill_{k}": _held(pd["cache"][k], plain_cache[k],
+                                          tol) for k in plain_cache})
+    vs_dec = _held(fwd, dec, stated)
+    last_scale = max(1.0, float(dec[:, PROMPT - 1].abs().max()))
+    s = {
+        "pes": pes, "cube": run["topo"].cube.describe(),
+        "dtype": str(dtype).split(".")[-1],
+        "ms_per_step": run["ms_per_step"],
+        "p75_ms_per_step": float(np.percentile(run["step_ms"][1:], 75)),
+        "steps_timed": len(run["step_ms"]) - 1,
+        "tok_per_s": run["tok_per_s"], "serve_s": serve_s,
+        "forward_s": forward_s, "prefill_s": pd["prefill_s"],
+        "rwkv6_launches_decode_loop": run["rwkv6_launches"],
+        "rwkv6_launches_forward": n_fwd,
+        "rwkv6_launches_prefill": pd["launches"],
+        "rwkv6_launches_plain_witness": n_plain,
+        "expected_launches_per_path": run["cfg"].n_layers,
+        "launch_checks": {p: _launch_checks(c, dtype)
+                          for p, c in calls.items()},
+        "kernel_vs_plain_path": witness,
+        "decode_vs_forward_err": vs_dec["err"],
+        "decode_vs_forward_stated_bound": vs_dec["bound"],
+        "decode_greedy_matches_forward": float(
+            (dec.argmax(-1) == fwd.argmax(-1)).float().mean()),
+        "prefill_last_logits_err": float(
+            (pd["last"] - dec[:, PROMPT - 1]).abs().max()),
+        "prefill_last_logits_scale": last_scale,
+        "prefill_last_logits_stated_bound": stated * last_scale,
+        "plain_prefill_last_logits_err": float(
+            (pre_plain["last"] - dec[:, PROMPT - 1]).abs().max()),
+        "finite": bool(torch.isfinite(dec).all() and torch.isfinite(fwd).all()
+                       and torch.isfinite(pd["last"]).all()),
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30,
+    }
+    run["last_inputs"] = {p: c[-1][0] for p, c in calls.items() if c}
+    del calls
+    if dtype == torch.bfloat16:
+        s.update(decode_vs_f32_err=float((dec - fwd32).abs().max()),
+                 forward_vs_f32_err=float((fwd - fwd32).abs().max()),
+                 f32_max_logit=float(fwd32.abs().max()))
+        del fwd32
+    s["prefill_decode_tokens"] = _rwkv_tokens_ok(
+        dec[:, PROMPT - 1:], ref_tok, pd["tokens"],
+        tol * max(1.0, float(dec.abs().max())))
+    run.update(dec=dec, pd=pd, summary=s)
+    return run
+
+
+def _rwkv_path_ok(s: dict) -> bool:
+    """The launches (32 per forward and per prefill, none in the decode
+    loop or the witness), every launch against the plain version, the
+    kernel's paths against the witness, finite logits."""
+    n = s["expected_launches_per_path"]
+    return (s["finite"] and s["rwkv6_launches_decode_loop"] == 0
+            and s["rwkv6_launches_plain_witness"] == 0
+            and s["rwkv6_launches_forward"] == n
+            and s["rwkv6_launches_prefill"] == n
+            and all(c["ok"] for c in s["launch_checks"].values())
+            and all(w["ok"] for w in s["kernel_vs_plain_path"].values()))
+
+
+def _rwkv_drop(run) -> dict:
+    """What the comparison needs of a run; the weights leave the card."""
+    out = {k: run[k] for k in ("tokens", "dec", "summary")}
+    run.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cast_ms(run, dev) -> dict:
+    """Device time of one decode step's weight gather (``gather_params``:
+    the f32 -> bf16 cast of every unit's leaves) and of its part on the
+    leaves replicated over tp, which the cast writes once per PE: device
+    kernels summed under ``torch.profiler``, after one warm pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import blocks
+    from repro_torch.models.lm import Model
+    cfg, topo = run["cfg"], run["topo"]
+    m = Model(cfg, topo)
+    specs = m.unit_specs["p0"]
+    rep = {k for k, sp in specs.items() if not any(
+        a in topo.tp for e in sp if e for a in ((e,) if isinstance(e, str)
+                                                else e))}
+
+    def gather(keys):
+        out_bytes = 0
+        for u in range(m.n_units):
+            w = m.unit_params(run["params"], u, 0)
+            got = blocks.gather_params({k: w[k] for k in keys}, specs, topo,
+                                       torch.bfloat16)
+            out_bytes += sum(t.numel() * t.element_size()
+                             for t in got.values())
+        return out_bytes
+
+    res = {"replicated_leaves": sorted(rep)}
+    for name, keys in (("all", set(specs)), ("replicated", rep)):
+        gather(keys)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            nbytes = gather(keys)
+            torch.cuda.synchronize()
+        res[f"{name}_device_ms"] = sum(
+            ev.time_range.elapsed_us() for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA) / 1e3
+        res[f"{name}_bytes_written"] = nbytes
+    return res
+
+
+def phase_serve_rwkv(dev, kept: dict) -> dict:
+    """The RWKV6 main path in bf16 at 1 and 8 PEs; ``kept`` receives the
+    inputs of the RWKV6 kernel's last launch on each path. Gates: the
+    launches; each launch against the plain version within 5e-2; the
+    forward's logits, prefill's last-position logits and prefill's cache
+    against the same paths on the plain version within RWKV_PATH_TOL
+    [bf16] x max(1, max|ref|); prefill + decode's greedy tokens the loop's,
+    or a tie within that bound. Decode vs forward and prefill vs the loop
+    are reported beside 5e-2 x max(1, max|ref|)."""
+    from repro_torch.kernels.rwkv6 import rwkv6
+    rwkv6.LAUNCHES = 0          # the main path's run starts here
+    runs = {}
+    for pes in PES:
+        run = _rwkv_run(dev, pes, torch.bfloat16)
+        for path, x in run.pop("last_inputs").items():
+            kept[f"{path}/{pes}pe"] = x
+        run["summary"]["profile"] = profile_decode(run, dev)
+        run["summary"]["weight_cast"] = _cast_ms(run, dev)
+        runs[pes] = _rwkv_drop(run)
+    launches = rwkv6.LAUNCHES
+    a, b = runs[PES[0]], runs[PES[-1]]
+    same = np.cumprod(a["tokens"][:, :-1] == b["tokens"][:, :-1], axis=1)
+    same = torch.from_numpy(same.astype(bool)).to(dev)
+    sums = [runs[p]["summary"] for p in PES]
+    expected = 2 * len(PES) * sums[0]["expected_launches_per_path"]
+    ok = launches == expected and all(
+        _rwkv_path_ok(s) and s["prefill_decode_tokens"]["ok"] for s in sums)
+    return {"ok": ok, "arch": RWKV_ARCH, "batch": BATCH,
+            "prompt_len": PROMPT, "gen": GEN, "runs": sums,
+            "pe1_vs_pe8_err": float((a["dec"] - b["dec"]).abs()[same].max()),
+            "pe1_vs_pe8_scale": max(1.0, float(a["dec"].abs().max())),
+            "compared_steps": int(same.sum()),
+            "greedy_agreement_pe1_pe8": float(
+                (a["tokens"][:, PROMPT:] == b["tokens"][:, PROMPT:]).mean()),
+            "rwkv6_launches": launches, "expected_rwkv6_launches": expected}
+
+
+def _rwkv_loop_cache(run, dev, dtype) -> dict:
+    """The teacher-forced loop's cache after the prompt: the launcher's
+    first PROMPT decode steps again, on a fresh cache."""
+    from repro_torch.models.serving import Server, init_cache
+    cfg, topo, plan = run["cfg"], run["topo"], run["plan"]
+    cube, ba = topo.cube, plan.batch_axes or None
+    server = Server(cfg, topo, plan, dtype=dtype)
+    cache = init_cache(cfg, topo, plan, dtype=dtype, device=dev)
+    toks = torch.from_numpy(run["tokens"]).to(dev)
+    for t in range(PROMPT):
+        pos = torch.full((BATCH,), t, dtype=torch.int64, device=dev)
+        server.decode_shard(run["params"], cache,
+                            cube.to_cube(toks[:, t], (ba,)),
+                            cube.to_cube(pos, (ba,)))
+    return cache
+
+
+def phase_serve_rwkv_f32(dev) -> dict:
+    """The same in f32 (TF32 off). Gates: 1-PE vs 8-PE logits within 1e-4
+    x max(1, max|ref|) and identical greedy tokens; the launches; each
+    launch against the plain version (5e-4) and against the one-token
+    recurrence step by step (1e-4); the kernel's paths against the same
+    paths on the plain version within 1e-4 x max(1, max|ref|); prefill's
+    last-position logits and its cache (final state, shifts) against the
+    teacher-forced loop's logits at that position and the cache the loop
+    reaches after the prompt, within RWKV_LOOP_F32_TOL x max(1, max|ref|)
+    (1e-4 is reported beside it, and the plain prefill's distance from
+    the loop as the witness); prefill + decode's greedy tokens identical
+    to the loop's."""
+    runs = {}
+    for pes in PES:
+        run = _rwkv_run(dev, pes, torch.float32)
+        s = run["summary"]
+        loop = _global_cache(run, _rwkv_loop_cache(run, dev, torch.float32))
+        s["layers"] = int(loop["state"].shape[0])
+        s["prefill_vs_loop_cache"] = {k: {
+            **_held(run["pd"]["cache"][k], want, RWKV_LOOP_F32_TOL),
+            "stated_bound": F32_TOL * max(1.0, float(want.abs().max())),
+            "plain_prefill_err": float((run["plain_cache"][k] - want)
+                                       .abs().max())}
+            for k, want in loop.items()}
+        s["identical_tokens"] = bool(torch.equal(
+            run["pd"]["tokens"].cpu(),
+            torch.from_numpy(run["tokens"][:, PROMPT:])))
+        del loop
+        runs[pes] = _rwkv_drop(run)
+    a, b = runs[PES[0]], runs[PES[-1]]
+    scale = max(1.0, float(a["dec"].abs().max()))
+    err = float((a["dec"] - b["dec"]).abs().max())
+    same_tokens = bool((a["tokens"] == b["tokens"]).all())
+    sums = [runs[p]["summary"] for p in PES]
+    ok = (err <= F32_TOL * scale and same_tokens
+          and all(_rwkv_path_ok(s) and s["identical_tokens"]
+                  and s["prefill_last_logits_err"]
+                  <= RWKV_LOOP_F32_TOL * s["prefill_last_logits_scale"]
+                  and all(v["ok"] for v in s["prefill_vs_loop_cache"]
+                          .values())
+                  for s in sums))
+    return {"ok": ok, "pe1_vs_pe8_err": err, "bound": F32_TOL * scale,
+            "greedy_tokens_identical": same_tokens, "runs": sums}
+
+
+def _rwkv6_bound(r, k, v, logw, u, state) -> dict:
+    """Least time the card could take: each input byte read once (r, k, v,
+    u in their dtype, logw and an incoming state in f32), each output byte
+    written once (o, the f32 final state), over HBM rate; per chunk of the
+    reference's rule and per (batch, head) 2 * (2 C K V + C^2 K + C^2 V)
+    FLOPs, over the peak for the inputs' type. The larger of the two."""
+    from repro_torch.kernels.rwkv6 import ref
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    es = r.element_size()
+    state_bytes = 4 * B * H * K * V
+    read = (es * (r.numel() + k.numel() + v.numel() + u.numel())
+            + 4 * logw.numel() + (0 if state is None else state_bytes))
+    write = es * B * S * H * V + state_bytes
+    C = ref.chunk_len(S)
+    flops = B * H * (S // C) * 2 * (2 * C * K * V + C * C * K + C * C * V)
+    t_bytes = (read + write) / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[r.dtype]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": read + write, "flops": flops}
+
+
+def _rwkv6_main_path(kept: dict) -> list:
+    """The RWKV6 kernel on the inputs of its last launch on each path of
+    the serve_rwkv phase (forward and prefill at 1 and 8 PEs: layer 32):
+    held against the plain version, then timed."""
+    from repro_torch.kernels.rwkv6 import ref, rwkv6
+    out = []
+    for name in sorted(kept):
+        x = kept[name]
+        got = rwkv6.rwkv6_chunked(*x)
+        want = ref.rwkv6_chunked(*x)
+        torch.cuda.synchronize()
+        err = _rwkv6_compare(got, want)
+        abs_err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want))
+        out.append({
+            "name": name, "dtype": str(x[0].dtype).split(".")[-1],
+            "r": list(x[0].shape), "u": list(x[4].shape),
+            "state_in": x[5] is not None, "max_abs_err": abs_err,
+            "err": err, "ok": err <= RWKV6_TOL[x[0].dtype],
+            "ms": time_ms(lambda: rwkv6.rwkv6_chunked(*x)),
+            "plain_ms": time_ms(lambda: ref.rwkv6_chunked(*x)),
+            "library_ms": None, **_rwkv6_bound(*x)})
+    return out
+
+
 def _reorder_main_path(kept: dict) -> dict:
     """The reorder kernel on the inputs of its last launch on the 8-PE MoE
     decode path (the combine all_to_all of layer 24 at step 47)."""
@@ -793,10 +1370,11 @@ def _reorder_main_path(kept: dict) -> dict:
             "bytes": nbytes}
 
 
-def phase_main_path(kept: dict, kept_reorder: dict) -> dict:
+def phase_main_path(kept: dict, kept_reorder: dict,
+                    kept_rwkv6: dict) -> dict:
     """Each kernel on the inputs of its last launch in each form and run of
-    the serve and serve_moe phases: held against the plain version, then
-    timed."""
+    the serve, serve_moe and serve_rwkv phases: held against the plain
+    version, then timed."""
     from repro_torch.kernels.attention import flash, ref
     timings = []
     worst_ok = bool(kept)
@@ -826,11 +1404,29 @@ def phase_main_path(kept: dict, kept_reorder: dict) -> dict:
                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         **b})
     reorder = _reorder_main_path(kept_reorder)
-    return {"ok": worst_ok and reorder["exact"], "main_path": timings,
-            "reorder": reorder}
+    rwkv = _rwkv6_main_path(kept_rwkv6)
+    return {"ok": (worst_ok and reorder["exact"] and len(rwkv) == 4
+                   and all(t["ok"] for t in rwkv)),
+            "main_path": timings, "reorder": reorder, "rwkv6": rwkv}
 
 
 # -------------------------------------------------------------------- main
+def _rwkv6_entry(timings: list, launches: int) -> dict:
+    """The RWKV6 kernel's entry of the kernels line: its numbers at the
+    1-PE forward, and each kept path input under ``shapes``."""
+    head = next(t for t in timings if t["name"] == "forward/1pe")
+    return {
+        "name": "rwkv6_chunked", "route": "cuda", "source": RWKV6_SOURCE,
+        "replaces": RWKV6_TPU_KERNEL, "launches": launches,
+        "max_abs_err": max(t["max_abs_err"] for t in timings),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "at": head["name"],
+        "shapes": {t["name"]: {k: t[k] for k in (
+            "r", "u", "state_in", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")} for t in timings}}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -855,7 +1451,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
-    results, failed, kept, kept_reorder = {}, [], {}, {}
+    results, failed, kept, kept_reorder, kept_rwkv6 = {}, [], {}, {}, {}
     for name, fn in (("build", lambda: phase_build()),
                      ("kernel", lambda: phase_kernel(dev)),
                      ("comm", lambda: phase_comm(dev)),
@@ -864,9 +1460,12 @@ def main() -> int:
                      ("serve_moe", lambda: phase_serve_moe(dev, kept,
                                                            kept_reorder)),
                      ("serve_moe_f32", lambda: phase_serve_moe_f32(dev)),
-                     ("main_path", lambda: phase_main_path(kept,
-                                                           kept_reorder))):
-        needs = (("serve", "serve_moe") if name == "main_path"
+                     ("serve_rwkv", lambda: phase_serve_rwkv(dev,
+                                                             kept_rwkv6)),
+                     ("serve_rwkv_f32", lambda: phase_serve_rwkv_f32(dev)),
+                     ("main_path", lambda: phase_main_path(
+                         kept, kept_reorder, kept_rwkv6))):
+        needs = (("serve", "serve_moe", "serve_rwkv") if name == "main_path"
                  else ("build",))
         missing = [n for n in needs if n in failed]
         if name != "build" and missing:
@@ -891,7 +1490,7 @@ def main() -> int:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
     kern, serve_res = results["main_path"], results["serve"]
-    moe_res = results["serve_moe"]
+    moe_res, rwkv_res = results["serve_moe"], results["serve_rwkv"]
     head = next(t for t in kern["main_path"] if t["name"] == "decode/8pe")
     swz = kern["reorder"]
     print(json.dumps({"kernels": [{
@@ -915,7 +1514,8 @@ def main() -> int:
         "plain_ms": swz["plain_ms"], "bound_ms": swz["bound_ms"],
         "bound_by": swz["bound_by"], "library_ms": swz["library_ms"],
         "at": swz["name"], "x": swz["x"], "blocks": swz["blocks"],
-    }], "total_s": round(time.perf_counter() - t_all, 3)}), flush=True)
+    }, _rwkv6_entry(kern["rwkv6"], rwkv_res["rwkv6_launches"])],
+        "total_s": round(time.perf_counter() - t_all, 3)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -24,6 +24,7 @@ _KERNELS = Path(__file__).resolve().parent
 SOURCES = {
     "flash": "attention/csrc/flash.cu",
     "reorder": "reorder/csrc/reorder.cu",
+    "rwkv6": "rwkv6/csrc/rwkv6.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,0 +1,100 @@
+"""Wrapper of the hand-written Hopper RWKV6 kernel (``csrc/rwkv6.cu``).
+
+Replaces the Pallas TPU kernel ``_rwkv_kernel`` / ``rwkv6_chunked`` of
+``repro.kernels.rwkv6.rwkv6`` and computes the function of the JAX
+package's ``ssm.rwkv6_chunked``: the RWKV6 time-mix recurrence with a state
+in and out (see ``ref.rwkv6_chunked``). One launch covers every (batch,
+head) of a call, so the model folds the cube's PEs into the batch and runs
+one launch per layer. At the serving shapes it is bounded by its
+sequential loop over the steps, not by bytes or FLOPs; the kernel's source
+note says what its design does about that. ``LAUNCHES`` counts the
+launches of this process (set it to 0 before a run to count that run).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_CTAS = 2 ** 31 - 1       # grid.x limit: one CTA per (batch, head)
+
+LAUNCHES = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("rwkv6")
+    fn = lib.repro_rwkv6_chunked
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, ll, i, i, ll, p]
+        fn.restype = i
+        lib.repro_rwkv6_error_string.argtypes = [i]
+        lib.repro_rwkv6_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(r, k, v, logw, u, state):
+    tensors = [r, k, v, logw, u] + ([] if state is None else [state])
+    if not (r.is_cuda and all(t.device == r.device for t in tensors)):
+        raise ValueError("rwkv6_chunked: every tensor must be on one CUDA "
+                         "device")
+    if r.dtype not in _DTYPES or any(t.dtype != r.dtype for t in (k, v, u)):
+        raise TypeError(f"rwkv6_chunked takes f32 or bf16 r/k/v/u of one "
+                        f"dtype, got {r.dtype}/{k.dtype}/{v.dtype}/{u.dtype}")
+    if logw.dtype != torch.float32 or (state is not None
+                                       and state.dtype != torch.float32):
+        raise TypeError("rwkv6_chunked: logw and the state must be f32")
+    if r.dim() != 4 or k.shape != r.shape or logw.shape != r.shape \
+            or v.shape != r.shape:
+        raise ValueError(f"rwkv6_chunked: r, k, v, logw (B, S, H, K) with "
+                         f"V == K; got {tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(logw.shape)}")
+    B, S, H, K = r.shape
+    if K not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_chunked kernel takes K in {HEAD_DIMS}, "
+                         f"got {K}")
+    if S < 1 or B < 1 or B * H > _MAX_CTAS:
+        raise ValueError(f"rwkv6_chunked: no grid for B={B}, S={S}, H={H}")
+    if u.dim() not in (2, 3) or tuple(u.shape[-2:]) != (H, K) \
+            or (u.dim() == 3 and B % u.shape[0]):
+        raise ValueError(f"rwkv6_chunked: u must be (H, K) or (G, H, K) "
+                         f"with G dividing B={B}; got {tuple(u.shape)}")
+    if state is not None and tuple(state.shape) != (B, H, K, K):
+        raise ValueError(f"rwkv6_chunked: state must be {(B, H, K, K)}, got "
+                         f"{tuple(state.shape)}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("rwkv6_chunked takes contiguous tensors")
+
+
+def rwkv6_chunked(r, k, v, logw, u, state=None):
+    """Launch the kernel on CUDA tensors (see ``ref.rwkv6_chunked`` for the
+    function; the kernel takes any length S). r, k, v: (B, S, H, K) f32 or
+    bf16; logw: (B, S, H, K) f32; u: (H, K) or (G, H, K) in r's dtype;
+    state: (B, H, K, K) f32 or None. Returns (o in r's dtype, final state
+    f32). Raises on anything the kernel does not take."""
+    global LAUNCHES
+    _check(r, k, v, logw, u, state)
+    B, S, H, K = r.shape
+    o = torch.empty_like(r)
+    state_out = torch.empty((B, H, K, K), dtype=torch.float32,
+                            device=r.device)
+    G = 1 if u.dim() == 2 else u.shape[0]
+    lib = _lib()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = lib.repro_rwkv6_chunked(
+            _DTYPES[r.dtype], K, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            logw.data_ptr(), u.data_ptr(),
+            None if state is None else state.data_ptr(), o.data_ptr(),
+            state_out.data_ptr(), B, S, H, G, stream)
+    if rc != 0:
+        msg = lib.repro_rwkv6_error_string(rc).decode()
+        raise RuntimeError(f"rwkv6_chunked kernel launch failed: CUDA error "
+                           f"{rc} ({msg})")
+    LAUNCHES += 1
+    return o, state_out

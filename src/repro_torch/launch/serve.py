@@ -7,8 +7,10 @@ generation, on a virtual PE cube held in one process.
 The port of ``repro.launch.serve``: ``--pes N`` (default 1) stands in for
 the JAX launcher's device count. It runs on CUDA unless ``--device cpu`` is
 given, and raises when no GPU is visible. Prints the decode ms per step,
-tokens/s and the launch counts of the flash and reorder kernels (an MoE
-model's all_to_alls run on the reorder kernel).
+tokens/s and the launch counts of the flash, reorder and RWKV6 kernels (an
+MoE model's all_to_alls run on the reorder kernel; the RWKV6 kernel runs on
+the forward and prefill paths, so this loop of decode steps, which takes
+the one-token recurrence, launches it 0 times).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.kernels.attention import flash
 from repro_torch.kernels.reorder import reorder
+from repro_torch.kernels.rwkv6 import rwkv6
 from repro_torch.models.params import init_params
 from repro_torch.models.serving import Server, init_cache, make_serve_plan
 from repro_torch.models.topology import build_serve_topology
@@ -38,7 +41,7 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     prompt, then the greedy tokens -- ``step_ms`` per decode step,
     ``ms_per_step`` (median after the first step), ``tok_per_s`` (B tokens
     per step over the whole decode loop), ``flash_launches``,
-    ``reorder_launches``, and with
+    ``reorder_launches``, ``rwkv6_launches``, and with
     ``keep_logits`` every step's global logits (B, V_padded)."""
     dev = resolve_device(device)
     cfg = configs.get(arch)
@@ -63,7 +66,7 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    launches0 = flash.LAUNCHES, reorder.LAUNCHES
+    launches0 = flash.LAUNCHES, reorder.LAUNCHES, rwkv6.LAUNCHES
     step_ms, all_logits = [], []
     sync()
     t_start = time.perf_counter()
@@ -91,6 +94,7 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         "tok_per_s": batch * len(step_ms) / wall,
         "flash_launches": flash.LAUNCHES - launches0[0],
         "reorder_launches": reorder.LAUNCHES - launches0[1],
+        "rwkv6_launches": rwkv6.LAUNCHES - launches0[2],
         "logits": all_logits,
     }
 
@@ -120,7 +124,8 @@ def main(argv=None):
     print(f"decode {run['ms_per_step']:.3f} ms/step, "
           f"{run['tok_per_s']:.1f} tok/s, "
           f"flash kernel launches={run['flash_launches']}, "
-          f"reorder kernel launches={run['reorder_launches']}")
+          f"reorder kernel launches={run['reorder_launches']}, "
+          f"rwkv6 kernel launches={run['rwkv6_launches']}")
     return run
 
 

@@ -13,10 +13,11 @@ blocks; decode-path activations are replicated over the model axes with the
 KV cache sequence-sharded (flash-decode). Both attention sites run the flash
 kernel (``layers.chunked_attention``).
 
-Ported: attention (self, without the fused-comm routing), the dense FFN and
-the MoE FFN with the configured ``"scatter"`` dispatch. The int8 KV cache,
-cross-attention, the ``"sort"`` MoE dispatch, Mamba and RWKV wait for later
-slices.
+Ported: attention (self, without the fused-comm routing), the dense FFN,
+the MoE FFN with the configured ``"scatter"`` dispatch, and the RWKV6
+time-mix (its recurrence on the RWKV6 kernel, ``ssm.rwkv6_chunked``) and
+channel-mix with their decode forms. The int8 KV cache, cross-attention,
+the ``"sort"`` MoE dispatch and Mamba wait for later slices.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     rms_norm, rope, chunked_attention, finish_partial_attention,
@@ -325,3 +327,120 @@ def moe_ffn_decode(cfg, topo, w, x):
     if cfg.n_shared_experts:
         out = out + _swiglu(cn, hn, w["ws_g"], w["ws_u"], w["ws_d"])
     return x + out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- RWKV
+def _per_pe(p: torch.Tensor, x: torch.Tensor, cn: int) -> torch.Tensor:
+    """A per-PE vector p (*cube, D) shaped to broadcast against x
+    (*cube, ..., D)."""
+    return p.reshape(tuple(p.shape[:cn]) + (1,) * (x.dim() - cn - 1)
+                     + (p.shape[-1],))
+
+
+def _shift(hn: torch.Tensor) -> torch.Tensor:
+    """Token shift along the sequence axis (-2): position t sees t - 1,
+    position 0 sees zeros."""
+    return F.pad(hn, (0, 0, 1, 0))[..., :-1, :]
+
+
+def _mix(hn, prev, mu, i: int, cn: int):
+    """hn + mu[i] * (prev - hn), mu: (*cube, n, D)."""
+    return hn + _per_pe(mu[..., i, :], hn, cn) * (prev - hn)
+
+
+def rwkv_channel_mix(cfg, topo, w, x_sp, out_cache: bool = False):
+    """RWKV channel-mix over the sequence-parallel activations
+    (*cube, B, S_sp, D). With ``out_cache`` also returns the last
+    position's normed hidden (*cube, B, D) (decode's ``cm_shift``)."""
+    cn = topo.cube.ndim
+    tpc = topo.comm(topo.tp)
+    h = tpc.all_gather(x_sp, axis=1)                          # (.., B, S, D)
+    hn = rms_norm(h, w["fln"], cfg.norm_eps)
+    prev = _shift(hn)
+    xk = _mix(hn, prev, w["cm_mu"], 0, cn)
+    xr = _mix(hn, prev, w["cm_mu"], 1, cn)
+    kk = torch.relu(cube_matmul(xk, w["cm_k"], cn)).square()
+    out = cube_matmul(kk, w["cm_v"], cn)                      # partial (tp)
+    out = tpc.reduce_scatter(out, axis=1)
+    gate = torch.sigmoid(cube_matmul(xr, w["cm_r"], cn))      # (.., B, S, D)
+    S_sp = x_sp.shape[cn + 1]
+    me = topo.axis_index(topo.tp, x_sp.device)                 # tp rank
+    gate = pe_slice(gate, me * S_sp, S_sp, 1, cn)
+    y = x_sp + out * gate.to(out.dtype)
+    if out_cache:
+        return y, hn[..., -1, :]
+    return y
+
+
+def rwkv_channel_mix_decode(cfg, topo, w, x, prev):
+    """x, prev: (*cube, B, D), replicated over the model axes. Returns the
+    new x and this token's normed hidden (the next step's ``prev``)."""
+    cn = topo.cube.ndim
+    hn = rms_norm(x, w["fln"], cfg.norm_eps)
+    xk = _mix(hn, prev, w["cm_mu"], 0, cn)
+    xr = _mix(hn, prev, w["cm_mu"], 1, cn)
+    kk = torch.relu(cube_matmul(xk, w["cm_k"], cn)).square()
+    out = topo.comm(topo.tp).all_reduce(cube_matmul(kk, w["cm_v"], cn))
+    gate = torch.sigmoid(cube_matmul(xr, w["cm_r"], cn))
+    return x + (out * gate).to(x.dtype), hn
+
+
+def _rwkv_inputs(w, hn, prev, cn: int, head_shape: tuple):
+    """r, k, v (head_shape), the gate g and the f32 log decays logw of the
+    time-mix, from the normed hidden and its shifted copy."""
+    xr, xk, xv, xg, xw = (_mix(hn, prev, w["mu"], i, cn) for i in range(5))
+    r = cube_matmul(xr, w["wr"], cn).reshape(head_shape)
+    k = cube_matmul(xk, w["wk"], cn).reshape(head_shape)
+    v = cube_matmul(xv, w["wv"], cn).reshape(head_shape)
+    g = F.silu(cube_matmul(xg, w["wg"], cn))
+    lora = cube_matmul(torch.tanh(cube_matmul(xw, w["w_lora_a"], cn)),
+                       w["w_lora_b"], cn)
+    wdd = _per_pe(w["decay_w0"], lora, cn) + lora
+    logw = -torch.exp(wdd.float()).reshape(head_shape)
+    return r, k, v, g, logw
+
+
+def rwkv_mix(cfg, topo, w, x_sp, out_cache: bool = False):
+    """RWKV6 time-mix over the sequence-parallel activations
+    (*cube, B, S_sp, D); the recurrence is one launch of the RWKV6 kernel
+    over every PE's heads. With ``out_cache`` also returns (final state
+    (*cube, B, Hl, hd, hd) f32, the last position's normed hidden
+    (*cube, B, D)): decode's ``state`` and ``shift``."""
+    cn = topo.cube.ndim
+    cube = topo.cube.dim_sizes
+    spc = topo.comm(topo.sp)
+    h = spc.all_gather(x_sp, axis=1)                          # (.., B, S, D)
+    hn = rms_norm(h, w["ln"], cfg.norm_eps)
+    hd = cfg.rwkv_head_dim
+    Dl = w["wr"].shape[-1]
+    Hl = Dl // hd
+    B, S = hn.shape[cn], hn.shape[cn + 1]
+    r, k, v, g, logw = _rwkv_inputs(w, hn, _shift(hn), cn,
+                                    cube + (B, S, Hl, hd))
+    u = w["bonus_u"].reshape(cube + (Hl, hd))
+    o, state = ssm.rwkv6_chunked(r, k, v, logw, u)
+    out = cube_matmul(o.reshape(cube + (B, S, Dl)) * g, w["wo"], cn)
+    out = spc.reduce_scatter(out, axis=1)                     # partial (tp)
+    y = x_sp + out
+    if out_cache:
+        return y, (state, hn[..., -1, :])
+    return y
+
+
+def rwkv_mix_decode(cfg, topo, w, x, state, prev):
+    """x: (*cube, B, D); state: (*cube, B, Hl, hd, hd) f32; prev:
+    (*cube, B, D) the previous token's normed hidden. Returns (new x, new
+    state, this token's normed hidden)."""
+    cn = topo.cube.ndim
+    cube = topo.cube.dim_sizes
+    hn = rms_norm(x, w["ln"], cfg.norm_eps)
+    hd = cfg.rwkv_head_dim
+    Dl = w["wr"].shape[-1]
+    Hl = Dl // hd
+    B = hn.shape[cn]
+    r, k, v, g, logw = _rwkv_inputs(w, hn, prev, cn, cube + (B, Hl, hd))
+    u = w["bonus_u"].reshape(cube + (1, Hl, hd))
+    o, state = ssm.rwkv6_step(r, k, v, logw, u, state)
+    out = cube_matmul(o.reshape(cube + (B, Dl)) * g, w["wo"], cn)
+    out = topo.comm(topo.tp).all_reduce(out)
+    return x + out.to(x.dtype), state, hn

@@ -7,8 +7,9 @@ stacked units is a Python loop. The compute dtype is an explicit argument
 (default bf16).
 
 Ported: token embedding (vocab-parallel), the trunk of attention layers
-with dense or MoE FFNs, and ``forward_logits``. The training loss, the
-encoder and the patch frontend wait for later slices.
+with dense or MoE FFNs and of RWKV6 layers (time-mix + channel-mix), and
+``forward_logits``. The training loss, the encoder and the patch frontend
+wait for later slices.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import math
 import torch
 
 from repro_torch.models import blocks
-from repro_torch.models.config import ModelConfig, ATTN, DENSE, MOE
+from repro_torch.models.config import ModelConfig, MOE, RWKV, RWKVCM
 from repro_torch.models.layers import rms_norm, cube_matmul, pe_slice
 from repro_torch.models.params import param_specs
 from repro_torch.models.topology import Topology
@@ -97,14 +98,17 @@ class Model:
         cfg, topo = self.cfg, self.topo
         w = blocks.gather_params(w_shards, self.unit_specs[f"p{p}"], topo,
                                  self.dtype)
-        if self.mixers[p] != ATTN or self.ffns[p] not in (DENSE, MOE):
-            raise NotImplementedError(
-                f"{cfg.name}: {self.mixers[p]}/{self.ffns[p]} layers are not "
-                "ported to repro_torch yet")
-        x_sp = blocks.attn_block(cfg, topo, w, x_sp, window=window)
-        if self.ffns[p] == MOE:
+        # param_defs raised at construction for unported layer kinds
+        mixer, ffn = self.mixers[p], self.ffns[p]
+        if mixer == RWKV:
+            x_sp = blocks.rwkv_mix(cfg, topo, w, x_sp)
+        else:
+            x_sp = blocks.attn_block(cfg, topo, w, x_sp, window=window)
+        if ffn == MOE:
             # the aux load-balance loss feeds only the training loss
             return blocks.moe_ffn(cfg, topo, w, x_sp)[0]
+        if ffn == RWKVCM:
+            return blocks.rwkv_channel_mix(cfg, topo, w, x_sp)
         return blocks.dense_ffn(cfg, topo, w, x_sp)
 
     def trunk(self, params, x_sp):

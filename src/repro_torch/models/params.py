@@ -11,7 +11,8 @@ once. Master weights are f32; ``blocks.gather_params`` casts each layer to
 the compute dtype on use.
 
 Ported defs: attention, dense FFN and MoE FFN (the dense-decoder and MoE
-families). The other mixers and FFNs raise until their slice of the port.
+families), and RWKV6 time-mix and channel-mix. The other mixers and FFNs
+raise until their slice of the port.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.config import ModelConfig, ATTN, DENSE, MOE
+from repro_torch.models.config import (
+    ModelConfig, ATTN, DENSE, MOE, RWKV, RWKVCM)
 from repro_torch.models.topology import Topology
 
 MASTER_DTYPE = torch.float32
@@ -33,6 +35,7 @@ class ParamDef:
     shape: tuple
     spec: tuple
     init: str = "normal"       # normal | zeros | ones | out_proj | embed
+                               # | decay
     dtype: Any = MASTER_DTYPE
 
 
@@ -96,14 +99,46 @@ def _moe_ffn_defs(cfg, topo):
     return d
 
 
-_MIXER_DEFS = {ATTN: _attn_defs}
-_FFN_DEFS = {DENSE: _dense_ffn_defs, MOE: _moe_ffn_defs}
+def _rwkv_defs(cfg, topo):
+    D = cfg.d_model
+    tp = topo.tp
+    lora = 64
+    return {
+        "ln": ParamDef((D,), ("data",), "zeros"),
+        "mu": ParamDef((5, D), (None, "data")),
+        "wr": ParamDef((D, D), ("data", tp)),
+        "wk": ParamDef((D, D), ("data", tp)),
+        "wv": ParamDef((D, D), ("data", tp)),
+        "wg": ParamDef((D, D), ("data", tp)),
+        "w_lora_a": ParamDef((D, lora), ("data", None)),
+        "w_lora_b": ParamDef((lora, D), (None, tp)),
+        "decay_w0": ParamDef((D,), (tp,), "decay"),
+        "bonus_u": ParamDef((D,), (tp,)),
+        "wo": ParamDef((D, D), (tp, "data"), "out_proj"),
+    }
+
+
+def _rwkvcm_defs(cfg, topo):
+    D, F = cfg.d_model, cfg.d_ff
+    tp = topo.tp
+    return {
+        "fln": ParamDef((D,), ("data",), "zeros"),
+        "cm_mu": ParamDef((2, D), (None, "data")),
+        "cm_r": ParamDef((D, D), ("data", None)),
+        "cm_k": ParamDef((D, F), ("data", tp)),
+        "cm_v": ParamDef((F, D), (tp, "data"), "out_proj"),
+    }
+
+
+_MIXER_DEFS = {ATTN: _attn_defs, RWKV: _rwkv_defs}
+_FFN_DEFS = {DENSE: _dense_ffn_defs, MOE: _moe_ffn_defs,
+             RWKVCM: _rwkvcm_defs}
 
 
 def _not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{cfg.name}: {what} layers are not ported to repro_torch yet "
-        "(ported: attention mixers with dense or MoE FFNs)")
+        "(ported: attention mixers with dense or MoE FFNs, RWKV6)")
 
 
 def _stack(defs: dict, n: int) -> dict:
@@ -181,6 +216,11 @@ def _init_leaf(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=d.dtype, device=device)
+    if d.init == "decay":
+        # RWKV6 decay base: a linspace over the global last axis
+        ramp = torch.linspace(-6.0, -1.0, d.shape[-1], dtype=d.dtype,
+                              device=device)
+        return ramp.expand(d.shape).clone()
     scale = 0.02
     if d.init == "out_proj":
         scale = 0.02 / math.sqrt(2 * cfg.n_layers)

@@ -8,8 +8,12 @@ kernel's ``(acc, m, l)``) is LSE-combined with one max and two additive
 all-reduces over the cache axes.
 
 Ported: the bf16 (compute-dtype) attention cache and ``decode_shard`` for
-attention layers with dense or MoE FFNs. The int8 cache, SSM / RWKV states
-and ``prefill_shard`` wait for later slices.
+attention layers with dense or MoE FFNs; the RWKV6 cache (f32 state
+sharded over tp, compute-dtype token shifts), its decode and
+``prefill_shard`` for RWKV6 layers, whose cache drops straight into
+``decode_shard``. The int8 cache, Mamba states and the prefill of
+attention layers (an sp-sharded K/V that the decode layout does not take
+without a reshard) wait for later slices.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ import math
 import torch
 
 from repro_torch.models import blocks
-from repro_torch.models.config import ModelConfig, ATTN, DENSE, MOE
+from repro_torch.models.config import (
+    ModelConfig, ATTN, DENSE, MOE, RWKV, RWKVCM)
 from repro_torch.models.layers import rms_norm, cube_matmul
 from repro_torch.models.lm import Model
 from repro_torch.models.topology import Topology
@@ -65,7 +70,8 @@ def make_serve_plan(cfg: ModelConfig, topo: Topology, *, S_ctx: int,
 def cache_defs(cfg: ModelConfig, topo: Topology, plan: ServePlan,
                dtype: torch.dtype = torch.bfloat16):
     """(global shape, spec, dtype) tree for the decode cache; the
-    compute-dtype cache is stored in ``dtype``."""
+    compute-dtype cache is stored in ``dtype``, the RWKV state in f32
+    whatever ``dtype`` is."""
     unit = cfg.unit()
     n_units = cfg.n_layers // unit
     B = plan.global_batch
@@ -74,13 +80,24 @@ def cache_defs(cfg: ModelConfig, topo: Topology, plan: ServePlan,
     tree = {}
     for p, (mixer, ffn) in enumerate(zip(cfg.mixers()[:unit],
                                          cfg.ffns()[:unit])):
-        if mixer != ATTN or ffn not in (DENSE, MOE):
+        if mixer not in (ATTN, RWKV) or ffn not in (DENSE, MOE, RWKVCM):
             raise NotImplementedError(
                 f"{cfg.name}: {mixer}/{ffn} decode caches are not ported to "
                 "repro_torch yet")
-        shp = (n_units, B, plan.S_cache, KV, hd)
-        spec = (None, ba, plan.kv_axes, None, None)
-        tree[f"p{p}"] = {"k": (shp, spec, dtype), "v": (shp, spec, dtype)}
+        d = {}
+        if mixer == ATTN:
+            shp = (n_units, B, plan.S_cache, KV, hd)
+            spec = (None, ba, plan.kv_axes, None, None)
+            d["k"] = d["v"] = (shp, spec, dtype)
+        else:
+            rhd = cfg.rwkv_head_dim
+            d["state"] = ((n_units, B, cfg.d_model // rhd, rhd, rhd),
+                          (None, ba, topo.tp, None, None), torch.float32)
+            d["shift"] = ((n_units, B, cfg.d_model), (None, ba, None), dtype)
+        if ffn == RWKVCM:
+            d["cm_shift"] = ((n_units, B, cfg.d_model), (None, ba, None),
+                             dtype)
+        tree[f"p{p}"] = d
     return tree
 
 
@@ -105,8 +122,9 @@ class Server:
 
     def decode_shard(self, params, cache, tokens, pos):
         """One decode step. tokens, pos: (*cube, B_l) int. Writes the new
-        token's K/V into ``cache`` in place and returns (logits
-        (*cube, B_l, V_local) f32, cache)."""
+        token's K/V (attention) or the new state and token shifts (RWKV)
+        into ``cache`` in place and returns (logits (*cube, B_l, V_local)
+        f32, cache)."""
         cfg, topo, plan = self.cfg, self.topo, self.plan
         m = self.model
         cn = topo.cube.ndim
@@ -119,14 +137,66 @@ class Server:
                 key = f"p{p}"
                 w = blocks.gather_params(m.unit_params(params, u, p),
                                          m.unit_specs[key], topo, self.dtype)
+                # views of unit u's cache leaves: written with copy_
                 c = {k: v.select(cn, u) for k, v in cache[key].items()}
-                x = blocks.attn_decode(
-                    cfg, topo, w, x, c, pos, window=int(m.windows[u, p]),
-                    kv_axes=plan.kv_axes, rolling=rolling, dtype=self.dtype)
+                if m.mixers[p] == RWKV:
+                    x, state, shift = blocks.rwkv_mix_decode(
+                        cfg, topo, w, x, c["state"], c["shift"])
+                    c["state"].copy_(state)
+                    c["shift"].copy_(shift)
+                else:
+                    x = blocks.attn_decode(
+                        cfg, topo, w, x, c, pos, window=int(m.windows[u, p]),
+                        kv_axes=plan.kv_axes, rolling=rolling,
+                        dtype=self.dtype)
                 if m.ffns[p] == MOE:
                     x = blocks.moe_ffn_decode(cfg, topo, w, x)
+                elif m.ffns[p] == RWKVCM:
+                    x, shift = blocks.rwkv_channel_mix_decode(
+                        cfg, topo, w, x, c["cm_shift"])
+                    c["cm_shift"].copy_(shift)
                 else:
                     x = blocks.dense_ffn_decode(cfg, topo, w, x)
         hn = rms_norm(x, m.final_norm(params), cfg.norm_eps)
+        logits = cube_matmul(hn, m._head(params), cn).float()
+        return logits, cache
+
+    # ------------------------------------------------------------- prefill
+    def prefill_shard(self, params, batch):
+        """Forward over the whole prompt, batch["tokens"] (*cube, B_l, S)
+        with S splitting over the sequence-parallel axes. Returns (the last
+        position's logits (*cube, B_l, V_local) f32, the decode cache of the
+        prompt as cube tensors, stacked over units like ``init_cache``'s).
+
+        The JAX package runs prefill on a training-style topology; here the
+        serve topology is that cube (tp = PEs, no cp), so the cache drops
+        straight into ``decode_shard``. Ported for RWKV6 layers: the
+        recurrence's final state (one kernel launch per layer) and the
+        token shifts. Attention layers raise."""
+        cfg, topo = self.cfg, self.topo
+        m = self.model
+        cn = topo.cube.ndim
+        if set(m.mixers) != {RWKV}:
+            raise NotImplementedError(
+                f"{cfg.name}: prefill of attention layers (an sp-sharded "
+                "K/V cache) is not ported to repro_torch yet")
+        x_sp = m.embed_input(params, batch)
+        parts = {f"p{p}": {} for p in range(m.unit)}
+        for u in range(m.n_units):
+            for p in range(m.unit):
+                key = f"p{p}"
+                w = blocks.gather_params(m.unit_params(params, u, p),
+                                         m.unit_specs[key], topo, self.dtype)
+                x_sp, (state, shift) = blocks.rwkv_mix(cfg, topo, w, x_sp,
+                                                       out_cache=True)
+                x_sp, cm_shift = blocks.rwkv_channel_mix(cfg, topo, w, x_sp,
+                                                         out_cache=True)
+                for k, t in (("state", state), ("shift", shift),
+                             ("cm_shift", cm_shift)):
+                    parts[key].setdefault(k, []).append(t)
+        cache = {key: {k: torch.stack(v, dim=cn) for k, v in c.items()}
+                 for key, c in parts.items()}
+        full = topo.comm(topo.sp).all_gather(x_sp, axis=1)
+        hn = rms_norm(full[..., -1, :], m.final_norm(params), cfg.norm_eps)
         logits = cube_matmul(hn, m._head(params), cn).float()
         return logits, cache

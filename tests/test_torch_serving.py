@@ -191,6 +191,6 @@ def test_launcher_raises_without_cuda_unless_cpu(capsys):
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        configs.get("rwkv6-7b")
+        configs.get("jamba-1.5-large-398b")
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
