@@ -10,9 +10,16 @@ Phases, each printed as one JSON line:
           register / shared-memory report;
   kernel  holds the flash-attention kernel against its plain PyTorch
           version on the card -- f32 within 2e-5, bf16 within 2e-2 of
-          max(1, max|plain|) -- in prefill form and in the partial decode
-          form, with GQA and without (H == KV), a window, offsets and an
-          entirely masked decode chunk; and the reorder kernel (tile_swizzle) against its plain
+          max(1, max|plain|) -- in both of its forms (decode: Sq * G <= 8
+          rows per kv head, keys split over warps and over a cluster for
+          long caches; forward: bf16 on tensor cores, f32 on CUDA cores),
+          full and partial, with GQA and without (H == KV), G = 1 and 8,
+          every head_dim, windows, offsets, row and key counts off the
+          tiles, causal forwards of 512 that skip tiles, and rows that see
+          no key (m = -1e30 and l = Sk, or the mean of v); it times two
+          rows off the main path with their plain version, bound and SDPA
+          (a 4096-key cache at decode, a 2048-token causal forward); and
+          the reorder kernel (tile_swizzle) against its plain
           version bit for bit: f32 / bf16 / int32, G in {4, 8, 16}, b in
           {1, 8, 16}, D in {64, 128, 2048}, random perms, block_transpose,
           unaligned base pointers and an out-of-range perm entry; and the
@@ -226,72 +233,138 @@ def _sdpa(q, k, v, q_pos, k_pos, causal, window):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def phase_kernel(dev) -> dict:
+# flash correctness sweep: B, Sq, Sk, H, KV, hd, causal, window, q0, k0,
+# partial, shards (row r holds cache shard r). Both forms: decode (Sq * G
+# <= 8 rows per kv head) and forward (bf16 on tensor cores, 16-64-row
+# tiles of 64 keys; f32 on CUDA cores, 32-row tiles of 32 keys)
+FLASH_CASES = [
+    (2, 64, 64, 8, 2, 128, True, -1, 0, 0, False, False),
+    (2, 40, 72, 8, 2, 128, True, 24, 48, 16, False, False),
+    (1, 33, 33, 4, 4, 64, False, -1, 0, 0, False, False),
+    (3, 16, 16, 4, 2, 16, True, 5, 0, 0, False, False),
+    (8, 1, 6, 16, 8, 128, True, -1, 3, 0, True, True),   # rows 1-7 masked
+    (4, 1, 48, 16, 8, 128, True, 8, 20, -4, True, False),  # rolling slots
+    # no GQA (H == KV), as qwen2-moe decodes: 1 PE, and 8 PEs' shards
+    (4, 1, 48, 16, 16, 128, True, -1, 30, 0, True, False),
+    (32, 1, 6, 2, 2, 128, True, -1, 40, 0, True, True),  # rows 7-31 masked
+    # forward: Sq * G off the row tile and across its edge, Sk off the key
+    # tile, G = 1 and G = 8, every head_dim on the tensor cores
+    (2, 37, 70, 8, 1, 32, True, -1, 40, 0, False, False),   # G = 8
+    (2, 37, 70, 8, 1, 32, True, -1, 40, 0, True, False),
+    (1, 9, 65, 8, 8, 128, True, -1, 56, 0, False, False),   # G = 1, 9 rows
+    (3, 50, 130, 4, 2, 16, True, 40, 80, 0, False, False),
+    (2, 70, 100, 6, 3, 64, False, -1, 0, 0, True, False),
+    (2, 24, 24, 16, 8, 32, True, -1, 0, 0, False, False),
+    # rows that see no key at all (positions 90-99 before k_pos 100): they
+    # average v; with tiles skipped for the rows that do see keys
+    (2, 30, 200, 4, 2, 64, True, -1, 90, 100, False, False),
+    (2, 30, 200, 4, 2, 64, True, -1, 90, 100, True, False),
+    # long causal forwards: tiles above the diagonal / outside the window
+    (1, 512, 512, 4, 2, 128, True, -1, 0, 0, False, False),
+    (1, 512, 512, 4, 2, 128, True, 100, 0, 0, False, False),
+    # decode form: G = 8, 6 rows (Sq 3 x G 2), keys over a 2-CTA cluster,
+    # and a 4096-key cache over 8-CTA clusters with a window
+    (4, 1, 40, 8, 1, 64, True, -1, 39, 0, True, False),
+    (1, 3, 300, 4, 2, 64, True, -1, 290, 0, True, False),
+    (2, 1, 600, 16, 8, 128, True, -1, 599, 0, True, False),
+    (1, 1, 4096, 16, 8, 128, True, 1000, 4095, 0, False, False),
+]
+# off the main path, timed beside it: a long cache at decode (bytes) and a
+# long causal forward (operations); B, Sq, Sk, H, KV, partial
+FLASH_LONG_ROWS = {"long_decode": (4, 1, 4096, 16, 8, True),
+                   "long_forward": (4, 2048, 2048, 16, 8, False)}
+
+
+def _flash_checks(dev) -> dict:
+    """The flash kernel against its plain version on FLASH_CASES, f32 and
+    bf16. Rows that see no key must give m = -1e30 and l = Sk (partial)
+    or the mean of v (full)."""
     from repro_torch.kernels.attention import flash, ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    checks = []
-    worst_ok = True
-    # correctness sweep: prefill and partial-decode forms, GQA, windows,
-    # offsets, a ragged key tile, an entirely masked decode chunk
-    cases = [
-        dict(B=2, Sq=64, Sk=64, H=8, KV=2, hd=128, causal=True, window=-1,
-             q0=0, k0=0, partial=False),
-        dict(B=2, Sq=40, Sk=72, H=8, KV=2, hd=128, causal=True, window=24,
-             q0=48, k0=16, partial=False),
-        dict(B=1, Sq=33, Sk=33, H=4, KV=4, hd=64, causal=False, window=-1,
-             q0=0, k0=0, partial=False),
-        dict(B=3, Sq=16, Sk=16, H=4, KV=2, hd=16, causal=True, window=5,
-             q0=0, k0=0, partial=False),
-        dict(B=8, Sq=1, Sk=6, H=16, KV=8, hd=128, causal=True, window=-1,
-             q0=3, k0=0, partial=True, shards=True),  # rows 1-7: masked
-        dict(B=4, Sq=1, Sk=48, H=16, KV=8, hd=128, causal=True, window=8,
-             q0=20, k0=-4, partial=True),     # rolling slots: negatives
-        # no GQA (H == KV), as qwen2-moe decodes: 1 PE, and 8 PEs' shards
-        dict(B=4, Sq=1, Sk=48, H=16, KV=16, hd=128, causal=True, window=-1,
-             q0=30, k0=0, partial=True),
-        dict(B=32, Sq=1, Sk=6, H=2, KV=2, hd=128, causal=True, window=-1,
-             q0=40, k0=0, partial=True, shards=True),  # rows 7-31: masked
-    ]
+    checks, ok_all = [], True
     for dtype in (torch.float32, torch.bfloat16):
-        for c in cases:
-            q, k, v = _attn_inputs(gen, dtype, c["B"], c["Sq"], c["Sk"],
-                                   c["H"], c["KV"], c["hd"], dev)
-            if c.get("shards"):
-                # row r holds cache shard r (slots Sk*r..Sk*r+Sk-1)
-                q_pos = torch.full((c["B"], 1), c["q0"], device=dev)
-                k_pos = (torch.arange(c["B"], device=dev)[:, None] * c["Sk"]
-                         + torch.arange(c["Sk"], device=dev))
+        for (B, Sq, Sk, H, KV, hd, causal, window, q0, k0, partial,
+             shards) in FLASH_CASES:
+            q, k, v = _attn_inputs(gen, dtype, B, Sq, Sk, H, KV, hd, dev)
+            if shards:
+                q_pos = torch.full((B, 1), q0, device=dev)
+                k_pos = (torch.arange(B, device=dev)[:, None] * Sk
+                         + torch.arange(Sk, device=dev))
             else:
-                q_pos = (c["q0"] + torch.arange(c["Sq"], device=dev)
-                         ).expand(c["B"], -1)
-                k_pos = (c["k0"] + torch.arange(c["Sk"], device=dev)
-                         ).expand(c["B"], -1)
+                q_pos = (q0 + torch.arange(Sq, device=dev)).expand(B, -1)
+                k_pos = (k0 + torch.arange(Sk, device=dev)).expand(B, -1)
             q_pos, k_pos = (p.to(torch.int32).contiguous()
                             for p in (q_pos, k_pos))
-            kw = dict(causal=c["causal"], window=c["window"],
-                      partial=c["partial"])
+            kw = dict(causal=causal, window=window, partial=partial)
             got = flash.flash_attention(q, k, v, q_pos, k_pos, **kw)
             torch.cuda.synchronize()
             want = ref.flash_attention(q, k, v, q_pos, k_pos, **kw)
-            err = _compare(got, want, c["partial"])
+            err = _compare(got, want, partial)
             ok = err <= KERNEL_TOL[dtype]
-            if c["partial"]:
-                # rows of an entirely masked chunk: m = -1e30, l = Sk
-                dead = (ref.mask(q_pos, k_pos, True, c["window"]).sum(-1)
-                        == 0)[:, None, :].expand_as(got[1])
-                ok = ok and bool((got[1][dead] == -1e30).all()
-                                 and (got[2][dead] == c["Sk"]).all())
-            worst_ok &= ok
+            dead = ~ref.mask(q_pos, k_pos, causal, window).expand(
+                B, Sq, Sk).any(-1)                     # rows seeing no key
+            if partial:
+                m, l = (t.transpose(1, 2)[dead] for t in got[1:])
+                ok = ok and bool((m == -1e30).all() and (l == Sk).all())
+            elif bool(dead.any()):
+                mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)
+                mean_v = mean_v[:, None].expand(B, Sq, H, hd)[dead]
+                ok = ok and float((got.float()[dead] - mean_v).abs().max()
+                                  ) <= KERNEL_TOL[dtype]
+            ok_all &= ok
+            geo = flash.launch_geometry(B, Sq, Sk, H, KV, hd, dtype)
             checks.append({"dtype": str(dtype).split(".")[-1],
-                           "shape": [c[x] for x in ("B", "Sq", "Sk", "H",
-                                                    "KV", "hd")],
-                           "partial": c["partial"], "window": c["window"],
+                           "shape": [B, Sq, Sk, H, KV, hd], "causal": causal,
+                           "partial": partial, "window": window,
+                           "form": geo.form, "grid": list(geo.grid),
+                           "rows_without_key": int(dead.sum()),
                            "err": err, "ok": ok})
+    return {"ok": ok_all, "checks": checks}
+
+
+def _flash_long_rows(dev) -> list:
+    """The two long rows off the main path, bf16, checked then timed with
+    the plain version, the bound and SDPA."""
+    from repro_torch.kernels.attention import flash, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rows = []
+    for name, (B, Sq, Sk, H, KV, partial) in FLASH_LONG_ROWS.items():
+        q, k, v = _attn_inputs(gen, torch.bfloat16, B, Sq, Sk, H, KV, 128,
+                               dev)
+        q_pos = (Sk - Sq + torch.arange(Sq, device=dev)).expand(B, -1)
+        k_pos = torch.arange(Sk, device=dev).expand(B, -1)
+        q_pos, k_pos = (p.to(torch.int32).contiguous() for p in (q_pos, k_pos))
+        kw = dict(causal=True, window=-1, partial=partial)
+        got = flash.flash_attention(q, k, v, q_pos, k_pos, **kw)
+        want = ref.flash_attention(q, k, v, q_pos, k_pos, **kw)
+        torch.cuda.synchronize()
+        err = _compare(got, want, partial)
+        del got, want
+        rows.append({
+            "name": name, "q": [B, Sq, H, 128], "kv": [B, Sk, KV, 128],
+            "partial": partial, "err": err,
+            "ok": err <= KERNEL_TOL[torch.bfloat16],
+            "ms": time_ms(lambda: flash.flash_attention(q, k, v, q_pos, k_pos,
+                                                        **kw)),
+            "plain_ms": time_ms(lambda: ref.flash_attention(
+                q, k, v, q_pos, k_pos, **kw), reps=2, iters=5),
+            "library_ms": time_ms(_sdpa(q, k, v, q_pos, k_pos, True, -1)),
+            **_bound(q, k, q_pos, k_pos, True, -1, partial)})
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernel(dev) -> dict:
+    attn = _flash_checks(dev)
+    long_rows = _flash_long_rows(dev)
     reorder = _reorder_checks(dev)
     rwkv = _rwkv6_checks(dev)
-    return {"ok": worst_ok and reorder["ok"] and rwkv["ok"],
-            "checks": checks, "reorder": reorder, "rwkv6": rwkv}
+    return {"ok": (attn["ok"] and all(r["ok"] for r in long_rows)
+                   and reorder["ok"] and rwkv["ok"]),
+            "checks": attn["checks"], "flash_long_rows": long_rows,
+            "reorder": reorder, "rwkv6": rwkv}
 
 
 def _rwkv6_inputs(gen, dev, dtype, B, S, H, K, *, strong, state, G=0):
@@ -642,8 +715,10 @@ def _routes(calls: list, steps: int) -> torch.Tensor:
 
 
 # device kernels of the port, by the name of their CUDA function
-KERNEL_NAMES = {"flash": "flash_fwd", "reorder": "tile_swizzle",
-                "rwkv6": "rwkv6_fwd"}
+KERNEL_NAMES = {"flash": ("flash_decode_kernel", "flash_fwd_mma_kernel",
+                          "flash_fwd_f32_kernel"),
+                "reorder": ("tile_swizzle",),
+                "rwkv6": ("rwkv6_fwd",)}
 
 
 def profile_decode(run, dev, steps: int = 3) -> dict:
@@ -686,8 +761,9 @@ def profile_decode(run, dev, steps: int = 3) -> dict:
     if busy <= 0:
         raise RuntimeError("the profiler traced no device events")
     shares = {f"{k}_share_of_device":
-              sum(r[0] for name, r in by_name.items() if fn in name) / busy
-              for k, fn in KERNEL_NAMES.items()}
+              sum(r[0] for name, r in by_name.items()
+                  if any(fn in name for fn in fns)) / busy
+              for k, fns in KERNEL_NAMES.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"steps": steps,
             "wall_ms_per_step": wall_us / 1e3 / steps,
@@ -1491,7 +1567,8 @@ def main() -> int:
         return 1
     kern, serve_res = results["main_path"], results["serve"]
     moe_res, rwkv_res = results["serve_moe"], results["serve_rwkv"]
-    head = next(t for t in kern["main_path"] if t["name"] == "decode/8pe")
+    # the flash headline: the main-path row that fares worst against SDPA
+    head = max(kern["main_path"], key=lambda t: t["ms"] / t["library_ms"])
     swz = kern["reorder"]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1506,6 +1583,9 @@ def main() -> int:
         "shapes": {t["name"]: {k: t[k] for k in (
             "q", "kv", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "max_abs_err")} for t in kern["main_path"]},
+        "off_main_path": {t["name"]: {k: t[k] for k in (
+            "q", "kv", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "err")} for t in results["kernel"]["flash_long_rows"]},
     }, {
         "name": "tile_swizzle", "route": "cuda", "source": REORDER_SOURCE,
         "replaces": REORDER_TPU_KERNEL,

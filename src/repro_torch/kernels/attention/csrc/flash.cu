@@ -1,57 +1,723 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++ with a plain C
-// interface (loaded with ctypes by repro_torch/kernels/attention/flash.py).
+// Flash attention for Hopper (sm_90a), CUDA C++ with a plain C interface
+// (loaded with ctypes by repro_torch/kernels/attention/flash.py).
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `flash_attention`
 // (src/repro/kernels/attention/flash.py): causal / sliding-window GQA
-// attention, f32 online softmax, finite NEG_INF = -1e30 (a fully masked row
-// averages v, as the TPU kernel's does), output / max(l, 1e-30). It also
-// returns the f32 partials (acc, m, l) that flash-decode LSE-combines
-// across cache shards.
+// attention, f32 online softmax, finite NEG_INF = -1e30, output /
+// max(l, 1e-30). It also returns the f32 partials (acc, m, l) that
+// flash-decode LSE-combines across cache shards. Positions come from int32
+// device tensors (query (B, Sq), key (B, Sk)). Visibility: k_pos >= 0,
+// k_pos <= q_pos when causal, q_pos - k_pos < window when window > 0. A row
+// that sees no key averages v over all Sk keys: m = -1e30, l = Sk, acc =
+// sum v. A query row is one (position, group member) pair of a kv head, so
+// the G query heads of a GQA group share every K/V read.
 //
-// Positions come from int32 device tensors (query (B, Sq), key (B, Sk)),
-// the rule for the TPU kernel's scalar-prefetched / static offsets: prefill
-// passes offset + arange, decode passes each row's position and the
-// rolling slot positions. Visibility: k_pos >= 0, k_pos <= q_pos when
-// causal, q_pos - k_pos < window when window > 0.
+// One call is one launch. The wrapper picks the form and the grid
+// (flash.launch_geometry) and passes them in; this file checks them.
 //
-// What bounds it on this card: at decode (one query row per head against a
-// short cache chunk) the bytes -- every K/V element is read once per CTA,
-// and each CTA serves one (batch, kv head) with all its query heads, so
-// GQA groups share one read of the tile. At the serving shapes of this
-// repository the forward pass is bytes-bound too (a few dozen keys).
+// (a) Decode form, Sq * G <= 8 rows per (batch, kv head): every serving
+//     decode step (1-2 rows against 6-48 keys, partial). Bound: latency at
+//     the serving shapes (a few hundred KB: well under a microsecond of
+//     bytes), bytes over long caches. Tensor cores do not help one or two
+//     rows. One CTA of 8 warps per (batch, kv head) holds all its rows; the
+//     warps split the key range, and within a warp a group of LG = hd *
+//     size / 16 lanes holds one key, 16 bytes a lane (bf16 hd 128: 16 lanes
+//     x 8, two keys per warp step). Each lane streams its 16 bytes of K and
+//     of V (and its key's position) by cp.async into its own ring of 4 warp
+//     steps in shared memory (36,864 bytes a CTA), 3 steps ahead of the
+//     one it scores; it reads back only what it copied, so its own
+//     wait_group orders it and no barrier is needed. A shuffle over the lane
+//     group reduces each row's score; each lane group keeps its own f32
+//     (m, l, acc) in registers; lane groups merge by shuffles, warps through
+//     shared memory (8 x rows x hd f32: 8 KB at 2 rows of 128). Where B *
+//     KV is below 132 SMs and the cache is long, the key range is also
+//     split over a thread-block cluster of up to 8 CTAs (grid.y), and rank
+//     0 merges the others' partials from distributed shared memory: no
+//     scratch in device memory, no counter, one launch. f32 takes the same
+//     layout.
+// (b) Forward form, bf16: tensor cores (mma.sync.m16n8k16, f32
+//     accumulators: HMMA in the SASS). Bound: bytes and latency at the
+//     serving forward (48 keys), operations at long sequences. Each warp
+//     owns 16 query rows; a CTA of NW = 1, 2 or 4 warps shares each K/V
+//     tile of 64 keys, brought by cp.async (16 bytes a thread, zero-filled
+//     past Sk) into a three-stage ring (a stage = K and V, 64 x (hd + 8)
+//     bf16 each, the pad keeping ldmatrix free of bank conflicts: 105,216
+//     bytes of dynamic shared memory at hd 128). K fragments come by
+//     ldmatrix, V's by ldmatrix.trans; P is rounded to bf16 for PV (within
+//     the 2e-2 bf16 tolerance; l sums the f32 p). NW is the largest of 4,
+//     2, 1 whose grid reaches 132 CTAs: the serving forward has 96 rows per
+//     (batch, kv head) and 32 of those, so NW = 1 gives 192 CTAs where
+//     64-row tiles give 64. Key tiles that lie wholly above the causal
+//     diagonal, outside the window or at negative positions for every row
+//     of the CTA are skipped (from the min / max of the CTA's positions);
+//     tiles wholly visible to every row skip the mask. A row left with no
+//     visible key after a skip is given sum v over all Sk keys and l = Sk,
+//     exactly what it would have summed. Warp-level mma, not wgmma:
+//     wgmma's 64-row tiles cannot fill the card at 96 rows per kv head
+//     without splitting keys, and the serving forward is bound by latency,
+//     not by the tensor rate.
+// (c) Forward form, f32: CUDA cores (TF32 would break the 2e-5 and f32
+//     serve gates). A CTA of 8 warps holds 32 rows (4 per warp) and loads
+//     each K/V tile of 32 keys once for all of them (float4 loads, f32
+//     shared memory, K padded by a column); lane j scores key j for its
+//     warp's 4 rows.
 //
-// Design, one CTA per (batch, kv head, tile of WARPS query rows): a query
-// row is one (position, head-in-group) pair, so a decode step puts all G
-// heads of a kv group into one CTA. The sequential kv grid axis of the TPU
-// kernel becomes a loop inside the CTA over key tiles of 32 staged in
-// shared memory (f32; K padded by one column so that lane j reading key j
-// hits distinct banks). Each warp owns one query row: lane j scores key j,
-// the warp reduces max and sum with shuffles, and each lane accumulates
-// its head-dim slice of p @ V. m, l and acc stay in registers in f32.
-// No tensor cores or TMA yet: this is the simple correct kernel; wgmma
-// tiles belong to a later change.
+// Registers (ptxas, printed by chip_smoke.py's build phase): see PERF.md.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr float kAbsent = -3.0e38f;  // below kNegInf: keys past Sk
-constexpr int kWarps = 4;      // query rows per CTA
-constexpr int kTile = 32;      // keys per shared-memory tile (one per lane)
+constexpr float kAbsent = -3.0e38f;   // below kNegInf: a key past the range
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kDecodeWarps = 8;
+constexpr int kMaxRows = 8;        // decode form: Sq * G rows at most
+constexpr int kMaxSplits = 8;      // portable cluster size
+constexpr int kRing = 4;           // decode: warp steps in each lane's ring
+constexpr int kTileKeys = 64;      // bf16 forward key tile
+constexpr int kStages = 3;         // bf16 forward: K/V tiles in the ring
+constexpr int kMaxListTiles = 1024;  // bf16 forward: tiles with a skip list
+constexpr int kF32Warps = 8, kF32RowsPerWarp = 4, kF32Keys = 32;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// exp: the bf16 paths take the fast approximation, f32 the full one
+template <typename T>
+__device__ __forceinline__ float ex(float x) { return __expf(x); }
+template <>
+__device__ __forceinline__ float ex<float>(float x) { return expf(x); }
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+__device__ __forceinline__ bool visible(int qp, int kp, int causal,
+                                        int window) {
+  return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
+}
+
+// 16 bytes -> 8 (bf16) or 4 (f32) floats
+template <typename T>
+struct Vec;
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(const uint4& u, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(h[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+
+// merge (m2, l2, a2) into (m, l, a): the LSE combine. An empty state
+// (m = -1e30, l = 0, a = 0) is its identity.
+template <typename T, int N>
+__device__ __forceinline__ void merge(float& m, float& l, float* a, float m2,
+                                      float l2, const float* a2) {
+  const float mn = fmaxf(m, m2);
+  const float c1 = ex<T>(m - mn), c2 = ex<T>(m2 - mn);
+  l = l * c1 + l2 * c2;
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] = a[i] * c1 + a2[i] * c2;
+  m = mn;
+}
+
+// cp.async: 16 or 4 bytes global -> shared, zero-filled when !pred
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------------------ (a) decode
+// q, out: (B, Sq, H, HD); k, v: (B, Sk, KV, HD); acc: (B, H, Sq, HD), m, l:
+// (B, H, Sq). grid = (B * KV, splits), cluster (1, splits, 1), block
+// 32 * kDecodeWarps. CTA (x, y) takes keys [y * chunk, (y + 1) * chunk).
+template <typename T, int HD, int RM>
+__global__ void __launch_bounds__(32 * kDecodeWarps)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ q_pos,
+                    const int* __restrict__ k_pos, T* __restrict__ out,
+                    float* __restrict__ acc_out, float* __restrict__ m_out,
+                    float* __restrict__ l_out, int Sq, int Sk, int H, int KV,
+                    int causal, int window, float scale, int chunk) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int LG = HD / VEC;          // lanes per key
+  constexpr int KPW = 32 / LG;          // keys per warp step
+  constexpr int STEP = KPW * kDecodeWarps;
+  constexpr int NST = kRing;            // ring stages: warp steps ahead
+  __shared__ float red_acc[kDecodeWarps][RM][HD];
+  __shared__ float red_ml[kDecodeWarps][RM][2];
+  __shared__ float fin_acc[RM][HD];
+  __shared__ float fin_ml[RM][2];
+
+  const int G = H / KV;
+  const int R = Sq * G;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / LG, sub = lane % LG;
+  const int k_begin = blockIdx.y * chunk;
+  const int k_end = min(Sk, k_begin + chunk);
+
+  // this lane's hd slice of every row's q (scaled), and each row's position
+  float qf[RM][VEC];
+  int qp[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    qp[r] = 0;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) qf[r][i] = 0.f;
+    if (r < R) {
+      const int qi = r / G, h = kvh * G + r % G;
+      const uint4 u = *reinterpret_cast<const uint4*>(
+          q + ((size_t)(b * Sq + qi) * H + h) * HD + sub * VEC);
+      Vec<T>::unpack(u, qf[r]);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) qf[r][i] *= scale;
+      qp[r] = q_pos[(size_t)b * Sq + qi];
+    }
+  }
+  float m[RM], l[RM], acc[RM][VEC];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[r][i] = 0.f;
+  }
+
+  const size_t kv_row = (size_t)KV * HD;
+  const T* kb = k + ((size_t)b * Sk * KV + kvh) * HD + sub * VEC;
+  const T* vb = v + ((size_t)b * Sk * KV + kvh) * HD + sub * VEC;
+  const int* kpb = k_pos + (size_t)b * Sk;
+  // this lane's ring: NST warp steps of its 16 bytes of K and of V and its
+  // key's position, brought by cp.async. A lane reads back only what it
+  // copied itself, so its own wait_group orders it: no barrier.
+  extern __shared__ __align__(16) unsigned char dsm[];
+  uint4* ring_k = reinterpret_cast<uint4*>(dsm) + warp * NST * 32 + lane;
+  uint4* ring_v = ring_k + kDecodeWarps * NST * 32;
+  int* ring_p = reinterpret_cast<int*>(reinterpret_cast<uint4*>(dsm)
+                                       + 2 * kDecodeWarps * NST * 32)
+                + warp * NST * 32 + lane;
+  const int first = k_begin + warp * KPW;     // the warp's first step
+  const int steps = first < k_end ? (k_end - first + STEP - 1) / STEP : 0;
+  const auto fetch = [&](int n) {             // step n into slot n % NST
+    const int s = first + grp + n * STEP, slot = (n % NST) * 32;
+    if (n < steps && s < k_end) {   // else the slot is never read
+      const size_t off = (size_t)s * kv_row;
+      cp_async16(ring_k + slot, kb + off, true);
+      cp_async16(ring_v + slot, vb + off, true);
+      cp_async4(ring_p + slot, kpb + s, true);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int n = 0; n < NST - 1; ++n) fetch(n);
+  for (int n = 0; n < steps; ++n) {           // warp-uniform
+    cp_async_wait<NST - 2>();                 // step n has landed
+    const int slot = (n % NST) * 32;
+    const bool exists = first + grp + n * STEP < k_end;
+    const int kp = ring_p[slot];
+    float kf[VEC], vf[VEC];
+    Vec<T>::unpack(ring_k[slot], kf);
+    Vec<T>::unpack(ring_v[slot], vf);
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (r >= R) break;
+      float d = 0.f;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) d = fmaf(qf[r][i], kf[i], d);
+#pragma unroll
+      for (int o = LG / 2; o > 0; o >>= 1) d += __shfl_xor_sync(kFull, d, o);
+      if (!exists) continue;
+      const float sc = visible(qp[r], kp, causal, window) ? d : kNegInf;
+      const float mn = fmaxf(m[r], sc);
+      const float c = ex<T>(m[r] - mn), p = ex<T>(sc - mn);
+      l[r] = l[r] * c + p;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[r][i] = fmaf(p, vf[i], acc[r][i] * c);
+      m[r] = mn;
+    }
+    fetch(n + NST - 1);   // into the slot of step n - 1, consumed
+  }
+
+  // lane groups of the warp -> the warp's state, in lanes 0 .. LG-1
+#pragma unroll
+  for (int o = LG; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (r >= R) break;
+      float a2[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) a2[i] = __shfl_xor_sync(kFull, acc[r][i], o);
+      const float m2 = __shfl_xor_sync(kFull, m[r], o);
+      const float l2 = __shfl_xor_sync(kFull, l[r], o);
+      merge<T, VEC>(m[r], l[r], acc[r], m2, l2, a2);
+    }
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (r >= R) break;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) red_acc[warp][r][sub * VEC + i] = acc[r][i];
+      if (sub == 0) {
+        red_ml[warp][r][0] = m[r];
+        red_ml[warp][r][1] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+
+  const auto emit = [&](int r, int d, float aa, float mm, float ll) {
+    const int qi = r / G, h = kvh * G + r % G;
+    if (out != nullptr)
+      store(out + ((size_t)(b * Sq + qi) * H + h) * HD + d,
+            aa / fmaxf(ll, 1e-30f));
+    if (acc_out != nullptr) {
+      const size_t row = (size_t)(b * H + h) * Sq + qi;
+      acc_out[row * HD + d] = aa;
+      if (d == 0) {
+        m_out[row] = mm;
+        l_out[row] = ll;
+      }
+    }
+  };
+
+  // warps -> the CTA's state: written out, or kept in fin_* for the cluster
+  const int splits = gridDim.y;
+  for (int e = threadIdx.x; e < R * HD; e += blockDim.x) {
+    const int r = e / HD, d = e % HD;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) mm = fmaxf(mm, red_ml[w][r][0]);
+    float ll = 0.f, aa = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      const float c = ex<T>(red_ml[w][r][0] - mm);
+      ll += red_ml[w][r][1] * c;
+      aa += red_acc[w][r][d] * c;
+    }
+    if (splits == 1) {
+      emit(r, d, aa, mm, ll);
+    } else {
+      fin_acc[r][d] = aa;
+      if (d == 0) {
+        fin_ml[r][0] = mm;
+        fin_ml[r][1] = ll;
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  // the cluster's CTAs -> rank 0, from distributed shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    for (int e = threadIdx.x; e < R * HD; e += blockDim.x) {
+      const int r = e / HD, d = e % HD;
+      float mm = kNegInf;
+      for (int c = 0; c < splits; ++c)
+        mm = fmaxf(mm, *cluster.map_shared_rank(&fin_ml[r][0], c));
+      float ll = 0.f, aa = 0.f;
+      for (int c = 0; c < splits; ++c) {
+        const float w = ex<T>(*cluster.map_shared_rank(&fin_ml[r][0], c) - mm);
+        ll += *cluster.map_shared_rank(&fin_ml[r][1], c) * w;
+        aa += *cluster.map_shared_rank(&fin_acc[r][d], c) * w;
+      }
+      emit(r, d, aa, mm, ll);
+    }
+  }
+  cluster.sync();   // every CTA's shared memory stays alive until read
+}
+
+// ------------------------------------------------------- (b) bf16 forward
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int HD>
+constexpr int mma_smem_bytes() {
+  return kStages * (2 * kTileKeys * (HD + 8) * 2 + kTileKeys * 4);
+}
+
+// grid = (B * KV, ceil(Sq * G / (16 * NW))), block = 32 * NW (NW = 1, 2, 4),
+// dynamic shared memory mma_smem_bytes<HD>().
+template <int HD>
+__global__ void __launch_bounds__(128)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const int* __restrict__ q_pos,
+                     const int* __restrict__ k_pos,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ acc_out, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int Sq, int Sk, int H,
+                     int KV, int causal, int window, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = HD + 8;       // shared row pitch, elements
+  constexpr int KT = HD / 16;      // k-steps of q k^T
+  constexpr int NB = HD / 8;       // n-blocks of p v
+  constexpr int CH = HD / 8;       // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);             // [kStages][64][LD]
+  bf16* vs = ks + kStages * kTileKeys * LD;             // [kStages][64][LD]
+  int* kps = reinterpret_cast<int*>(vs + kStages * kTileKeys * LD);
+  __shared__ int tiles[kMaxListTiles];
+  __shared__ int n_live_s, qmin_s, qmax_s;
+  __shared__ float colsum[4][HD];
+
+  const int G = H / KV, R = Sq * G;
+  const int NW = blockDim.x / 32;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quad = lane / 4, qlane = lane % 4;
+  const int cta_row0 = blockIdx.y * 16 * NW;
+  const int n_tiles = (Sk + kTileKeys - 1) / kTileKeys;
+
+  // the CTA's query positions: min and max, for the tile skip
+  if (threadIdx.x == 0) {
+    qmin_s = 0x7fffffff;
+    qmax_s = -0x7fffffff - 1;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 16 * NW; i += blockDim.x) {
+    const int r = cta_row0 + i;
+    if (r < R) {
+      const int p = q_pos[(size_t)b * Sq + r / G];
+      atomicMin(&qmin_s, p);
+      atomicMax(&qmax_s, p);
+    }
+  }
+  __syncthreads();
+  const int qmin = qmin_s, qmax = qmax_s;
+
+  // live key tiles: some key of the tile may be visible to some row here.
+  // The list holds 2 t + full: full when every key of tile t exists and is
+  // visible to every row here (no mask to apply).
+  const bool listed = n_tiles <= kMaxListTiles;
+  if (listed) {
+    for (int t = warp; t < n_tiles; t += NW) {
+      int kmin = 0x7fffffff, kmax = -1, lo = 0x7fffffff, gone = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int s = t * kTileKeys + h * 32 + lane;
+        if (s < Sk) {
+          const int p = k_pos[(size_t)b * Sk + s];
+          lo = min(lo, p);
+          if (p >= 0) {
+            kmin = min(kmin, p);
+            kmax = max(kmax, p);
+          }
+        } else {
+          gone = 1;
+        }
+      }
+      kmin = __reduce_min_sync(kFull, kmin);
+      kmax = __reduce_max_sync(kFull, kmax);
+      lo = __reduce_min_sync(kFull, lo);
+      gone = __reduce_or_sync(kFull, gone);
+      const bool live =
+          kmax >= 0 && !(causal && kmin > qmax) &&
+          !(window > 0 && (long long)qmin - kmax >= window);
+      const bool full =
+          !gone && lo >= 0 && (!causal || kmax <= qmin) &&
+          (window <= 0 || (long long)qmax - kmin < window);
+      if (lane == 0) tiles[t] = live ? 1 + full : 0;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int n = 0;
+      for (int t = 0; t < n_tiles; ++t)
+        if (tiles[t]) tiles[n++] = 2 * t + (tiles[t] - 1);
+      n_live_s = n;
+    }
+    __syncthreads();
+  }
+  const int n_live = listed ? n_live_s : n_tiles;
+
+  const size_t kv_row = (size_t)KV * HD;
+  const bf16* kb = k + ((size_t)b * Sk * KV + kvh) * HD;
+  const bf16* vb = v + ((size_t)b * Sk * KV + kvh) * HD;
+  const int* kpb = k_pos + (size_t)b * Sk;
+  const auto load_tile = [&](int t, int st) {
+    bf16* kd = ks + st * kTileKeys * LD;
+    bf16* vd = vs + st * kTileKeys * LD;
+    for (int e = threadIdx.x; e < kTileKeys * CH; e += blockDim.x) {
+      const int j = e / CH, c = e % CH, s = t * kTileKeys + j;
+      const bool ok = s < Sk;
+      const size_t off = (size_t)(ok ? s : 0) * kv_row + c * 8;
+      cp_async16(kd + j * LD + c * 8, kb + off, ok);
+      cp_async16(vd + j * LD + c * 8, vb + off, ok);
+    }
+    for (int j = threadIdx.x; j < kTileKeys; j += blockDim.x) {
+      const int s = t * kTileKeys + j;
+      cp_async4(kps + st * kTileKeys + j, kpb + (s < Sk ? s : 0), s < Sk);
+    }
+  };
+  // a ring of kStages tiles: tile i sits in stage i % kStages; one commit
+  // group per tile (empty past the last), kStages - 1 of them ahead
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_live) load_tile(listed ? tiles[i] / 2 : i, i);
+    cp_async_commit();
+  }
+
+  // this warp's 16 rows: q fragments, positions
+  const int r0 = cta_row0 + warp * 16 + quad, r1 = r0 + 8;
+  const bool ok0 = r0 < R, ok1 = r1 < R;
+  const auto qrow = [&](int r) -> size_t {
+    return ((size_t)(b * Sq + r / G) * H + kvh * G + r % G) * HD;
+  };
+  const size_t qo0 = ok0 ? qrow(r0) : 0, qo1 = ok1 ? qrow(r1) : 0;
+  uint32_t qa[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const int c = kk * 16 + 2 * qlane;
+    qa[kk][0] = ok0 ? *reinterpret_cast<const uint32_t*>(q + qo0 + c) : 0u;
+    qa[kk][1] = ok1 ? *reinterpret_cast<const uint32_t*>(q + qo1 + c) : 0u;
+    qa[kk][2] =
+        ok0 ? *reinterpret_cast<const uint32_t*>(q + qo0 + c + 8) : 0u;
+    qa[kk][3] =
+        ok1 ? *reinterpret_cast<const uint32_t*>(q + qo1 + c + 8) : 0u;
+  }
+  const int qp0 = ok0 ? q_pos[(size_t)b * Sq + r0 / G] : 0;
+  const int qp1 = ok1 ? q_pos[(size_t)b * Sq + r1 / G] : 0;
+
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float o[NB][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+    o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+
+  for (int i = 0; i < n_live; ++i) {
+    const int t = listed ? tiles[i] / 2 : i, st = i % kStages;
+    const bool full = listed && (tiles[i] & 1);
+    cp_async_wait<kStages - 2>();   // tile i has landed
+    __syncthreads();   // ... for every thread; tile i - 1 is consumed
+    const int nx = i + kStages - 1;
+    if (nx < n_live)
+      load_tile(listed ? tiles[nx] / 2 : nx, nx % kStages);
+    cp_async_commit();
+    const bf16* kt = ks + st * kTileKeys * LD;
+    const bf16* vt = vs + st * kTileKeys * LD;
+    const int* kpt = kps + st * kTileKeys;
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      // K fragments of keys 8j.., two k-steps per ldmatrix.x4
+      const bf16* kr = kt + (8 * j + (lane & 7)) * LD + 8 * (lane >> 3);
+#pragma unroll
+      for (int kk = 0; kk < KT; kk += 2) {
+        uint32_t bk[4];
+        if (KT == 1) {   // hd 16: the other two matrices are not read
+          bk[0] = *reinterpret_cast<const uint32_t*>(
+              kt + (8 * j + quad) * LD + 2 * qlane);
+          bk[1] = *reinterpret_cast<const uint32_t*>(
+              kt + (8 * j + quad) * LD + 2 * qlane + 8);
+        } else {
+          ldmatrix_x4(bk, kr + 16 * kk);
+        }
+        mma16816(s[j], qa[kk], bk[0], bk[1]);
+        if (kk + 1 < KT) mma16816(s[j], qa[kk + 1], bk[2], bk[3]);
+      }
+    }
+    // mask and row max (over keys that exist; masked ones score -1e30)
+    float mx0 = kAbsent, mx1 = kAbsent;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (!full) {   // CTA-uniform
+          const int jj = 8 * j + 2 * qlane + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          x = visible(qp, kpt[jj], causal, window) ? x : kNegInf;
+          x = t * kTileKeys + jj < Sk ? x : kAbsent;
+        }
+        s[j][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = __expf(m0 - mn0), c1 = __expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float p = x != kAbsent ? __expf(x - (e < 2 ? mn0 : mn1)) : 0.f;
+        s[j][e] = p;
+        if (e < 2) ps0 += p; else ps1 += p;
+      }
+    }
+    l0 = l0 * c0 + ps0;
+    l1 = l1 * c1 + ps1;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      o[nb][0] *= c0;
+      o[nb][1] *= c0;
+      o[nb][2] *= c1;
+      o[nb][3] *= c1;
+    }
+    // o += p v: p from the score accumulators (rounded to bf16), v by
+    // ldmatrix.trans, two n-blocks per load
+#pragma unroll
+    for (int kt2 = 0; kt2 < kTileKeys / 16; ++kt2) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kt2][0], s[2 * kt2][1]);
+      a[1] = pack_bf16(s[2 * kt2][2], s[2 * kt2][3]);
+      a[2] = pack_bf16(s[2 * kt2 + 1][0], s[2 * kt2 + 1][1]);
+      a[3] = pack_bf16(s[2 * kt2 + 1][2], s[2 * kt2 + 1][3]);
+      const bf16* vr = vt + (16 * kt2 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD
+                       + 8 * (lane >> 4);
+#pragma unroll
+      for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vr + 16 * nb2);
+        mma16816(o[2 * nb2], a, bv[0], bv[1]);
+        mma16816(o[2 * nb2 + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(kFull, l0, off);
+    l1 += __shfl_xor_sync(kFull, l1, off);
+  }
+  // a row with no visible key in the tiles it ran (m still -1e30) whose CTA
+  // skipped tiles: sum v over all Sk keys, l = Sk, as if it had run them all
+  const bool dead0 = ok0 && m0 == kNegInf, dead1 = ok1 && m1 == kNegInf;
+  if (n_live < n_tiles && __any_sync(kFull, dead0 || dead1)) {
+    for (int d = lane; d < HD; d += 32) {
+      float sum = 0.f;
+      for (int s2 = 0; s2 < Sk; ++s2)
+        sum += __bfloat162float(vb[(size_t)s2 * kv_row + d]);
+      colsum[warp][d] = sum;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int c = 8 * nb + 2 * qlane;
+      if (dead0) {
+        o[nb][0] = colsum[warp][c];
+        o[nb][1] = colsum[warp][c + 1];
+      }
+      if (dead1) {
+        o[nb][2] = colsum[warp][c];
+        o[nb][3] = colsum[warp][c + 1];
+      }
+    }
+    if (dead0) l0 = (float)Sk;
+    if (dead1) l1 = (float)Sk;
+  }
+
+  if (out != nullptr) {
+    const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int c = 8 * nb + 2 * qlane;
+      if (ok0)
+        *reinterpret_cast<__nv_bfloat162*>(out + qo0 + c) =
+            __floats2bfloat162_rn(o[nb][0] * i0, o[nb][1] * i0);
+      if (ok1)
+        *reinterpret_cast<__nv_bfloat162*>(out + qo1 + c) =
+            __floats2bfloat162_rn(o[nb][2] * i1, o[nb][3] * i1);
+    }
+  }
+  if (acc_out != nullptr) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = h2 ? r1 : r0;
+      if (!(h2 ? ok1 : ok0)) continue;
+      const size_t row = (size_t)(b * H + kvh * G + r % G) * Sq + r / G;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        *reinterpret_cast<float2*>(acc_out + row * HD + 8 * nb + 2 * qlane) =
+            make_float2(o[nb][2 * h2], o[nb][2 * h2 + 1]);
+      if (qlane == 0) {
+        m_out[row] = h2 ? m1 : m0;
+        l_out[row] = h2 ? l1 : l0;
+      }
+    }
+  }
+}
+
+// -------------------------------------------------------- (c) f32 forward
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
   return x;
@@ -61,139 +727,253 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// q, out: (B, Sq, H, HD); k, v: (B, Sk, KV, HD); q_pos: (B, Sq);
-// k_pos: (B, Sk). acc: (B, H, Sq, HD), m, l: (B, H, Sq) (partial form).
-// grid.x = B * KV, grid.y = ceil(Sq * G / kWarps); block = 32 * kWarps.
-template <typename T, int HD>
-__global__ void __launch_bounds__(32 * kWarps)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ q_pos,
-                 const int* __restrict__ k_pos, T* __restrict__ out,
-                 float* __restrict__ acc_out, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int Sq, int Sk, int H, int KV,
-                 int causal, int window, float scale) {
-  constexpr int kPer = (HD + 31) / 32;   // head-dim entries per lane
-  __shared__ float ks[kTile][HD + 1];
-  __shared__ float vs[kTile][HD];
-  __shared__ float qs[kWarps][HD];
-  __shared__ int kp[kTile];
+template <int HD>
+constexpr int f32_smem_bytes() {
+  return (kF32Keys * (HD + 1) + kF32Keys * HD
+          + kF32Warps * kF32RowsPerWarp * HD) * 4 + kF32Keys * 4;
+}
 
-  const int G = H / KV;
-  const int b = blockIdx.x / KV;
-  const int kvh = blockIdx.x % KV;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.y * kWarps + warp;   // (position, group member)
-  const bool active = row < Sq * G;             // uniform within a warp
-  const int qi = active ? row / G : 0;
-  const int h = kvh * G + (active ? row % G : 0);
+// grid = (B * KV, ceil(Sq * G / 32)), block = 32 * kF32Warps, dynamic
+// shared memory f32_smem_bytes<HD>(). Warp w owns rows 4w .. 4w + 3 of the
+// CTA's 32.
+template <int HD>
+__global__ void __launch_bounds__(32 * kF32Warps)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const int* __restrict__ q_pos,
+                     const int* __restrict__ k_pos, float* __restrict__ out,
+                     float* __restrict__ acc_out, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int Sq, int Sk, int H,
+                     int KV, int causal, int window, float scale) {
+  constexpr int KPER = (HD + 31) / 32;   // head-dim entries per lane
+  constexpr int RW = kF32RowsPerWarp;
+  constexpr int C4 = HD / 4;
+  extern __shared__ __align__(16) float fsm[];
+  float* ks = fsm;                                   // [32][HD + 1]
+  float* vs = ks + kF32Keys * (HD + 1);              // [32][HD]
+  float* qs = vs + kF32Keys * HD;                    // [32 rows][HD]
+  int* kp = reinterpret_cast<int*>(qs + kF32Warps * RW * HD);  // [32]
 
-  const size_t q_off = ((size_t)(b * Sq + qi) * H + h) * HD;
-  for (int d = lane; d < HD; d += 32)
-    qs[warp][d] = active ? to_f32(q[q_off + d]) * scale : 0.f;
-  const int qp = active ? q_pos[(size_t)b * Sq + qi] : 0;
-
-  float acc[kPer];
+  const int G = H / KV, R = Sq * G;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = blockIdx.y * kF32Warps * RW;
+  const auto qrow = [&](int r) -> size_t {
+    return ((size_t)(b * Sq + r / G) * H + kvh * G + r % G) * HD;
+  };
+  for (int e = threadIdx.x; e < kF32Warps * RW * HD; e += blockDim.x) {
+    const int rr = e / HD, d = e % HD, r = row0 + rr;
+    qs[e] = r < R ? q[qrow(r) + d] * scale : 0.f;
+  }
+  int qp[RW];
+  float m[RW], l[RW], acc[RW][KPER];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
-  float m = kNegInf, l = 0.f;
+  for (int i = 0; i < RW; ++i) {
+    const int r = row0 + warp * RW + i;
+    qp[i] = r < R ? q_pos[(size_t)b * Sq + r / G] : 0;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < KPER; ++c) acc[i][c] = 0.f;
+  }
 
-  for (int k0 = 0; k0 < Sk; k0 += kTile) {
-    __syncthreads();   // the previous tile (and qs) is consumed / written
-    for (int e = threadIdx.x; e < kTile * HD; e += blockDim.x) {
-      const int j = e / HD, d = e % HD, s = k0 + j;
-      float kx = 0.f, vx = 0.f;
+  const size_t kv_row = (size_t)KV * HD;
+  const float* kb = k + ((size_t)b * Sk * KV + kvh) * HD;
+  const float* vb = v + ((size_t)b * Sk * KV + kvh) * HD;
+  for (int k0 = 0; k0 < Sk; k0 += kF32Keys) {
+    __syncthreads();   // the previous tile is consumed (and qs written)
+    for (int e = threadIdx.x; e < kF32Keys * C4; e += blockDim.x) {
+      const int j = e / C4, c = e % C4, s = k0 + j;
+      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (s < Sk) {
-        const size_t off = ((size_t)(b * Sk + s) * KV + kvh) * HD + d;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
+        kx = *reinterpret_cast<const float4*>(kb + (size_t)s * kv_row + 4 * c);
+        vx = *reinterpret_cast<const float4*>(vb + (size_t)s * kv_row + 4 * c);
       }
-      ks[j][d] = kx;
-      vs[j][d] = vx;
+      float* kd = ks + j * (HD + 1) + 4 * c;
+      kd[0] = kx.x;
+      kd[1] = kx.y;
+      kd[2] = kx.z;
+      kd[3] = kx.w;
+      *reinterpret_cast<float4*>(vs + j * HD + 4 * c) = vx;
     }
-    if (threadIdx.x < kTile) {
+    if (threadIdx.x < kF32Keys) {
       const int s = k0 + threadIdx.x;
       kp[threadIdx.x] = s < Sk ? k_pos[(size_t)b * Sk + s] : 0;
     }
     __syncthreads();
-    if (!active) continue;
 
-    // lane j scores key k0 + j
+    // lane j scores key k0 + j for the warp's rows
     const bool exists = k0 + lane < Sk;
-    float sc = 0.f;
+    float sc[RW];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) sc[i] = 0.f;
+    const float* kr = ks + lane * (HD + 1);
+    const float* qw = qs + warp * RW * HD;
 #pragma unroll 8
-    for (int d = 0; d < HD; ++d) sc += qs[warp][d] * ks[lane][d];
-    const int kpj = kp[lane];
-    bool vis = kpj >= 0;
-    if (causal) vis = vis && kpj <= qp;
-    if (window > 0) vis = vis && (qp - kpj) < window;
-    sc = vis ? sc : kNegInf;
-
-    const float m_new = fmaxf(m, warp_max(exists ? sc : kAbsent));
-    const float p = exists ? expf(sc - m_new) : 0.f;
-    const float corr = expf(m - m_new);
-    l = l * corr + warp_sum(p);
+    for (int d = 0; d < HD; ++d) {
+      const float kx = kr[d];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) acc[i] *= corr;
-    const int n = min(kTile, Sk - k0);
+      for (int i = 0; i < RW; ++i) sc[i] = fmaf(qw[i * HD + d], kx, sc[i]);
+    }
+    float p[RW];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const float x = visible(qp[i], kp[lane], causal, window) ? sc[i]
+                                                               : kNegInf;
+      const float mn = fmaxf(m[i], warp_max(exists ? x : kAbsent));
+      p[i] = exists ? expf(x - mn) : 0.f;
+      const float c = expf(m[i] - mn);
+      l[i] = l[i] * c + warp_sum(p[i]);
+#pragma unroll
+      for (int cc = 0; cc < KPER; ++cc) acc[i][cc] *= c;
+      m[i] = mn;
+    }
+    const int n = min(kF32Keys, Sk - k0);
     for (int j = 0; j < n; ++j) {
-      const float pj = __shfl_sync(kFull, p, j);
+      float pj[RW];
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int d = lane + 32 * i;
-        if (d < HD) acc[i] += pj * vs[j][d];
+      for (int i = 0; i < RW; ++i) pj[i] = __shfl_sync(kFull, p[i], j);
+#pragma unroll
+      for (int cc = 0; cc < KPER; ++cc) {
+        const int d = lane + 32 * cc;
+        if (d < HD) {
+          const float vx = vs[j * HD + d];
+#pragma unroll
+          for (int i = 0; i < RW; ++i) acc[i][cc] = fmaf(pj[i], vx, acc[i][cc]);
+        }
       }
     }
-    m = m_new;
   }
 
-  if (!active) return;
-  if (out != nullptr) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) store(out + q_off + d, acc[i] * inv);
-    }
-  }
-  if (acc_out != nullptr) {
-    const size_t r = (size_t)(b * H + h) * Sq + qi;
+  for (int i = 0; i < RW; ++i) {
+    const int r = row0 + warp * RW + i;
+    if (r >= R) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    const size_t row = (size_t)(b * H + kvh * G + r % G) * Sq + r / G;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) acc_out[r * HD + d] = acc[i];
+    for (int cc = 0; cc < KPER; ++cc) {
+      const int d = lane + 32 * cc;
+      if (d >= HD) continue;
+      if (out != nullptr) out[qrow(r) + d] = acc[i][cc] * inv;
+      if (acc_out != nullptr) acc_out[row * HD + d] = acc[i][cc];
     }
-    if (lane == 0) {
-      m_out[r] = m;
-      l_out[r] = l;
+    if (acc_out != nullptr && lane == 0) {
+      m_out[row] = m[i];
+      l_out[row] = l[i];
     }
   }
 }
 
-template <typename T>
-cudaError_t launch_t(int hd, dim3 grid, dim3 block, cudaStream_t stream,
-                     const void* q, const void* k, const void* v,
-                     const int* qp, const int* kp, void* out, float* acc,
-                     float* m, float* l, int Sq, int Sk, int H, int KV,
-                     int causal, int window, float scale) {
-#define REPRO_FLASH_CASE(HD_)                                                 \
-  case HD_:                                                                   \
-    flash_fwd_kernel<T, HD_><<<grid, block, 0, stream>>>(                     \
-        static_cast<const T*>(q), static_cast<const T*>(k),                   \
-        static_cast<const T*>(v), qp, kp, static_cast<T*>(out), acc, m, l,    \
-        Sq, Sk, H, KV, causal, window, scale);                                \
-    break;
-  switch (hd) {
-    REPRO_FLASH_CASE(16)
-    REPRO_FLASH_CASE(32)
-    REPRO_FLASH_CASE(64)
-    REPRO_FLASH_CASE(128)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef REPRO_FLASH_CASE
+// ------------------------------------------------------------- launching
+struct Args {
+  const void *q, *k, *v;
+  const int *qp, *kp;
+  void* out;
+  float *acc, *m, *l;
+  int Sq, Sk, H, KV, causal, window;
+  float scale;
+};
+
+constexpr int decode_ring_bytes() {
+  return kDecodeWarps * kRing * 32 * (16 + 16 + 4);
+}
+
+template <typename T, int HD, int RM>
+cudaError_t launch_decode(const Args& a, dim3 grid, int chunk,
+                          cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_decode_kernel<T, HD, RM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, decode_ring_bytes());
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(32 * kDecodeWarps);
+  cfg.dynamicSmemBytes = decode_ring_bytes();
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = grid.y;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = grid.y > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(
+      &cfg, flash_decode_kernel<T, HD, RM>, static_cast<const T*>(a.q),
+      static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.qp, a.kp,
+      static_cast<T*>(a.out), a.acc, a.m, a.l, a.Sq, a.Sk, a.H, a.KV,
+      a.causal, a.window, a.scale, chunk);
+}
+
+template <typename T, int HD>
+cudaError_t decode_rows(const Args& a, int rows, dim3 grid, int chunk,
+                        cudaStream_t s) {
+  if (rows <= 1) return launch_decode<T, HD, 1>(a, grid, chunk, s);
+  if (rows <= 2) return launch_decode<T, HD, 2>(a, grid, chunk, s);
+  if (rows <= 4) return launch_decode<T, HD, 4>(a, grid, chunk, s);
+  return launch_decode<T, HD, 8>(a, grid, chunk, s);
+}
+
+template <int HD>
+cudaError_t launch_forward_bf16(const Args& a, dim3 grid, int warps,
+                                cudaStream_t s) {
+  constexpr int bytes = mma_smem_bytes<HD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return e;
+  using bf16 = __nv_bfloat16;
+  flash_fwd_mma_kernel<HD><<<grid, 32 * warps, bytes, s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.qp, a.kp, static_cast<bf16*>(a.out),
+      a.acc, a.m, a.l, a.Sq, a.Sk, a.H, a.KV, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
+
+template <int HD>
+cudaError_t launch_forward_f32(const Args& a, dim3 grid, cudaStream_t s) {
+  constexpr int bytes = f32_smem_bytes<HD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return e;
+  flash_fwd_f32_kernel<HD><<<grid, 32 * kF32Warps, bytes, s>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.qp, a.kp, static_cast<float*>(a.out),
+      a.acc, a.m, a.l, a.Sq, a.Sk, a.H, a.KV, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+#define REPRO_FLASH_HD(FN, ...)                       \
+  switch (hd) {                                       \
+    case 16: return FN<16>(__VA_ARGS__);              \
+    case 32: return FN<32>(__VA_ARGS__);              \
+    case 64: return FN<64>(__VA_ARGS__);              \
+    case 128: return FN<128>(__VA_ARGS__);            \
+    default: return cudaErrorInvalidValue;            \
+  }
+
+template <typename T>
+cudaError_t decode_hd(int hd, const Args& a, int rows, dim3 grid, int chunk,
+                      cudaStream_t s) {
+  switch (hd) {
+    case 16: return decode_rows<T, 16>(a, rows, grid, chunk, s);
+    case 32: return decode_rows<T, 32>(a, rows, grid, chunk, s);
+    case 64: return decode_rows<T, 64>(a, rows, grid, chunk, s);
+    case 128: return decode_rows<T, 128>(a, rows, grid, chunk, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t forward_bf16(int hd, const Args& a, dim3 grid, int warps,
+                         cudaStream_t s) {
+  REPRO_FLASH_HD(launch_forward_bf16, a, grid, warps, s)
+}
+
+cudaError_t forward_f32(int hd, const Args& a, dim3 grid, cudaStream_t s) {
+  REPRO_FLASH_HD(launch_forward_f32, a, grid, s)
+}
+#undef REPRO_FLASH_HD
 
 }  // namespace
 
@@ -201,32 +981,46 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). Either `out`
 // (normalized output) or all of `acc`, `m`, `l` (partials) may be null.
-// Returns the cudaError_t of the launch (0 on success); nothing is
-// synchronized and nothing is allocated.
+// form 0 = decode (row_tile = Sq * G <= 8, `splits` CTAs per (batch, kv
+// head) in one cluster), form 1 = forward (row_tile query rows per CTA: 16,
+// 32 or 64 in bf16, 32 in f32; splits = 1) -- flash.launch_geometry.
+// Returns the cudaError_t of the launch, or of setting the forward's
+// dynamic shared-memory size (0 on success); nothing is synchronized and
+// nothing is allocated.
 int repro_flash_attention(int dtype, const void* q, const void* k,
                           const void* v, const void* q_pos, const void* k_pos,
                           void* out, void* acc, void* m, void* l, int B,
                           int Sq, int Sk, int H, int KV, int hd, int causal,
-                          int window, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
+                          int window, float scale, int form, int row_tile,
+                          int splits, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
+      (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  const int G = H / KV;
-  dim3 grid(B * KV, (Sq * G + kWarps - 1) / kWarps);
-  dim3 block(32 * kWarps);
+  const int R = Sq * (H / KV);
+  const Args a{q, k, v, static_cast<const int*>(q_pos),
+               static_cast<const int*>(k_pos), out,
+               static_cast<float*>(acc), static_cast<float*>(m),
+               static_cast<float*>(l), Sq, Sk, H, KV, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* qp = static_cast<const int*>(q_pos);
-  const int* kp = static_cast<const int*>(k_pos);
-  float* a = static_cast<float*>(acc);
-  float* mm = static_cast<float*>(m);
-  float* ll = static_cast<float*>(l);
-  if (dtype == 0)
-    return launch_t<float>(hd, grid, block, s, q, k, v, qp, kp, out, a, mm,
-                           ll, Sq, Sk, H, KV, causal, window, scale);
-  if (dtype == 1)
-    return launch_t<__nv_bfloat16>(hd, grid, block, s, q, k, v, qp, kp, out,
-                                   a, mm, ll, Sq, Sk, H, KV, causal, window,
-                                   scale);
-  return cudaErrorInvalidValue;
+  if (form == 0) {
+    if (row_tile != R || R > kMaxRows || splits < 1 || splits > kMaxSplits ||
+        splits > Sk)
+      return cudaErrorInvalidValue;
+    const int chunk = (Sk + splits - 1) / splits;
+    if ((splits - 1) * chunk >= Sk) return cudaErrorInvalidValue;
+    const dim3 grid(B * KV, splits);
+    return dtype == 0 ? decode_hd<float>(hd, a, R, grid, chunk, s)
+                      : decode_hd<__nv_bfloat16>(hd, a, R, grid, chunk, s);
+  }
+  if (form != 1 || splits != 1) return cudaErrorInvalidValue;
+  if (dtype == 1 ? (row_tile != 16 && row_tile != 32 && row_tile != 64)
+                 : row_tile != kF32Warps * kF32RowsPerWarp)
+    return cudaErrorInvalidValue;
+  const int tiles = (R + row_tile - 1) / row_tile;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(B * KV, tiles);
+  return dtype == 1 ? forward_bf16(hd, a, grid, row_tile / 16, s)
+                    : forward_f32(hd, a, grid, s);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -2,14 +2,17 @@
 (``csrc/flash.cu``).
 
 Replaces the Pallas TPU kernel ``_flash_kernel`` / ``flash_attention`` of
-``repro.kernels.attention.flash``. On the card it is bounded by the bytes
-it moves (the serving shapes attend over a few dozen keys); the kernel's
-source note says what its design does about that. ``LAUNCHES`` counts the
-launches of this process (set it to 0 before a run to count that run).
+``repro.kernels.attention.flash``. Two forms, one launch each:
+``launch_geometry`` picks the form and the grid from the shapes (a pure
+function, so the CPU tests can check it); the kernel's source note says
+what bounds each form and what its design does about it. ``LAUNCHES``
+counts the launches of this process (set it to 0 before a run to count
+that run).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -17,7 +20,64 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_ROW_TILES = 65535        # grid.y limit: ceil(Sq * G / 4)
+_MAX_ROW_TILES = 65535        # grid.y limit: the forward's row tiles
+_MAX_CTAS_X = 2 ** 31 - 1     # grid.x limit: B * KV
+SMS = 132                     # H100 SXM streaming multiprocessors
+DECODE_ROWS = 8               # decode form: Sq * G rows at most
+DECODE_WARPS = 8
+MAX_SPLITS = 8                # keys of one (batch, kv head) over a cluster
+MIN_SPLIT_KEYS = 256          # fewest keys worth a CTA of their own
+SPLIT_TARGET_CTAS = 2 * SMS   # a split cache aims at two CTAs per SM
+FORWARD_KEY_TILE = {torch.bfloat16: 64, torch.float32: 32}
+F32_ROW_TILE = 32             # 8 warps x 4 rows
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One launch: ``grid`` = (B * KV, y) CTAs of ``block`` threads. CTA
+    (x, y) serves batch x // KV, kv head x % KV. Decode form: y is the key
+    split, the CTA takes every query row (``row_tile`` = Sq * G) and keys
+    [y * keys_per_split, (y + 1) * keys_per_split); the ``key_splits`` CTAs
+    of one (batch, kv head) form a cluster. Forward form: y is the row
+    tile, the CTA takes query rows [y * row_tile, (y + 1) * row_tile) and
+    every key, ``key_tile`` at a time. A query row is (position, group
+    member): row r is position r // G of query head kv_head * G + r % G."""
+    form: str                 # "decode" or "forward"
+    grid: tuple[int, int]
+    block: int
+    row_tile: int
+    key_splits: int
+    keys_per_split: int
+    key_tile: int             # forward: keys per shared tile; decode: keys
+    #                           per warp step (lane groups x warps)
+
+
+def launch_geometry(B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
+                    dtype: torch.dtype) -> Geometry:
+    """The form and grid the kernel launches with (see ``Geometry``)."""
+    G = H // KV
+    rows = Sq * G
+    if rows <= DECODE_ROWS:
+        splits = 1
+        if B * KV < SMS and Sk >= 2 * MIN_SPLIT_KEYS:
+            splits = min(MAX_SPLITS, -(-SPLIT_TARGET_CTAS // (B * KV)),
+                         Sk // MIN_SPLIT_KEYS)
+        chunk = -(-Sk // splits)
+        splits = -(-Sk // chunk)
+        per_key = hd * (4 if dtype == torch.float32 else 2) // 16
+        return Geometry("decode", (B * KV, splits), 32 * DECODE_WARPS, rows,
+                        splits, chunk, (32 // per_key) * DECODE_WARPS)
+    if dtype == torch.float32:
+        row_tile = F32_ROW_TILE
+    else:   # the largest tile of 4, 2, 1 warps (16 rows each) that fills
+        row_tile = 16
+        for warps in (4, 2):
+            if -(-rows // (16 * warps)) * B * KV >= SMS:
+                row_tile = 16 * warps
+                break
+    block = 32 * (row_tile // 16) if dtype == torch.bfloat16 else 256
+    return Geometry("forward", (B * KV, -(-rows // row_tile)), block,
+                    row_tile, 1, Sk, FORWARD_KEY_TILE[dtype])
 
 LAUNCHES = 0
 
@@ -28,18 +88,24 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, p, p, p, p, p, p, p, p, p,
-                       i, i, i, i, i, i, i, i, ctypes.c_float, p]
+                       i, i, i, i, i, i, i, i, ctypes.c_float, i, i, i, p]
         fn.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q, k, v, q_pos, k_pos):
+def _check(q, k, v, q_pos, k_pos) -> Geometry:
     if not (q.is_cuda and k.device == q.device and v.device == q.device
             and q_pos.device == q.device and k_pos.device == q.device):
         raise ValueError("flash_attention: every tensor must be on one CUDA "
                          "device")
+    return _check_layout(q, k, v, q_pos, k_pos)
+
+
+def _check_layout(q, k, v, q_pos, k_pos) -> Geometry:
+    """Types, shapes, contiguity and alignment the kernel takes, on any
+    device; returns the launch geometry."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes f32 or bf16 q/k/v of one "
                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -59,11 +125,22 @@ def _check(q, k, v, q_pos, k_pos):
     if tuple(q_pos.shape) != (B, Sq) or tuple(k_pos.shape) != (B, k.shape[1]):
         raise ValueError("flash_attention: positions must be (B, Sq) and "
                          "(B, Sk)")
-    if -(-Sq * (H // k.shape[2]) // 4) > _MAX_ROW_TILES:
-        raise ValueError("flash_attention: too many query rows for one grid")
     for t in (q, k, v, q_pos, k_pos):
         if not t.is_contiguous():
             raise ValueError("flash_attention takes contiguous tensors")
+    # 16-byte vector loads and cp.async: aligned bases and row pitches
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or (hd * t.element_size()) % 16:
+            raise ValueError(f"flash_attention: {name} must start on a "
+                             f"16-byte boundary with 16-byte rows")
+    for name, t in (("q_pos", q_pos), ("k_pos", k_pos)):
+        if t.data_ptr() % 4:
+            raise ValueError(f"flash_attention: {name} must be 4-byte "
+                             f"aligned")
+    geo = launch_geometry(B, Sq, k.shape[1], H, k.shape[2], hd, q.dtype)
+    if geo.grid[1] > _MAX_ROW_TILES or geo.grid[0] > _MAX_CTAS_X:
+        raise ValueError("flash_attention: too many query rows for one grid")
+    return geo
 
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
@@ -72,7 +149,7 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     the function): q (B, Sq, H, hd), k/v (B, Sk, KV, hd), int32 positions
     (B, Sq)/(B, Sk). Raises on anything the kernel does not take."""
     global LAUNCHES
-    _check(q, k, v, q_pos, k_pos)
+    geo = _check(q, k, v, q_pos, k_pos)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = acc = m = l = None
@@ -94,7 +171,8 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             q_pos.data_ptr(), k_pos.data_ptr(), ptr(out), ptr(acc), ptr(m),
             ptr(l), B, Sq, Sk, H, KV, hd, int(causal), int(window),
-            hd ** -0.5, stream)
+            hd ** -0.5, 0 if geo.form == "decode" else 1, geo.row_tile,
+            geo.key_splits, stream)
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

@@ -157,24 +157,173 @@ def test_cpu_tensors_take_the_plain_version():
         flash.flash_attention(q, k, v, pos, pos)
 
 
+# (B, Sq, Sk, H, KV, hd): every main-path row of chip_smoke.py (qwen3 and
+# MoE decode and forward at 1 and 8 PEs), its two long rows, ragged edges
+GEOMETRY_SHAPES = [
+    (4, 1, 48, 16, 8, 128), (32, 1, 6, 16, 8, 128), (4, 1, 48, 16, 16, 128),
+    (32, 1, 6, 16, 16, 128), (4, 48, 48, 16, 8, 128), (32, 48, 48, 2, 1, 128),
+    (4, 1, 4096, 16, 8, 128), (4, 2048, 2048, 16, 8, 128),
+    (2, 37, 70, 8, 1, 32), (3, 16, 16, 4, 2, 16), (1, 33, 33, 4, 4, 64),
+    (2, 3, 600, 4, 2, 64), (1, 1, 513, 2, 1, 16), (2, 5, 9, 16, 16, 32),
+    (1, 9, 65, 8, 8, 128), (1, 1, 1031, 8, 1, 128),
+]
+
+
+def _coverage(geo, B, Sq, Sk, H, KV, dtype):
+    """How often each (batch, query head, query position, key) is scored
+    by the launch ``geo`` describes: CTAs, their warps, lane groups."""
+    G = H // KV
+    R = Sq * G
+    count = np.zeros((B, H, Sq, Sk), np.int64)
+    assert geo.grid[0] == B * KV
+    warps = geo.block // 32
+    for x in range(geo.grid[0]):
+        b, kvh = divmod(x, KV)
+        for y in range(geo.grid[1]):
+            if geo.form == "decode":
+                rows = range(R)
+                lo = y * geo.keys_per_split
+                hi = min(Sk, lo + geo.keys_per_split)
+                kpw = geo.key_tile // warps      # lane groups per warp
+                keys = [s for w in range(warps) for g in range(kpw)
+                        for s in range(lo + w * kpw + g, hi, geo.key_tile)]
+            else:
+                per_warp = geo.row_tile // warps
+                rows = [y * geo.row_tile + w * per_warp + i
+                        for w in range(warps) for i in range(per_warp)
+                        if y * geo.row_tile + w * per_warp + i < R]
+                keys = [t + j for t in range(0, Sk, geo.key_tile)
+                        for j in range(geo.key_tile) if t + j < Sk]
+            for r in rows:
+                count[b, kvh * G + r % G, r // G, keys] += 1
+    return count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", GEOMETRY_SHAPES)
+def test_launch_geometry_covers_every_pair_once(dtype, B, Sq, Sk, H, KV, hd):
+    geo = flash.launch_geometry(B, Sq, Sk, H, KV, hd, dtype)
+    rows = Sq * H // KV
+    assert geo.form == ("decode" if rows <= flash.DECODE_ROWS
+                        else "forward")
+    assert geo.grid[1] <= flash._MAX_ROW_TILES
+    if geo.form == "decode":
+        assert geo.row_tile == rows and geo.block == 256
+        assert 1 <= geo.key_splits <= flash.MAX_SPLITS
+        assert geo.grid[1] == geo.key_splits
+        # every split of the cluster has keys
+        assert (geo.key_splits - 1) * geo.keys_per_split < Sk
+        lanes = hd * dtype.itemsize // 16       # lanes holding one key
+        assert geo.key_tile == 32 // lanes * flash.DECODE_WARPS
+    else:
+        assert geo.key_splits == 1 and geo.keys_per_split == Sk
+        if dtype == torch.bfloat16:
+            assert geo.row_tile in (16, 32, 64)
+            assert geo.block == 2 * geo.row_tile
+        else:
+            assert geo.row_tile == 32 and geo.block == 256
+    count = _coverage(geo, B, Sq, Sk, H, KV, dtype)
+    assert count.min() == 1 and count.max() == 1
+
+
+@pytest.mark.parametrize("shape,form,ctas", [
+    ((4, 1, 48, 16, 8), "decode", 32),         # qwen3 decode, 1 PE
+    ((32, 1, 6, 16, 8), "decode", 256),        # qwen3 decode, 8 PEs
+    ((4, 1, 48, 16, 16), "decode", 64),        # MoE decode, 1 PE
+    ((32, 1, 6, 16, 16), "decode", 512),       # MoE decode, 8 PEs
+    ((4, 48, 48, 16, 8), "forward", 192),      # qwen3 forward, 1 PE
+    ((32, 48, 48, 2, 1), "forward", 192),      # qwen3 forward, 8 PEs
+    ((4, 1, 4096, 16, 8), "decode", 256),      # long cache: 8-CTA clusters
+    ((4, 2048, 2048, 16, 8), "forward", 2048),
+])
+def test_serving_shapes_fill_the_card(shape, form, ctas):
+    """The bf16 main-path forward launches at least one CTA per SM (96
+    rows per kv head: 16-row tiles), the long cache splits its keys."""
+    geo = flash.launch_geometry(*shape, 128, torch.bfloat16)
+    assert geo.form == form
+    assert geo.grid[0] * geo.grid[1] == ctas
+    if form == "forward" or shape[2] > 1000:
+        assert ctas >= flash.SMS
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_raises_on_misaligned_tensor(which, dtype):
+    """16-byte vector loads need 16-byte aligned bases: a view that starts
+    one element in is refused, never taken by a fallback."""
+    B, Sq, Sk, H, KV, hd = 1, 2, 8, 4, 2, 16
+    shapes = {"q": (B, Sq, H, hd), "k": (B, Sk, KV, hd), "v": (B, Sk, KV, hd)}
+    ts = {n: torch.zeros(s, dtype=dtype) for n, s in shapes.items()}
+    q_pos = torch.zeros((B, Sq), dtype=torch.int32)
+    k_pos = torch.zeros((B, Sk), dtype=torch.int32)
+    args = lambda: (ts["q"], ts["k"], ts["v"], q_pos, k_pos)  # noqa: E731
+    assert flash._check_layout(*args()).form == "decode"
+    n = int(np.prod(shapes[which]))
+    ts[which] = torch.zeros(n + 1, dtype=dtype)[1:].view(shapes[which])
+    assert ts[which].is_contiguous() and ts[which].data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        flash._check_layout(*args())
+
+
+# (B, Sq, Sk, H, KV, hd, window, q0, k0): one case per form, and a forward
+# whose first rows see no key while its later rows skip tiles
+CARD_CASES = {
+    "decode": (3, 1, 37, 8, 2, 128, 16, 30, -2),
+    "forward": (3, 40, 37, 8, 2, 128, 16, 30, -2),
+    "no_visible_key": (2, 30, 200, 4, 2, 64, -1, 90, 100),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("partial", [False, True])
-def test_kernel_matches_plain_version_on_the_card(dtype, partial):
+def test_kernel_matches_plain_version_on_the_card(dtype, partial, case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    (q, k, v), _ = _inputs(2, 3, 5, 37, 8, 2, 128, dtype)
+    B, Sq, Sk, H, KV, hd, window, q0, k0 = CARD_CASES[case]
+    (q, k, v), _ = _inputs(2, B, Sq, Sk, H, KV, hd, dtype)
     q, k, v = (t.cuda() for t in (q, k, v))
-    q_pos = (torch.arange(5, device="cuda") + 30).expand(3, 5)
-    k_pos = torch.arange(37, device="cuda").expand(3, 37) - 2
+    q_pos = (torch.arange(Sq, device="cuda") + q0).expand(B, Sq)
+    k_pos = torch.arange(Sk, device="cuda").expand(B, Sk) + k0
     q_pos, k_pos = (p.to(torch.int32).contiguous() for p in (q_pos, k_pos))
+    geo = flash.launch_geometry(B, Sq, Sk, H, KV, hd, q.dtype)
+    assert geo.form == ("decode" if case == "decode" else "forward")
     before = flash.LAUNCHES
-    got = ops.flash_attention(q, k, v, q_pos, k_pos, window=16,
+    got = ops.flash_attention(q, k, v, q_pos, k_pos, window=window,
                               partial=partial)
     torch.cuda.synchronize()
     assert flash.LAUNCHES == before + 1
-    want = ref.flash_attention(q, k, v, q_pos, k_pos, window=16,
+    want = ref.flash_attention(q, k, v, q_pos, k_pos, window=window,
                                partial=partial)
     tol = TOL[dtype]
     for g, w in zip(got if partial else (got,), want if partial else (want,)):
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+    dead = ~ref.mask(q_pos, k_pos, True, window).any(-1)      # (B, Sq)
+    if case == "no_visible_key":
+        assert dead.any() and not dead.all()
+    if partial:
+        m, l = got[1].transpose(1, 2)[dead], got[2].transpose(1, 2)[dead]
+        assert bool((m == -1e30).all()) and bool((l == Sk).all())
+    else:
+        mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)
+        rows = got.float()[dead]                     # (n, H, hd)
+        want_rows = mean_v[:, None].expand(B, Sq, H, hd)[dead]
+        torch.testing.assert_close(rows, want_rows, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_check_raises_on_misaligned_tensor_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    (q, k, v), _ = _inputs(4, 1, 2, 8, 4, 2, 64, "bfloat16")
+    q, k, v = (t.cuda() for t in (q, k, v))
+    q_pos = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    k_pos = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
+    buf = torch.zeros(k.numel() + 1, dtype=k.dtype, device="cuda")
+    k_off = buf[1:].view(k.shape)
+    k_off.copy_(k)
+    before = flash.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        flash.flash_attention(q, k_off, v, q_pos, k_pos)
+    assert flash.LAUNCHES == before
