@@ -7,16 +7,20 @@ Phases, each printed as one JSON line:
 
   build   builds every hand-written kernel from the sources in this checkout
           (one nvcc per source, all started together) and prints ptxas's
-          register / shared-memory report;
+          register / shared-memory / spill report;
+  no_spills  fails if ptxas reports a spill in any kernel instance;
   kernel  holds the flash-attention kernel against its plain PyTorch
           version on the card -- f32 within 2e-5, bf16 within 2e-2 of
           max(1, max|plain|) -- in both of its forms (decode: Sq * G <= 8
           rows per kv head, keys split over warps and over a cluster for
           long caches; forward: bf16 on tensor cores, f32 on CUDA cores),
           full and partial, with GQA and without (H == KV), G = 1 and 8,
-          every head_dim, windows, offsets, row and key counts off the
-          tiles, causal forwards of 512 that skip tiles, and rows that see
-          no key (m = -1e30 and l = Sk, or the mean of v); it times two
+          every head_dim (16, 32, 64, 96, 128, 256; at 96 and 256 decode
+          with G = 1 and 4 at 1-8 rows, a sequence-sharded partial, 2- and
+          8-CTA clusters, forwards in CTAs of 1, 2 and 4 warps), windows,
+          offsets, row and key counts off the tiles, causal forwards of 512
+          that skip tiles, and rows that see no key (m = -1e30 and l = Sk,
+          or the mean of v); it times two
           rows off the main path with their plain version, bound and SDPA
           (a 4096-key cache at decode, a 2048-token causal forward); and
           the reorder kernel (tile_swizzle) against its plain
@@ -80,6 +84,21 @@ Phases, each printed as one JSON line:
           and cache against the teacher-forced loop within 2e-4 * max(1,
           max|ref|) (1e-4 and the plain prefill's own distance reported
           beside it); prefill + decode's greedy tokens the loop's;
+  serve_dense  full-width phi3-mini-3.8b (hd 96, 32 heads, G = 1) at 1 and
+          8 PEs and gemma3-1b (hd 256, G = 4, 5:1 local:global windows of
+          512) at 1 and 4 PEs, bf16, through the launcher's function: decode
+          within 5e-2 * max(1, max|ref|) of forward_logits, 1 PE vs n PEs
+          the same, exactly n_layers x 47 flash launches per decode run and
+          n_layers per forward, a decode profile per cell, bf16's distance
+          from the f32 forward reported; and gemma3's 1,024-token forward at
+          1 PE (the window masks keys and the bf16 forward skips tiles)
+          against its witness, the same forward with the plain version in
+          the kernel's place, within 5e-2 * max(1, max|ref|). The inputs of
+          the kernel's last launch on each path and run are kept;
+  serve_dense_f32  the same in f32 (TF32 off): 1-PE vs n-PE logits within
+          1e-4 * max(1, max|ref|), identical greedy tokens, the same launch
+          counts, and the 1,024-token forward within 1e-4 * max(1, max|ref|)
+          of its witness;
   main_path  each kernel on the inputs the serve phases kept (the shapes and
           positions the serving path gives it): checked against the plain
           version, then timed with the plain version, the bound, and one
@@ -126,6 +145,10 @@ KERNEL_SOURCE = "src/repro_torch/kernels/attention/csrc/flash.cu"
 REORDER_TPU_KERNEL = "src/repro/kernels/reorder/reorder.py:46"
 REORDER_SOURCE = "src/repro_torch/kernels/reorder/csrc/reorder.cu"
 RWKV_ARCH = "rwkv6-7b"
+# the dense archs with head dims 96 and 256, and the PE counts each serves
+# at (gemma3's 4 query heads bound its head parallelism at 4)
+DENSE_ARCHS = {"phi3-mini-3.8b": (1, 8), "gemma3-1b": (1, 4)}
+LONG_ARCH, LONG_SEQ = "gemma3-1b", 1024   # a forward past the 512 window
 # RWKV6 kernel vs its plain version, x max(1, max|plain|), on o and state
 RWKV6_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
 # rwkv6-7b's forward and prefill with the kernel against the same paths
@@ -181,8 +204,18 @@ def phase_build() -> dict:
                      if "registers" in ln or "spill" in ln
                      or "Compiling entry" in ln] or [log.strip()]
               for name, log in logs.items()}
+    # the entry functions whose ptxas report shows a spill
+    spilling = []
+    for name, lines in report.items():
+        entry = None
+        for ln in lines:
+            if "Compiling entry" in ln:
+                entry = ln.split("'")[1] if "'" in ln else ln
+            elif "spill" in ln and not ln.startswith("0 bytes stack frame, "
+                                                      "0 bytes spill stores"):
+                spilling.append([name, entry, ln])
     return {"seconds": round(time.perf_counter() - t0, 3),
-            "libraries": sorted(logs), "ptxas": report}
+            "libraries": sorted(logs), "spilling": spilling, "ptxas": report}
 
 
 # ------------------------------------------------------------------ kernel
@@ -269,6 +302,34 @@ FLASH_CASES = [
     (2, 1, 600, 16, 8, 128, True, -1, 599, 0, True, False),
     (1, 1, 4096, 16, 8, 128, True, 1000, 4095, 0, False, False),
 ]
+# head dims 96 (phi3-mini: 12 bf16 / 24 f32 pieces a key, padded lane
+# groups) and 256 (gemma3: Q in shared memory in the bf16 forward, two
+# pieces a lane in the f32 decode, warp partials in dynamic shared memory)
+for _hd in (96, 256):
+    FLASH_CASES += [
+        # decode, G = 1 at 1, 2, 4 and 8 rows; G = 4 at 4 and 8 rows
+        (4, 1, 48, 8, 8, _hd, True, -1, 47, 0, True, False),
+        (2, 2, 40, 4, 4, _hd, True, -1, 38, 0, False, False),
+        (2, 4, 33, 2, 2, _hd, True, 16, 29, 0, True, False),
+        (1, 8, 70, 2, 2, _hd, True, -1, 62, 0, False, False),
+        (4, 1, 48, 4, 1, _hd, True, -1, 47, 0, True, False),
+        (2, 2, 600, 8, 2, _hd, True, 512, 598, 0, False, False),  # 2-CTA
+        # a sequence-sharded partial decode: shards 4-7 see no key
+        (8, 1, 6, 4, 1, _hd, True, -1, 20, 0, True, True),
+        # a long windowed cache over an 8-CTA cluster
+        (1, 1, 4096, 4, 1, _hd, True, 512, 4095, 0, True, False),
+        # forward: causal 512 with window 128 (skips tiles), G = 4
+        (1, 512, 512, 4, 1, _hd, True, 128, 0, 0, False, False),
+        # rows that see no key, with tiles skipped for the others
+        (2, 30, 200, 4, 2, _hd, True, -1, 90, 100, False, False),
+        (2, 30, 200, 4, 2, _hd, True, -1, 90, 100, True, False),
+        # G = 1 rows off the tile; non-causal partial with G = 4
+        (2, 37, 70, 4, 4, _hd, True, -1, 40, 0, False, False),
+        (1, 33, 65, 4, 1, _hd, False, -1, 0, 0, True, False),
+        # CTAs of 4 and of 2 warps (64- and 32-row tiles), keys off the tile
+        (4, 256, 300, 16, 8, _hd, True, -1, 44, 0, False, False),
+        (2, 144, 150, 16, 8, _hd, True, 100, 6, 0, True, False),
+    ]
 # off the main path, timed beside it: a long cache at decode (bytes) and a
 # long causal forward (operations); B, Sq, Sk, H, KV, partial
 FLASH_LONG_ROWS = {"long_decode": (4, 1, 4096, 16, 8, True),
@@ -934,9 +995,10 @@ def _moe_ok(s: dict) -> bool:
             and s["peak_mem_gb"] < s["card_mem_gb"])
 
 
-def _drop(run) -> dict:
-    """What the comparison needs of a run; the weights leave the card."""
-    out = {k: run[k] for k in ("tokens", "dec", "routes", "summary")}
+def _drop(run, *extra) -> dict:
+    """What the comparison needs of a run (tokens, decode logits, summary,
+    and the ``extra`` keys); the weights leave the card."""
+    out = {k: run[k] for k in ("tokens", "dec", "summary", *extra)}
     run.clear()
     torch.cuda.empty_cache()
     return out
@@ -949,7 +1011,7 @@ def phase_serve_moe(dev, kept: dict, kept_reorder: dict) -> dict:
     for pes in PES:
         run = _moe_run(dev, pes, torch.bfloat16, kept, kept_reorder)
         run["summary"]["profile"] = profile_decode(run, dev)
-        runs[pes] = _drop(run)
+        runs[pes] = _drop(run, "routes")
     a, b = runs[PES[0]], runs[PES[-1]]
     # steps whose inputs agree: the prompt, then while greedy tokens agree
     same = np.cumprod(a["tokens"][:, :-1] == b["tokens"][:, :-1], axis=1)
@@ -976,7 +1038,8 @@ def phase_serve_moe_f32(dev) -> dict:
     """1 PE against 8 PEs in f32 (TF32 off): logits within 1e-4 x
     max(1, max|ref|), identical greedy tokens, identical top-k expert ids
     at every (step, layer, request)."""
-    runs = {pes: _drop(_moe_run(dev, pes, torch.float32)) for pes in PES}
+    runs = {pes: _drop(_moe_run(dev, pes, torch.float32), "routes")
+            for pes in PES}
     a, b = runs[PES[0]], runs[PES[-1]]
     scale = max(1.0, float(a["dec"].abs().max()))
     err = float((a["dec"] - b["dec"]).abs().max())
@@ -990,6 +1053,204 @@ def phase_serve_moe_f32(dev) -> dict:
             "routes_identical": same_routes,
             "routing_decisions": int(a["routes"][..., 0].numel()),
             "runs": sums}
+
+
+# ----------------------------------------------------------- dense archs
+def plain_flash():
+    """While open, the model's attention runs the flash kernel's plain
+    version on the card (a reference computation: no launch)."""
+    from repro_torch.kernels.attention import ops, ref
+    return patched(ops, "flash_attention", lambda _: ref.flash_attention)
+
+
+def _dense_forward(run, pes: int, dtype, tokens) -> torch.Tensor:
+    """``forward_logits`` of ``tokens`` (B, S) on the run's weights, on the
+    forward topology of the run's cube: global logits (B, S, V_padded)."""
+    from repro_torch.models.lm import Model
+    from repro_torch.models.topology import build_topology
+    cfg = dataclasses.replace(run["cfg"], tp=pes)
+    ftopo = build_topology(cfg, pes)
+    if ftopo.cube != run["topo"].cube:
+        raise RuntimeError("forward and serve cubes differ")
+    out = Model(cfg, ftopo, dtype=dtype).forward_logits(
+        run["params"], {"tokens": ftopo.cube.to_cube(tokens, (ftopo.dp,
+                                                               None))})
+    return ftopo.cube.from_cube(out, (ftopo.dp, None, ftopo.tp))
+
+
+def _dense_long_forward(run, dev, dtype, keep) -> dict:
+    """gemma3's windowed forward over LONG_SEQ tokens at 1 PE: the local
+    layers' 512-key window masks keys and the bf16 forward skips tiles.
+    Held against the witness, the same forward with the plain version in
+    the kernel's place, within F32_TOL (f32) or SERVE_TOL (bf16) x max(1,
+    max|ref|); in bf16 the f32 forward of the same tokens is reported."""
+    from repro_torch.kernels.attention import flash
+    cfg = run["cfg"]
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (1, LONG_SEQ))).to(dev)
+    n0 = flash.LAUNCHES
+    with keep(f"forward{LONG_SEQ}"):
+        got = _dense_forward(run, 1, dtype, toks)
+    torch.cuda.synchronize()
+    n_kernel = flash.LAUNCHES - n0
+    with plain_flash():
+        want = _dense_forward(run, 1, dtype, toks)
+    torch.cuda.synchronize()
+    out = {"seq": LONG_SEQ, "windows": sorted({int(w) for w in cfg.windows()}),
+           "launches": n_kernel, "expected_launches": cfg.n_layers,
+           "plain_witness_launches": flash.LAUNCHES - n0 - n_kernel,
+           "finite": bool(torch.isfinite(got).all()),
+           **_held(got, want, F32_TOL if dtype == torch.float32
+                   else SERVE_TOL)}
+    if dtype == torch.bfloat16:
+        with plain_flash():
+            f32 = _dense_forward(run, 1, torch.float32, toks)
+        out.update(vs_f32_err=float((got - f32).abs().max()),
+                   witness_vs_f32_err=float((want - f32).abs().max()))
+    out["ok"] = (out["ok"] and out["finite"]
+                 and out["launches"] == out["expected_launches"]
+                 and out["plain_witness_launches"] == 0)
+    return out
+
+
+def _dense_run(dev, arch: str, pes: int, dtype, kept=None) -> dict:
+    """One full-width serve of a dense arch through the launcher's function,
+    then ``forward_logits`` of the served tokens; the flash kernel's
+    launches of each counted exactly (one per layer and decode step, one
+    per layer and forward). With ``kept``, the inputs of the kernel's last
+    launch on each path. gemma3 at 1 PE also runs the long forward."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch.serve import serve
+
+    def keep(path):
+        return (keep_kernel_inputs(kept, f"{arch}/{path}/{pes}pe")
+                if kept is not None else contextlib.nullcontext())
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    n0 = flash.LAUNCHES
+    t0 = time.perf_counter()
+    with keep("decode"):
+        run = serve(arch, batch=BATCH, prompt_len=PROMPT, gen=GEN, pes=pes,
+                    device=dev, seed=0, dtype=dtype, keep_logits=True)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    n_dec = flash.LAUNCHES - n0
+    toks = torch.from_numpy(run["tokens"]).to(dev)
+    n1 = flash.LAUNCHES
+    with keep("forward"):
+        fwd = _dense_forward(run, pes, dtype, toks)[:, :-1]
+    torch.cuda.synchronize()
+    n_fwd = flash.LAUNCHES - n1
+    dec = torch.stack(run["logits"], dim=1)               # (B, S-1, Vp)
+    cfg, steps = run["cfg"], len(run["step_ms"])
+    vs_fwd = _held(dec, fwd, SERVE_TOL if dtype == torch.bfloat16
+                   else F32_TOL)
+    s = {"arch": arch, "pes": pes, "cube": run["topo"].cube.describe(),
+         "dtype": str(dtype).split(".")[-1],
+         "ms_per_step": run["ms_per_step"],
+         "p75_ms_per_step": float(np.percentile(run["step_ms"][1:], 75)),
+         "steps_timed": steps - 1, "tok_per_s": run["tok_per_s"],
+         "serve_s": serve_s,
+         "flash_launches_decode": n_dec, "flash_launches_forward": n_fwd,
+         "expected_launches_decode": cfg.n_layers * steps,
+         "expected_launches_forward": cfg.n_layers,
+         "decode_vs_forward_err": vs_fwd["err"],
+         "decode_vs_forward_bound": vs_fwd["bound"],
+         "decode_greedy_matches_forward": float(
+             (dec.argmax(-1) == fwd.argmax(-1)).float().mean()),
+         "finite": bool(torch.isfinite(dec).all()
+                        and torch.isfinite(fwd).all())}
+    if dtype == torch.bfloat16:
+        # the size of bf16 rounding alone: the same tokens' f32 forward
+        with plain_flash():
+            f32 = _dense_forward(run, pes, torch.float32, toks)[:, :-1]
+        s.update(decode_vs_f32_err=float((dec - f32).abs().max()),
+                 forward_vs_f32_err=float((fwd - f32).abs().max()),
+                 f32_max_logit=float(f32.abs().max()))
+        del f32
+    if arch == LONG_ARCH and pes == 1:
+        s["long_forward"] = _dense_long_forward(run, dev, dtype, keep)
+    s["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    run.update(dec=dec, summary=s)
+    return run
+
+
+def _dense_ok(s: dict, gate_decode: bool) -> bool:
+    return (s["finite"]
+            and s["flash_launches_decode"] == s["expected_launches_decode"]
+            and s["flash_launches_forward"] == s["expected_launches_forward"]
+            and (not gate_decode
+                 or s["decode_vs_forward_err"] <= s["decode_vs_forward_bound"])
+            and s.get("long_forward", {"ok": True})["ok"])
+
+
+def _dense_pair(runs: dict, pes: tuple) -> dict:
+    """1 PE against n PEs of one arch: logits over the steps whose inputs
+    agree (the prompt, then while greedy tokens agree), and the tokens."""
+    a, b = runs[pes[0]], runs[pes[-1]]
+    same = np.cumprod(a["tokens"][:, :-1] == b["tokens"][:, :-1], axis=1)
+    same = torch.from_numpy(same.astype(bool)).to(a["dec"].device)
+    return {"err": float((a["dec"] - b["dec"]).abs()[same].max()),
+            "scale": max(1.0, float(a["dec"].abs().max())),
+            "compared_steps": int(same.sum()),
+            "tokens_identical": bool((a["tokens"] == b["tokens"]).all()),
+            "greedy_agreement": float(
+                (a["tokens"][:, PROMPT:] == b["tokens"][:, PROMPT:]).mean())}
+
+
+def phase_serve_dense(dev, kept: dict) -> dict:
+    """phi3-mini (hd 96, G = 1) at 1 and 8 PEs and gemma3 (hd 256, G = 4,
+    5:1 local:global windows) at 1 and 4 PEs, full width, bf16: decode
+    within SERVE_TOL x max(1, max|ref|) of forward_logits, 1 PE vs n PEs
+    the same, exact flash launches per run, a decode profile per cell, and
+    gemma3's 1,024-token forward against its plain witness. ``kept``
+    receives the kernel's inputs of its last launch per path and run."""
+    from repro_torch.kernels.attention import flash
+    flash.LAUNCHES = 0          # the dense paths' runs start here
+    out, ok, profiled = {}, True, 0
+    for arch, pes_list in DENSE_ARCHS.items():
+        runs = {}
+        for pes in pes_list:
+            run = _dense_run(dev, arch, pes, torch.bfloat16, kept)
+            n0 = flash.LAUNCHES     # the profiled steps are not the path's
+            run["summary"]["profile"] = profile_decode(run, dev)
+            profiled += flash.LAUNCHES - n0
+            runs[pes] = _drop(run)
+        pair = _dense_pair(runs, pes_list)
+        sums = [runs[p]["summary"] for p in pes_list]
+        arch_ok = (all(_dense_ok(s, True) for s in sums)
+                   and pair["err"] <= SERVE_TOL * pair["scale"])
+        ok &= arch_ok
+        out[arch] = {"ok": arch_ok, "runs": sums, f"pe1_vs_pe{pes_list[-1]}":
+                     pair, "flash_launches": sum(
+                         s["flash_launches_decode"] + s["flash_launches_forward"]
+                         + s.get("long_forward", {}).get("launches", 0)
+                         for s in sums)}
+    launches = flash.LAUNCHES - profiled
+    counted = sum(out[a]["flash_launches"] for a in DENSE_ARCHS)
+    return {"ok": ok and launches == counted, "batch": BATCH,
+            "prompt_len": PROMPT, "gen": GEN, "archs": out,
+            "flash_launches": launches, "profiled_launches": profiled}
+
+
+def phase_serve_dense_f32(dev) -> dict:
+    """The same archs in f32 (TF32 off): 1-PE vs n-PE logits within 1e-4 x
+    max(1, max|ref|), identical greedy tokens, exact launches, and gemma3's
+    1,024-token forward within 1e-4 x max(1, max|ref|) of its witness."""
+    out, ok = {}, True
+    for arch, pes_list in DENSE_ARCHS.items():
+        runs = {pes: _drop(_dense_run(dev, arch, pes, torch.float32))
+                for pes in pes_list}
+        pair = _dense_pair(runs, pes_list)
+        sums = [runs[p]["summary"] for p in pes_list]
+        arch_ok = (all(_dense_ok(s, False) for s in sums)
+                   and pair["err"] <= F32_TOL * pair["scale"]
+                   and pair["tokens_identical"])
+        ok &= arch_ok
+        out[arch] = {"ok": arch_ok, "runs": sums,
+                     f"pe1_vs_pe{pes_list[-1]}": pair,
+                     "bound": F32_TOL * pair["scale"]}
+    return {"ok": ok, "archs": out}
 
 
 # -------------------------------------------------------------------- RWKV
@@ -1226,14 +1487,6 @@ def _rwkv_path_ok(s: dict) -> bool:
             and all(w["ok"] for w in s["kernel_vs_plain_path"].values()))
 
 
-def _rwkv_drop(run) -> dict:
-    """What the comparison needs of a run; the weights leave the card."""
-    out = {k: run[k] for k in ("tokens", "dec", "summary")}
-    run.clear()
-    torch.cuda.empty_cache()
-    return out
-
-
 def _cast_ms(run, dev) -> dict:
     """Device time of one decode step's weight gather (``gather_params``:
     the f32 -> bf16 cast of every unit's leaves) and of its part on the
@@ -1293,7 +1546,7 @@ def phase_serve_rwkv(dev, kept: dict) -> dict:
             kept[f"{path}/{pes}pe"] = x
         run["summary"]["profile"] = profile_decode(run, dev)
         run["summary"]["weight_cast"] = _cast_ms(run, dev)
-        runs[pes] = _rwkv_drop(run)
+        runs[pes] = _drop(run)
     launches = rwkv6.LAUNCHES
     a, b = runs[PES[0]], runs[PES[-1]]
     same = np.cumprod(a["tokens"][:, :-1] == b["tokens"][:, :-1], axis=1)
@@ -1357,7 +1610,7 @@ def phase_serve_rwkv_f32(dev) -> dict:
             run["pd"]["tokens"].cpu(),
             torch.from_numpy(run["tokens"][:, PROMPT:])))
         del loop
-        runs[pes] = _rwkv_drop(run)
+        runs[pes] = _drop(run)
     a, b = runs[PES[0]], runs[PES[-1]]
     scale = max(1.0, float(a["dec"].abs().max()))
     err = float((a["dec"] - b["dec"]).abs().max())
@@ -1529,6 +1782,9 @@ def main() -> int:
     t_all = time.perf_counter()
     results, failed, kept, kept_reorder, kept_rwkv6 = {}, [], {}, {}, {}
     for name, fn in (("build", lambda: phase_build()),
+                     ("no_spills", lambda: {
+                         "ok": not results["build"]["spilling"],
+                         "spilling": results["build"]["spilling"]}),
                      ("kernel", lambda: phase_kernel(dev)),
                      ("comm", lambda: phase_comm(dev)),
                      ("serve", lambda: phase_serve(dev, kept)),
@@ -1539,10 +1795,12 @@ def main() -> int:
                      ("serve_rwkv", lambda: phase_serve_rwkv(dev,
                                                              kept_rwkv6)),
                      ("serve_rwkv_f32", lambda: phase_serve_rwkv_f32(dev)),
+                     ("serve_dense", lambda: phase_serve_dense(dev, kept)),
+                     ("serve_dense_f32", lambda: phase_serve_dense_f32(dev)),
                      ("main_path", lambda: phase_main_path(
                          kept, kept_reorder, kept_rwkv6))):
-        needs = (("serve", "serve_moe", "serve_rwkv") if name == "main_path"
-                 else ("build",))
+        needs = (("serve", "serve_moe", "serve_rwkv", "serve_dense")
+                 if name == "main_path" else ("build",))
         missing = [n for n in needs if n in failed]
         if name != "build" and missing:
             failed.append(name)
@@ -1567,15 +1825,19 @@ def main() -> int:
         return 1
     kern, serve_res = results["main_path"], results["serve"]
     moe_res, rwkv_res = results["serve_moe"], results["serve_rwkv"]
+    dense_res = results["serve_dense"]["archs"]
     # the flash headline: the main-path row that fares worst against SDPA
     head = max(kern["main_path"], key=lambda t: t["ms"] / t["library_ms"])
     swz = kern["reorder"]
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
-        "launches": serve_res["flash_launches"] + moe_res["flash_launches"],
+        "launches": (serve_res["flash_launches"] + moe_res["flash_launches"]
+                     + results["serve_dense"]["flash_launches"]),
         "launches_by_path": {ARCH: serve_res["flash_launches"],
-                             MOE_ARCH: moe_res["flash_launches"]},
+                             MOE_ARCH: moe_res["flash_launches"],
+                             **{a: dense_res[a]["flash_launches"]
+                                for a in DENSE_ARCHS}},
         "max_abs_err": max(t["max_abs_err"] for t in kern["main_path"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

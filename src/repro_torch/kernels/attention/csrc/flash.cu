@@ -13,23 +13,30 @@
 // the G query heads of a GQA group share every K/V read.
 //
 // One call is one launch. The wrapper picks the form and the grid
-// (flash.launch_geometry) and passes them in; this file checks them.
+// (flash.launch_geometry) and passes them in; this file checks them. Head
+// dims 16, 32, 64, 96, 128 and 256 (every one the Pallas kernel and the
+// repo's configs use), f32 and bf16.
 //
 // (a) Decode form, Sq * G <= 8 rows per (batch, kv head): every serving
 //     decode step (1-2 rows against 6-48 keys, partial). Bound: latency at
 //     the serving shapes (a few hundred KB: well under a microsecond of
 //     bytes), bytes over long caches. Tensor cores do not help one or two
 //     rows. One CTA of 8 warps per (batch, kv head) holds all its rows; the
-//     warps split the key range, and within a warp a group of LG = hd *
-//     size / 16 lanes holds one key, 16 bytes a lane (bf16 hd 128: 16 lanes
-//     x 8, two keys per warp step). Each lane streams its 16 bytes of K and
-//     of V (and its key's position) by cp.async into its own ring of 4 warp
-//     steps in shared memory (36,864 bytes a CTA), 3 steps ahead of the
-//     one it scores; it reads back only what it copied, so its own
-//     wait_group orders it and no barrier is needed. A shuffle over the lane
-//     group reduces each row's score; each lane group keeps its own f32
-//     (m, l, acc) in registers; lane groups merge by shuffles, warps through
-//     shared memory (8 x rows x hd f32: 8 KB at 2 rows of 128). Where B *
+//     warps split the key range, and within a warp a group of LG lanes
+//     holds one key in 16-byte pieces (bf16 hd 128: 16 lanes x 8, two keys
+//     per warp step). LG is the key's piece count rounded up to a power of
+//     two, at most 32: hd 96 pads 12 (bf16) or 24 (f32) pieces to 16 or 32
+//     lanes, the rest idle; f32 hd 256 gives each of 32 lanes 2 pieces
+//     (DecodeLayout). Each lane streams its pieces of K and of V (and its
+//     key's position) by cp.async into its own ring of 4 warp steps in
+//     shared memory (36,864 bytes a CTA; 69,632 at f32 hd 256), 3 steps
+//     ahead of the one it scores; it reads back only what it copied, so its
+//     own wait_group orders it and no barrier is needed. A shuffle over the
+//     lane group reduces each row's score; each lane group keeps its own
+//     f32 (m, l, acc) in registers; lane groups merge by shuffles, warps
+//     through shared memory (8 x rows x hd f32, in the ring's bytes after
+//     the key loop: 64 KB at 8 rows of 256, over the 48 KB of static
+//     shared memory, so it is part of the dynamic allocation). Where B *
 //     KV is below 132 SMs and the cache is long, the key range is also
 //     split over a thread-block cluster of up to 8 CTAs (grid.y), and rank
 //     0 merges the others' partials from distributed shared memory: no
@@ -42,9 +49,15 @@
 //     tile of 64 keys, brought by cp.async (16 bytes a thread, zero-filled
 //     past Sk) into a three-stage ring (a stage = K and V, 64 x (hd + 8)
 //     bf16 each, the pad keeping ldmatrix free of bank conflicts: 105,216
-//     bytes of dynamic shared memory at hd 128). K fragments come by
-//     ldmatrix, V's by ldmatrix.trans; P is rounded to bf16 for PV (within
-//     the 2e-2 bf16 tolerance; l sums the f32 p). NW is the largest of 4,
+//     bytes of dynamic shared memory at hd 128). At hd 256 a warp's 16 x
+//     256 f32 output accumulators take 128 registers a thread, so Q stays
+//     in shared memory (16 x 264 bf16 a warp, loaded once by cp.async) and
+//     comes by ldmatrix for each k-step instead of 64 more registers, and
+//     the ring has two stages (135,680 + 33,792 bytes; three would pass the
+//     227 KB a CTA may have); hd 96 keeps Q there too (FwdLayout). K
+//     fragments come by ldmatrix, V's by ldmatrix.trans; P is rounded to
+//     bf16 for PV (within the 2e-2 bf16 tolerance; l sums the f32 p). NW
+//     is the largest of 4,
 //     2, 1 whose grid reaches 132 CTAs: the serving forward has 96 rows per
 //     (batch, kv head) and 32 of those, so NW = 1 gives 192 CTAs where
 //     64-row tiles give 64. Key tiles that lie wholly above the causal
@@ -81,7 +94,7 @@ constexpr int kMaxRows = 8;        // decode form: Sq * G rows at most
 constexpr int kMaxSplits = 8;      // portable cluster size
 constexpr int kRing = 4;           // decode: warp steps in each lane's ring
 constexpr int kTileKeys = 64;      // bf16 forward key tile
-constexpr int kStages = 3;         // bf16 forward: K/V tiles in the ring
+constexpr int kMaxFwdWarps = 4;    // bf16 forward: warps of a CTA
 constexpr int kMaxListTiles = 1024;  // bf16 forward: tiles with a skip list
 constexpr int kF32Warps = 8, kF32RowsPerWarp = 4, kF32Keys = 32;
 
@@ -163,9 +176,46 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ------------------------------------------------------------ (a) decode
+// One key row of HD elements is PIECES 16-byte pieces. A lane group of LG
+// lanes (a power of two, at most a warp) holds one key: lane `sub` holds
+// pieces sub + j * LG, j < NP. Where PIECES is not a power of two (hd 96:
+// 12 pieces in bf16, 24 in f32) the group is padded to the next one and its
+// last LG - ACT lanes hold no piece (they score 0 and add 0; they still
+// take part in every shuffle). Where PIECES exceeds a warp (f32 hd 256: 64)
+// each lane holds NP = 2 pieces.
+template <typename T, int HD>
+struct DecodeLayout {
+  static constexpr int VEC = Vec<T>::N;             // elements per piece
+  static constexpr int PIECES = HD / VEC;
+  static constexpr int LG = PIECES > 16 ? 32
+                            : PIECES > 8 ? 16
+                            : PIECES > 4 ? 8
+                            : PIECES > 2 ? 4 : 2;
+  static constexpr int NP = (PIECES + LG - 1) / LG;
+  static constexpr int ACT = PIECES - (NP - 1) * LG;  // lanes with pieces
+  static constexpr int E = NP * VEC;                  // elements per lane
+  static_assert(HD % VEC == 0 && (NP == 1 || ACT == LG),
+                "decode layout: every lane of a group holds NP pieces");
+};
+
+template <typename T, int HD>
+constexpr int decode_ring_bytes() {
+  return kDecodeWarps * kRing * 32 * (2 * 16 * DecodeLayout<T, HD>::NP + 4);
+}
+
+// dynamic shared memory of the decode form: the lanes' cp.async ring, and
+// after the key loop the warps' partial accumulators (f32 [warps][RM][HD])
+// in the same bytes
+template <typename T, int HD, int RM>
+constexpr int decode_smem_bytes() {
+  constexpr int red = kDecodeWarps * RM * HD * 4;
+  return decode_ring_bytes<T, HD>() > red ? decode_ring_bytes<T, HD>() : red;
+}
+
 // q, out: (B, Sq, H, HD); k, v: (B, Sk, KV, HD); acc: (B, H, Sq, HD), m, l:
 // (B, H, Sq). grid = (B * KV, splits), cluster (1, splits, 1), block
-// 32 * kDecodeWarps. CTA (x, y) takes keys [y * chunk, (y + 1) * chunk).
+// 32 * kDecodeWarps, dynamic shared memory decode_smem_bytes<T, HD, RM>().
+// CTA (x, y) takes keys [y * chunk, (y + 1) * chunk).
 template <typename T, int HD, int RM>
 __global__ void __launch_bounds__(32 * kDecodeWarps)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -174,12 +224,11 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ acc_out, float* __restrict__ m_out,
                     float* __restrict__ l_out, int Sq, int Sk, int H, int KV,
                     int causal, int window, float scale, int chunk) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int LG = HD / VEC;          // lanes per key
+  using L = DecodeLayout<T, HD>;
+  constexpr int VEC = L::VEC, LG = L::LG, NP = L::NP, E = L::E;
   constexpr int KPW = 32 / LG;          // keys per warp step
   constexpr int STEP = KPW * kDecodeWarps;
   constexpr int NST = kRing;            // ring stages: warp steps ahead
-  __shared__ float red_acc[kDecodeWarps][RM][HD];
   __shared__ float red_ml[kDecodeWarps][RM][2];
   __shared__ float fin_acc[RM][HD];
   __shared__ float fin_ml[RM][2];
@@ -189,58 +238,70 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LG, sub = lane % LG;
+  const bool holds = sub < L::ACT;      // this lane holds pieces of the key
   const int k_begin = blockIdx.y * chunk;
   const int k_end = min(Sk, k_begin + chunk);
 
   // this lane's hd slice of every row's q (scaled), and each row's position
-  float qf[RM][VEC];
+  float qf[RM][E];
   int qp[RM];
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
     qp[r] = 0;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) qf[r][i] = 0.f;
+    for (int i = 0; i < E; ++i) qf[r][i] = 0.f;
     if (r < R) {
       const int qi = r / G, h = kvh * G + r % G;
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          q + ((size_t)(b * Sq + qi) * H + h) * HD + sub * VEC);
-      Vec<T>::unpack(u, qf[r]);
+      if (holds) {
+        const T* qr = q + ((size_t)(b * Sq + qi) * H + h) * HD + sub * VEC;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) qf[r][i] *= scale;
+        for (int j = 0; j < NP; ++j)
+          Vec<T>::unpack(*reinterpret_cast<const uint4*>(qr + j * LG * VEC),
+                         qf[r] + j * VEC);
+#pragma unroll
+        for (int i = 0; i < E; ++i) qf[r][i] *= scale;
+      }
       qp[r] = q_pos[(size_t)b * Sq + qi];
     }
   }
-  float m[RM], l[RM], acc[RM][VEC];
+  float m[RM], l[RM], acc[RM][E];
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[r][i] = 0.f;
+    for (int i = 0; i < E; ++i) acc[r][i] = 0.f;
   }
 
   const size_t kv_row = (size_t)KV * HD;
   const T* kb = k + ((size_t)b * Sk * KV + kvh) * HD + sub * VEC;
   const T* vb = v + ((size_t)b * Sk * KV + kvh) * HD + sub * VEC;
   const int* kpb = k_pos + (size_t)b * Sk;
-  // this lane's ring: NST warp steps of its 16 bytes of K and of V and its
-  // key's position, brought by cp.async. A lane reads back only what it
-  // copied itself, so its own wait_group orders it: no barrier.
+  // this lane's ring: NST warp steps of its NP 16-byte pieces of K and of V
+  // and its key's position, brought by cp.async. A lane reads back only
+  // what it copied itself, so its own wait_group orders it: no barrier.
   extern __shared__ __align__(16) unsigned char dsm[];
-  uint4* ring_k = reinterpret_cast<uint4*>(dsm) + warp * NST * 32 + lane;
-  uint4* ring_v = ring_k + kDecodeWarps * NST * 32;
+  uint4* ring_k = reinterpret_cast<uint4*>(dsm) + warp * NST * 32 * NP + lane;
+  uint4* ring_v = ring_k + kDecodeWarps * NST * 32 * NP;
   int* ring_p = reinterpret_cast<int*>(reinterpret_cast<uint4*>(dsm)
-                                       + 2 * kDecodeWarps * NST * 32)
+                                       + 2 * kDecodeWarps * NST * 32 * NP)
                 + warp * NST * 32 + lane;
   const int first = k_begin + warp * KPW;     // the warp's first step
   const int steps = first < k_end ? (k_end - first + STEP - 1) / STEP : 0;
   const auto fetch = [&](int n) {             // step n into slot n % NST
-    const int s = first + grp + n * STEP, slot = (n % NST) * 32;
+    const int s = first + grp + n * STEP, slot = n % NST;
     if (n < steps && s < k_end) {   // else the slot is never read
       const size_t off = (size_t)s * kv_row;
-      cp_async16(ring_k + slot, kb + off, true);
-      cp_async16(ring_v + slot, vb + off, true);
-      cp_async4(ring_p + slot, kpb + s, true);
+      if (holds) {
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          cp_async16(ring_k + (slot * NP + j) * 32, kb + off + j * LG * VEC,
+                     true);
+          cp_async16(ring_v + (slot * NP + j) * 32, vb + off + j * LG * VEC,
+                     true);
+        }
+      }
+      cp_async4(ring_p + slot * 32, kpb + s, true);
     }
     cp_async_commit();
   };
@@ -248,18 +309,25 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int n = 0; n < NST - 1; ++n) fetch(n);
   for (int n = 0; n < steps; ++n) {           // warp-uniform
     cp_async_wait<NST - 2>();                 // step n has landed
-    const int slot = (n % NST) * 32;
+    const int slot = n % NST;
     const bool exists = first + grp + n * STEP < k_end;
-    const int kp = ring_p[slot];
-    float kf[VEC], vf[VEC];
-    Vec<T>::unpack(ring_k[slot], kf);
-    Vec<T>::unpack(ring_v[slot], vf);
+    const int kp = ring_p[slot * 32];
+    float kf[E], vf[E];
+#pragma unroll
+    for (int i = 0; i < E; ++i) kf[i] = vf[i] = 0.f;
+    if (holds) {
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        Vec<T>::unpack(ring_k[(slot * NP + j) * 32], kf + j * VEC);
+        Vec<T>::unpack(ring_v[(slot * NP + j) * 32], vf + j * VEC);
+      }
+    }
 #pragma unroll
     for (int r = 0; r < RM; ++r) {
       if (r >= R) break;
       float d = 0.f;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) d = fmaf(qf[r][i], kf[i], d);
+      for (int i = 0; i < E; ++i) d = fmaf(qf[r][i], kf[i], d);
 #pragma unroll
       for (int o = LG / 2; o > 0; o >>= 1) d += __shfl_xor_sync(kFull, d, o);
       if (!exists) continue;
@@ -268,7 +336,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float c = ex<T>(m[r] - mn), p = ex<T>(sc - mn);
       l[r] = l[r] * c + p;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[r][i] = fmaf(p, vf[i], acc[r][i] * c);
+      for (int i = 0; i < E; ++i) acc[r][i] = fmaf(p, vf[i], acc[r][i] * c);
       m[r] = mn;
     }
     fetch(n + NST - 1);   // into the slot of step n - 1, consumed
@@ -280,20 +348,31 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < RM; ++r) {
       if (r >= R) break;
-      float a2[VEC];
+      float a2[E];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) a2[i] = __shfl_xor_sync(kFull, acc[r][i], o);
+      for (int i = 0; i < E; ++i) a2[i] = __shfl_xor_sync(kFull, acc[r][i], o);
       const float m2 = __shfl_xor_sync(kFull, m[r], o);
       const float l2 = __shfl_xor_sync(kFull, l[r], o);
-      merge<T, VEC>(m[r], l[r], acc[r], m2, l2, a2);
+      merge<T, E>(m[r], l[r], acc[r], m2, l2, a2);
     }
   }
+  // the warps' states meet in the ring's bytes: every warp's ring is read
+  // (and no copy is in flight) before any is overwritten
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red_acc = reinterpret_cast<float*>(dsm);   // [warps][RM][HD]
   if (grp == 0) {
 #pragma unroll
     for (int r = 0; r < RM; ++r) {
       if (r >= R) break;
+      if (holds) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) red_acc[warp][r][sub * VEC + i] = acc[r][i];
+        for (int j = 0; j < NP; ++j)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            red_acc[(warp * RM + r) * HD + (sub + j * LG) * VEC + i] =
+                acc[r][j * VEC + i];
+      }
       if (sub == 0) {
         red_ml[warp][r][0] = m[r];
         red_ml[warp][r][1] = l[r];
@@ -329,7 +408,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int w = 0; w < kDecodeWarps; ++w) {
       const float c = ex<T>(red_ml[w][r][0] - mm);
       ll += red_ml[w][r][1] * c;
-      aa += red_acc[w][r][d] * c;
+      aa += red_acc[(w * RM + r) * HD + d] * c;
     }
     if (splits == 1) {
       emit(r, d, aa, mm, ll);
@@ -399,9 +478,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// Per head dim: K/V tiles in the ring (three, two at hd 256 where three do
+// not fit beside Q), and whether Q lives in shared memory, read by ldmatrix
+// per k-step instead of held as KT x 4 registers: at hd 256 a warp's 16 x
+// 256 f32 output accumulators alone take 128 registers a thread, and at hd
+// 96 ptxas spills the register form (168 registers and 32 bytes of spill
+// stores) where the shared form needs no spill.
+template <int HD>
+struct FwdLayout {
+  static constexpr bool Q_SHARED = HD == 96 || HD > 128;
+  static constexpr int STAGES = HD > 128 ? 2 : 3;
+  static constexpr int LD = HD + 8;   // shared row pitch, elements
+};
+
 template <int HD>
 constexpr int mma_smem_bytes() {
-  return kStages * (2 * kTileKeys * (HD + 8) * 2 + kTileKeys * 4);
+  using F = FwdLayout<HD>;
+  return F::STAGES * (2 * kTileKeys * F::LD * 2 + kTileKeys * 4)
+         + (F::Q_SHARED ? kMaxFwdWarps * 16 * F::LD * 2 : 0);
 }
 
 // grid = (B * KV, ceil(Sq * G / (16 * NW))), block = 32 * NW (NW = 1, 2, 4),
@@ -418,7 +512,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      float* __restrict__ l_out, int Sq, int Sk, int H,
                      int KV, int causal, int window, float scale) {
   using bf16 = __nv_bfloat16;
-  constexpr int LD = HD + 8;       // shared row pitch, elements
+  using F = FwdLayout<HD>;
+  constexpr int LD = F::LD;
+  constexpr int kStages = F::STAGES;
   constexpr int KT = HD / 16;      // k-steps of q k^T
   constexpr int NB = HD / 8;       // n-blocks of p v
   constexpr int CH = HD / 8;       // 16-byte chunks per row
@@ -426,6 +522,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   bf16* ks = reinterpret_cast<bf16*>(smem);             // [kStages][64][LD]
   bf16* vs = ks + kStages * kTileKeys * LD;             // [kStages][64][LD]
   int* kps = reinterpret_cast<int*>(vs + kStages * kTileKeys * LD);
+  // Q_SHARED: the warps' query rows, [kMaxFwdWarps][16][LD]
+  bf16* qsm = reinterpret_cast<bf16*>(kps + kStages * kTileKeys);
   __shared__ int tiles[kMaxListTiles];
   __shared__ int n_live_s, qmin_s, qmax_s;
   __shared__ float colsum[4][HD];
@@ -518,6 +616,17 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async4(kps + st * kTileKeys + j, kpb + (s < Sk ? s : 0), s < Sk);
     }
   };
+  const auto qrow = [&](int r) -> size_t {
+    return ((size_t)(b * Sq + r / G) * H + kvh * G + r % G) * HD;
+  };
+  if constexpr (F::Q_SHARED) {   // the warp's 16 rows, in tile 0's group
+    bf16* qw = qsm + warp * 16 * LD;
+    for (int e = lane; e < 16 * CH; e += 32) {
+      const int i = e / CH, c = e % CH, r = cta_row0 + warp * 16 + i;
+      cp_async16(qw + i * LD + c * 8, q + (r < R ? qrow(r) + c * 8 : 0),
+                 r < R);
+    }
+  }
   // a ring of kStages tiles: tile i sits in stage i % kStages; one commit
   // group per tile (empty past the last), kStages - 1 of them ahead
 #pragma unroll
@@ -526,23 +635,22 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  // this warp's 16 rows: q fragments, positions
+  // this warp's 16 rows: q fragments (unless Q_SHARED), positions
   const int r0 = cta_row0 + warp * 16 + quad, r1 = r0 + 8;
   const bool ok0 = r0 < R, ok1 = r1 < R;
-  const auto qrow = [&](int r) -> size_t {
-    return ((size_t)(b * Sq + r / G) * H + kvh * G + r % G) * HD;
-  };
   const size_t qo0 = ok0 ? qrow(r0) : 0, qo1 = ok1 ? qrow(r1) : 0;
-  uint32_t qa[KT][4];
+  uint32_t qa[F::Q_SHARED ? 1 : KT][4];
+  if constexpr (!F::Q_SHARED) {
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const int c = kk * 16 + 2 * qlane;
-    qa[kk][0] = ok0 ? *reinterpret_cast<const uint32_t*>(q + qo0 + c) : 0u;
-    qa[kk][1] = ok1 ? *reinterpret_cast<const uint32_t*>(q + qo1 + c) : 0u;
-    qa[kk][2] =
-        ok0 ? *reinterpret_cast<const uint32_t*>(q + qo0 + c + 8) : 0u;
-    qa[kk][3] =
-        ok1 ? *reinterpret_cast<const uint32_t*>(q + qo1 + c + 8) : 0u;
+    for (int kk = 0; kk < KT; ++kk) {
+      const int c = kk * 16 + 2 * qlane;
+      qa[kk][0] = ok0 ? *reinterpret_cast<const uint32_t*>(q + qo0 + c) : 0u;
+      qa[kk][1] = ok1 ? *reinterpret_cast<const uint32_t*>(q + qo1 + c) : 0u;
+      qa[kk][2] =
+          ok0 ? *reinterpret_cast<const uint32_t*>(q + qo0 + c + 8) : 0u;
+      qa[kk][3] =
+          ok1 ? *reinterpret_cast<const uint32_t*>(q + qo1 + c + 8) : 0u;
+    }
   }
   const int qp0 = ok0 ? q_pos[(size_t)b * Sq + r0 / G] : 0;
   const int qp1 = ok1 ? q_pos[(size_t)b * Sq + r1 / G] : 0;
@@ -567,24 +675,46 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int* kpt = kps + st * kTileKeys;
 
     float s[8][4];
+    if constexpr (F::Q_SHARED) {
+      // two k-steps at a time: their Q fragments by ldmatrix.x4 (rows
+      // lane % 16, columns + 8 for lanes 16-31), then every key block
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      // K fragments of keys 8j.., two k-steps per ldmatrix.x4
-      const bf16* kr = kt + (8 * j + (lane & 7)) * LD + 8 * (lane >> 3);
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const bf16* qr = qsm + (warp * 16 + (lane & 15)) * LD + 8 * (lane >> 4);
 #pragma unroll
       for (int kk = 0; kk < KT; kk += 2) {
-        uint32_t bk[4];
-        if (KT == 1) {   // hd 16: the other two matrices are not read
-          bk[0] = *reinterpret_cast<const uint32_t*>(
-              kt + (8 * j + quad) * LD + 2 * qlane);
-          bk[1] = *reinterpret_cast<const uint32_t*>(
-              kt + (8 * j + quad) * LD + 2 * qlane + 8);
-        } else {
-          ldmatrix_x4(bk, kr + 16 * kk);
+        uint32_t a0[4], a1[4];
+        ldmatrix_x4(a0, qr + 16 * kk);
+        ldmatrix_x4(a1, qr + 16 * kk + 16);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, kt + (8 * j + (lane & 7)) * LD + 8 * (lane >> 3)
+                              + 16 * kk);
+          mma16816(s[j], a0, bk[0], bk[1]);
+          mma16816(s[j], a1, bk[2], bk[3]);
         }
-        mma16816(s[j], qa[kk], bk[0], bk[1]);
-        if (kk + 1 < KT) mma16816(s[j], qa[kk + 1], bk[2], bk[3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        // K fragments of keys 8j.., two k-steps per ldmatrix.x4
+        const bf16* kr = kt + (8 * j + (lane & 7)) * LD + 8 * (lane >> 3);
+#pragma unroll
+        for (int kk = 0; kk < KT; kk += 2) {
+          uint32_t bk[4];
+          if (KT == 1) {   // hd 16: the other two matrices are not read
+            bk[0] = *reinterpret_cast<const uint32_t*>(
+                kt + (8 * j + quad) * LD + 2 * qlane);
+            bk[1] = *reinterpret_cast<const uint32_t*>(
+                kt + (8 * j + quad) * LD + 2 * qlane + 8);
+          } else {
+            ldmatrix_x4(bk, kr + 16 * kk);
+          }
+          mma16816(s[j], qa[kk], bk[0], bk[1]);
+          if (kk + 1 < KT) mma16816(s[j], qa[kk + 1], bk[2], bk[3]);
+        }
       }
     }
     // mask and row max (over keys that exist; masked ones score -1e30)
@@ -653,6 +783,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
+  cp_async_wait<0>();   // Q_SHARED with every tile skipped: Q's copies
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -875,21 +1006,18 @@ struct Args {
   float scale;
 };
 
-constexpr int decode_ring_bytes() {
-  return kDecodeWarps * kRing * 32 * (16 + 16 + 4);
-}
-
 template <typename T, int HD, int RM>
 cudaError_t launch_decode(const Args& a, dim3 grid, int chunk,
                           cudaStream_t stream) {
+  constexpr int bytes = decode_smem_bytes<T, HD, RM>();
   const cudaError_t e = cudaFuncSetAttribute(
       flash_decode_kernel<T, HD, RM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, decode_ring_bytes());
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(32 * kDecodeWarps);
-  cfg.dynamicSmemBytes = decode_ring_bytes();
+  cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -949,7 +1077,9 @@ cudaError_t launch_forward_f32(const Args& a, dim3 grid, cudaStream_t s) {
     case 16: return FN<16>(__VA_ARGS__);              \
     case 32: return FN<32>(__VA_ARGS__);              \
     case 64: return FN<64>(__VA_ARGS__);              \
+    case 96: return FN<96>(__VA_ARGS__);              \
     case 128: return FN<128>(__VA_ARGS__);            \
+    case 256: return FN<256>(__VA_ARGS__);            \
     default: return cudaErrorInvalidValue;            \
   }
 
@@ -960,7 +1090,9 @@ cudaError_t decode_hd(int hd, const Args& a, int rows, dim3 grid, int chunk,
     case 16: return decode_rows<T, 16>(a, rows, grid, chunk, s);
     case 32: return decode_rows<T, 32>(a, rows, grid, chunk, s);
     case 64: return decode_rows<T, 64>(a, rows, grid, chunk, s);
+    case 96: return decode_rows<T, 96>(a, rows, grid, chunk, s);
     case 128: return decode_rows<T, 128>(a, rows, grid, chunk, s);
+    case 256: return decode_rows<T, 256>(a, rows, grid, chunk, s);
     default: return cudaErrorInvalidValue;
   }
 }

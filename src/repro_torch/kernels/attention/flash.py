@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROW_TILES = 65535        # grid.y limit: the forward's row tiles
 _MAX_CTAS_X = 2 ** 31 - 1     # grid.x limit: B * KV
@@ -52,6 +52,15 @@ class Geometry:
     #                           per warp step (lane groups x warps)
 
 
+def decode_lanes(hd: int, dtype: torch.dtype) -> int:
+    """Lanes of the decode form's group that holds one key: the key's
+    16-byte pieces rounded up to a power of two, at most a warp (hd 96 pads
+    its 12 bf16 / 24 f32 pieces; f32 hd 256 puts 2 pieces on each of 32
+    lanes)."""
+    pieces = hd * (4 if dtype == torch.float32 else 2) // 16
+    return min(32, 1 << (pieces - 1).bit_length())
+
+
 def launch_geometry(B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
                     dtype: torch.dtype) -> Geometry:
     """The form and grid the kernel launches with (see ``Geometry``)."""
@@ -64,9 +73,9 @@ def launch_geometry(B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
                          Sk // MIN_SPLIT_KEYS)
         chunk = -(-Sk // splits)
         splits = -(-Sk // chunk)
-        per_key = hd * (4 if dtype == torch.float32 else 2) // 16
         return Geometry("decode", (B * KV, splits), 32 * DECODE_WARPS, rows,
-                        splits, chunk, (32 // per_key) * DECODE_WARPS)
+                        splits, chunk,
+                        32 // decode_lanes(hd, dtype) * DECODE_WARPS)
     if dtype == torch.float32:
         row_tile = F32_ROW_TILE
     else:   # the largest tile of 4, 2, 1 warps (16 rows each) that fills

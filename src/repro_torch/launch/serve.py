@@ -5,7 +5,9 @@ generation, on a virtual PE cube held in one process.
         --batch 4 --prompt-len 32 --gen 16 --pes 8
 
 The port of ``repro.launch.serve``: ``--pes N`` (default 1) stands in for
-the JAX launcher's device count. It runs on CUDA unless ``--device cpu`` is
+the JAX launcher's device count. ``--arch`` takes the ported archs:
+qwen3-1.7b, phi3-mini-3.8b (head_dim 96), gemma3-1b (head_dim 256, 5:1
+local:global windows), qwen2-moe-a2.7b, mixtral-8x7b and rwkv6-7b. It runs on CUDA unless ``--device cpu`` is
 given, and raises when no GPU is visible. Prints the decode ms per step,
 tokens/s and the launch counts of the flash, reorder and RWKV6 kernels (an
 MoE model's all_to_alls run on the reorder kernel; the RWKV6 kernel runs on

@@ -41,6 +41,9 @@ def _np(x):
     (1, 128, 4, 4, 64),     # MHA
     (2, 256, 8, 2, 64),     # GQA 4:1
     (1, 128, 4, 1, 128),    # MQA, wide head
+    (1, 128, 4, 4, 96),     # MHA at phi3-mini's head_dim
+    (2, 128, 8, 2, 96),     # GQA 4:1 at head_dim 96
+    (1, 128, 4, 1, 256),    # MQA (G = 4) at gemma3's head_dim
 ])
 @pytest.mark.parametrize("causal,window", [(True, -1), (True, 64),
                                            (False, -1)])
@@ -60,6 +63,8 @@ def test_flash_attention_sweep(dtype, B, S, H, KV, hd, causal, window):
 @pytest.mark.parametrize("B,S,H,KV,hd", [
     (1, 128, 4, 4, 64),     # MHA
     (2, 128, 8, 2, 64),     # GQA 4:1
+    (1, 128, 4, 4, 96),     # MHA, head_dim 96
+    (1, 128, 4, 1, 256),    # MQA, head_dim 256
 ])
 @pytest.mark.parametrize("causal,window,q_off,k_off", [
     (True, -1, 64, 0),      # q block placed later in the sequence
@@ -158,7 +163,9 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 # (B, Sq, Sk, H, KV, hd): every main-path row of chip_smoke.py (qwen3 and
-# MoE decode and forward at 1 and 8 PEs), its two long rows, ragged edges
+# MoE decode and forward at 1 and 8 PEs; phi3-mini at 1 and 8, gemma3 at 1
+# and 4 PEs, and gemma3's 1,024-token forward), its two long rows, ragged
+# edges
 GEOMETRY_SHAPES = [
     (4, 1, 48, 16, 8, 128), (32, 1, 6, 16, 8, 128), (4, 1, 48, 16, 16, 128),
     (32, 1, 6, 16, 16, 128), (4, 48, 48, 16, 8, 128), (32, 48, 48, 2, 1, 128),
@@ -166,6 +173,11 @@ GEOMETRY_SHAPES = [
     (2, 37, 70, 8, 1, 32), (3, 16, 16, 4, 2, 16), (1, 33, 33, 4, 4, 64),
     (2, 3, 600, 4, 2, 64), (1, 1, 513, 2, 1, 16), (2, 5, 9, 16, 16, 32),
     (1, 9, 65, 8, 8, 128), (1, 1, 1031, 8, 1, 128),
+    (4, 1, 48, 32, 32, 96), (32, 1, 6, 32, 32, 96), (4, 48, 48, 32, 32, 96),
+    (32, 48, 48, 4, 4, 96), (4, 1, 48, 4, 1, 256), (16, 1, 12, 4, 1, 256),
+    (4, 48, 48, 4, 1, 256), (16, 48, 48, 1, 1, 256),
+    (1, 1024, 1024, 4, 1, 256), (2, 2, 600, 8, 2, 256), (1, 8, 70, 2, 2, 96),
+    (2, 37, 70, 4, 4, 96), (1, 1, 4096, 4, 1, 256),
 ]
 
 
@@ -213,7 +225,11 @@ def test_launch_geometry_covers_every_pair_once(dtype, B, Sq, Sk, H, KV, hd):
         assert geo.grid[1] == geo.key_splits
         # every split of the cluster has keys
         assert (geo.key_splits - 1) * geo.keys_per_split < Sk
-        lanes = hd * dtype.itemsize // 16       # lanes holding one key
+        # lanes holding one key: its 16-byte pieces, rounded up to a power
+        # of two, at most a warp (f32 hd 256: two pieces a lane)
+        pieces = hd * dtype.itemsize // 16
+        lanes = min(32, 1 << (pieces - 1).bit_length())
+        assert flash.decode_lanes(hd, dtype) == lanes
         assert geo.key_tile == 32 // lanes * flash.DECODE_WARPS
     else:
         assert geo.key_splits == 1 and geo.keys_per_split == Sk
@@ -266,11 +282,18 @@ def test_check_raises_on_misaligned_tensor(which, dtype):
 
 
 # (B, Sq, Sk, H, KV, hd, window, q0, k0): one case per form, and a forward
-# whose first rows see no key while its later rows skip tiles
+# whose first rows see no key while its later rows skip tiles; each again
+# at head_dim 96 (G = 1) and 256 (G = 4)
 CARD_CASES = {
     "decode": (3, 1, 37, 8, 2, 128, 16, 30, -2),
     "forward": (3, 40, 37, 8, 2, 128, 16, 30, -2),
     "no_visible_key": (2, 30, 200, 4, 2, 64, -1, 90, 100),
+    "decode_hd96": (3, 2, 37, 8, 8, 96, 16, 30, -2),
+    "forward_hd96": (3, 40, 37, 8, 8, 96, 16, 30, -2),
+    "no_visible_key_hd96": (2, 30, 200, 4, 4, 96, -1, 90, 100),
+    "decode_hd256": (3, 2, 37, 8, 2, 256, 16, 30, -2),
+    "forward_hd256": (3, 40, 37, 4, 1, 256, 16, 30, -2),
+    "no_visible_key_hd256": (2, 30, 200, 4, 1, 256, -1, 90, 100),
 }
 
 
@@ -288,7 +311,8 @@ def test_kernel_matches_plain_version_on_the_card(dtype, partial, case):
     k_pos = torch.arange(Sk, device="cuda").expand(B, Sk) + k0
     q_pos, k_pos = (p.to(torch.int32).contiguous() for p in (q_pos, k_pos))
     geo = flash.launch_geometry(B, Sq, Sk, H, KV, hd, q.dtype)
-    assert geo.form == ("decode" if case == "decode" else "forward")
+    assert geo.form == ("decode" if case.startswith("decode")
+                        else "forward")
     before = flash.LAUNCHES
     got = ops.flash_attention(q, k, v, q_pos, k_pos, window=window,
                               partial=partial)
@@ -300,7 +324,7 @@ def test_kernel_matches_plain_version_on_the_card(dtype, partial, case):
     for g, w in zip(got if partial else (got,), want if partial else (want,)):
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
     dead = ~ref.mask(q_pos, k_pos, True, window).any(-1)      # (B, Sq)
-    if case == "no_visible_key":
+    if case.startswith("no_visible_key"):
         assert dead.any() and not dead.all()
     if partial:
         m, l = got[1].transpose(1, 2)[dead], got[2].transpose(1, 2)[dead]
