@@ -163,6 +163,27 @@ def test_plain_matches_sequential_oracle_near_f32_limit():
     assert np.abs(s.numpy() - js).max() <= _bound(js)
 
 
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 32, 37, 48])
+def test_plain_matches_sequential_oracle_at_the_cards_lengths(S):
+    """The lengths of the card's cases around the kernel's 16-step
+    sub-chunk, and the served 32 and 48, each one chunk of the plain
+    version, with a state in and one u per pair of batch rows: output and
+    final state against JAX's step loop, group by group."""
+    r, k, v, logw, _, st = _inputs(13, 4, S, 2, 16, strong=False,
+                                   state=True)
+    u = (0.1 * np.random.RandomState(S).standard_normal((2, 2, 16))
+         ).astype(np.float32)
+    o, s = ref.rwkv6_chunked(*_torch(r, k, v, logw, u),
+                             state=torch.from_numpy(st), chunk=S)
+    for g in range(2):
+        rows = slice(2 * g, 2 * g + 2)
+        jo, js = (np.asarray(a) for a in jax_ssm.rwkv6_reference(
+            *(jnp.asarray(a[rows]) for a in (r, k, v, logw)),
+            jnp.asarray(u[g]), state=jnp.asarray(st[rows])))
+        assert np.abs(o[rows].numpy() - jo).max() <= _bound(jo)
+        assert np.abs(s[rows].numpy() - js).max() <= _bound(js)
+
+
 @pytest.mark.parametrize("S,C", [(48, 48), (144, 72), (32, 32), (256, 64)])
 def test_chunk_rule_matches_jax(S, C):
     assert ref.chunk_len(S) == C
@@ -220,20 +241,38 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         rwkv6.rwkv6_chunked(*_torch(r, k, v, logw, u))
 
 
+# the card's cases: B, S, H, K, the plain version's chunk, strong decay,
+# state in, u groups (0: one u for the batch). The full head shape with a
+# state in, the JAX sweep, lengths around the 16-step sub-chunk (1, 15, 16,
+# 17, 37), G > 1, K = 16 and 32, grids under and over the 132 SMs
+CARD_CASES = ([(4, 512, 64, 64, 64, False, True, 0),
+               (2, 144, 4, 64, 64, False, True, 0)]
+              + [c + (True, False, 0) for c in SWEEP]
+              + [(1, 1, 4, 64, 1, False, True, 0),
+                 (1, 1, 2, 16, 1, False, False, 0),
+                 (2, 15, 4, 64, 15, False, True, 2),
+                 (2, 16, 4, 32, 16, False, True, 0),
+                 (2, 17, 4, 16, 17, False, True, 2),
+                 (3, 17, 1, 32, 17, False, False, 3),
+                 (4, 37, 2, 64, 37, False, True, 4),
+                 (2, 40, 48, 64, 40, False, True, 2),
+                 (8, 48, 32, 64, 48, False, True, 8)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_the_card(dtype):
-    """The kernel against its plain version on the card, several chunks at
-    the full head shape with a state coming in, and the JAX sweep."""
+    """The kernel against its plain version on the card, on o and the
+    final state, over CARD_CASES."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
     tol = 5e-2 if dtype == torch.bfloat16 else 5e-4
-    cases = [(4, 512, 64, 64, 64, False, True), (2, 144, 4, 64, 64, False,
-                                                 True)]
-    cases += [c + (True, False) for c in SWEEP]
-    for B, S, H, K, chunk, strong, state in cases:
+    for B, S, H, K, chunk, strong, state, G in CARD_CASES:
         r, k, v, logw, u, st = _inputs(11, B, S, H, K, strong=strong,
                                        state=state)
+        if G:
+            u = (0.1 * np.random.RandomState(G).standard_normal((G, H, K))
+                 ).astype(np.float32)
         x = [t.cuda() for t in _torch(r, k, v, u, dtype=dtype)]
         lw = torch.from_numpy(logw).cuda()
         s0 = None if st is None else torch.from_numpy(st).cuda()
