@@ -103,6 +103,21 @@ Phases, each printed as one JSON line:
           1e-4 * max(1, max|ref|), identical greedy tokens, the same launch
           counts, and the 1,024-token forward within 1e-4 * max(1, max|ref|)
           of its witness;
+  serve_engine  the paged continuous-batching ``ServeEngine`` serving
+          full-width qwen3-1.7b (bf16 over f32 master weights, random from
+          seed 0; B = 4 lanes, S_ctx 48, page_size 3) at 1 and 8 PEs, one
+          topology's weights on the card at a time: the launcher's four
+          prompts, all at step 0, give the launcher's greedy tokens
+          exactly; a 12-request Poisson trace completes with every
+          request's tokens in the vocab, one recorded program a step,
+          exactly one lowering and a lower-cache hit every step after;
+          at 1 PE its first 6 requests served alone give the batched
+          tokens and temperature 0.8 repeats under one seed; at 8 PEs
+          lazy admission on pools of 4 pages a shard preempts and gives
+          the reserve run's tokens. Every run launches the flash kernel
+          exactly 28 times a step (counted from 0 just before the run).
+          Reports steps, tok/s, p50 / p99 per-token seconds, ms/step,
+          page occupancy, peak memory and a profile of three steps;
   main_path  each kernel on the inputs the serve phases kept (the shapes and
           positions the serving path gives it): checked against the plain
           version, then timed with the plain version, the bound, and one
@@ -119,6 +134,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -171,6 +187,9 @@ RWKV6_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu"
 # three pieces read at most 1.5e-6, two pieces up to
 # 4.4e-6 in bf16 and 1.4e-5 in f32 (tools/rwkv6_pieces.py)
 RWKV6_STATE_TOL = 2.5e-6
+# the serving engine: page size (S_loc = 48 / 8 = 6 at 8 PEs), the pool of
+# the preemption run (pages per shard), and a bound on any run's steps
+ENGINE_PAGE, ENGINE_TIGHT, ENGINE_MAX_STEPS = 3, 4, 400
 
 
 def emit(phase: str, **fields) -> None:
@@ -841,8 +860,6 @@ def profile_decode(run, dev, steps: int = 3) -> dict:
     name, the flash kernel's share of device time, and the device's idle
     share of the profiled wall time (profiling adds host overhead, so the
     idle share is an upper bound)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.serving import Server, init_cache
     cfg, topo, plan = run["cfg"], run["topo"], run["plan"]
     server = Server(cfg, topo, plan)
@@ -856,6 +873,15 @@ def profile_decode(run, dev, steps: int = 3) -> dict:
                             cube.to_cube(toks[:, t], (ba,)),
                             cube.to_cube(pos, (ba,)))
 
+    return profile_steps(step, steps)
+
+
+def profile_steps(step, steps: int = 3) -> dict:
+    """``step(0)`` once to warm, then ``step(1..steps)`` under
+    ``torch.profiler``: device kernels summed by name, each kernel's share
+    of device time, and the device's idle share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     step(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -970,6 +996,202 @@ def phase_serve(dev, kept: dict) -> dict:
             "compared_steps": int(same.sum()),
             "greedy_agreement_pe1_pe8": gen_agree,
             "flash_launches": launches}
+
+
+# -------------------------------------------------------------- serve_engine
+def _engine_tokens(m: dict) -> dict:
+    return {r.rid: list(r.out_tokens) for r in m["finished"]}
+
+
+def _fresh(reqs, **changes) -> list:
+    """Copies of ``reqs`` as submitted (an engine fills its requests)."""
+    return [dataclasses.replace(q, out_tokens=[], admitted_step=-1,
+                                finished_step=-1, preemptions=0, **changes)
+            for q in reqs]
+
+
+def _engine_run(make, reqs, *, dev, keep=None, **kw) -> dict:
+    """One ``ServeEngine.run`` of ``reqs`` on a fresh engine, with the
+    flash launches counted from 0 just before it and read just after, the
+    lower cache emptied first, the page occupancy after every step, and
+    the peak device memory."""
+    from repro_torch.core import program
+    from repro_torch.kernels.attention import flash
+    eng = make(**kw)
+    occ = []
+    step = eng.step
+
+    def stepping():
+        step()
+        occ.append(eng.metrics.value("serve.page_occupancy"))
+
+    eng.step = stepping
+    program.clear_lower_cache()
+    low0 = dict(program.LOWER_STATS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash.LAUNCHES = 0
+    with keep if keep is not None else contextlib.nullcontext():
+        m = eng.run(_fresh(reqs), max_steps=ENGINE_MAX_STEPS)
+    torch.cuda.synchronize()
+    del eng.step                    # the wrapper's cycle would keep eng
+    launches = flash.LAUNCHES
+    m.update(
+        launches=launches,
+        lowered=program.LOWER_STATS["lowered"] - low0["lowered"],
+        cache_hits=program.LOWER_STATS["cache_hits"] - low0["cache_hits"],
+        occupancy_mean=float(np.mean(occ)), occupancy_max=float(max(occ)),
+        ms_per_step=eng.metrics.quantile("serve.step_seconds", 0.5) * 1e3,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30,
+        tokens=_engine_tokens(m))
+    return m
+
+
+def _engine_summary(m: dict, n_layers: int, vocab: int, reqs) -> dict:
+    """The run's numbers and its gates: every request finished with its
+    max_new tokens in the vocab, one program a step, one lowering and a
+    cache hit every step after, one flash launch a layer and step."""
+    want = {r.rid: r.max_new for r in reqs}
+    done = {r.rid: r.out_tokens for r in m["finished"]}
+    return {
+        "steps": m["steps"], "wall_s": m["wall_s"],
+        "generated_tokens": m["generated_tokens"],
+        "tok_per_s": m["tokens_per_s"],
+        "p50_token_s": m["p50_token_s"], "p99_token_s": m["p99_token_s"],
+        "ms_per_step": m["ms_per_step"], "peak_mem_gb": m["peak_mem_gb"],
+        "page_occupancy_mean": m["occupancy_mean"],
+        "page_occupancy_max": m["occupancy_max"],
+        "preemptions": m["preemptions"],
+        "programs_recorded": m["programs_recorded"],
+        "lowered": m["lowered"], "lower_cache_hits": m["cache_hits"],
+        "flash_launches": m["launches"],
+        "expected_launches": n_layers * m["steps"],
+        "complete": (set(done) == set(want) and all(
+            len(done[i]) == want[i] and all(0 <= t < vocab for t in done[i])
+            for i in want)),
+        "programs_ok": (m["programs_recorded"] == m["steps"]
+                        and m["lowered"] == 1
+                        and m["cache_hits"] == m["steps"] - 1),
+        "launches_ok": m["launches"] == n_layers * m["steps"]}
+
+
+def _summary_ok(s: dict) -> bool:
+    return s["complete"] and s["programs_ok"] and s["launches_ok"]
+
+
+def phase_serve_engine(dev, kept: dict) -> dict:
+    """The paged continuous-batching engine, full-width qwen3-1.7b (bf16
+    over f32 master weights, random from seed 0), B = 4 lanes, S_ctx 48,
+    page_size 3, at 1 and 8 PEs with one topology's weights on the card at
+    a time (``_engine_cell``). ``kept`` receives the kernel's inputs of the
+    lockstep runs' last launch."""
+    from repro_torch import configs
+    from repro_torch.serving import poisson_trace
+
+    cfg = configs.get(ARCH)
+    trace = poisson_trace(12, rate=0.5, plen_range=(8, 32),
+                          max_new_range=(8, 16), vocab=cfg.vocab_size,
+                          seed=7)
+    out, launches, ok = {}, 0, True
+    for pes in PES:
+        r, n, cell_ok = _engine_cell(dev, kept, cfg, trace, pes)
+        out[f"{pes}pe"] = r
+        launches += n
+        ok &= cell_ok
+        gc.collect()                # the cell's weights leave the card
+        torch.cuda.empty_cache()
+    return {"ok": bool(ok), "arch": ARCH, "batch": BATCH,
+            "S_ctx": PROMPT + GEN, "page_size": ENGINE_PAGE,
+            "tight_pages_per_shard": ENGINE_TIGHT, "runs": out,
+            "flash_launches": launches}
+
+
+def _engine_cell(dev, kept: dict, cfg, trace, pes: int):
+    """One PE count. Lockstep: the launcher's four prompts, all at step 0,
+    give the launcher's greedy tokens exactly. The Poisson trace: complete,
+    one program a step lowered once. At 1 PE the first 6 requests served
+    alone give the batched tokens, and temperature 0.8 repeats under one
+    seed; at 8 PEs lazy admission on small pools preempts and gives the
+    reserve run's tokens. Every engine run launches the flash kernel once a
+    layer and step. Returns (summaries, flash launches, ok)."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.params import init_params
+    from repro_torch.models.serving import make_serve_plan
+    from repro_torch.models.topology import build_serve_topology
+    from repro_torch.serving import Request, ServeEngine
+
+    L, V = cfg.n_layers, cfg.vocab_size
+    topo = build_serve_topology(cfg, pes)
+    plan = make_serve_plan(cfg, topo, S_ctx=PROMPT + GEN, global_batch=BATCH)
+    params = init_params(cfg, topo, 0, device=dev)
+
+    def make(**kw):
+        return ServeEngine(cfg, topo, plan, params, page_size=ENGINE_PAGE,
+                           device=dev, **kw)
+
+    r, launches = {}, 0
+    # 1. lockstep against the launcher (its prompts: seed 0)
+    launcher = serve(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, pes=pes,
+                     device=dev, seed=0, params=params)
+    ref = launcher["tokens"]
+    lock = [Request(rid=b, prompt=ref[b, :PROMPT].tolist(), max_new=GEN)
+            for b in range(BATCH)]
+    m = _engine_run(make, lock, dev=dev, keep=keep_kernel_inputs(
+        kept, f"engine_decode/{pes}pe"))
+    got = np.array([m["tokens"][b] for b in range(BATCH)])
+    r["lockstep"] = s = _engine_summary(m, L, V, lock)
+    s["tokens_equal_launcher"] = bool(np.array_equal(got, ref[:, PROMPT:]))
+    s["launcher_ms_per_step"] = launcher["ms_per_step"]
+    ok = _summary_ok(s) and s["tokens_equal_launcher"]
+    launches += m["launches"]
+    # 2. the Poisson trace under reserve admission
+    pm = _engine_run(make, trace, dev=dev)
+    r["poisson"] = s = _engine_summary(pm, L, V, trace)
+    ok &= _summary_ok(s)
+    launches += pm["launches"]
+    if pes == 1:
+        # 3. batching invariance: the first 6 requests alone, in turn
+        solo = make()
+        flash.LAUNCHES = 0
+        alone = {}
+        for q in trace[:6]:
+            ms = solo.run(_fresh([q], arrival=solo.step_idx),
+                          max_steps=solo.step_idx + ENGINE_MAX_STEPS)
+            alone[q.rid] = list(ms["finished"][-1].out_tokens)
+        torch.cuda.synchronize()
+        n_solo = flash.LAUNCHES
+        launches += n_solo
+        r["batching_invariance"] = s = {
+            "requests": len(alone), "steps": solo.step_idx,
+            "flash_launches": n_solo,
+            "tokens_equal_batched": all(
+                alone[i] == pm["tokens"][i] for i in alone)}
+        ok &= s["tokens_equal_batched"] and n_solo == L * solo.step_idx
+        # 5. temperature 0.8: twice under one seed
+        hot = _fresh(trace[:6], temperature=0.8)
+        t1 = _engine_run(make, hot, dev=dev, seed=11)
+        t2 = _engine_run(make, hot, dev=dev, seed=11)
+        r["temperature"] = s = _engine_summary(t1, L, V, hot)
+        s["repeats_under_seed"] = t1["tokens"] == t2["tokens"]
+        s["differs_from_greedy"] = any(
+            t1["tokens"][i] != pm["tokens"][i] for i in t1["tokens"])
+        ok &= _summary_ok(s) and s["repeats_under_seed"]
+        launches += t1["launches"] + t2["launches"]
+    else:
+        # 4. preemption: lazy admission on pools of ENGINE_TIGHT pages
+        lm = _engine_run(make, trace, dev=dev, admission="lazy",
+                         pages_per_shard=ENGINE_TIGHT)
+        r["preemption"] = s = _engine_summary(lm, L, V, trace)
+        s["tokens_equal_reserve"] = lm["tokens"] == pm["tokens"]
+        ok &= (_summary_ok(s) and s["preemptions"] > 0
+               and s["tokens_equal_reserve"])
+        launches += lm["launches"]
+    # where a step's time goes (not counted: off the gated runs)
+    prof = make()
+    for q in _fresh(lock):
+        prof.submit(q)
+    r["profile"] = profile_steps(lambda t: prof.step())
+    return r, launches, bool(ok)
 
 
 def phase_serve_f32(dev) -> dict:
@@ -1852,6 +2074,7 @@ def main() -> int:
                      ("serve_rwkv_f32", lambda: phase_serve_rwkv_f32(dev)),
                      ("serve_dense", lambda: phase_serve_dense(dev, kept)),
                      ("serve_dense_f32", lambda: phase_serve_dense_f32(dev)),
+                     ("serve_engine", lambda: phase_serve_engine(dev, kept)),
                      ("main_path", lambda: phase_main_path(
                          kept, kept_reorder, kept_rwkv6))):
         needs = (("serve", "serve_moe", "serve_rwkv", "serve_dense")
@@ -1881,6 +2104,7 @@ def main() -> int:
     kern, serve_res = results["main_path"], results["serve"]
     moe_res, rwkv_res = results["serve_moe"], results["serve_rwkv"]
     dense_res = results["serve_dense"]["archs"]
+    engine_res = results["serve_engine"]
     # the flash headline: the main-path row that fares worst against SDPA
     head = max(kern["main_path"], key=lambda t: t["ms"] / t["library_ms"])
     swz = kern["reorder"]
@@ -1888,11 +2112,14 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": (serve_res["flash_launches"] + moe_res["flash_launches"]
-                     + results["serve_dense"]["flash_launches"]),
+                     + results["serve_dense"]["flash_launches"]
+                     + engine_res["flash_launches"]),
         "launches_by_path": {ARCH: serve_res["flash_launches"],
                              MOE_ARCH: moe_res["flash_launches"],
                              **{a: dense_res[a]["flash_launches"]
-                                for a in DENSE_ARCHS}},
+                                for a in DENSE_ARCHS},
+                             f"{ARCH}/serve_engine":
+                                 engine_res["flash_launches"]},
         "max_abs_err": max(t["max_abs_err"] for t in kern["main_path"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -32,10 +32,23 @@ a distinct data movement:
 loops do not re-plan every step. Every dispatch appends a :class:`CommEvent`
 to any active :class:`CommTrace`.
 
-Ported so far: all_reduce, all_gather, reduce_scatter and all_to_all. The
-rooted four (scatter / gather / reduce / broadcast) and the non-stage flows
-(hierarchical, compressed, ring, tree, the fused ring flows) raise
-``NotImplementedError`` until their slice of the port.
+The rooted four (scatter / gather / reduce / broadcast) move data between
+the host and the cube (§IV-B3, the host is the root). A cube tensor carries
+no sharding, so the layout comes with the call, as in the NumPy oracles
+(``repro.testing.oracles``): scatter puts chunk r of the host value along
+``axis`` on member r of the group and replicates it over the instances (or
+places it under a whole ``spec``); broadcast replicates it over the cube;
+gather concatenates the group's blocks of instance 0 along ``axis`` on the
+host (``spec=()`` gives a replicated value's single copy back), and reduce
+reduces that host value over ``axis``. Their data path is stage-invariant,
+so one body serves every registered stage, as in the reference.
+
+While a :class:`repro_torch.core.program.CommProgram` records, every
+primitive appends an op to it instead of dispatching.
+
+Ported: all_reduce, all_gather, reduce_scatter, all_to_all and the rooted
+four. The non-stage flows (hierarchical, compressed, ring, tree, the fused
+ring flows) raise ``NotImplementedError`` until their slice of the port.
 """
 from __future__ import annotations
 
@@ -43,11 +56,13 @@ import dataclasses
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import planner
-from repro_torch.core.hypercube import Hypercube
+from repro_torch.core.hypercube import Hypercube, _spec_names
 from repro_torch.kernels.reorder import ops as reorder_ops
+from repro_torch.telemetry import metrics as _telemetry
 
 # Canonical Table II stage ladder, weakest to strongest.
 STAGE_ORDER = ("naive", "pr", "im", "cm")
@@ -69,9 +84,9 @@ _NOT_PORTED = ("hierarchical", "compressed", "ring", "tree", "ring_fused",
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ported: all_reduce, "
-        "all_gather, reduce_scatter and all_to_all with the Table II "
-        "stages)")
+        f"{what} is not ported to repro_torch yet (ported: the Table II "
+        "stages of all_reduce, all_gather, reduce_scatter, all_to_all and "
+        "the rooted four)")
 
 
 # ============================================================ the registry
@@ -152,10 +167,17 @@ class CommEvent:
     stage: str                   # Table II stage of that flow
     group_size: int
     num_instances: int
-    payload_bytes: int           # per-PE payload
+    payload_bytes: int           # per-PE payload (rooted: the host value)
     ici_bytes: float             # planner estimate, per PE
     dcn_bytes: float
     seconds: float | None        # unset until a measured profile prices it
+    # deferred-program provenance (repro_torch.core.program): the program
+    # this dispatch executed under, and the recorded op ids a fused /
+    # coalesced op was rewritten from. Empty for eager dispatches.
+    program_id: str | None = None
+    fused_from: tuple[int, ...] = ()
+    # estimate provenance: "analytic" (byte model) or "measured"
+    est_source: str = "analytic"
 
 
 _TRACES: list["CommTrace"] = []
@@ -195,8 +217,23 @@ class CommTrace:
             d["ici_bytes"] += e.ici_bytes
             d["dcn_bytes"] += e.dcn_bytes
         ici, dcn = self.total_bytes()
+        fused = [e for e in self.events if e.fused_from]
+        sources: dict[str, int] = {}
+        for e in self.events:
+            sources[e.est_source] = sources.get(e.est_source, 0) + 1
         return {"events": len(self.events), "ici_bytes": ici,
-                "dcn_bytes": dcn, "by_flow": by}
+                "dcn_bytes": dcn, "by_flow": by, "est_sources": sources,
+                "fused_events": len(fused),
+                "fused_from_ops": sum(len(e.fused_from) for e in fused),
+                "programs": sorted({e.program_id for e in self.events
+                                    if e.program_id})}
+
+
+def program_mod():
+    """Deferred import of :mod:`repro_torch.core.program` (cycle: programs
+    record through ``Communicator._dispatch``)."""
+    from repro_torch.core import program
+    return program
 
 
 # ========================================================== communicator
@@ -223,6 +260,16 @@ class Communicator:
         self._flows: dict[tuple, tuple[str, planner.CommEstimate | None]] = {}
         # block permutations of the reorder kernel (``block_perm``)
         self._perms: dict[tuple, tuple[torch.Tensor, int]] = {}
+
+    def describe(self) -> str:
+        return (f"Communicator[{self.cube.describe()} dims={self.bitmap} "
+                f"g={self.group_size} inst={self.num_instances}]")
+
+    def program(self, *, name: str = ""):
+        """Open a :class:`repro_torch.core.program.CommProgram` recording
+        scope over this communicator's cube (any communicator of the cube
+        may record into it)."""
+        return program_mod().CommProgram(self.cube, name=name)
 
     # ------------------------------------------------------ group layout
     def group_view(self, x: torch.Tensor) -> torch.Tensor:
@@ -290,29 +337,42 @@ class Communicator:
             return "hierarchical"
         return stage
 
-    def _dispatch(self, primitive: str, x: torch.Tensor, *,
-                  algorithm: str | None, op: str = "add", **kwargs):
+    def _dispatch(self, primitive: str, x, *, algorithm: str | None,
+                  op: str = "add", _meta: tuple | None = None, **kwargs):
         alg = "auto" if algorithm is None else algorithm
         if op not in _REDUCERS:
             raise ValueError(f"unknown op {op!r}; expected {sorted(_REDUCERS)}")
-        payload = _payload_bytes(x, self.cube.ndim)
+        rec = program_mod().active_program()
+        if rec is not None:
+            # deferred mode: append an op to the recording program instead
+            # of dispatching; execution re-enters here with recording
+            # suspended and ``_meta`` carrying the provenance
+            return rec.record_op(self, primitive, x, algorithm=alg, op=op,
+                                 kwargs=kwargs)
+        payload = payload_bytes(self, primitive, tuple(x.shape),
+                                _itemsize(x.dtype), kwargs)
         flow, est = self._resolve_flow(primitive, alg, payload, op)
         spec = get_algorithm(primitive, flow)
-        if _TRACES:
+        if _TRACES or _telemetry.enabled():
             if est is None:
                 est = planner.estimate(
                     self.cube, primitive, self.dims, payload,
                     algorithm="naive" if flow == "naive" else "direct")
+            _telemetry.inc("comm.dispatches")
+            _telemetry.inc(f"comm.est_source.{est.est_source}")
+        if _TRACES:
+            program_id, fused_from = _meta if _meta else (None, ())
             event = CommEvent(
                 primitive=primitive, bitmap=self.bitmap, dims=self.dims,
                 algorithm=alg, flow=flow, stage=spec.stage,
                 group_size=self.group_size,
                 num_instances=self.num_instances, payload_bytes=payload,
                 ici_bytes=est.ici_bytes, dcn_bytes=est.dcn_bytes,
-                seconds=est.seconds)
+                seconds=est.seconds, program_id=program_id,
+                fused_from=tuple(fused_from), est_source=est.est_source)
             for t in _TRACES:
                 t.record(event)
-        if primitive in ("all_reduce", "reduce_scatter"):
+        if primitive in ("all_reduce", "reduce_scatter", "reduce"):
             return spec.fn(self, x, op=op, **kwargs)
         return spec.fn(self, x, **kwargs)
 
@@ -391,25 +451,99 @@ class Communicator:
             got = self._perms[key] = (perm, unit)
         return got
 
-    def scatter(self, host_value, **kwargs):
-        raise _not_ported("the rooted scatter")
+    # ------------------------------------------------- rooted (host) four
+    def scatter(self, host_value, *, axis: int | None = None,
+                spec: tuple | None = None, device=None,
+                algorithm: str | None = None) -> torch.Tensor:
+        """Host -> PEs: member r of the group gets chunk r of
+        ``host_value`` along ``axis``, replicated over the instances; or,
+        with ``spec`` instead, the value placed under a whole
+        PartitionSpec-shaped tuple (one entry per axis: None / dim name /
+        tuple of names). On ``device`` (default: the value's own, the CPU
+        for a NumPy array)."""
+        if (axis is None) == (spec is None):
+            raise ValueError("scatter takes exactly one of axis= or spec=")
+        kw = {"spec": tuple(spec)} if spec is not None else {"axis": axis}
+        return self._dispatch("scatter", host_value, algorithm=algorithm,
+                              device=_host_device(host_value, device), **kw)
 
-    def gather(self, x, **kwargs):
-        raise _not_ported("the rooted gather")
+    def broadcast(self, host_value, *, device=None,
+                  algorithm: str | None = None) -> torch.Tensor:
+        """Host -> PEs: replicate to every PE of the cube."""
+        return self._dispatch("broadcast", host_value, algorithm=algorithm,
+                              device=_host_device(host_value, device))
 
-    def reduce(self, x, **kwargs):
-        raise _not_ported("the rooted reduce")
+    def gather(self, x, *, axis: int | None = None,
+               spec: tuple | None = None,
+               algorithm: str | None = None) -> torch.Tensor:
+        """PEs -> host: the group's blocks of instance 0 concatenated along
+        payload ``axis``, or the global value of a cube tensor laid out
+        under ``spec`` (``spec=()``: a replicated value's single copy), as
+        a CPU tensor."""
+        if (axis is None) == (spec is None):
+            raise ValueError("gather takes exactly one of axis= or spec=")
+        self._check(x)
+        kw = {"spec": tuple(spec)} if spec is not None else {"axis": axis}
+        return self._dispatch("gather", x, algorithm=algorithm, **kw)
 
-    def broadcast(self, host_value, **kwargs):
-        raise _not_ported("the rooted broadcast")
+    def reduce(self, x, *, op: str = "add", axis: int = 0,
+               spec: tuple | None = None,
+               algorithm: str | None = None) -> torch.Tensor:
+        """PEs -> host: the gathered value (sharded along ``axis`` over the
+        group, or laid out under ``spec``) reduced over ``axis``, as a CPU
+        tensor."""
+        self._check(x)
+        kw = {"spec": tuple(spec)} if spec is not None else {}
+        return self._dispatch("reduce", x, algorithm=algorithm, op=op,
+                              axis=axis, **kw)
 
 
-def _payload_bytes(x: torch.Tensor, cube_ndim: int) -> int:
-    """Per-PE payload bytes of a cube tensor."""
-    n = 1
-    for s in x.shape[cube_ndim:]:
-        n *= int(s)
-    return n * x.element_size()
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    return np.dtype(dtype).itemsize
+
+
+def _host_device(host_value, device) -> str:
+    if device is None:
+        device = (host_value.device if isinstance(host_value, torch.Tensor)
+                  else "cpu")
+    return str(torch.device(device))
+
+
+def _gather_spec(comm, npay: int, axis: int | None, spec) -> tuple:
+    """The payload spec a gather / reduce assembles the host value under."""
+    if spec is not None:
+        return tuple(spec)
+    entries = [None] * npay
+    entries[axis % npay] = comm.dims
+    return tuple(entries)
+
+
+def host_shape(comm, shape: tuple, kwargs: dict) -> tuple:
+    """Global (host) shape a gather assembles from a cube tensor of
+    ``shape`` (its payload axes scaled by the PEs their spec entries
+    name)."""
+    pay = tuple(shape[comm.cube.ndim:])
+    spec = _gather_spec(comm, len(pay), kwargs.get("axis"),
+                        kwargs.get("spec"))
+    spec = spec + (None,) * (len(pay) - len(spec))
+    return tuple(n * math.prod(comm.cube.size(d) for d in _spec_names(e))
+                 for n, e in zip(pay, spec))
+
+
+def payload_bytes(comm, primitive: str, shape: tuple, itemsize: int,
+                  kwargs: dict) -> int:
+    """Bytes one dispatch moves per PE: the host value for the rooted four
+    (scatter / broadcast take it, gather / reduce assemble it), else the
+    per-PE payload of the cube tensor."""
+    if primitive in ("scatter", "broadcast"):
+        n = math.prod(shape)
+    elif primitive in ("gather", "reduce"):
+        n = math.prod(host_shape(comm, shape, kwargs))
+    else:
+        n = math.prod(shape[comm.cube.ndim:])
+    return int(n) * itemsize
 
 
 # ===================================================== algorithm bodies
@@ -621,6 +755,54 @@ def _ar_pr(comm, x, *, op):
 @register_algorithm("all_reduce", "im")
 def _ar_direct(comm, x, *, op):
     return _to_members(comm, _REDUCERS[op][1](comm.group_view(x), 0))
+
+
+# --------------------------------------------------- rooted (host) four
+# The host is the root (§IV-B3). The data path is stage-invariant -- the
+# host<->device copy is the transfer whatever the stage -- so one body
+# serves every registered stage, as in the reference.
+def _host_tensor(host_value, device: str) -> torch.Tensor:
+    t = (host_value if isinstance(host_value, torch.Tensor)
+         else torch.as_tensor(np.asarray(host_value)))
+    return t.to(device)
+
+
+def _rooted_scatter(comm, host_value, *, device, axis=None, spec=None):
+    t = _host_tensor(host_value, device)
+    if spec is None:
+        entries = [None] * t.dim()
+        entries[axis % t.dim()] = comm.dims
+        spec = tuple(entries)
+    return comm.cube.to_cube(t, spec).contiguous()
+
+
+def _rooted_broadcast(comm, host_value, *, device):
+    return comm.cube.to_cube(_host_tensor(host_value, device), ()) \
+        .contiguous()
+
+
+def _assemble(comm, x, axis, spec) -> torch.Tensor:
+    npay = x.dim() - comm.cube.ndim
+    return comm.cube.from_cube(x, _gather_spec(comm, npay, axis, spec))
+
+
+def _rooted_gather(comm, x, *, axis=None, spec=None):
+    return _assemble(comm, x, axis, spec).to("cpu", copy=True).contiguous()
+
+
+def _rooted_reduce(comm, x, *, op, axis, spec=None):
+    full = _assemble(comm, x, axis, spec)
+    # the reduction keeps the payload's dtype (torch.sum would widen ints)
+    return _REDUCERS[op][1](full, axis).to(x.dtype).cpu()
+
+
+for _stage_name in ("naive", "im"):
+    register_algorithm("scatter", _stage_name)(_rooted_scatter)
+    register_algorithm("gather", _stage_name)(_rooted_gather)
+for _stage_name in ("naive", "pr", "im"):
+    register_algorithm("reduce", _stage_name)(_rooted_reduce)
+register_algorithm("broadcast", "naive")(_rooted_broadcast)
+del _stage_name
 
 
 __all__ = [

@@ -142,6 +142,12 @@ class Hypercube:
         from repro_torch.core.comm import Communicator  # deferred: cycle
         return Communicator(self, dims)
 
+    def program(self, *, name: str = ""):
+        """Open a :class:`repro_torch.core.program.CommProgram` recording
+        scope over this cube."""
+        from repro_torch.core.program import CommProgram  # deferred: cycle
+        return CommProgram(self, name=name)
+
     # ---------------------------------------------------------------- layout
     @property
     def ndim(self) -> int:

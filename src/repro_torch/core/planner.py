@@ -1,7 +1,8 @@
-"""Structural cost model + flow pick for ``algorithm="auto"`` dispatch.
+"""Structural cost model + flow pick for ``algorithm="auto"`` dispatch, and
+the joint plan of a whole CommProgram.
 
-The counterpart of ``repro.core.planner.estimate``/``plan`` for the ported
-primitives. It carries no link or FLOP constants: the reference's constants
+The counterpart of ``repro.core.planner`` (``estimate``/``plan``/
+``plan_program``) for the ported primitives. It carries no link or FLOP constants: the reference's constants
 describe another chip, and this port prices time only from what its own
 tuner will measure on the card. Until then ``seconds`` stays unset and the
 candidates are ranked by the bytes they move, DCN bytes first, then ICI
@@ -9,13 +10,23 @@ bytes. Within one domain that is the reference's ranking by seconds (both
 byte counts are divided by the same link rate); across domains it agrees
 too, because every candidate here is Pareto-ordered (no flow moves fewer DCN
 bytes while moving more ICI bytes than another).
+
+``plan_program`` levels a program's ops by their data dependencies and,
+within a level, interleaves DCN-dominant and ICI-dominant ops (largest
+first in each domain), as the reference does; with no time model its
+``seconds`` and ``serial_seconds`` stay unset and ``est_source`` stays
+``"analytic"``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import math
+from typing import Mapping
 
 from repro_torch.core.hypercube import Hypercube
+from repro_torch.telemetry import metrics as _telemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +38,35 @@ class CommEstimate:
     dcn_bytes: float                   # per-PE bytes over DCN
     seconds: float | None = None       # unset until a measured profile
     stage: str = ""                    # the Table II stage this flow maps to
+    est_source: str = "analytic"       # "analytic" | "measured" provenance
+
+    def dominant(self) -> str:
+        """The domain whose link bounds this op: any DCN byte makes it DCN
+        (a pod boundary is the slower link by an order of magnitude on
+        every system the reference models), else ICI."""
+        return "dcn" if self.dcn_bytes > 0 else "ici"
+
+
+# Stack of installed profiles (the reference's ``repro.tuning`` profiles):
+# none is measured for this port yet, so nothing here prices time from
+# one; the stack exists so the lower cache keys on the installed profile
+# exactly as the reference does.
+_PROFILES: list = []
+
+
+def active_profile():
+    """The innermost installed profile, or None."""
+    return _PROFILES[-1] if _PROFILES else None
+
+
+@contextlib.contextmanager
+def install_profile(profile):
+    """Install ``profile`` for the scope (nests; the innermost wins)."""
+    _PROFILES.append(profile)
+    try:
+        yield profile
+    finally:
+        _PROFILES.remove(profile)
 
 
 def _group_bytes(primitive: str, payload: float, g: int) -> float:
@@ -39,6 +79,11 @@ def _group_bytes(primitive: str, payload: float, g: int) -> float:
         "reduce_scatter": payload * frac,
         "all_gather": payload * (g - 1),   # payload = per-PE shard bytes
         "all_reduce": 2 * payload * frac,
+        # rooted (host) four: the payload crosses the host link once
+        "broadcast": payload,
+        "scatter": payload,
+        "gather": payload,
+        "reduce": payload,
     }[primitive]
 
 
@@ -99,3 +144,94 @@ def plan(cube: Hypercube, primitive: str, dims,
              for a in ("naive", "direct", "pidcomm")]
     return min(cands, key=lambda e: (e.dcn_bytes, e.ici_bytes,
                                      e.algorithm == "naive"))
+
+
+# -------------------------------------------------------- program planning
+@dataclasses.dataclass(frozen=True)
+class ProgramOpSpec:
+    """One CommProgram op as the planner sees it (shapes only)."""
+    op_id: int
+    primitive: str
+    dims: tuple[str, ...]
+    payload_bytes: float
+    deps: tuple[int, ...] = ()
+    algorithm: str = "auto"
+    op: str = "add"                    # reducer, for escalation parity
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgramPlan:
+    """Joint plan of a whole program: per-op estimates, an explicit
+    interleaving order for independent ops, and the dependency levels.
+    ``seconds`` / ``serial_seconds`` stay unset until a measured profile
+    prices the ops (the reference prices them from another chip's link
+    constants)."""
+    estimates: Mapping[int, CommEstimate]
+    order: tuple[int, ...]             # dependency-safe dispatch order
+    levels: tuple[tuple[int, ...], ...]  # independent-op waves
+    ici_bytes: float
+    dcn_bytes: float
+    seconds: float | None = None
+    serial_seconds: float | None = None
+    est_source: str = "analytic"
+
+
+def _alternate(first, second):
+    out = []
+    for pair in itertools.zip_longest(first, second):
+        out += [i for i in pair if i is not None]
+    return out
+
+
+def _op_estimate(cube: Hypercube, o: ProgramOpSpec) -> CommEstimate:
+    """``auto``/``pidcomm`` race the flows; ``naive`` prices the host flow
+    and ``hierarchical`` the split; any other stage runs the native flow, priced direct -- except an
+    additive all_reduce resolving to ``im``, which the dispatcher escalates
+    to the hierarchical split on a group spanning both domains."""
+    if o.algorithm in ("auto", "pidcomm"):
+        return plan(cube, o.primitive, o.dims, o.payload_bytes)
+    if o.algorithm in ("naive", "hierarchical"):
+        alg = "naive" if o.algorithm == "naive" else "pidcomm"
+        return estimate(cube, o.primitive, o.dims, o.payload_bytes, alg)
+    alg = "direct"
+    if o.primitive == "all_reduce" and o.op == "add":
+        from repro_torch.core.comm import resolve_stage
+        try:
+            if resolve_stage("all_reduce", o.algorithm) == "im":
+                alg = "pidcomm"
+        except ValueError:
+            pass
+    return estimate(cube, o.primitive, o.dims, o.payload_bytes, alg)
+
+
+def plan_program(cube: Hypercube, ops) -> ProgramPlan:
+    """One planning pass over a whole CommProgram: estimate every op, level
+    the ops by data dependency (wave l = ops whose deps all sit in waves <
+    l), and order each wave so DCN-dominant and ICI-dominant ops alternate,
+    the larger first within each domain, so neither link sits idle."""
+    est = {o.op_id: _op_estimate(cube, o) for o in ops}
+    level_of: dict[int, int] = {}
+    remaining = {o.op_id: o for o in ops}
+    levels: list[tuple[int, ...]] = []
+    while remaining:
+        wave = [oid for oid, o in remaining.items()
+                if all(d in level_of or d not in est for d in o.deps)]
+        if not wave:
+            raise ValueError("cyclic dependencies in program ops")
+        dcn = sorted((i for i in wave if est[i].dominant() == "dcn"),
+                     key=lambda i: (-est[i].dcn_bytes, -est[i].ici_bytes))
+        ici = sorted((i for i in wave if est[i].dominant() == "ici"),
+                     key=lambda i: -est[i].ici_bytes)
+        chosen = _alternate(dcn, ici)
+        levels.append(tuple(chosen))
+        for oid in chosen:
+            level_of[oid] = len(levels) - 1
+            del remaining[oid]
+    _telemetry.inc("planner.plan_program_calls")
+    _telemetry.inc("planner.est_source.analytic")
+    return ProgramPlan(
+        estimates=est,
+        order=tuple(oid for wave in levels for oid in wave),
+        levels=tuple(levels),
+        ici_bytes=sum(e.ici_bytes for e in est.values()),
+        dcn_bytes=sum(e.dcn_bytes for e in est.values()))

@@ -45,6 +45,11 @@ class Topology:
             got = self._comms[key] = self.cube.comm(key)
         return got
 
+    def program(self, *, name: str = ""):
+        """A CommProgram recording scope over this topology's cube: inside
+        it every ``topo.comm(axes)`` primitive appends to the program."""
+        return self.cube.program(name=name)
+
     def axis_index(self, axes, device) -> torch.Tensor:
         """Each PE's index within its group over ``axes`` (shape
         ``cube.dim_sizes``; zeros when ``axes`` is empty) -- the in-process

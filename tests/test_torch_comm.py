@@ -1,6 +1,6 @@
 """Conformance of the port's ported collectives: every Table II stage of
-all_reduce, all_gather, reduce_scatter and all_to_all, bit-identical to the
-NumPy oracles of ``repro.testing.oracles`` on integer-valued payloads (so
+all_reduce, all_gather, reduce_scatter, all_to_all and the rooted four
+(scatter / gather / reduce / broadcast), bit-identical to the NumPy oracles of ``repro.testing.oracles`` on integer-valued payloads (so
 every reduction order is exact), on the conformance cubes of the JAX suite:
 ``ring8``, ``2x4`` with ``01`` and ``2x2x2`` with ``010``/``110``/``011``,
 and for all_to_all also the 16-PE shapes ``4d16``, ``ring16`` and
@@ -216,9 +216,11 @@ def test_unported_flows_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
         c.all_to_all(t, split_axis=0, concat_axis=0,
                      algorithm="hierarchical")
-    for name in ("scatter", "gather", "reduce", "broadcast"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            getattr(c, name)(t)
+    # the rooted four are ported now: each has its registered stages
+    assert {p: comm_mod.applicability()[p] for p in (
+        "scatter", "gather", "reduce", "broadcast")} == {
+        "scatter": ("naive", "im"), "gather": ("naive", "im"),
+        "reduce": ("naive", "pr", "im"), "broadcast": ("naive",)}
     for flow in ("ring", "tree", "hierarchical", "compressed"):
         with pytest.raises(NotImplementedError, match="not ported"):
             c.all_reduce(t, algorithm=flow)
@@ -233,3 +235,118 @@ def test_unported_flows_raise():
     np.testing.assert_array_equal(
         pod.comm(("pod", "dp")).all_reduce(y, op="max").numpy(),
         oracles.all_reduce(y.numpy(), 3, [0, 1], "max"))
+
+
+# ------------------------------------------------------------- rooted four
+ROOTED_STAGES = {"scatter": ["naive", "im", "auto", "pidcomm"],
+                 "gather": ["naive", "im", "auto", "pidcomm"],
+                 "reduce": ["naive", "pr", "im", "auto", "pidcomm"],
+                 "broadcast": ["naive", "auto", "pidcomm"]}
+
+
+def _host(cube_name, bitmap, seed, rows=4, cols=3, dtype=np.float32):
+    """An integer host value whose axis 0 splits over the group."""
+    cube = Hypercube.build(CUBES[cube_name])
+    g = cube.group_size(cube.dims_from_bitmap(bitmap))
+    host = np.random.RandomState(seed).randint(-4, 5, (rows * g, cols))
+    axes = [i for i, b in enumerate(bitmap) if b == "1"]
+    return cube, cube.comm(bitmap), host.astype(dtype), axes
+
+
+@pytest.mark.parametrize("cube_name,bitmap", CELLS)
+@pytest.mark.parametrize("stage", ROOTED_STAGES["scatter"])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_scatter(cube_name, bitmap, stage, axis):
+    cube, c, host, axes = _host(cube_name, bitmap, 5)
+    if axis == 1:
+        host = np.ascontiguousarray(host.T)
+    got = c.scatter(host, axis=axis, algorithm=stage)
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(
+        got.numpy(), oracles.scatter(host, cube.dim_sizes, axes, axis=axis))
+
+
+@pytest.mark.parametrize("cube_name,bitmap", CELLS)
+@pytest.mark.parametrize("stage", ROOTED_STAGES["gather"])
+def test_gather(cube_name, bitmap, stage):
+    cube, c, host, axes = _host(cube_name, bitmap, 6)
+    dev = c.scatter(host, axis=0)
+    back = c.gather(dev, axis=0, algorithm=stage)
+    assert back.device.type == "cpu"
+    np.testing.assert_array_equal(back.numpy(), host)
+    # the oracle's reassembly from the per-PE blocks agrees
+    np.testing.assert_array_equal(
+        oracles.gather(dev.numpy(), cube.ndim, axes, axis=0), host)
+    # a replicated value gives its single copy back, as a fresh tensor
+    rep = c.broadcast(host)
+    one = c.gather(rep, spec=(), algorithm=stage)
+    np.testing.assert_array_equal(one.numpy(), host)
+    one.fill_(0.0)
+    assert rep.abs().sum() > 0
+
+
+@pytest.mark.parametrize("cube_name,bitmap", CELLS)
+@pytest.mark.parametrize("stage", ROOTED_STAGES["reduce"])
+@pytest.mark.parametrize("op", OPS)
+def test_reduce(cube_name, bitmap, stage, op):
+    cube, c, host, axes = _host(cube_name, bitmap, 8)
+    dev = c.scatter(host, axis=0)
+    got = c.reduce(dev, op=op, axis=0, algorithm=stage)
+    want = oracles.reduce(host, axis=0, op=op)
+    assert got.dtype == dev.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("cube_name,bitmap", CELLS)
+@pytest.mark.parametrize("stage", ROOTED_STAGES["broadcast"])
+def test_broadcast(cube_name, bitmap, stage):
+    cube, c, host, _ = _host(cube_name, bitmap, 9)
+    got = c.broadcast(host, algorithm=stage)
+    np.testing.assert_array_equal(got.numpy(),
+                                  oracles.broadcast(host, cube.dim_sizes))
+    before = got[(1,) * cube.ndim].clone()
+    got[(0,) * cube.ndim].fill_(99.0)           # every PE's own copy
+    torch.testing.assert_close(got[(1,) * cube.ndim], before)
+
+
+def test_rooted_spec_layouts_round_trip():
+    """The ``spec`` form places a host value under a whole layout (what a
+    per-slot cache row needs) and gather / reduce assemble it back."""
+    cube = Hypercube.build(CUBES["2x2x2"])
+    c = cube.comm("011")
+    host = np.arange(4 * 8 * 2, dtype=np.float32).reshape(4, 8, 2)
+    spec = (("a",), ("b", "c"), None)
+    dev = c.scatter(host, spec=spec)
+    assert dev.shape == (2, 2, 2, 2, 2, 2)
+    torch.testing.assert_close(dev, cube.to_cube(torch.from_numpy(host),
+                                                 spec))
+    np.testing.assert_array_equal(c.gather(dev, spec=spec).numpy(), host)
+    np.testing.assert_array_equal(
+        c.reduce(dev, op="max", axis=1, spec=spec).numpy(), host.max(1))
+    for bad in (lambda: c.scatter(host), lambda: c.gather(dev),
+                lambda: c.scatter(host, axis=0, spec=spec),
+                lambda: c.gather(dev, axis=0, spec=spec)):
+        with pytest.raises(ValueError, match="exactly one"):
+            bad()
+
+
+def test_rooted_auto_dispatch_traced_and_placed():
+    cube = Hypercube.build(CUBES["2x2x2"])
+    c = cube.comm("111")
+    host = np.arange(16 * 3, dtype=np.float32).reshape(16, 3)
+    with CommTrace() as tr:
+        dev = c.scatter(host, axis=0)
+        c.broadcast(host)
+        back = c.gather(dev, axis=0)
+        red = c.reduce(dev, op="add", axis=0)
+    np.testing.assert_array_equal(back.numpy(), host)
+    np.testing.assert_array_equal(red.numpy(), host.sum(0))
+    assert [e.primitive for e in tr.events] == [
+        "scatter", "broadcast", "gather", "reduce"]
+    assert [e.flow for e in tr.events] == ["im", "naive", "im", "im"]
+    assert all(e.algorithm == "auto" and e.payload_bytes == host.nbytes
+               and e.ici_bytes == host.nbytes and e.program_id is None
+               for e in tr.events)
+    # a torch host value keeps its device unless one is asked for
+    t = c.scatter(torch.from_numpy(host), axis=0, device="cpu")
+    assert t.device.type == "cpu" and torch.equal(t, dev)

@@ -38,3 +38,30 @@ def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported(tree)
            if m.split(".")[0] in FORBIDDEN or m.startswith("repro.")]
     assert not bad, f"{path.name} imports {bad}"
+
+
+# the serving slice's modules: present, covered above, and importable in a
+# process where ``jax`` and ``repro`` cannot be imported at all
+SLICE_MODULES = ["repro_torch.telemetry", "repro_torch.telemetry.metrics",
+                 "repro_torch.telemetry.spans", "repro_torch.telemetry.drift",
+                 "repro_torch.core.program", "repro_torch.core.planner",
+                 "repro_torch.core.comm", "repro_torch.serving",
+                 "repro_torch.serving.pages", "repro_torch.serving.engine"]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_module_imports_without_jax(module):
+    import subprocess
+    import sys
+    path = ROOT / "src" / Path(*module.split("."))
+    assert (path.with_suffix(".py") in FILES
+            or path / "__init__.py" in FILES), module
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            f"import {module}\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
