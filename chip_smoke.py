@@ -40,7 +40,14 @@ Phases, each printed as one JSON line:
   comm    every ported stage of all_reduce / all_gather / reduce_scatter on
           virtual 8-PE cubes on the card, and every stage of all_to_all on
           the 8-PE cubes and the 16-PE shapes, bit-identical to a plain
-          reduction or transpose written here, on integer payloads;
+          reduction or transpose written here, on integer payloads; the
+          non-stage all_reduce flows (hierarchical, tree, ring on single-dim
+          groups, pidcomm and auto) on the 8-PE cubes and the 16-PE shapes
+          bit-identical too, the int8 ``compressed`` flow on the pod-crossing
+          groups within 1e-6 x max|plain| of a plain int8 version written
+          here (and further than that from the exact sum), and the three
+          fused ring flows (ring_fused, ag_prologue, rs_epilogue) on the
+          8-PE cubes bit-identical;
   serve   full-width qwen3-1.7b through the launcher's function
           (batch 4, prompt 32, gen 16) at 1 and 8 PEs: decode logits track
           forward_logits of the same tokens within 5e-2 * max(1, max|ref|)
@@ -118,11 +125,30 @@ Phases, each printed as one JSON line:
           exactly 28 times a step (counted from 0 just before the run).
           Reports steps, tok/s, p50 / p99 per-token seconds, ms/step,
           page occupancy, peak memory and a profile of three steps;
-  main_path  each kernel on the inputs the serve phases kept (the shapes and
-          positions the serving path gives it): checked against the plain
-          version, then timed with the plain version, the bound, and one
-          PyTorch call as the library yardstick (SDPA for flash attention,
-          index_select for the reorder; none computes the RWKV6
+  apps    the paper's five applications (six APPS entries) on their JAX
+          bench cubes at sizes that hold hundreds of MB to GB (APP_CASES:
+          DLRM with 26 tables of 1,000,000 rows, GNN 32,768 nodes, BFS and
+          CC 32,768 nodes, MLP 16,384 features; DLRM's, GNN's and MLP's
+          inputs drawn from a seed, not the reference's constants), one at
+          a time, under naive and pidcomm: the scalar against a plain
+          single-tensor version written here on the app's own inputs
+          (APP_TOL; BFS and CC exactly, and again at 1 and 2 iterations,
+          before they saturate), ms per call, peak
+          memory, the inputs' bytes, and the reorder kernel's launches
+          (exactly 2 a DLRM pidcomm call);
+  fused_forward  full-width qwen3-1.7b forward_logits at 8 PEs with tp = 2
+          and cp = 2 (global batch 2 of 2,048 tokens) with fused_comm on and
+          off: bf16 within 5e-2 and f32 within 1e-4 x max(1, max|ref|),
+          exactly n_layers x cp partial flash launches a fused forward (ring
+          attention's hops) and n_layers unfused;
+  main_path  each kernel on the inputs the serve, fused_forward and apps
+          phases kept (the shapes and positions the path gives it; for
+          DLRM's AA(xyz), whose blocks repeat across the PEs, a random
+          tensor of that shape): checked
+          against the plain version, then timed with the plain version, the
+          bound, and one PyTorch call as the library yardstick (SDPA for
+          flash attention -- for a partial launch it computes the output
+          only --, index_select for the reorder; none computes the RWKV6
           recurrence), which the port never calls.
 
 Then the card's name and power limit, the kernels' JSON line, and as the
@@ -761,10 +787,294 @@ def phase_comm(dev) -> dict:
                             if not torch.equal(got, want):
                                 failures += 1
     a2a_cells, a2a_failed = _comm_all_to_all(dev, gen)
+    flows = _comm_flows(dev, gen)
     torch.cuda.synchronize()
-    return {"ok": failures == 0 and not a2a_failed, "cells": cells,
-            "failures": failures, "pes": 8, "all_to_all_cells": a2a_cells,
-            "all_to_all_failed": a2a_failed[:10]}
+    return {"ok": (failures == 0 and not a2a_failed
+                   and not flows["failed"]),
+            "cells": cells, "failures": failures, "pes": 8,
+            "all_to_all_cells": a2a_cells,
+            "all_to_all_failed": a2a_failed[:10], "flows": flows}
+
+
+# the compressed flow against the plain int8 version, relative to its max:
+# the same roundings, f32 sums in another order (half an int8 step is
+# max / 254; an uncompressed flow lands that far off and fails)
+COMPRESSED_TOL = 1e-6
+
+
+def _plain_int8_all_reduce(x, sizes, fast, slow, block=256):
+    """The §V-C compressed all-reduce written plainly: each pod's ICI sum,
+    split into |ICI| shards, quantized per PE by blocks of ``block`` to
+    int8 (absmax / 127, round half to even), dequantized, summed over the
+    pods, gathered back. x: (*cube, n) with n a multiple of |ICI| x block."""
+    shard = (_plain("reduce_scatter", x, sizes, fast, "add", 0) if fast
+             else x)
+    blocks = shard.reshape(shard.shape[:-1] + (-1, block))
+    step = blocks.abs().amax(-1, keepdim=True).div(127.0).clamp_min(1e-12)
+    deq = (torch.round(blocks / step).clamp(-127, 127) * step).reshape(
+        shard.shape)
+    summed = _plain("all_reduce", deq, sizes, slow, "add", 0)
+    full = (_plain("all_gather", summed, sizes, fast, "add", 0) if fast
+            else summed)
+    return full
+
+
+def _comm_flows(dev, gen) -> dict:
+    """The non-stage flows on the card, against the plain reductions above
+    on integer payloads: all_reduce's hierarchical, ring (single-dim
+    groups), tree, pidcomm and auto on the 8-PE cubes and the 16-PE shapes
+    (bit-identical), compressed on the pod-crossing ones (within
+    COMPRESSED_TOL x max|plain| of the plain int8 version, and further than
+    that from the exact all-reduce), and the three fused
+    ring flows on the 8-PE cubes (bit-identical)."""
+    from repro_torch.core.hypercube import Hypercube
+    cubes = [(n, d, 1, bm) for n, d, bm in CUBES] + CUBES16
+    cells, failed, compressed = 0, [], []
+    for name, dims, pods, bitmaps in cubes:
+        cube = Hypercube.build(dims, pods=pods)
+        sizes = cube.dim_sizes
+        # a first axis off every group size: ring pads its chunks
+        x = torch.randint(-4, 5, sizes + (37, 96), generator=gen,
+                          device=dev).to(torch.float32)
+        for bm in bitmaps:
+            comm = cube.comm(bm)
+            axes = [i for i, b in enumerate(bm) if b == "1"]
+            want = _plain("all_reduce", x, sizes, axes, "add", 0)
+            algs = ["hierarchical", "tree", "pidcomm", "auto"]
+            if len(axes) == 1:
+                algs.append("ring")
+            for alg in algs:
+                cells += 1
+                if not torch.equal(comm.all_reduce(x, algorithm=alg), want):
+                    failed.append([name, bm, "all_reduce", alg])
+            fast = [i for i in axes if cube.dim_names[i] not in
+                    cube.dcn_dims]
+            slow = [i for i in axes if i not in fast]
+            if slow:
+                xf = x.reshape(sizes + (-1,))[..., :2048] * torch.rand(
+                    sizes + (2048,), generator=gen, device=dev)
+                got = comm.all_reduce(xf, algorithm="compressed")
+                plain = _plain_int8_all_reduce(xf, sizes, fast, slow)
+                err = float((got - plain).abs().max())
+                bound = COMPRESSED_TOL * float(plain.abs().max())
+                lossy = float((got - _plain("all_reduce", xf, sizes, axes,
+                                            "add", 0)).abs().max())
+                cells += 1
+                compressed.append({"cube": name, "bitmap": bm, "err": err,
+                                   "bound": bound, "gap_to_exact": lossy})
+                if not (err <= bound and lossy > bound):
+                    failed.append([name, bm, "all_reduce", "compressed"])
+            if cube.ndev != 8:
+                continue            # the fused flows: the 8-PE cubes
+            for alg in ("ring_fused", "ag_prologue"):
+                for axis in (0, 1):
+                    cells += 1
+                    got = comm.all_gather(x, axis=axis, algorithm=alg)
+                    if not torch.equal(got, _plain("all_gather", x, sizes,
+                                                   axes, "add", axis)):
+                        failed.append([name, bm, "all_gather", alg, axis])
+            y = x[..., :32, :]
+            for op in ("add", "max", "min"):
+                for axis in (0, 1):
+                    cells += 1
+                    got = comm.reduce_scatter(y, axis=axis, op=op,
+                                              algorithm="rs_epilogue")
+                    if not torch.equal(got, _plain("reduce_scatter", y,
+                                                   sizes, axes, op, axis)):
+                        failed.append([name, bm, "reduce_scatter",
+                                       "rs_epilogue", op, axis])
+    return {"cells": cells, "failed": failed[:10], "compressed": compressed}
+
+
+# -------------------------------------------------------------------- apps
+# The paper's five applications at sizes that hold their inputs in hundreds
+# of MB to GB on the card, each on the cube of the JAX bench
+# (benchmarks/apps.py). DLRM: 26 tables as in the Criteo Kaggle setting of
+# facebookresearch/dlrm, emb_dim 16, 1,000,000 rows a table (a cut from
+# Kaggle's largest table of about 10 M rows), 2,048 samples a shard. DLRM,
+# GNN and MLP draw their inputs from ``seed`` (the reference's constants
+# would leave the scalar blind to where the collectives put the data).
+APP_CASES = {
+    "dlrm": ((2, 2, 2), dict(n_tables=26, emb_dim=16, rows=1_000_000,
+                             batch_per_shard=2048, seed=0)),
+    "gnn_rs_ar": ((4, 2), dict(n_nodes=32768, feat=256, seed=0)),
+    "gnn_ar_ag": ((4, 2), dict(n_nodes=32768, feat=256, seed=0)),
+    "bfs": ((8,), dict(n_nodes=32768, iters=8)),
+    "cc": ((8,), dict(n_nodes=32768, iters=8)),
+    "mlp": ((8,), dict(features=16384, layers=5, batch=64, seed=0)),
+}
+# the app's scalar against its plain version, relative: f32 sums of up to
+# 2 M terms in another order (BFS and CC count integers: exact)
+# BFS and CC at 32,768 nodes saturate within 8 iterations (every node
+# visited; every label 0), where a misplaced block changes nothing: they
+# are also run at these depths, before they saturate, exactly
+APP_SHALLOW_ITERS = (1, 2)
+APP_TOL = {"dlrm": 1e-4, "gnn_rs_ar": 1e-4, "gnn_ar_ag": 1e-4, "bfs": 0.0,
+           "cc": 0.0, "mlp": 1e-4}
+
+
+def _app_bytes(name, sizes, kw) -> dict:
+    """The app's inputs as held on the card (a replicated input once, a
+    stride-0 view on every PE) and what holding them on every PE, as the
+    reference's devices do, would take; f32 unless named."""
+    ndev = int(np.prod(sizes))
+    if name == "dlrm":
+        Dl = max(kw["emb_dim"] // sizes[2], 1)
+        b_l = max(kw["batch_per_shard"], ndev)
+        held = 4 * kw["n_tables"] * kw["rows"] * Dl + 8 * kw["n_tables"] * b_l
+    elif name.startswith("gnn"):
+        n, f = kw["n_nodes"], kw["feat"]
+        nr, nc = sizes
+        held = 4 * (n // nr * n // nc + n // nc * f + f * f // nc)
+    elif name == "bfs":
+        held = 4 * kw["n_nodes"] // ndev * kw["n_nodes"]
+    elif name == "cc":
+        held = kw["n_nodes"] // ndev * kw["n_nodes"]          # bool
+    else:
+        held = 4 * kw["layers"] * kw["features"] // ndev * kw["features"]
+    return {"inputs_held_bytes": held, "inputs_on_every_pe_bytes": held * ndev}
+
+
+def _plain_app(name, sizes, kw, dev, inputs) -> float:
+    """The app written plainly as single tensors (the cube flattened) on
+    its ``inputs`` (the app callable's ``.inputs``; None for BFS and CC):
+    no communicator, the collectives of DLRM's chain the plain ones
+    above."""
+    ndev = int(np.prod(sizes))
+    if name == "dlrm":
+        T, rows = kw["n_tables"], kw["rows"]
+        Dl = max(kw["emb_dim"] // sizes[2], 1)
+        b_l, F_ = max(kw["batch_per_shard"], ndev), T * Dl
+        tables = inputs["tables"]
+        idx = torch.arange(b_l * T, device=dev).reshape(T, b_l) % rows
+        emb = tables[torch.arange(T, device=dev)[:, None], idx]
+        emb = emb.transpose(0, 1).reshape(b_l, F_)
+        x = emb.expand(tuple(sizes) + (b_l, F_))     # every PE the same
+        ex = _plain_all_to_all(x, sizes, [0, 1, 2], 0, 1)
+        red = _plain("reduce_scatter", ex, sizes, [1], "add", 1)
+        rel = _plain_all_to_all(red, sizes, [0, 2], 1, 0)
+        out = torch.relu(rel @ inputs["w0"]) @ inputs["w1"]
+        return float(out.sum())
+    if name.startswith("gnn"):
+        nc = sizes[1]
+        agg = nc * (inputs["adj"] @ inputs["feats"])   # summed over c
+        if name == "gnn_rs_ar":                   # member r keeps block r
+            out = sum(b @ inputs["w"] for b in torch.chunk(agg, nc, dim=1))
+        else:
+            comb = agg @ inputs["w"]
+            out = torch.cat([comb] * nc, dim=1)
+        return float(torch.relu(out).sum())
+    if name in ("bfs", "cc"):
+        n, n_l = kw["n_nodes"], kw["n_nodes"] // ndev
+        i = torch.arange(n_l, device=dev)[:, None]
+        j = torch.arange(n, device=dev)[None]
+        if name == "bfs":
+            adj = ((i * 31 + j * 17) % 97 < 3).to(torch.float32)
+            v = torch.zeros(n, device=dev)
+            v[0] = 1.0
+            for _ in range(kw["iters"]):   # every PE relaxes the same rows
+                v = torch.maximum(v, ((adj @ v) > 0).float().repeat(ndev))
+            return float(v.sum())
+        adj = (i * 13 + j * 7) % 89 < 3
+        lab = torch.arange(n, dtype=torch.float32, device=dev)
+        for _ in range(kw["iters"]):
+            neigh = torch.where(adj, lab[None], float(n + 1)).amin(dim=1)
+            lab = torch.minimum(lab, neigh.repeat(ndev))
+        return float(lab.sum())
+    x = inputs["x"]
+    h = x.expand((ndev,) + tuple(x.shape))             # each PE's block
+    for w in inputs["ws"]:
+        full = torch.relu(h @ w).sum(0)                # reduce over the PEs
+        h = torch.stack(torch.chunk(full, ndev, dim=1))  # PE r: block r
+    return float(h[0].sum())
+
+
+def _call_ms(run, reps: int = 3) -> float:
+    """Device-timeline ms of one app call between CUDA events (each call
+    ends in a synchronize, so host work between launches counts)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_apps(dev, kept_reorder: dict) -> dict:
+    """The six apps under naive and pidcomm, one at a time: the scalar
+    against the plain version on the first run's inputs (both runs draw
+    the same from one seed; APP_TOL), ms per call, peak memory, the
+    reorder kernel's launches (counted from 0 just before one call and read
+    just after: exactly 2 a DLRM call under pidcomm, its AA(xyz) and AA(xz),
+    whose first launch's inputs are kept for main_path)."""
+    from repro_torch.apps import paper_apps
+    from repro_torch.core.hypercube import Hypercube
+    from repro_torch.kernels.reorder import reorder
+    names = ("x", "y", "z")
+    out, ok, dlrm_launches = {}, True, 0
+    for name, (sizes, kw) in APP_CASES.items():
+        make = paper_apps.APPS[name][0]
+        cube = Hypercube.build(dict(zip(names, sizes)))
+        rows, plain = {}, None
+        for alg in ("naive", "pidcomm"):
+            run = make(cube, algorithm=alg, device=dev, **kw)
+            if plain is None:
+                plain = _plain_app(name, sizes, kw, dev,
+                                   getattr(run, "inputs", None))
+                torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            run()                                        # warm
+            first = []
+            keep = (record_reorder(first) if name == "dlrm"
+                    and alg == "pidcomm" else contextlib.nullcontext())
+            reorder.LAUNCHES = 0
+            with keep:
+                value = run()
+            launches = reorder.LAUNCHES
+            if first:
+                kept_reorder["dlrm_aa_xyz"] = first[0]
+                dlrm_launches += launches
+            ms = _call_ms(run)
+            tol = APP_TOL[name] * abs(plain)
+            row = {"value": value, "plain": plain,
+                   "err": abs(value - plain), "bound": tol,
+                   "ms": ms, "reorder_launches": launches,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
+                   / 2**30}
+            row["ok"] = (row["err"] <= tol and np.isfinite(value)
+                         and (launches == 2 if name == "dlrm"
+                              and alg == "pidcomm" else True))
+            ok &= row["ok"]
+            rows[alg] = row
+            del run, first
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[name] = {"cube": list(sizes), **kw, **_app_bytes(name, sizes, kw),
+                     **rows,
+                     "pidcomm_speedup": rows["naive"]["ms"]
+                     / rows["pidcomm"]["ms"]}
+        if name in ("bfs", "cc"):
+            out[name]["shallow"] = shallow = _shallow_graph_app(
+                make, cube, name, sizes, kw, rows["naive"]["value"], dev)
+            ok &= all(r["ok"] for r in shallow)
+    return {"ok": ok, "apps": out, "dlrm_reorder_launches": dlrm_launches}
+
+
+def _shallow_graph_app(make, cube, name, sizes, kw, saturated, dev) -> list:
+    """BFS or CC at APP_SHALLOW_ITERS under naive and pidcomm: the scalar
+    equal to the plain version's and off the saturated full-depth one."""
+    rows = []
+    for iters in APP_SHALLOW_ITERS:
+        at = {**kw, "iters": iters}
+        plain = _plain_app(name, sizes, at, dev, None)
+        for alg in ("naive", "pidcomm"):
+            value = make(cube, algorithm=alg, device=dev, **at)()
+            rows.append({"iters": iters, "algorithm": alg, "value": value,
+                         "plain": plain,
+                         "ok": value == plain and value != saturated})
+    return rows
 
 
 # ------------------------------------------------------------------- serve
@@ -804,6 +1114,20 @@ def keep_reorder_inputs(kept: dict, label: str):
             kept[label] = (x, perm)
             return launch(x, perm)
         return keeping
+
+    return patched(reorder, "tile_swizzle", wrap)
+
+
+def record_reorder(calls: list):
+    """While open, every launch of the reorder wrapper also appends its
+    inputs to ``calls``."""
+    from repro_torch.kernels.reorder import reorder
+
+    def wrap(launch):
+        def recording(x, perm):
+            calls.append((x, perm))
+            return launch(x, perm)
+        return recording
 
     return patched(reorder, "tile_swizzle", wrap)
 
@@ -1217,6 +1541,105 @@ def phase_serve_f32(dev) -> dict:
             "greedy_agreement_pe1_pe8": float(
                 (ta[:, PROMPT:] == tb[:, PROMPT:]).mean()),
             "ms_per_step": {f"{PES[0]}pe": ma, f"{PES[-1]}pe": mb}}
+
+
+# the fused forward: tp = 2 on 8 PEs with a global batch of 2 leaves
+# data = 2 and cp = 2 (build_topology), so ring attention runs over cp
+FUSED_PES, FUSED_BATCH, FUSED_SEQ = 8, 2, 2048
+
+
+def watch_flash(forms: list, last: dict):
+    """While open, every launch of the flash wrapper appends its form
+    (True: partial) to ``forms``, and the last partial launch's inputs are
+    ``last["partial"]``."""
+    from repro_torch.kernels.attention import flash
+
+    def wrap(launch):
+        def watching(q, k, v, q_pos, k_pos, **kw):
+            forms.append(bool(kw.get("partial")))
+            if forms[-1]:
+                last["partial"] = (q, k, v, q_pos, k_pos, kw)
+            return launch(q, k, v, q_pos, k_pos, **kw)
+        return watching
+
+    return patched(flash, "flash_attention", wrap)
+
+
+def phase_fused_forward(dev, kept: dict) -> dict:
+    """Full-width qwen3-1.7b ``forward_logits`` at 8 PEs with tp = 2 and
+    cp = 2 (global batch 2 of 2,048 tokens: 1,024 a cp shard), with
+    ``fused_comm`` on (ring attention over cp, each hop one launch of the
+    flash kernel's partial form; the norm in the tp gather ring; the
+    out-projections' reduce_scatters as lazy-tile epilogues) and off: bf16
+    within SERVE_TOL and f32 (TF32 off) within F32_TOL x max(1, max|ref|)
+    of unfused; the flash kernel launched exactly n_layers x cp times a
+    fused forward, all partial (counted from 0 just before each forward
+    and read just after), n_layers times unfused. The inputs of the last
+    partial launch are kept for main_path."""
+    from repro_torch import configs
+    from repro_torch.core.comm import CommTrace
+    from repro_torch.kernels.attention import flash
+    from repro_torch.models.lm import Model
+    from repro_torch.models.params import init_params
+    from repro_torch.models.topology import build_topology
+    cfg = dataclasses.replace(configs.get(ARCH), tp=2)
+    topo = build_topology(cfg, FUSED_PES, global_batch=FUSED_BATCH)
+    cp = topo.size(topo.cp)
+    if cp != 2:
+        raise RuntimeError(f"expected cp = 2, got {topo.cube.describe()}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, topo, 0, device=dev)
+    cube = topo.cube
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (FUSED_BATCH, FUSED_SEQ))).to(dev)
+    batch = {"tokens": cube.to_cube(toks, (topo.dp, None))}
+
+    def forward(fused: bool, dtype) -> dict:
+        forms, last = [], {}
+        c = dataclasses.replace(cfg, fused_comm=fused)
+        flash.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with watch_flash(forms, last), CommTrace() as tr:
+            out = Model(c, topo, dtype=dtype).forward_logits(params, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if fused and dtype == torch.bfloat16 and last:
+            kept[f"ring_hop/{FUSED_PES}pe"] = last["partial"]
+        return {"logits": cube.from_cube(out, (topo.dp, None, topo.tp)),
+                "launches": flash.LAUNCHES, "partial_launches": sum(forms),
+                "s": secs, "flows": sorted(tr.summary()["by_flow"])}
+
+    runs, ok, launches = {}, True, 0
+    for dtype, tol in ((torch.bfloat16, SERVE_TOL),
+                       (torch.float32, F32_TOL)):
+        base = forward(False, dtype)
+        fused = forward(True, dtype)
+        held = _held(fused["logits"], base["logits"], tol)
+        row = {"fused_vs_unfused": held,
+               "finite": bool(torch.isfinite(fused["logits"]).all()),
+               "fused_launches": fused["launches"],
+               "fused_partial_launches": fused["partial_launches"],
+               "unfused_launches": base["launches"],
+               "expected_fused_launches": cfg.n_layers * cp,
+               "fused_s": fused["s"], "unfused_s": base["s"],
+               "fused_flows": fused["flows"]}
+        row["ok"] = (held["ok"] and row["finite"]
+                     and fused["launches"] == fused["partial_launches"]
+                     == cfg.n_layers * cp
+                     and base["launches"] == cfg.n_layers
+                     and base["partial_launches"] == 0)
+        ok &= row["ok"]
+        launches += fused["launches"] + base["launches"]
+        runs[str(dtype).split(".")[-1]] = row
+        del base, fused
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del params
+    torch.cuda.empty_cache()
+    return {"ok": ok and f"ring_hop/{FUSED_PES}pe" in kept, "arch": ARCH,
+            "cube": cube.describe(), "tokens": [FUSED_BATCH, FUSED_SEQ],
+            "s_loc": FUSED_SEQ // cp, "runs": runs,
+            "flash_launches": launches, "peak_mem_gb": peak}
 
 
 def _moe_run(dev, pes, dtype, kept=None, kept_reorder=None) -> dict:
@@ -1950,17 +2373,24 @@ def _rwkv6_main_path(kept: dict) -> list:
     return out
 
 
-def _reorder_main_path(kept: dict) -> dict:
-    """The reorder kernel on the inputs of its last launch on the 8-PE MoE
-    decode path (the combine all_to_all of layer 24 at step 47)."""
+def _reorder_main_path(kept: dict, name: str, redraw: bool = False) -> dict:
+    """The reorder kernel on the inputs kept under ``name``: the 8-PE MoE
+    decode path's last launch (the combine all_to_all of layer 24 at step
+    47), or DLRM's AA(xyz) under pidcomm (the apps phase). ``redraw``
+    keeps the launch's permutation and shape but fills x with a random
+    draw: DLRM's lookup is the same on every PE, so its blocks repeat and
+    a block sent to the wrong PE could still compare equal."""
     from repro_torch.kernels.reorder import ref, reorder
-    x, perm = kept[f"decode/{PES[-1]}pe"]
+    x, perm = kept[name]
+    if redraw:
+        gen = torch.Generator(device=x.device).manual_seed(0)
+        x = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
     got = reorder.tile_swizzle(x, perm)
     want = ref.tile_swizzle(x, perm)
     torch.cuda.synchronize()
     G = perm.numel()
     nbytes = 2 * x.numel() * x.element_size() + perm.numel() * 4
-    return {"name": f"decode/{PES[-1]}pe",
+    return {"name": name,
             "dtype": str(x.dtype).split(".")[-1],
             "x": list(x.shape), "blocks": G,
             "block_bytes": x.numel() * x.element_size() // G,
@@ -1977,8 +2407,11 @@ def _reorder_main_path(kept: dict) -> dict:
 def phase_main_path(kept: dict, kept_reorder: dict,
                     kept_rwkv6: dict) -> dict:
     """Each kernel on the inputs of its last launch in each form and run of
-    the serve, serve_moe and serve_rwkv phases: held against the plain
-    version, then timed."""
+    the serve, serve_moe, serve_rwkv, serve_dense and fused_forward phases
+    (and the reorder's first launch of a DLRM pidcomm call): held against
+    the plain version, then timed. For the fused forward's ring hop, a
+    partial launch, SDPA is timed on the same mask computing the output
+    only (``library_output_only``)."""
     from repro_torch.kernels.attention import flash, ref
     timings = []
     worst_ok = bool(kept)
@@ -2006,12 +2439,15 @@ def phase_main_path(kept: dict, kept_reorder: dict,
                         "q": list(q.shape), "kv": list(k.shape), **kw,
                         "max_abs_err": abs_err, "err": rel_err, "ok": ok,
                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        **b})
-    reorder = _reorder_main_path(kept_reorder)
+                        "library_output_only": partial, **b})
+    reorder = _reorder_main_path(kept_reorder, f"decode/{PES[-1]}pe")
+    dlrm = _reorder_main_path(kept_reorder, "dlrm_aa_xyz", redraw=True)
     rwkv = _rwkv6_main_path(kept_rwkv6)
-    return {"ok": (worst_ok and reorder["exact"] and len(rwkv) == 4
-                   and all(t["ok"] for t in rwkv)),
-            "main_path": timings, "reorder": reorder, "rwkv6": rwkv}
+    return {"ok": (worst_ok and reorder["exact"] and dlrm["exact"]
+                   and len(rwkv) == 4 and all(t["ok"] for t in rwkv)
+                   and f"ring_hop/{FUSED_PES}pe" in kept),
+            "main_path": timings, "reorder": reorder, "reorder_dlrm": dlrm,
+            "rwkv6": rwkv}
 
 
 # -------------------------------------------------------------------- main
@@ -2075,9 +2511,13 @@ def main() -> int:
                      ("serve_dense", lambda: phase_serve_dense(dev, kept)),
                      ("serve_dense_f32", lambda: phase_serve_dense_f32(dev)),
                      ("serve_engine", lambda: phase_serve_engine(dev, kept)),
+                     ("apps", lambda: phase_apps(dev, kept_reorder)),
+                     ("fused_forward", lambda: phase_fused_forward(dev,
+                                                                   kept)),
                      ("main_path", lambda: phase_main_path(
                          kept, kept_reorder, kept_rwkv6))):
-        needs = (("serve", "serve_moe", "serve_rwkv", "serve_dense")
+        needs = (("serve", "serve_moe", "serve_rwkv", "serve_dense", "apps",
+                  "fused_forward")
                  if name == "main_path" else ("build",))
         missing = [n for n in needs if n in failed]
         if name != "build" and missing:
@@ -2105,21 +2545,26 @@ def main() -> int:
     moe_res, rwkv_res = results["serve_moe"], results["serve_rwkv"]
     dense_res = results["serve_dense"]["archs"]
     engine_res = results["serve_engine"]
+    fused_res, apps_res = results["fused_forward"], results["apps"]
     # the flash headline: the main-path row that fares worst against SDPA
     head = max(kern["main_path"], key=lambda t: t["ms"] / t["library_ms"])
     swz = kern["reorder"]
+    reorder_rows = (swz, kern["reorder_dlrm"])
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": (serve_res["flash_launches"] + moe_res["flash_launches"]
                      + results["serve_dense"]["flash_launches"]
-                     + engine_res["flash_launches"]),
+                     + engine_res["flash_launches"]
+                     + fused_res["flash_launches"]),
         "launches_by_path": {ARCH: serve_res["flash_launches"],
                              MOE_ARCH: moe_res["flash_launches"],
                              **{a: dense_res[a]["flash_launches"]
                                 for a in DENSE_ARCHS},
                              f"{ARCH}/serve_engine":
-                                 engine_res["flash_launches"]},
+                                 engine_res["flash_launches"],
+                             f"{ARCH}/fused_forward":
+                                 fused_res["flash_launches"]},
         "max_abs_err": max(t["max_abs_err"] for t in kern["main_path"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2133,11 +2578,19 @@ def main() -> int:
     }, {
         "name": "tile_swizzle", "route": "cuda", "source": REORDER_SOURCE,
         "replaces": REORDER_TPU_KERNEL,
-        "launches": moe_res["reorder_launches"],
-        "max_abs_err": swz["max_abs_err"], "ms": swz["ms"],
+        "launches": (moe_res["reorder_launches"]
+                     + apps_res["dlrm_reorder_launches"]),
+        "launches_by_path": {MOE_ARCH: moe_res["reorder_launches"],
+                             "dlrm/pidcomm":
+                                 apps_res["dlrm_reorder_launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in reorder_rows),
+        "ms": swz["ms"],
         "plain_ms": swz["plain_ms"], "bound_ms": swz["bound_ms"],
         "bound_by": swz["bound_by"], "library_ms": swz["library_ms"],
         "at": swz["name"], "x": swz["x"], "blocks": swz["blocks"],
+        "shapes": {r["name"]: {k: r[k] for k in (
+            "x", "blocks", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")} for r in reorder_rows},
     }, _rwkv6_entry(kern["rwkv6"], rwkv_res["rwkv6_launches"],
                     results["kernel"]["rwkv6"])],
         "total_s": round(time.perf_counter() - t_all, 3)}), flush=True)

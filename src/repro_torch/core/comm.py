@@ -46,9 +46,16 @@ so one body serves every registered stage, as in the reference.
 While a :class:`repro_torch.core.program.CommProgram` records, every
 primitive appends an op to it instead of dispatching.
 
-Ported: all_reduce, all_gather, reduce_scatter, all_to_all and the rooted
-four. The non-stage flows (hierarchical, compressed, ring, tree, the fused
-ring flows) raise ``NotImplementedError`` until their slice of the port.
+First-class non-stage flows ride the same registry without widening Table
+II (``table_ii=False``): the §IX-A ``hierarchical`` all_reduce (ICI
+reduce-scatter, DCN all-reduce of the 1/|ICI| shard, ICI all-gather), the
+§V-C int8 ``compressed`` DCN flow (``repro_torch.core.compress``), the
+Fig. 23(a) ``ring`` / ``tree`` comparators, and the compute-fused ring
+flows ``ring_fused`` / ``ag_prologue`` / ``rs_epilogue``
+(``repro_torch.kernels.collective``, registered when this module is
+imported). On the in-process cube a ``ppermute`` hop is a roll of the
+group view along its member axis: member r receives what member r - 1
+(ring) or r ^ level (tree) held.
 """
 from __future__ import annotations
 
@@ -77,42 +84,52 @@ _REDUCERS = {
     "min": (torch.minimum, lambda x, dim: torch.amin(x, dim=dim)),
 }
 
-# registry flows of the JAX package that wait for a later slice of the port
-_NOT_PORTED = ("hierarchical", "compressed", "ring", "tree", "ring_fused",
-               "ag_prologue", "rs_epilogue")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ported: the Table II "
-        "stages of all_reduce, all_gather, reduce_scatter, all_to_all and "
-        "the rooted four)")
+# the all_to_all ``im`` ladder runs on groups up to this size; a larger
+# group escalates to ``cm`` (``repro.core.comm._LADDER_MAX``; the port
+# keeps the ladder on multi-dim groups). The planner's fused ring
+# candidates drop out of the race past the same size. Tunable by
+# monkeypatching.
+_LADDER_MAX = 32
 
 
 # ============================================================ the registry
 @dataclasses.dataclass(frozen=True)
 class AlgorithmSpec:
-    """One registered collective flow: a Table II stage's body."""
+    """One registered collective flow."""
     primitive: str
-    stage: str           # registry key ("naive", "pr", "im", "cm")
+    name: str            # registry key ("im", "hierarchical", "ring", ...)
+    stage: str           # the Table II stage this flow maps onto
+    table_ii: bool       # counts toward the derived applicability table
     fn: Callable         # body: fn(comm, x, **kwargs) -> Tensor
 
 
 _REGISTRY: dict[str, dict[str, AlgorithmSpec]] = {p: {} for p in PRIMITIVES}
 
 
-def register_algorithm(primitive: str, stage: str):
-    """Decorator registering the body of one Table II stage."""
+def register_algorithm(primitive: str, name: str, *, stage: str | None = None,
+                       table_ii: bool | None = None):
+    """Decorator registering a collective algorithm body.
+
+    ``stage`` defaults to ``name`` when the name is a Table II stage;
+    ``table_ii`` defaults to True exactly for stage names, so extras
+    (``hierarchical``, ``compressed``, ``ring``, ``tree``, the fused ring
+    flows) do not widen the paper's applicability table."""
     if primitive not in _REGISTRY:
         raise ValueError(f"unknown primitive {primitive!r}")
-    if stage not in STAGE_ORDER:
-        raise ValueError(f"{stage!r} is not a Table II stage {STAGE_ORDER}")
+    is_stage = name in STAGE_ORDER
+    if stage is None:
+        if not is_stage:
+            raise ValueError(f"algorithm {name!r} needs an explicit stage=")
+        stage = name
+    if table_ii is None:
+        table_ii = is_stage
 
     def deco(fn):
-        if stage in _REGISTRY[primitive]:
+        if name in _REGISTRY[primitive]:
             raise ValueError(
-                f"stage {stage!r} already registered for {primitive!r}")
-        _REGISTRY[primitive][stage] = AlgorithmSpec(primitive, stage, fn)
+                f"algorithm {name!r} already registered for {primitive!r}")
+        _REGISTRY[primitive][name] = AlgorithmSpec(primitive, name, stage,
+                                                   table_ii, fn)
         return fn
 
     return deco
@@ -122,18 +139,23 @@ def get_algorithm(primitive: str, name: str) -> AlgorithmSpec:
     try:
         return _REGISTRY[primitive][name]
     except KeyError:
-        if name in _NOT_PORTED:
-            raise _not_ported(f"the {name!r} flow of {primitive}") from None
         raise ValueError(
             f"no algorithm {name!r} registered for {primitive!r}; have "
             f"{sorted(_REGISTRY.get(primitive, ()))}") from None
 
 
+def registered_algorithms(primitive: str) -> tuple[str, ...]:
+    return tuple(_REGISTRY[primitive])
+
+
 def applicability() -> dict[str, tuple[str, ...]]:
     """Paper Table II, derived from the registry: the ordered tuple of
-    stages registered per primitive."""
-    return {prim: tuple(s for s in STAGE_ORDER if s in algs)
-            for prim, algs in _REGISTRY.items()}
+    stages registered (as ``table_ii``) per primitive."""
+    out = {}
+    for prim, algs in _REGISTRY.items():
+        stages = {a.name for a in algs.values() if a.table_ii}
+        out[prim] = tuple(s for s in STAGE_ORDER if s in stages)
+    return out
 
 
 def resolve_stage(primitive: str, algorithm: str) -> str:
@@ -141,8 +163,6 @@ def resolve_stage(primitive: str, algorithm: str) -> str:
     strongest applicable stage; an inapplicable request falls back to the
     strongest applicable stage at or below it."""
     stages = applicability()[primitive]
-    if not stages:
-        raise _not_ported(primitive)
     if algorithm == "pidcomm":
         return stages[-1]
     if algorithm not in STAGE_ORDER:
@@ -260,6 +280,8 @@ class Communicator:
         self._flows: dict[tuple, tuple[str, planner.CommEstimate | None]] = {}
         # block permutations of the reorder kernel (``block_perm``)
         self._perms: dict[tuple, tuple[torch.Tensor, int]] = {}
+        # communicators over sub-selections (the hierarchical split's hops)
+        self._subs: dict[tuple[str, ...], "Communicator"] = {}
 
     def describe(self) -> str:
         return (f"Communicator[{self.cube.describe()} dims={self.bitmap} "
@@ -293,6 +315,25 @@ class Communicator:
         """Index of payload ``axis`` in the group view."""
         return 1 + len(self.inst_axes) + axis
 
+    def sub(self, dims) -> "Communicator":
+        """The cached communicator over ``dims`` of the same cube."""
+        key = self.cube.resolve_dims(dims)
+        got = self._subs.get(key)
+        if got is None:
+            got = self._subs[key] = Communicator(self.cube, key)
+        return got
+
+    def axis_index(self, device) -> torch.Tensor:
+        """Each PE's member index in its group, shape ``cube.dim_sizes``
+        (the in-process ``lax.axis_index``)."""
+        return self.cube.axis_index(self.dims, device=device)
+
+    def ring_shift(self, x: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """One ``ppermute`` hop of the ring ``r -> r + step``: member r of
+        every group receives what member r - step held (cube layout in and
+        out)."""
+        return self.from_group_view(torch.roll(self.group_view(x), step, 0))
+
     # ------------------------------------------------------------ dispatch
     def _resolve_flow(self, primitive: str, algorithm: str,
                       payload_bytes: int, op: str = "add"):
@@ -322,7 +363,7 @@ class Communicator:
             return self._escalate(primitive,
                                   resolve_stage(primitive, algorithm),
                                   op), None
-        if algorithm in _REGISTRY[primitive] or algorithm in _NOT_PORTED:
+        if algorithm in _REGISTRY[primitive]:
             return algorithm, None
         raise ValueError(
             f"unknown algorithm {algorithm!r} for {primitive!r}; expected "
@@ -330,8 +371,13 @@ class Communicator:
             f"{sorted(_REGISTRY[primitive])}")
 
     def _escalate(self, primitive: str, stage: str, op: str) -> str:
-        """A DCN-crossing additive ``im`` all_reduce takes the §IX-A
-        hierarchical split (``repro.core.comm._escalate``)."""
+        """Stage-level escalations that depend on the bound group
+        (``repro.core.comm._escalate``): an all_to_all ``im`` ladder past
+        ``_LADDER_MAX`` members runs ``cm``; a DCN-crossing additive ``im``
+        all_reduce takes the §IX-A hierarchical split."""
+        if (primitive == "all_to_all" and stage == "im"
+                and self.group_size > _LADDER_MAX):
+            return "cm"
         if (primitive == "all_reduce" and stage == "im" and op == "add"
                 and self.fast_dims and self.slow_dims):
             return "hierarchical"
@@ -357,7 +403,7 @@ class Communicator:
             if est is None:
                 est = planner.estimate(
                     self.cube, primitive, self.dims, payload,
-                    algorithm="naive" if flow == "naive" else "direct")
+                    algorithm=planner.REQUEST_TO_PLANNER.get(flow, "direct"))
             _telemetry.inc("comm.dispatches")
             _telemetry.inc(f"comm.est_source.{est.est_source}")
         if _TRACES:
@@ -754,7 +800,108 @@ def _ar_pr(comm, x, *, op):
 
 @register_algorithm("all_reduce", "im")
 def _ar_direct(comm, x, *, op):
+    # DCN-crossing additive groups are escalated to "hierarchical" by the
+    # dispatcher before reaching this body
     return _to_members(comm, _REDUCERS[op][1](comm.group_view(x), 0))
+
+
+def _pe_flat(comm, x, multiple: int) -> tuple[torch.Tensor, int]:
+    """Each PE's payload flattened and zero-padded to a multiple of
+    ``multiple``: (*cube, n_padded), and the pad."""
+    c = comm.cube.ndim
+    flat = x.reshape(tuple(x.shape[:c]) + (-1,))
+    pad = (-flat.shape[-1]) % multiple
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat, pad
+
+
+@register_algorithm("all_reduce", "hierarchical", stage="im", table_ii=False)
+def _ar_hierarchical(comm, x, *, op):
+    """§IX-A: ICI reduce-scatter, DCN all-reduce of the 1/|ICI| shard, ICI
+    all-gather. DCN bytes drop |ICI|x. Falls back to the direct flow when
+    the group does not span both domains or the op is not additive."""
+    fast, slow = comm.fast_dims, comm.slow_dims
+    if not (fast and slow) or op != "add":
+        return _ar_direct(comm, x, op=op)
+    ici, dcn = comm.sub(fast), comm.sub(slow)
+    flat, pad = _pe_flat(comm, x, ici.group_size)
+    shard = _rs_direct(ici, flat, axis=0, op="add")
+    shard = _ar_direct(dcn, shard, op="add")
+    full = _ag_direct(ici, shard, axis=0)
+    if pad:
+        full = full[..., :-pad]
+    return full.reshape(x.shape)
+
+
+@register_algorithm("all_reduce", "compressed", stage="cm", table_ii=False)
+def _ar_compressed(comm, x, *, op):
+    """§V-C: hierarchical all-reduce whose DCN hop carries blockwise-absmax
+    int8 payloads, differentiable (the backward takes the same compressed
+    all-reduce: a straight-through quantizer)."""
+    from repro_torch.core import compress
+    if op != "add":
+        raise ValueError("compressed all_reduce supports op='add' only")
+    if not comm.slow_dims:
+        raise ValueError(
+            "compressed all_reduce needs a DCN-crossing group; "
+            f"{comm.dims} is entirely intra-pod")
+    return compress.compressed_all_reduce(x, comm.cube, comm.dims)
+
+
+@register_algorithm("all_reduce", "ring", stage="im", table_ii=False)
+def _ar_ring(comm, x, *, op):
+    """Bandwidth-optimal ring (Fig. 23a comparator): G-1 reduce-scatter hops
+    and G-1 all-gather hops of 1/G-size chunks of payload axis 0, in the
+    reference's hop order: chunk c sums members c, c + 1, ... in turn."""
+    if op != "add":
+        raise ValueError("ring all_reduce supports op='add' only")
+    if len(comm.dims) != 1:
+        raise ValueError("ring all_reduce runs on a single dim")
+    g = comm.group_size
+    y = comm.group_view(x)                         # (G, *inst, n, ...)
+    d = comm.payload_dim(0)
+    orig_len = y.shape[d]
+    pad = (-orig_len) % g
+    if pad:
+        widths = [0, 0] * (y.dim() - d - 1) + [0, pad]
+        y = torch.nn.functional.pad(y, widths)
+    chunks = _split_blocks(y, d, g)                # (G_mem, G_chunk, ...)
+    me = torch.arange(g, device=x.device)
+    # reduce-scatter: after g - 1 hops member m holds chunk (m + 1) % g
+    cur = chunks[me, me]
+    for step in range(g - 1):
+        got = torch.roll(cur, 1, 0)
+        cur = got + chunks[me, (me - 1 - step) % g]
+    # all-gather: after s hops member m holds chunk (m + 1 - s) % g
+    out = torch.zeros_like(chunks)
+    out[me, (me + 1) % g] = cur
+    for s in range(1, g):
+        cur = torch.roll(cur, 1, 0)
+        out[me, (me + 1 - s) % g] = cur
+    full = _merge_blocks(out, 1, d)
+    if pad:
+        full = full.narrow(d, 0, orig_len)
+    return comm.from_group_view(full)
+
+
+@register_algorithm("all_reduce", "tree", stage="im", table_ii=False)
+def _ar_tree(comm, x, *, op):
+    """Recursive-doubling (hypercube-exchange) all-reduce: log2(G) steps of
+    full-payload exchanges with the XOR partner -- latency-optimal,
+    bandwidth-suboptimal; the two-tree comparator of Fig. 23(a)."""
+    if op != "add":
+        raise ValueError("tree all_reduce supports op='add' only")
+    g = comm.group_size
+    if g & (g - 1):
+        raise ValueError("tree_all_reduce needs a power-of-two group")
+    acc = comm.group_view(x)
+    me = torch.arange(g, device=x.device)
+    level = 1
+    while level < g:
+        acc = acc + acc[me ^ level]
+        level <<= 1
+    return comm.from_group_view(acc)
 
 
 # --------------------------------------------------- rooted (host) four
@@ -808,5 +955,12 @@ del _stage_name
 __all__ = [
     "AlgorithmSpec", "CommEvent", "CommTrace", "Communicator",
     "PRIMITIVES", "STAGE_ORDER", "applicability", "get_algorithm",
-    "register_algorithm", "resolve_stage",
+    "register_algorithm", "registered_algorithms", "resolve_stage",
 ]
+
+# registration side effect: the compute-fused ring flows (ring_fused /
+# ag_prologue / rs_epilogue) live with their wrappers in
+# repro_torch.kernels.collective but must be in the registry whenever this
+# module is importable. Importing at the bottom keeps the cycle safe: every
+# name that package takes from here is defined by now.
+import repro_torch.kernels.collective  # noqa: E402,F401

@@ -128,6 +128,9 @@ class Hypercube:
     def size(self, name: str) -> int:
         return self.dim_sizes[self.dim_names.index(name)]
 
+    def crosses_dcn(self, dims) -> bool:
+        return any(d in self.dcn_dims for d in self.resolve_dims(dims))
+
     def split_fast_slow(self, dims) -> tuple[tuple[str, ...], tuple[str, ...]]:
         """Partition selected dims into (ICI dims, DCN dims)."""
         sel = self.resolve_dims(dims)

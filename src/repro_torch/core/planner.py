@@ -87,26 +87,88 @@ def _group_bytes(primitive: str, payload: float, g: int) -> float:
     }[primitive]
 
 
+# compute-fused ring flows (repro_torch.kernels.collective) and the
+# primitive each one is registered under; the planner races them for that
+# primitive and checks explicit estimate requests against it
+_FUSED_PRIMITIVE = {
+    "ring_fused": "all_gather",
+    "ag_prologue": "all_gather",
+    "rs_epilogue": "reduce_scatter",
+}
+
+
 def _stage(primitive: str, algorithm: str) -> str:
-    from repro_torch.core.comm import resolve_stage
-    return "naive" if algorithm == "naive" else resolve_stage(primitive,
-                                                              "pidcomm")
+    """The stage label an estimate reports: a non-Table-II registry entry
+    (hierarchical, compressed, the fused ring flows) carries its own;
+    ``direct`` runs the resolved ``pidcomm`` stage."""
+    from repro_torch.core.comm import get_algorithm, resolve_stage
+    if algorithm == "naive":
+        return "naive"
+    try:
+        spec = get_algorithm(primitive, algorithm)
+    except ValueError:
+        spec = None
+    if spec is not None and not spec.table_ii:
+        return spec.stage
+    return resolve_stage(primitive, "pidcomm")
+
+
+def _direct_bytes(primitive: str, payload_bytes: float, gf: int,
+                  gs: int) -> tuple[float, float]:
+    ici = _group_bytes(primitive, payload_bytes, gf) if gf > 1 else 0.0
+    dcn = 0.0
+    if gs > 1:
+        dcn = _group_bytes(
+            primitive,
+            payload_bytes * (gf if primitive == "all_gather" else 1), gs)
+    return ici, dcn
 
 
 def estimate(cube: Hypercube, primitive: str, dims, payload_bytes: float,
-             algorithm: str = "pidcomm") -> CommEstimate:
+             algorithm: str = "pidcomm", *, dtype_bytes: int = 4,
+             block: int = 256) -> CommEstimate:
     """Bytes one collective moves per PE. ``payload_bytes`` is the per-PE
     payload (all_gather: the local shard). ``algorithm``: ``naive`` (the
     replicated-intermediate host flow), ``direct`` (one flat collective over
-    the group, even across pods), or ``pidcomm``/``hierarchical`` (the §IX-A
-    split for an all_reduce spanning both domains, else direct)."""
-    if algorithm not in ("pidcomm", "naive", "direct", "hierarchical"):
+    the group, even across pods), ``compressed`` (the §V-C split with a
+    blockwise-int8 DCN hop; ``dtype_bytes``/``block`` size the compression
+    ratio), a fused ring flow (``ring_fused`` / ``ag_prologue`` /
+    ``rs_epilogue``: the direct flow's bytes, interleaved with compute), or
+    ``pidcomm``/``hierarchical`` (the §IX-A split for an all_reduce
+    spanning both domains, else direct)."""
+    if algorithm in _FUSED_PRIMITIVE:
+        want = _FUSED_PRIMITIVE[algorithm]
+        if primitive != want:
+            raise ValueError(
+                f"fused algorithm {algorithm!r} is an {want!r} flow, not "
+                f"{primitive!r}")
+    elif algorithm not in ("pidcomm", "naive", "direct", "hierarchical",
+                           "compressed"):
         raise ValueError(f"unknown planner algorithm {algorithm!r}")
     sel = cube.resolve_dims(dims)
     fast, slow = cube.split_fast_slow(sel)
     gf = math.prod(cube.size(d) for d in fast)
     gs = math.prod(cube.size(d) for d in slow)
     g = gf * gs
+    if algorithm == "compressed":
+        # full-precision ICI reduce-scatter, int8 all-gather of the 1/|ICI|
+        # shard (+ one f32 scale per block) across pods, ICI all-gather
+        ici = 2 * payload_bytes * (gf - 1) / gf if gf > 1 else 0.0
+        shard = payload_bytes / gf
+        dcn = (gs - 1) * (shard / dtype_bytes) * (1.0 + 4.0 / block) \
+            if gs > 1 else 0.0
+        sched = ((f"reduce_scatter[{'x'.join(fast)}]",) if fast else ()) + \
+            ((f"all_gather-int8[{'x'.join(slow)}]",) if slow else ()) + \
+            ((f"all_gather[{'x'.join(fast)}]",) if fast else ())
+        return CommEstimate(primitive, "compressed", sched, ici, dcn,
+                            stage="cm")
+    if algorithm in _FUSED_PRIMITIVE:
+        # the ring moves the direct flow's blocks, interleaved with compute:
+        # only a measured time could separate it from the direct flow
+        ici, dcn = _direct_bytes(primitive, payload_bytes, gf, gs)
+        sched = (f"ppermute-ring[{'x'.join(sel)}]x{g - 1}·fused-compute",)
+        return CommEstimate(primitive, algorithm, sched, ici, dcn,
+                            stage=_stage(primitive, algorithm))
     if algorithm == "naive":
         # every PE ships its full payload to everyone
         ici = payload_bytes * (gf - 1) if gf > 1 else 0.0
@@ -124,26 +186,33 @@ def estimate(cube: Hypercube, primitive: str, dims, payload_bytes: float,
                  f"all_gather[{'x'.join(fast)}]")
         return CommEstimate(primitive, "hierarchical", sched, ici, dcn,
                             stage=_stage(primitive, "hierarchical"))
-    ici = _group_bytes(primitive, payload_bytes, gf) if gf > 1 else 0.0
-    dcn = 0.0
-    if gs > 1:
-        dcn = _group_bytes(
-            primitive,
-            payload_bytes * (gf if primitive == "all_gather" else 1), gs)
+    ici, dcn = _direct_bytes(primitive, payload_bytes, gf, gs)
     return CommEstimate(primitive, "direct", (f"{primitive}[{'x'.join(sel)}]",),
                         ici, dcn, stage=_stage(primitive, "direct"))
 
 
-def plan(cube: Hypercube, primitive: str, dims,
-         payload_bytes: float) -> CommEstimate:
+def plan(cube: Hypercube, primitive: str, dims, payload_bytes: float, *,
+         allow_compressed: bool = False) -> CommEstimate:
     """Pick the flow with the fewest DCN bytes, then the fewest ICI bytes,
-    among the naive host flow, the flat direct collective, and (for a group
-    spanning both domains) the hierarchical split. Ties go away from naive:
-    where bytes cannot separate them the native collective runs."""
-    cands = [estimate(cube, primitive, dims, payload_bytes, a)
-             for a in ("naive", "direct", "pidcomm")]
+    among the naive host flow, the flat direct collective, (for a group
+    spanning both domains) the hierarchical split, the fused ring flows of
+    this primitive (groups up to ``comm._LADDER_MAX``) and, with
+    ``allow_compressed`` (opt-in: the caller owns the accuracy contract
+    that lossy compression bends), the §V-C int8 flow of a pod-crossing
+    all_reduce. Ties go away from naive (where bytes cannot separate them
+    the native collective runs) and away from the fused flows (their bytes
+    tie direct exactly; only a measured time could price them cheaper)."""
+    algs = ["naive", "direct", "pidcomm"]
+    if allow_compressed and primitive == "all_reduce" \
+            and cube.crosses_dcn(dims):
+        algs.append("compressed")
+    from repro_torch.core import comm
+    if cube.group_size(cube.resolve_dims(dims)) <= comm._LADDER_MAX:
+        algs += [a for a, p in _FUSED_PRIMITIVE.items() if p == primitive]
+    cands = [estimate(cube, primitive, dims, payload_bytes, a) for a in algs]
     return min(cands, key=lambda e: (e.dcn_bytes, e.ici_bytes,
-                                     e.algorithm == "naive"))
+                                     e.algorithm == "naive",
+                                     e.algorithm in _FUSED_PRIMITIVE))
 
 
 # -------------------------------------------------------- program planning
@@ -157,6 +226,7 @@ class ProgramOpSpec:
     deps: tuple[int, ...] = ()
     algorithm: str = "auto"
     op: str = "add"                    # reducer, for escalation parity
+    allow_compressed: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,18 +253,36 @@ def _alternate(first, second):
     return out
 
 
+# planner algorithm to estimate for a requested dispatch algorithm or an
+# executed flow (the CommEvent estimates of comm.py); anything unlisted
+# (Table II stages, ring / tree) runs a native flow, whose byte model is
+# "direct"
+REQUEST_TO_PLANNER = {
+    "naive": "naive",
+    "hierarchical": "pidcomm",
+    "compressed": "compressed",
+    "ring_fused": "ring_fused",
+    "ag_prologue": "ag_prologue",
+    "rs_epilogue": "rs_epilogue",
+}
+
+
 def _op_estimate(cube: Hypercube, o: ProgramOpSpec) -> CommEstimate:
-    """``auto``/``pidcomm`` race the flows; ``naive`` prices the host flow
-    and ``hierarchical`` the split; any other stage runs the native flow, priced direct -- except an
-    additive all_reduce resolving to ``im``, which the dispatcher escalates
-    to the hierarchical split on a group spanning both domains."""
+    """``auto``/``pidcomm`` race the flows; ``naive`` prices the host flow,
+    ``hierarchical`` the split, ``compressed`` and the fused flows their
+    own models; any other stage (and ring / tree) runs a native flow,
+    priced direct -- except an additive all_reduce resolving to ``im``,
+    which the dispatcher escalates to the hierarchical split on a group
+    spanning both domains."""
     if o.algorithm in ("auto", "pidcomm"):
-        return plan(cube, o.primitive, o.dims, o.payload_bytes)
-    if o.algorithm in ("naive", "hierarchical"):
-        alg = "naive" if o.algorithm == "naive" else "pidcomm"
+        return plan(cube, o.primitive, o.dims, o.payload_bytes,
+                    allow_compressed=o.allow_compressed)
+    alg = REQUEST_TO_PLANNER.get(o.algorithm)
+    if alg is not None:
         return estimate(cube, o.primitive, o.dims, o.payload_bytes, alg)
     alg = "direct"
-    if o.primitive == "all_reduce" and o.op == "add":
+    if (o.primitive == "all_reduce" and o.op == "add"
+            and o.algorithm not in ("ring", "tree")):
         from repro_torch.core.comm import resolve_stage
         try:
             if resolve_stage("all_reduce", o.algorithm) == "im":

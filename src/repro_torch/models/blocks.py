@@ -13,7 +13,8 @@ blocks; decode-path activations are replicated over the model axes with the
 KV cache sequence-sharded (flash-decode). Both attention sites run the flash
 kernel (``layers.chunked_attention``).
 
-Ported: attention (self, without the fused-comm routing), the dense FFN,
+Ported: attention (self, with the ``fused_comm`` routing through
+``repro_torch.kernels.collective``), the dense FFN (also fused),
 the MoE FFN with the configured ``"scatter"`` dispatch, and the RWKV6
 time-mix (its recurrence on the RWKV6 kernel, ``ssm.rwkv6_chunked``) and
 channel-mix with their decode forms. The int8 KV cache, cross-attention,
@@ -87,16 +88,34 @@ def _split_qkv(cfg: ModelConfig, topo: Topology, hn_q, hn_kv, w):
 
 def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
                window: int, causal: bool = True):
-    """Sequence-parallel attention block. x_sp: (*cube, B, S_sp, D)."""
+    """Sequence-parallel attention block. x_sp: (*cube, B, S_sp, D).
+
+    ``cfg.fused_comm`` reroutes the collectives through
+    ``repro_torch.kernels.collective``: the tp gather fuses the
+    pre-attention norm into its ring, the context-parallel full-sequence
+    gather is replaced by ring attention (kv blocks rotate over the cp ring,
+    each hop on the flash kernel's partial form), and the out-projection's
+    reduce_scatter becomes a lazy-tile matmul epilogue."""
     cn = topo.cube.ndim
     tpc = topo.comm(topo.tp)
-    h = tpc.all_gather(x_sp, axis=1)                          # (.., B, S_cp, D)
-    hn = rms_norm(h, w["ln"], cfg.norm_eps)
-    if topo.cp:
-        full = topo.comm(topo.cp).all_gather(h, axis=1)       # (.., B, S, D)
-        kv_src = rms_norm(full, w["ln"], cfg.norm_eps)
+    fused = cfg.fused_comm
+    if fused:
+        from repro_torch.kernels.collective import (
+            all_gather_matmul, matmul_reduce_scatter, ring_attention)
+        # the norm rides the tp gather ring; the cp gather disappears: k/v
+        # stay chunk-local and rotate
+        hn = all_gather_matmul(
+            tpc, x_sp, axis=1,
+            block_fn=lambda b: rms_norm(b, w["ln"], cfg.norm_eps))
+        kv_src = hn                                           # (.., B, S_cp, D)
     else:
-        kv_src = hn
+        h = tpc.all_gather(x_sp, axis=1)                      # (.., B, S_cp, D)
+        hn = rms_norm(h, w["ln"], cfg.norm_eps)
+        if topo.cp:
+            full = topo.comm(topo.cp).all_gather(h, axis=1)   # (.., B, S, D)
+            kv_src = rms_norm(full, w["ln"], cfg.norm_eps)
+        else:
+            kv_src = hn
     q, k, v = _split_qkv(cfg, topo, hn, kv_src, w)
     B, Sq = q.shape[cn], q.shape[cn + 1]
     if cfg.qk_norm:
@@ -106,12 +125,23 @@ def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
     q_off = topo.axis_index(topo.cp, dev) * Sq                # (*cube)
     q = rope(q, q_off[..., None, None] + torch.arange(Sq, device=dev),
              cfg.rope_theta)
-    k = rope(k, torch.arange(k.shape[cn + 1], device=dev), cfg.rope_theta)
-    o = chunked_attention(q, k, v, causal=causal, window=window,
-                          q_offset=q_off[..., None])
+    # fused: k is this PE's chunk, so its positions carry q's offset;
+    # unfused: k is the assembled sequence from 0
+    k_off = q_off[..., None, None] if fused else 0
+    k = rope(k, k_off + torch.arange(k.shape[cn + 1], device=dev),
+             cfg.rope_theta)
+    if fused and topo.cp:
+        o = ring_attention(topo.comm(topo.cp), q, k, v, causal=causal,
+                           window=window)
+    else:
+        o = chunked_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_off[..., None])
     o = o.reshape(topo.cube.dim_sizes + (B, Sq, -1))
-    out = cube_matmul(o, w["wo"], cn)                         # partial over tp
-    out = tpc.reduce_scatter(out, axis=1)
+    if fused:
+        out = matmul_reduce_scatter(tpc, o, w["wo"], axis=1)
+    else:
+        out = cube_matmul(o, w["wo"], cn)                     # partial over tp
+        out = tpc.reduce_scatter(out, axis=1)
     return x_sp + out
 
 
@@ -207,6 +237,19 @@ def _swiglu(cn, hn, wg, wu, wd):
 def dense_ffn(cfg, topo, w, x_sp):
     cn = topo.cube.ndim
     tpc = topo.comm(topo.tp)
+    if cfg.fused_comm:
+        from repro_torch.kernels.collective import (
+            all_gather_matmul, matmul_reduce_scatter)
+
+        def up(b):
+            bn = rms_norm(b, w["fln"], cfg.norm_eps)
+            return F.silu(cube_matmul(bn, w["wg"], cn)) \
+                * cube_matmul(bn, w["wu"], cn)
+
+        # norm + up-projection ride the gather ring (row-wise); the
+        # down-projection's partial sum is scattered tile by tile
+        h_act = all_gather_matmul(tpc, x_sp, axis=1, block_fn=up)
+        return x_sp + matmul_reduce_scatter(tpc, h_act, w["wd"], axis=1)
     h = tpc.all_gather(x_sp, axis=1)
     hn = rms_norm(h, w["fln"], cfg.norm_eps)
     out = _swiglu(cn, hn, w["wg"], w["wu"], w["wd"])

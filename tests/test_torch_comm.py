@@ -211,27 +211,35 @@ def test_auto_pick_is_cached_per_request():
 
 
 def test_unported_flows_raise():
+    """Every flow of the JAX registry is ported now: a flow registered for
+    another primitive, or none, raises ValueError; the non-stage
+    all_reduce flows run, and a pod-crossing additive all_reduce takes the
+    hierarchical split (it raised NotImplementedError before the split was
+    ported)."""
     cube, c, x, _ = _setup("ring8", "1")
     t = torch.from_numpy(x)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown algorithm"):
         c.all_to_all(t, split_axis=0, concat_axis=0,
                      algorithm="hierarchical")
-    # the rooted four are ported now: each has its registered stages
     assert {p: comm_mod.applicability()[p] for p in (
         "scatter", "gather", "reduce", "broadcast")} == {
         "scatter": ("naive", "im"), "gather": ("naive", "im"),
         "reduce": ("naive", "pr", "im"), "broadcast": ("naive",)}
-    for flow in ("ring", "tree", "hierarchical", "compressed"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            c.all_reduce(t, algorithm=flow)
+    want = oracles.all_reduce(x, 1, [0], "add")
+    for flow in ("ring", "tree", "hierarchical"):
+        np.testing.assert_array_equal(c.all_reduce(t, algorithm=flow)
+                                      .numpy(), want)
+    with pytest.raises(ValueError, match="DCN"):
+        c.all_reduce(t, algorithm="compressed")
     with pytest.raises(ValueError, match="unknown algorithm"):
         c.all_reduce(t, algorithm="bogus")
-    # a pod-crossing additive all_reduce plans the hierarchical split,
-    # which waits for its slice
     pod = Hypercube.build({"pod": 2, "dp": 2, "tp": 2}, pods=2)
     y = torch.from_numpy(integer_payload(pod, PAYLOAD))
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        pod.comm(("pod", "dp")).all_reduce(y)
+    with CommTrace() as tr:
+        got = pod.comm(("pod", "dp")).all_reduce(y)
+    assert [e.flow for e in tr.events] == ["hierarchical"]
+    np.testing.assert_array_equal(
+        got.numpy(), oracles.all_reduce(y.numpy(), 3, [0, 1], "add"))
     np.testing.assert_array_equal(
         pod.comm(("pod", "dp")).all_reduce(y, op="max").numpy(),
         oracles.all_reduce(y.numpy(), 3, [0, 1], "max"))

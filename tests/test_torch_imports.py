@@ -46,7 +46,11 @@ SLICE_MODULES = ["repro_torch.telemetry", "repro_torch.telemetry.metrics",
                  "repro_torch.telemetry.spans", "repro_torch.telemetry.drift",
                  "repro_torch.core.program", "repro_torch.core.planner",
                  "repro_torch.core.comm", "repro_torch.serving",
-                 "repro_torch.serving.pages", "repro_torch.serving.engine"]
+                 "repro_torch.serving.pages", "repro_torch.serving.engine",
+                 "repro_torch.core.compress",
+                 "repro_torch.kernels.collective.attention",
+                 "repro_torch.kernels.collective",
+                 "repro_torch.apps.paper_apps"]
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
