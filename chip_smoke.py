@@ -36,7 +36,16 @@ Phases, each printed as one JSON line:
           in (both also timed, with their plain version and bound), S =
           144 (chunks of 72), the served shapes, lengths 1, 15, 16, 17 and
           37 around the 16-step sub-chunk, one u per folded PE, K = 16 and
-          32, grids under and over the 132 SMs;
+          32, grids under and over the 132 SMs; and the flash backward
+          kernel (flash_bwd.cu) against its plain version on dq, dk and dv
+          (f32 within 1e-4, bf16 within 5e-2 of max(1, max|plain|)), fed
+          the forward kernel's output and row statistics (those held to
+          the plain forward's, and the output bit-identical to a launch
+          without them): G = 1, 2 and 8, causal and not, windows, offsets,
+          Sq and Sk off the tiles, rows that see no key, a 512-token
+          causal run, a 3-row query, qwen3's 1-PE training shape (4 x
+          1,024 causal tokens, 16 / 8 heads); two launches on the same
+          inputs bit-identical;
   comm    every ported stage of all_reduce / all_gather / reduce_scatter on
           virtual 8-PE cubes on the card, and every stage of all_to_all on
           the 8-PE cubes and the 16-PE shapes, bit-identical to a plain
@@ -141,15 +150,43 @@ Phases, each printed as one JSON line:
           off: bf16 within 5e-2 and f32 within 1e-4 x max(1, max|ref|),
           exactly n_layers x cp partial flash launches a fused forward (ring
           attention's hops) and n_layers unfused;
-  main_path  each kernel on the inputs the serve, fused_forward and apps
-          phases kept (the shapes and positions the path gives it; for
+  train   full-width qwen3-1.7b training through ``Trainer`` at 1 PE, at
+          8 PEs as the launcher lays them out (tp 8) and at 8 PEs as data
+          2 x tp 4, one layout's weights on the card at a time: bf16 over
+          f32 masters, int8 moments, a warm-up and 3 timed steps of 4 x
+          1,024 tokens from TokenStream (ms/step, tok/s, mfu = 6 N tokens /
+          s / 989e12, peak memory, a profile of one step), exactly 2 x 28
+          forward-form and 28 backward launches a step, the grad-sync
+          programs lowered on the first step and served from the lower
+          cache after; one batch repeated 5 steps at 1 PE: the loss falls;
+          f32 (TF32 off, fp32 moments, 2 x 256 tokens): the loss of 1 PE
+          and both 8-PE layouts within 1e-5 relative, their synced
+          gradients within 1e-4 x max|g| per leaf (no floor at 1: weight
+          gradients lie far below 1) and the params after 2 steps within
+          1e-4 x max(1, max|ref|) per leaf (each leaf's max reported
+          beside its error), the 1-PE gradients against the witness (the
+          plain forward and backward in the kernels' place, no launch)
+          within 1e-4 x max|g| per leaf, two controls that the witness
+          must catch (the backward kernel's gradients zeroed, and its dq
+          scaled by 0.9), and at 8 PEs the barrier sync against the
+          staged bucket dispatch on the same gradients (bit for bit) and
+          the backward's bucket hooks (bit for bit on the synced leaves).
+          The inputs of each layout's last forward and backward launch are
+          kept;
+  main_path  each kernel on the inputs the serve, fused_forward, train and
+          apps phases kept (the shapes and positions the path gives it; for
           DLRM's AA(xyz), whose blocks repeat across the PEs, a random
           tensor of that shape): checked
           against the plain version, then timed with the plain version, the
           bound, and one PyTorch call as the library yardstick (SDPA for
           flash attention -- for a partial launch it computes the output
-          only --, index_select for the reorder; none computes the RWKV6
-          recurrence), which the port never calls.
+          only; ``is_causal`` where the mask is the aligned causal
+          triangle --, autograd of SDPA for the backward, index_select for
+          the reorder; none computes the RWKV6 recurrence), which the port
+          never calls. The backward's dq, dk and dv are each held within
+          FLASH_BWD_TOL of their own max|plain| (no floor at 1: a training
+          step's gradients lie far below 1), on the step's own do and on a
+          unit-scale do drawn from randn.
 
 Then the card's name and power limit, the kernels' JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -162,6 +199,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -206,6 +244,10 @@ RWKV_PATH_TOL = {torch.float32: F32_TOL, torch.bfloat16: 0.25}
 # by up to 1.2e-4 of max at 8 PEs, on the plain version as on the kernel
 RWKV_LOOP_F32_TOL = 2e-4
 RWKV6_TPU_KERNEL = "src/repro/kernels/rwkv6/rwkv6.py:73"
+# the JAX package has no Pallas backward: its train step differentiates the
+# jnp chunked_attention; the backward kernel takes that autodiff's place
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/attention/csrc/flash_bwd.cu"
+FLASH_BWD_REPLACES = "src/repro/models/layers.py:109"
 RWKV6_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu"
 # the kernel's final state against the one-token recurrence in f64, x
 # max(1, max|f64|), in both types: its products keep f32 arithmetic by
@@ -291,11 +333,13 @@ def _compare(got, want, partial) -> float:
     return worst
 
 
-def _bound(q, k, q_pos, k_pos, causal, window, partial) -> dict:
+def _bound(q, k, q_pos, k_pos, causal, window, partial,
+           stats: bool = False) -> dict:
     """Least time the card could take: each input byte read once, each
     output byte written once, over HBM rate; 4 * hd FLOPs per visible
     (query head, key) pair of this run's positions, over the peak for the
-    inputs' type. The larger of the two."""
+    inputs' type. The larger of the two. ``stats``: the output and the
+    f32 row statistics (m, l) are written."""
     from repro_torch.kernels.attention import ref
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -303,6 +347,8 @@ def _bound(q, k, q_pos, k_pos, causal, window, partial) -> dict:
     read = es * (q.numel() + 2 * k.numel()) + 4 * (q_pos.numel()
                                                     + k_pos.numel())
     write = 4 * B * H * Sq * (hd + 2) if partial else es * q.numel()
+    if stats:
+        write += 8 * B * H * Sq
     visible = int(ref.mask(q_pos, k_pos, causal, window).sum())
     flops = 4 * hd * H * visible
     t_bytes = (read + write) / HBM_BYTES_PER_S
@@ -312,13 +358,35 @@ def _bound(q, k, q_pos, k_pos, causal, window, partial) -> dict:
             "bytes": read + write, "flops": flops}
 
 
-def _sdpa(q, k, v, q_pos, k_pos, causal, window):
-    """One PyTorch call computing the normalized function (timed only)."""
+def _sdpa_forms(q_pos, k_pos, causal, window) -> dict:
+    """SDPA's mask arguments that compute the kernel's mask, by name: the
+    boolean mask, and ``is_causal`` as well where the mask is exactly the
+    top-left causal triangle on every row (a training or prefill step's
+    aligned positions)."""
     from repro_torch.kernels.attention import ref
     mask = ref.mask(q_pos, k_pos, causal, window)[:, None]
+    forms = {"attn_mask": {"attn_mask": mask}}
+    tri = torch.ones(mask.shape[-2:], dtype=torch.bool,
+                     device=mask.device).tril()
+    if bool((mask == tri).all()):
+        forms["is_causal"] = {"is_causal": True}
+    return forms
+
+
+def _sdpa(q, k, v, form: dict):
+    """One PyTorch call computing the normalized function (timed only)."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        qt, kt, vt, enable_gqa=True, **form)
+
+
+def _library_ms(timer, make, q_pos, k_pos, causal, window) -> tuple:
+    """The library yardstick: the fastest of SDPA's forms of the mask, each
+    ``make(form)`` timed by ``timer``; and the form that set it."""
+    times = {name: timer(make(form)) for name, form
+             in _sdpa_forms(q_pos, k_pos, causal, window).items()}
+    best = min(times, key=times.get)
+    return times[best], best
 
 
 # flash correctness sweep: B, Sq, Sk, H, KV, hd, causal, window, q0, k0,
@@ -466,21 +534,104 @@ def _flash_long_rows(dev) -> list:
                                                         **kw)),
             "plain_ms": time_ms(lambda: ref.flash_attention(
                 q, k, v, q_pos, k_pos, **kw), reps=2, iters=5),
-            "library_ms": time_ms(_sdpa(q, k, v, q_pos, k_pos, True, -1)),
+            "library_ms": _library_ms(
+                time_ms, lambda f: _sdpa(q, k, v, f), q_pos, k_pos, True,
+                -1)[0],
             **_bound(q, k, q_pos, k_pos, True, -1, partial)})
         torch.cuda.empty_cache()
     return rows
 
 
+# flash backward sweep (hd 128): B, Sq, Sk, H, KV, causal, window, q0, k0.
+# G = 1, 2 and 8; causal and not; windows; offsets; Sq and Sk off the
+# 64-row / 64-key tiles; rows that see no key (q0 < k0); a 512-token causal
+# run that skips tiles; a 3-row query (the forward's decode form); qwen3's
+# 1-PE training shape (4 x 1,024 causal tokens, 16 query and 8 kv heads)
+FLASH_BWD_CASES = [
+    (2, 64, 64, 8, 8, True, -1, 0, 0),
+    (2, 100, 100, 16, 8, True, -1, 0, 0),
+    (1, 37, 130, 8, 1, True, -1, 93, 0),
+    (2, 50, 70, 4, 2, False, -1, 0, 0),
+    (2, 96, 96, 8, 4, True, 24, 0, 0),
+    (1, 40, 72, 8, 2, True, 24, 48, 16),
+    (2, 24, 48, 4, 2, True, -1, 0, 16),
+    (1, 130, 257, 16, 8, True, -1, 127, 0),
+    (2, 512, 512, 16, 8, True, -1, 0, 0),
+    (2, 3, 40, 4, 2, True, -1, 37, 0),
+    (4, 1024, 1024, 16, 8, True, -1, 0, 0),
+]
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _flash_bwd_checks(dev) -> dict:
+    """The backward kernel against ``ref.flash_attention_backward`` on dq,
+    dk and dv (FLASH_BWD_TOL of max(1, max|plain|)), both fed the kernel
+    forward's output and row statistics (the statistics themselves held
+    to the plain forward's); two launches on the same inputs must give the
+    same bits."""
+    from repro_torch.kernels.attention import flash, flash_bwd, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    checks, ok_all = [], True
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Sq, Sk, H, KV, causal, window, q0, k0 in FLASH_BWD_CASES:
+            q, k, v = _attn_inputs(gen, dtype, B, Sq, Sk, H, KV, 128, dev)
+            do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            q_pos = (q0 + torch.arange(Sq, device=dev)).expand(B, -1)
+            k_pos = (k0 + torch.arange(Sk, device=dev)).expand(B, -1)
+            q_pos, k_pos = (p.to(torch.int32).contiguous()
+                            for p in (q_pos, k_pos))
+            kw = dict(causal=causal, window=window)
+            o, m, l = flash.flash_attention(q, k, v, q_pos, k_pos,
+                                            stats=True, **kw)
+            plain_o, plain_m, plain_l = ref.flash_attention(
+                q, k, v, q_pos, k_pos, stats=True, **kw)
+            base = flash.flash_attention(q, k, v, q_pos, k_pos, **kw)
+            got = flash_bwd.flash_attention_backward(
+                q, k, v, o, m, l, do, q_pos, k_pos, **kw)
+            again = flash_bwd.flash_attention_backward(
+                q, k, v, o, m, l, do, q_pos, k_pos, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_backward(q, k, v, o, m, l, do, q_pos,
+                                                k_pos, **kw)
+            errs = [_compare(g, w, False) for g, w in zip(got, want)]
+            live = plain_m > -1e29      # rows that see a key
+            m_err = (_compare(m[live], plain_m[live], False)
+                     if bool(live.any()) else 0.0)
+            m_err += float((m[~live] != -1e30).sum())   # dead rows: exact
+            l_err = float(((l - plain_l).abs() / plain_l.abs().clamp_min(1))
+                          .max())
+            same = all(torch.equal(_bits(a), _bits(b))
+                       for a, b in zip(got, again))
+            dead = int((~ref.mask(q_pos, k_pos, causal, window).any(-1))
+                       .sum())
+            ok = (max(errs) <= FLASH_BWD_TOL[dtype] and same
+                  and max(m_err, l_err) <= KERNEL_TOL[dtype]
+                  and torch.equal(base, o)
+                  and all(bool(torch.isfinite(g).all()) for g in got))
+            ok_all &= ok
+            checks.append({"dtype": str(dtype).split(".")[-1],
+                           "shape": [B, Sq, Sk, H, KV, 128],
+                           "causal": causal, "window": window,
+                           "offsets": [q0, k0], "rows_without_key": dead,
+                           "dq_err": errs[0], "dk_err": errs[1],
+                           "dv_err": errs[2], "m_err": m_err,
+                           "l_err": l_err, "out_as_without_stats":
+                               bool(torch.equal(base, o)),
+                           "deterministic": same, "ok": ok})
+    return {"ok": ok_all, "checks": checks}
+
+
 def phase_kernel(dev) -> dict:
     attn = _flash_checks(dev)
     long_rows = _flash_long_rows(dev)
+    bwd = _flash_bwd_checks(dev)
     reorder = _reorder_checks(dev)
     rwkv = _rwkv6_checks(dev)
     return {"ok": (attn["ok"] and all(r["ok"] for r in long_rows)
-                   and reorder["ok"] and rwkv["ok"]),
+                   and bwd["ok"] and reorder["ok"] and rwkv["ok"]),
             "checks": attn["checks"], "flash_long_rows": long_rows,
-            "reorder": reorder, "rwkv6": rwkv}
+            "flash_backward": bwd, "reorder": reorder, "rwkv6": rwkv}
 
 
 def _rwkv6_inputs(gen, dev, dtype, B, S, H, K, *, strong, state, G=0):
@@ -1174,6 +1325,7 @@ def _routes(calls: list, steps: int) -> torch.Tensor:
 # device kernels of the port, by the name of their CUDA function
 KERNEL_NAMES = {"flash": ("flash_decode_kernel", "flash_fwd_mma_kernel",
                           "flash_fwd_f32_kernel"),
+                "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"),
                 "reorder": ("tile_swizzle",),
                 "rwkv6": ("rwkv6_fwd",)}
 
@@ -2325,6 +2477,388 @@ def phase_serve_rwkv_f32(dev) -> dict:
             "greedy_tokens_identical": same_tokens, "runs": sums}
 
 
+# ------------------------------------------------------------------- train
+# full-width qwen3-1.7b training: the launcher's 8-PE layout (tp 8, data 1)
+# and data 2 x tp 4, beside 1 PE; bf16 over f32 masters with int8 moments,
+# then f32 (TF32 off) with fp32 moments
+TRAIN_LAYOUTS = {"1pe": (1, 1), "8pe": (8, 8), "8pe_dp2": (8, 4)}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 1024, 3
+TRAIN_F32_BATCH, TRAIN_F32_SEQ = 2, 256
+TRAIN_LOSS_STEPS = 5
+# TrainConfig's and the launchers' default lr, after a 1-step warmup (the
+# first step's lr is 0). At 1e-3 the repeated-batch loss rose again at the
+# fifth step, and Adam's normalized update took the rounding of nearly
+# cancelled embedding gradients to 1.2-1.4x the params' 1e-4 bound (PERF.md)
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
+PEAK_BF16_FLOPS = 989e12
+
+
+def keep_train_inputs(kept: dict, kept_bwd: dict, label: str):
+    """While open, every launch of the flash forward wrapper stores its
+    inputs in ``kept`` and every launch of the backward wrapper in
+    ``kept_bwd``, under ``train_forward/<label>`` / ``train_backward/<label>``
+    (the last launch wins)."""
+    from repro_torch.kernels.attention import flash, flash_bwd
+
+    def wrap_fwd(launch):
+        def keeping(q, k, v, q_pos, k_pos, **kw):
+            kept[f"train_forward/{label}"] = tuple(
+                t.detach() for t in (q, k, v, q_pos, k_pos)) + (kw,)
+            return launch(q, k, v, q_pos, k_pos, **kw)
+        return keeping
+
+    def wrap_bwd(launch):
+        def keeping(*args, **kw):
+            kept_bwd[f"train_backward/{label}"] = (
+                tuple(t.detach() for t in args), kw)
+            return launch(*args, **kw)
+        return keeping
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(patched(flash, "flash_attention", wrap_fwd))
+    stack.enter_context(patched(flash_bwd, "flash_attention_backward",
+                                wrap_bwd))
+    return stack
+
+
+def plain_attention_training():
+    """While open, the model's training attention runs the plain forward
+    and backward on the card in the kernels' place (the witness: no
+    launch)."""
+    from repro_torch.kernels.attention import ops, ref
+    stack = contextlib.ExitStack()
+    stack.enter_context(patched(ops, "_forward",
+                                lambda _: lambda q: ref.flash_attention))
+    stack.enter_context(patched(
+        ops, "_backward", lambda _: lambda q: ref.flash_attention_backward))
+    return stack
+
+
+# the witness's controls: the training backward kernel's result spoiled in
+# two ways, each of which the witness must catch
+WITNESS_CONTROLS = ("zero", "dq_x0.9")
+
+
+def spoiled_backward(kind: str):
+    """While open, the training attention's backward returns the kernel's
+    gradients spoiled: ``"zero"`` drops all three (trap 1: a kernel that
+    carries no gradient), ``"dq_x0.9"`` scales dq by 0.9."""
+    from repro_torch.kernels.attention import ops
+
+    def wrap(pick):
+        def spoiled_pick(q):
+            backward = pick(q)
+
+            def spoiled(*args, **kw):
+                dq, dk, dv = backward(*args, **kw)
+                if kind == "zero":
+                    return tuple(torch.zeros_like(t) for t in (dq, dk, dv))
+                return dq * 0.9, dk, dv
+            return spoiled
+        return spoiled_pick
+    return patched(ops, "_backward", wrap)
+
+
+def _train_setup(dev, layout: str, tc):
+    """Config, topology, compact masters (random, seed 0: the same global
+    model on every layout) and optimizer state of one layout."""
+    from repro_torch import configs
+    from repro_torch.models.params import init_params, param_specs, trainable
+    from repro_torch.models.topology import build_topology
+    from repro_torch.runtime.trainer import init_opt_state
+    pes, tp = TRAIN_LAYOUTS[layout]
+    cfg = dataclasses.replace(configs.get(ARCH), tp=tp)
+    topo = build_topology(cfg, pes)
+    masters = trainable(init_params(cfg, topo, 0, device=dev),
+                        param_specs(cfg, topo), topo.cube)
+    return cfg, topo, masters, init_opt_state(masters, cfg, topo, tc)
+
+
+def _global_grads(step, grads, topo) -> dict:
+    """Synced per-PE gradients as global tensors (index 0 of each leaf's
+    replicated dims)."""
+    from repro_torch.models.params import compact, to_global, tree_map
+    cg = tree_map(lambda g, s: compact(g, s, topo.cube), grads, step.specs)
+    return to_global(cg, step.specs, topo.cube)
+
+
+def _tree_held(got: dict, want: dict, tol: float,
+               floor: bool = True) -> dict:
+    """Per leaf |got - want| against tol x max(1, max|want|), or, with
+    ``floor=False``, tol x max|want|: whether every leaf holds, the leaves
+    that do not, the worst leaf's ratio to its bound, and each leaf's
+    error beside its max|want| (weight gradients lie far below 1, where
+    the floor makes the bound an absolute tol)."""
+    from repro_torch.models.params import flat_leaves, leaves
+    worst, name, failing, per_leaf = 0.0, "", [], {}
+    for (path, w), g in zip(leaves(want), flat_leaves(got)):
+        key = "/".join(path)
+        w = w.to(g.device).float()
+        peak = float(w.abs().max())
+        err = float((g.float() - w).abs().max())
+        bound = tol * (max(1.0, peak) if floor else peak)
+        if err > bound:
+            failing.append(key)
+        ratio = err / bound if bound > 0 else (0.0 if err == 0
+                                               else math.inf)
+        per_leaf[key] = {"err": err, "max_abs": peak}
+        if ratio >= worst:
+            worst, name = ratio, key
+    return {"ok": not failing, "floor_at_1": floor, "failing": failing,
+            "worst_leaf": name, "worst_err_over_bound": worst,
+            "leaves": per_leaf}
+
+
+def _train_bf16(dev, layout: str, kept: dict, kept_bwd: dict) -> dict:
+    """One layout's bf16 run: a warm-up step and TRAIN_TIMED timed steps on
+    TokenStream through ``Trainer.run``, the launches of each step, the
+    grad-sync program's lowerings, peak memory, and a profile of one
+    step."""
+    from repro_torch.core import program
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.runtime.trainer import (
+        Trainer, TrainConfig, place_batch)
+    tc = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, topo, masters, opt = _train_setup(dev, layout, tc)
+    stream = TokenStream(cfg, DataConfig(seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH,
+                                         vocab_size=cfg.vocab_size))
+    trainer = Trainer(cfg, topo, tc)
+    steps, hist = [], []
+    program.clear_lower_cache()
+    for s in range(1 + TRAIN_TIMED):
+        batch = place_batch(stream.global_batch_at(s), cfg, topo, dev)
+        f0, b0 = flash.LAUNCHES, flash_bwd.LAUNCHES
+        low0 = dict(program.LOWER_STATS)
+        with keep_train_inputs(kept, kept_bwd, layout):
+            masters, opt, h = trainer.run(masters, opt, [batch],
+                                          log_every=0)
+        hist += h
+        steps.append({
+            "forward_launches": flash.LAUNCHES - f0,
+            "backward_launches": flash_bwd.LAUNCHES - b0,
+            "lowered": program.LOWER_STATS["lowered"] - low0["lowered"],
+            "cache_hits": (program.LOWER_STATS["cache_hits"]
+                           - low0["cache_hits"])})
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    step_ms = [t * 1e3 for t in trainer.step_seconds]
+    ms = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = cfg.param_count()
+    L = cfg.n_layers
+    buckets = steps[0]["lowered"]
+    # the bucket programs with a replicated leaf (none on 1 PE)
+    from repro_torch.runtime.overlap import bucket_leaf_indices
+    from repro_torch.runtime.trainer import replication_dims
+    from repro_torch.models.params import flat_leaves, param_specs
+    sflat = flat_leaves(param_specs(cfg, topo))
+    want_buckets = sum(
+        any(replication_dims(sflat[i], topo.cube) for i in idxs)
+        for idxs in bucket_leaf_indices(param_specs(cfg, topo)))
+    step_fn = trainer.step_fn
+    state = {"m": masters, "o": opt}
+    prof_batch = place_batch(stream.global_batch_at(0), cfg, topo, dev)
+
+    def step(_):
+        state["m"], state["o"], _m = step_fn(state["m"], state["o"],
+                                             prof_batch)
+
+    prof = profile_steps(step, steps=1)
+    del masters, opt, state, trainer, step_fn
+    torch.cuda.empty_cache()
+    launches = sum(st["forward_launches"] for st in steps)
+    bwd = sum(st["backward_launches"] for st in steps)
+    ok = (all(st["forward_launches"] == 2 * L
+              and st["backward_launches"] == L for st in steps)
+          and buckets == want_buckets
+          and (topo.cube.ndev == 1 or buckets >= 1)
+          and all(st["lowered"] == 0 and st["cache_hits"] == buckets
+                  for st in steps[1:])
+          and all(np.isfinite(h["loss"]) for h in hist))
+    return {"ok": ok, "layout": layout, "cube": topo.cube.describe(),
+            "params": n, "tokens_per_step": tokens,
+            "ms_per_step": ms, "step_ms": step_ms,
+            "tok_per_s": tokens / (ms / 1e3),
+            "mfu": 6 * n * tokens / (ms / 1e3) / PEAK_BF16_FLOPS,
+            "peak_mem_gb": peak, "losses": [h["loss"] for h in hist],
+            "per_step": steps, "grad_sync_programs": buckets,
+            "expected": {"forward_launches": 2 * L, "backward_launches": L},
+            "forward_launches": launches, "backward_launches": bwd,
+            "profile": prof}
+
+
+def _train_loss_falls(dev) -> dict:
+    """One batch repeated for TRAIN_LOSS_STEPS steps at 1 PE (bf16), the
+    lr warming up over the run: every loss after the first update is below
+    the first, the last the lowest; the first is near ln(vocab) for random
+    weights (above it by the logits' variance over 2: 0.02 x sqrt(2,048),
+    squared, halved, about 0.4)."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.runtime.trainer import Trainer, TrainConfig, place_batch
+    tc = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_LOSS_STEPS, total_steps=100)
+    cfg, topo, masters, opt = _train_setup(dev, "1pe", tc)
+    batch = place_batch(TokenStream(cfg, DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        vocab_size=cfg.vocab_size)).global_batch_at(0), cfg, topo, dev)
+    _, _, hist = Trainer(cfg, topo, tc).run(
+        masters, opt, [batch] * TRAIN_LOSS_STEPS, log_every=0)
+    del masters, opt
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    return {"ok": (all(np.isfinite(losses))
+                   and all(x < losses[0] for x in losses[2:])
+                   and losses[-1] == min(losses)
+                   and abs(losses[0] - math.log(cfg.vocab_size)) < 1.0),
+            "losses": losses, "ln_vocab": math.log(cfg.vocab_size)}
+
+
+def _train_f32(dev, layout: str, ref: dict | None) -> dict:
+    """f32 (TF32 off), fp32 moments, global batch TRAIN_F32_BATCH x
+    TRAIN_F32_SEQ: the first step's loss and synced gradients, the params
+    after 2 steps; at 8 PEs the barrier sync against the overlapped one
+    (the backward's bucket hooks, and the staged post-backward dispatch)
+    on the same backward, bit for bit on the synced leaves. At 1 PE the
+    witness: the same first step with the plain forward and backward in
+    the kernels' place, each leaf within F32_TOL of its own max|g|; and
+    its controls: the step with the backward kernel's result spoiled
+    (WITNESS_CONTROLS) must fail that bound."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.models.params import flat_leaves, to_global, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.overlap import sync_replicated_grads_overlapped
+    from repro_torch.runtime.trainer import (
+        TrainConfig, make_train_step, place_batch, replication_dims)
+    tc = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100,
+                     adamw=adamw.AdamWConfig(use_8bit=False))
+    cfg, topo, masters, opt = _train_setup(dev, layout, tc)
+    step = make_train_step(cfg, topo, tc, dtype=torch.float32)
+    stream = TokenStream(cfg, DataConfig(seq_len=TRAIN_F32_SEQ,
+                                         global_batch=TRAIN_F32_BATCH,
+                                         vocab_size=cfg.vocab_size))
+    b0 = place_batch(stream.global_batch_at(0), cfg, topo, dev)
+    b1 = place_batch(stream.global_batch_at(1), cfg, topo, dev)
+    out: dict = {"layout": layout, "cube": topo.cube.describe()}
+    f0, k0 = flash.LAUNCHES, flash_bwd.LAUNCHES
+    loss, _, raw = step.fwd_bwd(masters, b0)
+    out["launches"] = [flash.LAUNCHES - f0, flash_bwd.LAUNCHES - k0]
+    synced = step.sync(raw, {})
+    out["loss"] = float(loss.reshape(-1)[0])
+    grads = _global_grads(step, synced, topo)
+    expected = [2 * cfg.n_layers, cfg.n_layers]
+    # the 1-PE reference, kept on the host (the step scales its gradients
+    # in place, and the device holds one layout's model at a time)
+    held = None if ref is not None else {
+        "loss": out["loss"],
+        "grads": tree_map(lambda t: t.to("cpu", copy=True), grads)}
+    if layout == "1pe":
+        f1, k1 = flash.LAUNCHES, flash_bwd.LAUNCHES
+        with plain_attention_training():
+            _, _, wraw = step.fwd_bwd(masters, b0)
+        out["witness_launches"] = [flash.LAUNCHES - f1,
+                                   flash_bwd.LAUNCHES - k1]
+        witness = _global_grads(step, step.sync(wraw, {}), topo)
+        del wraw
+        # held per leaf to its own max|g| (no floor at 1), and shown able
+        # to catch a spoiled backward
+        out["witness"] = _tree_held(grads, witness, F32_TOL, floor=False)
+        controls = out["witness_controls"] = {}
+        for kind in WITNESS_CONTROLS:
+            with spoiled_backward(kind):
+                _, _, craw = step.fwd_bwd(masters, b0)
+            spoiled = _global_grads(step, step.sync(craw, {}), topo)
+            del craw
+            held_c = _tree_held(spoiled, witness, F32_TOL, floor=False)
+            floored = _tree_held(spoiled, witness, F32_TOL)
+            controls[kind] = {"caught": not held_c["ok"],
+                              "failing": held_c["failing"],
+                              "caught_with_floor_at_1": not floored["ok"],
+                              "failing_with_floor_at_1": floored["failing"]}
+            del spoiled
+        out["ok"] = (out["witness"]["ok"]
+                     and all(c["caught"] for c in controls.values())
+                     and out["witness_launches"] == [0, 0]
+                     and out["launches"] == expected)
+        del witness
+    else:
+        # the same backward's partials through the staged bucket dispatch,
+        # then a second backward through the hooks
+        staged = sync_replicated_grads_overlapped(raw, step.specs,
+                                                  topo.cube)
+        _, _, hooked = step.fwd_bwd(masters, b0, overlap=True)
+        repl = [bool(replication_dims(s, topo.cube))
+                for s in flat_leaves(step.specs)]
+        same_staged = all(torch.equal(a, b) for a, b in zip(
+            flat_leaves(synced), flat_leaves(staged)))
+        same_hooked = all(torch.equal(a, b) for a, b, r in zip(
+            flat_leaves(synced), flat_leaves(hooked), repl) if r)
+        bo = out["barrier_vs_overlap"] = {
+            "staged_bit_identical": same_staged,
+            "hooked_bit_identical_on_synced_leaves": same_hooked,
+            "synced_leaves": sum(repl),
+            "hooked_max_abs_diff_all_leaves": max(
+                float((a - b).abs().max()) for a, b in zip(
+                    flat_leaves(synced), flat_leaves(hooked)))}
+        del staged, hooked
+        out["loss_vs_1pe_rel"] = abs(out["loss"] - ref["loss"]) / abs(
+            ref["loss"])
+        out["grads_vs_1pe"] = _tree_held(grads, ref["grads"], F32_TOL,
+                                         floor=False)
+        out["ok"] = (out["loss_vs_1pe_rel"] <= 1e-5
+                     and out["grads_vs_1pe"]["ok"]
+                     and bo["staged_bit_identical"]
+                     and bo["hooked_bit_identical_on_synced_leaves"]
+                     and out["launches"] == expected)
+    del raw, grads
+    masters, opt, _ = step.opt(masters, opt, synced)   # step 1
+    del synced
+    masters, opt, _ = step(masters, opt, b1)           # step 2
+    params = to_global(masters, step.specs, topo.cube)
+    del masters, opt
+    if ref is not None:
+        out["params_after_2_vs_1pe"] = _tree_held(params, ref["params"],
+                                                  F32_TOL)
+        out["ok"] = out["ok"] and out["params_after_2_vs_1pe"]["ok"]
+    if held is not None:
+        held["params"] = tree_map(lambda t: t.to("cpu", copy=True),
+                                  params)
+    del params
+    torch.cuda.empty_cache()
+    return out, held
+
+
+def phase_train(dev, kept: dict, kept_bwd: dict) -> dict:
+    """Full-width qwen3-1.7b training through the launcher's functions
+    (``Trainer``, ``make_train_step``): the flash forward (with the row
+    statistics) and the backward kernel on the path, counted from 0 just
+    before the bf16 runs. See ``_train_bf16``, ``_train_loss_falls`` and
+    ``_train_f32``."""
+    from repro_torch.kernels.attention import flash, flash_bwd
+    flash.LAUNCHES = flash_bwd.LAUNCHES = 0     # the main path starts here
+    bf16 = {name: _train_bf16(dev, name, kept, kept_bwd)
+            for name in TRAIN_LAYOUTS}
+    # the runs' steps (each step's count is gated; the profiled steps and
+    # the reference runs below are left out)
+    launches = (sum(r["forward_launches"] for r in bf16.values()),
+                sum(r["backward_launches"] for r in bf16.values()))
+    falls = _train_loss_falls(dev)
+    f32, ref = {}, None
+    for name in TRAIN_LAYOUTS:
+        f32[name], held = _train_f32(dev, name, ref)
+        if ref is None:
+            ref = held
+        del held
+    del ref
+    torch.cuda.empty_cache()
+    return {"ok": (all(r["ok"] for r in bf16.values()) and falls["ok"]
+                   and all(r["ok"] for r in f32.values())),
+            "arch": ARCH, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+            "bf16": bf16, "loss_falls": falls, "f32": f32,
+            "flash_launches": launches[0], "flash_bwd_launches": launches[1]}
+
+
 def _rwkv6_bound(r, k, v, logw, u, state) -> dict:
     """Least time the card could take: each input byte read once (r, k, v,
     u in their dtype, logw and an incoming state in f32), each output byte
@@ -2404,8 +2938,8 @@ def _reorder_main_path(kept: dict, name: str, redraw: bool = False) -> dict:
             "bytes": nbytes}
 
 
-def phase_main_path(kept: dict, kept_reorder: dict,
-                    kept_rwkv6: dict) -> dict:
+def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
+                    kept_bwd: dict) -> dict:
     """Each kernel on the inputs of its last launch in each form and run of
     the serve, serve_moe, serve_rwkv, serve_dense and fused_forward phases
     (and the reorder's first launch of a DLRM pidcomm call): held against
@@ -2420,7 +2954,9 @@ def phase_main_path(kept: dict, kept_reorder: dict,
         got = flash.flash_attention(q, k, v, q_pos, k_pos, **kw)
         want = ref.flash_attention(q, k, v, q_pos, k_pos, **kw)
         torch.cuda.synchronize()
-        partial = kw["partial"]
+        kw = {"partial": False, "stats": False, **kw}
+        # a training launch returns (out, m, l): compared as the partials
+        partial = kw["partial"] or kw["stats"]
         gots = got if partial else (got,)
         wants = want if partial else (want,)
         abs_err = max(float((g.float() - w.float()).abs().max())
@@ -2430,24 +2966,125 @@ def phase_main_path(kept: dict, kept_reorder: dict,
                                                    **kw))
         plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, q_pos, k_pos,
                                                        **kw))
-        lib_ms = time_ms(_sdpa(q, k, v, q_pos, k_pos, kw["causal"],
-                               kw["window"]))
-        b = _bound(q, k, q_pos, k_pos, kw["causal"], kw["window"], partial)
+        lib_ms, lib_form = _library_ms(
+            time_ms, lambda f: _sdpa(q, k, v, f), q_pos, k_pos,
+            kw["causal"], kw["window"])
+        b = _bound(q, k, q_pos, k_pos, kw["causal"], kw["window"],
+                   kw["partial"], kw["stats"])
         ok = rel_err <= KERNEL_TOL[q.dtype]
         worst_ok &= ok
         timings.append({"name": name, "dtype": str(q.dtype).split(".")[-1],
                         "q": list(q.shape), "kv": list(k.shape), **kw,
                         "max_abs_err": abs_err, "err": rel_err, "ok": ok,
                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "library_output_only": partial, **b})
+                        "library_form": lib_form,
+                        "library_output_only": kw["partial"], **b})
     reorder = _reorder_main_path(kept_reorder, f"decode/{PES[-1]}pe")
     dlrm = _reorder_main_path(kept_reorder, "dlrm_aa_xyz", redraw=True)
     rwkv = _rwkv6_main_path(kept_rwkv6)
+    bwd = [_flash_bwd_main_path(name, *kept_bwd[name])
+           for name in sorted(kept_bwd)]
     return {"ok": (worst_ok and reorder["exact"] and dlrm["exact"]
                    and len(rwkv) == 4 and all(t["ok"] for t in rwkv)
-                   and f"ring_hop/{FUSED_PES}pe" in kept),
+                   and f"ring_hop/{FUSED_PES}pe" in kept
+                   and len(bwd) == len(TRAIN_LAYOUTS)
+                   and all(t["ok"] for t in bwd)),
             "main_path": timings, "reorder": reorder, "reorder_dlrm": dlrm,
-            "rwkv6": rwkv}
+            "rwkv6": rwkv, "flash_backward": bwd}
+
+
+def _event_ms(fn, iters: int = 10) -> float:
+    """Device time of one ``fn()`` call between CUDA events, without a
+    graph (for a call that autograd drives)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _sdpa_backward(q, k, v, do, form: dict):
+    """Autograd of one SDPA call on the same mask: the library's backward
+    (timed only; the port never calls it)."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **form)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def _rel_to_peak(got, want) -> tuple[list, list]:
+    """Per output, |kernel - plain| over max|plain|, with no floor (a
+    training step's gradients lie far below 1), and max|plain|."""
+    errs, peaks = [], []
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        peak = float(w.abs().max())
+        err = float((g - w).abs().max())
+        errs.append(err / peak if peak > 0 else (0.0 if err == 0
+                                                 else math.inf))
+        peaks.append(peak)
+    return errs, peaks
+
+
+def _flash_bwd_main_path(name: str, args: tuple, kw: dict) -> dict:
+    """The backward kernel on a training step's last launch, against the
+    plain version: each of dq, dk and dv within FLASH_BWD_TOL of its own
+    max|plain| (no floor at 1), on the step's own ``do`` and again on a
+    unit-scale ``do`` drawn from randn. Then timed with the plain version,
+    the bound (10 * hd FLOPs per visible (query head, key) pair: the
+    scores and dP recomputed, dq, dk, dv; each input and output byte once)
+    and autograd of SDPA."""
+    from repro_torch.kernels.attention import flash_bwd, ref
+    q, k, v, o, m, l, do, q_pos, k_pos = args
+    gen = torch.Generator(device=q.device)
+    gen.manual_seed(3)
+    unit = torch.randn(do.shape, generator=gen, device=q.device).to(do.dtype)
+    held, abs_err = {}, 0.0
+    for label, d in (("step_do", do), ("unit_do", unit)):
+        a = (q, k, v, o, m, l, d, q_pos, k_pos)
+        got = flash_bwd.flash_attention_backward(*a, **kw)
+        want = ref.flash_attention_backward(*a, **kw)
+        torch.cuda.synchronize()
+        errs, peaks = _rel_to_peak(got, want)
+        held[label] = {"err": dict(zip(("dq", "dk", "dv"), errs)),
+                       "max_abs_plain": dict(zip(("dq", "dk", "dv"), peaks))}
+        abs_err = max([abs_err] + [float((g.float() - w.float()).abs().max())
+                                   for g, w in zip(got, want)])
+        del got, want
+    del unit
+    rel = max(e for h in held.values() for e in h["err"].values())
+    B, Sq, H, hd = q.shape
+    es = q.element_size()
+    nbytes = (es * (2 * q.numel() + o.numel() + do.numel()
+                    + 4 * k.numel())
+              + 4 * (m.numel() + l.numel() + q_pos.numel() + k_pos.numel()))
+    visible = int(ref.mask(q_pos, k_pos, kw["causal"], kw["window"]).sum())
+    flops = 10 * hd * H * visible
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[q.dtype]
+    lib_ms, lib_form = _library_ms(
+        _event_ms, lambda f: _sdpa_backward(q, k, v, do, f), q_pos, k_pos,
+        kw["causal"], kw["window"])
+    return {"name": name, "dtype": str(q.dtype).split(".")[-1],
+            "q": list(q.shape), "kv": list(k.shape), **kw,
+            "max_abs_err": abs_err, "err": rel, "held": held,
+            "ok": rel <= FLASH_BWD_TOL[q.dtype],
+            "ms": time_ms(lambda: flash_bwd.flash_attention_backward(
+                *args, **kw)),
+            "plain_ms": time_ms(lambda: ref.flash_attention_backward(
+                *args, **kw), reps=2, iters=5),
+            "library_ms": lib_ms, "library_form": lib_form,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
 
 
 # -------------------------------------------------------------------- main
@@ -2467,6 +3104,25 @@ def _rwkv6_entry(timings: list, launches: int, kernel: dict) -> dict:
             "r", "u", "state_in", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")} for t in timings},
         "off_main_path": kernel["timed"]}
+
+
+def _flash_bwd_entry(rows: list, launches: int) -> dict:
+    """The backward kernel's entry of the kernels line: its numbers at the
+    1-PE training step; every kept training launch under ``shapes``. The
+    JAX package has no Pallas backward: ``replaces`` names the jnp
+    function whose autodiff its train step takes."""
+    head = next(t for t in rows if t["name"] == "train_backward/1pe")
+    return {
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": FLASH_BWD_SOURCE, "replaces": FLASH_BWD_REPLACES,
+        "launches": launches,
+        "max_abs_err": max(t["max_abs_err"] for t in rows),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "at": head["name"],
+        "shapes": {t["name"]: {k: t[k] for k in (
+            "q", "kv", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")} for t in rows}}
 
 
 def card_line() -> str:
@@ -2494,6 +3150,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     results, failed, kept, kept_reorder, kept_rwkv6 = {}, [], {}, {}, {}
+    kept_bwd = {}
     for name, fn in (("build", lambda: phase_build()),
                      ("no_spills", lambda: {
                          "ok": not results["build"]["spilling"],
@@ -2514,10 +3171,11 @@ def main() -> int:
                      ("apps", lambda: phase_apps(dev, kept_reorder)),
                      ("fused_forward", lambda: phase_fused_forward(dev,
                                                                    kept)),
+                     ("train", lambda: phase_train(dev, kept, kept_bwd)),
                      ("main_path", lambda: phase_main_path(
-                         kept, kept_reorder, kept_rwkv6))):
+                         kept, kept_reorder, kept_rwkv6, kept_bwd))):
         needs = (("serve", "serve_moe", "serve_rwkv", "serve_dense", "apps",
-                  "fused_forward")
+                  "fused_forward", "train")
                  if name == "main_path" else ("build",))
         missing = [n for n in needs if n in failed]
         if name != "build" and missing:
@@ -2546,6 +3204,7 @@ def main() -> int:
     dense_res = results["serve_dense"]["archs"]
     engine_res = results["serve_engine"]
     fused_res, apps_res = results["fused_forward"], results["apps"]
+    train_res = results["train"]
     # the flash headline: the main-path row that fares worst against SDPA
     head = max(kern["main_path"], key=lambda t: t["ms"] / t["library_ms"])
     swz = kern["reorder"]
@@ -2556,7 +3215,8 @@ def main() -> int:
         "launches": (serve_res["flash_launches"] + moe_res["flash_launches"]
                      + results["serve_dense"]["flash_launches"]
                      + engine_res["flash_launches"]
-                     + fused_res["flash_launches"]),
+                     + fused_res["flash_launches"]
+                     + train_res["flash_launches"]),
         "launches_by_path": {ARCH: serve_res["flash_launches"],
                              MOE_ARCH: moe_res["flash_launches"],
                              **{a: dense_res[a]["flash_launches"]
@@ -2564,7 +3224,8 @@ def main() -> int:
                              f"{ARCH}/serve_engine":
                                  engine_res["flash_launches"],
                              f"{ARCH}/fused_forward":
-                                 fused_res["flash_launches"]},
+                                 fused_res["flash_launches"],
+                             f"{ARCH}/train": train_res["flash_launches"]},
         "max_abs_err": max(t["max_abs_err"] for t in kern["main_path"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2592,7 +3253,9 @@ def main() -> int:
             "x", "blocks", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "max_abs_err")} for r in reorder_rows},
     }, _rwkv6_entry(kern["rwkv6"], rwkv_res["rwkv6_launches"],
-                    results["kernel"]["rwkv6"])],
+                    results["kernel"]["rwkv6"]),
+        _flash_bwd_entry(kern["flash_backward"],
+                         train_res["flash_bwd_launches"])],
         "total_s": round(time.perf_counter() - t_all, 3)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

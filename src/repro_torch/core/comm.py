@@ -451,6 +451,57 @@ class Communicator:
             return x
         return self._dispatch("all_reduce", x, algorithm=algorithm, op=op)
 
+    @property
+    def crosses_dcn(self) -> bool:
+        return bool(self.slow_dims)
+
+    def all_reduce_with_error(self, x: torch.Tensor, *,
+                              error: torch.Tensor | None = None,
+                              block: int = 256
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """§V-C compressed (int8 DCN hop) additive all-reduce that also
+        returns the local quantization error, for callers that keep an
+        error-feedback buffer across steps (``runtime.trainer``).
+
+        ``error`` is the previous step's returned error (replicated within
+        the fast/ICI group, per-pod values), folded in scaled by 1/|ICI|:
+        the fast-domain reduce inside the flow sums the |ICI| replicas back
+        to one correction per pod.
+
+        Always dispatches eagerly (even inside a program recording scope:
+        the two-output flow has no registry body) and records a
+        ``compressed`` CommEvent like the single-output registry flow."""
+        from repro_torch.core import compress
+        self._check(x)
+        if not self.slow_dims:
+            raise ValueError(
+                "all_reduce_with_error needs a DCN-crossing group; "
+                f"{self.dims} is entirely intra-pod")
+        if error is not None:
+            gf = self.cube.group_size(self.fast_dims) if self.fast_dims \
+                else 1
+            x = x + error / gf
+        payload = payload_bytes(self, "all_reduce", tuple(x.shape),
+                                _itemsize(x.dtype), {})
+        if _TRACES or _telemetry.enabled():
+            est = planner.estimate(self.cube, "all_reduce", self.dims,
+                                   payload, algorithm="compressed",
+                                   block=block)
+            _telemetry.inc("comm.dispatches")
+            _telemetry.inc(f"comm.est_source.{est.est_source}")
+        if _TRACES:
+            event = CommEvent(
+                primitive="all_reduce", bitmap=self.bitmap, dims=self.dims,
+                algorithm="compressed", flow="compressed", stage="cm",
+                group_size=self.group_size,
+                num_instances=self.num_instances, payload_bytes=payload,
+                ici_bytes=est.ici_bytes, dcn_bytes=est.dcn_bytes,
+                seconds=est.seconds, est_source=est.est_source)
+            for t in _TRACES:
+                t.record(event)
+        return compress.compressed_pod_all_reduce(
+            x, self.cube, self.fast_dims, self.slow_dims, block=block)
+
     def all_to_all(self, x: torch.Tensor, *, split_axis: int,
                    concat_axis: int,
                    algorithm: str | None = None) -> torch.Tensor:

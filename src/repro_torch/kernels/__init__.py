@@ -1,2 +1,20 @@
 """Hand-written Hopper kernels of the port, built from ``csrc/`` sources by
 ``_build`` on first use."""
+from __future__ import annotations
+
+import torch
+
+
+def guard_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record through a kernel launch: a launch
+    writes into ``torch.empty`` outputs that carry no ``grad_fn``, so the
+    gradient would be dropped without a word. Attention trains through
+    ``repro_torch.kernels.attention.ops.FlashAttention``, whose backward is
+    a kernel too; the reorder and RWKV6 kernels have no backward yet."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad and the kernel's output would "
+            "carry none; train attention through "
+            "repro_torch.kernels.attention.ops.FlashAttention, or launch "
+            "under torch.no_grad()")

@@ -23,6 +23,7 @@ _KERNELS = Path(__file__).resolve().parent
 # kernel library name -> its source, relative to repro_torch/kernels
 SOURCES = {
     "flash": "attention/csrc/flash.cu",
+    "flash_bwd": "attention/csrc/flash_bwd.cu",
     "reorder": "reorder/csrc/reorder.cu",
     "rwkv6": "rwkv6/csrc/rwkv6.cu",
 }

@@ -5,8 +5,10 @@
 // (src/repro/kernels/attention/flash.py): causal / sliding-window GQA
 // attention, f32 online softmax, finite NEG_INF = -1e30, output /
 // max(l, 1e-30). It also returns the f32 partials (acc, m, l) that
-// flash-decode LSE-combines across cache shards. Positions come from int32
-// device tensors (query (B, Sq), key (B, Sk)). Visibility: k_pos >= 0,
+// flash-decode LSE-combines across cache shards, or beside the output the
+// row statistics (m, l) alone, which the backward (flash_bwd.cu) reads.
+// Positions come from int32 device tensors (query (B, Sq), key (B, Sk)).
+// Visibility: k_pos >= 0,
 // k_pos <= q_pos when causal, q_pos - k_pos < window when window > 0. A row
 // that sees no key averages v over all Sk keys: m = -1e30, l = Sk, acc =
 // sum v. A query row is one (position, group member) pair of a kv head, so
@@ -386,13 +388,11 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (out != nullptr)
       store(out + ((size_t)(b * Sq + qi) * H + h) * HD + d,
             aa / fmaxf(ll, 1e-30f));
-    if (acc_out != nullptr) {
-      const size_t row = (size_t)(b * H + h) * Sq + qi;
-      acc_out[row * HD + d] = aa;
-      if (d == 0) {
-        m_out[row] = mm;
-        l_out[row] = ll;
-      }
+    const size_t row = (size_t)(b * H + h) * Sq + qi;
+    if (acc_out != nullptr) acc_out[row * HD + d] = aa;
+    if (m_out != nullptr && d == 0) {
+      m_out[row] = mm;
+      l_out[row] = ll;
     }
   };
 
@@ -830,17 +830,20 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
             __floats2bfloat162_rn(o[nb][2] * i1, o[nb][3] * i1);
     }
   }
-  if (acc_out != nullptr) {
+  if (acc_out != nullptr || m_out != nullptr) {
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
       const int r = h2 ? r1 : r0;
       if (!(h2 ? ok1 : ok0)) continue;
       const size_t row = (size_t)(b * H + kvh * G + r % G) * Sq + r / G;
+      if (acc_out != nullptr) {
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-        *reinterpret_cast<float2*>(acc_out + row * HD + 8 * nb + 2 * qlane) =
-            make_float2(o[nb][2 * h2], o[nb][2 * h2 + 1]);
-      if (qlane == 0) {
+        for (int nb = 0; nb < NB; ++nb)
+          *reinterpret_cast<float2*>(acc_out + row * HD + 8 * nb
+                                     + 2 * qlane) =
+              make_float2(o[nb][2 * h2], o[nb][2 * h2 + 1]);
+      }
+      if (m_out != nullptr && qlane == 0) {
         m_out[row] = h2 ? m1 : m0;
         l_out[row] = h2 ? l1 : l0;
       }
@@ -989,7 +992,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (out != nullptr) out[qrow(r) + d] = acc[i][cc] * inv;
       if (acc_out != nullptr) acc_out[row * HD + d] = acc[i][cc];
     }
-    if (acc_out != nullptr && lane == 0) {
+    if (m_out != nullptr && lane == 0) {
       m_out[row] = m[i];
       l_out[row] = l[i];
     }
@@ -1111,8 +1114,10 @@ cudaError_t forward_f32(int hd, const Args& a, dim3 grid, cudaStream_t s) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). Either `out`
-// (normalized output) or all of `acc`, `m`, `l` (partials) may be null.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). `out` (the
+// normalized output), `acc` and the pair `m`, `l` (the row statistics) may
+// each be null: the partials are all three; the training forward asks for
+// `out` with `m` and `l`, which its backward (flash_bwd.cu) reads.
 // form 0 = decode (row_tile = Sq * G <= 8, `splits` CTAs per (batch, kv
 // head) in one cluster), form 1 = forward (row_tile query rows per CTA: 16,
 // 32 or 64 in bf16, 32 in f32; splits = 1) -- flash.launch_geometry.

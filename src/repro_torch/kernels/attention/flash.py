@@ -16,7 +16,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, guard_grad
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -153,20 +153,27 @@ def _check_layout(q, k, v, q_pos, k_pos) -> Geometry:
 
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
-                    window: int = -1, partial: bool = False):
+                    window: int = -1, partial: bool = False,
+                    stats: bool = False):
     """Launch the kernel on CUDA tensors (see ``ref.flash_attention`` for
     the function): q (B, Sq, H, hd), k/v (B, Sk, KV, hd), int32 positions
-    (B, Sq)/(B, Sk). Raises on anything the kernel does not take."""
+    (B, Sq)/(B, Sk). With ``stats`` (and not ``partial``) it returns
+    ``(out, m, l)``: the output and the f32 row statistics (B, H, Sq) the
+    backward reads, from the same launch (``out`` is bit-identical to the
+    launch without them). Raises on anything the kernel does not take, and
+    under grad (``guard_grad``)."""
     global LAUNCHES
+    guard_grad("flash_attention", q, k, v)
     geo = _check(q, k, v, q_pos, k_pos)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = acc = m = l = None
+    if partial or stats:
+        m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     if partial:
         acc = torch.empty((B, H, Sq, hd), dtype=torch.float32,
                           device=q.device)
-        m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-        l = torch.empty_like(m)
     else:
         out = torch.empty_like(q)
     lib = _lib()
@@ -187,4 +194,6 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc} ({msg})")
     LAUNCHES += 1
-    return (acc, m, l) if partial else out
+    if partial:
+        return acc, m, l
+    return (out, m, l) if stats else out

@@ -1,13 +1,51 @@
 """Device dispatch for flash attention: a CUDA tensor launches the Hopper
 kernel (``flash.py``) or raises; a CPU tensor takes the plain PyTorch
-version (``ref.py``)."""
+version (``ref.py``).
+
+``FlashAttention`` is the differentiable form, which training takes: its
+forward is the forward kernel asked for the row statistics as well, and
+its backward the backward kernel (``flash_bwd.py``); on CPU tensors the
+plain versions of both."""
 from __future__ import annotations
 
-from repro_torch.kernels.attention import flash, ref
+import torch
+
+from repro_torch.kernels.attention import flash, flash_bwd, ref
+
+
+def _forward(q):
+    return flash.flash_attention if q.is_cuda else ref.flash_attention
 
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                     window: int = -1, partial: bool = False):
-    fn = flash.flash_attention if q.is_cuda else ref.flash_attention
-    return fn(q, k, v, q_pos, k_pos, causal=causal, window=window,
-              partial=partial)
+    return _forward(q)(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                       partial=partial)
+
+
+def _backward(q):
+    return (flash_bwd.flash_attention_backward if q.is_cuda
+            else ref.flash_attention_backward)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` (not partial) with a backward: q (B, Sq, H, hd),
+    k / v (B, Sk, KV, hd), int32 positions (B, Sq) / (B, Sk). Saves q, k,
+    v, the output and its row statistics (m, l); the backward recomputes
+    the scores tile by tile, as the forward computed them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal: bool, window: int):
+        out, m, l = _forward(q)(q, k, v, q_pos, k_pos, causal=causal,
+                                window=window, stats=True)
+        ctx.save_for_backward(q, k, v, out, m, l, q_pos, k_pos)
+        ctx.mask = (causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, m, l, q_pos, k_pos = ctx.saved_tensors
+        causal, window = ctx.mask
+        dq, dk, dv = _backward(q)(q, k, v, out, m, l, do.contiguous(), q_pos,
+                                  k_pos, causal=causal, window=window)
+        return dq, dk, dv, None, None, None, None

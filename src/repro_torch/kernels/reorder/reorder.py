@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, guard_grad
 
 DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 _MAX_BLOCKS = 2 ** 31 - 1     # grid.x limit: one destination block per x
@@ -60,8 +60,9 @@ def _device_perm(perm, x: torch.Tensor) -> torch.Tensor:
 def tile_swizzle(x: torch.Tensor, perm) -> torch.Tensor:
     """Launch the kernel on a CUDA tensor (see ``ref.tile_swizzle`` for the
     function): x (G*b, D) contiguous f32 / bf16 / int32, ``perm`` G entries.
-    Raises on anything the kernel does not take."""
+    Raises on anything the kernel does not take, and under grad."""
     global LAUNCHES
+    guard_grad("tile_swizzle", x)
     if not x.is_cuda:
         raise ValueError("tile_swizzle: x must be a CUDA tensor")
     if x.dtype not in DTYPES:

@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, guard_grad
 
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -90,8 +90,9 @@ def rwkv6_chunked(r, k, v, logw, u, state=None):
     function; the kernel takes any length S). r, k, v: (B, S, H, K) f32 or
     bf16; logw: (B, S, H, K) f32; u: (H, K) or (G, H, K) in r's dtype;
     state: (B, H, K, K) f32 or None. Returns (o in r's dtype, final state
-    f32). Raises on anything the kernel does not take."""
+    f32). Raises on anything the kernel does not take, and under grad."""
     global LAUNCHES
+    guard_grad("rwkv6_chunked", r, k, v, logw, u, state)
     _check(r, k, v, logw, u, state)
     B, S, H, K = r.shape
     o = torch.empty_like(r)

@@ -1,0 +1,119 @@
+"""Training launcher on a virtual PE cube held in one process.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+        --steps 20 --batch 4 --seq 1024 --pes 8
+
+The port of ``repro.launch.train``: ``--pes N`` (default 1) stands in for
+the JAX launcher's device count, and the model-parallel degree is
+``min(cfg.model_parallel, N)`` (1 with ``--smoke``), the rest data
+parallelism. Weights are random from ``--seed``; batches come from the
+synthetic ``TokenStream``. It trains on CUDA unless ``--device cpu`` is
+given, and raises when no GPU is visible. bf16 compute over f32 master
+weights, 8-bit AdamW moments unless ``--fp32-moments``. Prints the loss
+every few steps, ms per step, tokens/s and the flash kernels' launch
+counts (forward and backward). ``--ckpt-dir`` raises: checkpointing waits
+for its ROADMAP item.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+
+from repro_torch import configs, resolve_device
+from repro_torch.data.pipeline import DataConfig, TokenStream
+from repro_torch.kernels.attention import flash, flash_bwd
+from repro_torch.models.params import init_params, param_specs, trainable
+from repro_torch.models.topology import build_topology
+from repro_torch.optim import adamw
+from repro_torch.runtime.trainer import (
+    Trainer, TrainConfig, init_opt_state, place_batch)
+
+
+def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 256,
+          lr: float = 3e-4, warmup: int = 20, smoke: bool = False,
+          pes: int = 1, fp32_moments: bool = False, device=None,
+          seed: int = 0) -> dict:
+    """Train ``steps`` steps; returns the run's record: ``history`` (per
+    step float metrics), ``step_ms``, ``tok_per_s``, the final ``params``
+    and ``opt`` state, and the flash forward / backward launch counts."""
+    dev = resolve_device(device)
+    cfg = configs.get(arch)
+    if smoke:
+        cfg = cfg.scaled_for_smoke()
+    mp = 1 if smoke else min(cfg.model_parallel, pes)
+    if not cfg.n_experts:
+        cfg = dataclasses.replace(cfg, tp=mp)
+    topo = build_topology(cfg, pes, global_batch=batch)
+    tc = TrainConfig(lr=lr, warmup=warmup, total_steps=steps,
+                     adamw=adamw.AdamWConfig(use_8bit=not fp32_moments))
+    params = trainable(init_params(cfg, topo, seed, device=dev),
+                       param_specs(cfg, topo), topo.cube)
+    opt = init_opt_state(params, cfg, topo, tc)
+    stream = TokenStream(cfg, DataConfig(seq_len=seq, global_batch=batch,
+                                         vocab_size=cfg.vocab_size,
+                                         seed=seed))
+    trainer = Trainer(cfg, topo, tc)
+
+    def batches():
+        for s in range(steps):
+            yield place_batch(stream.global_batch_at(s), cfg, topo, dev)
+
+    launches0 = flash.LAUNCHES, flash_bwd.LAUNCHES
+    t0 = time.perf_counter()
+    params, opt, history = trainer.run(params, opt, batches(),
+                                       log_every=max(steps // 10, 1))
+    wall = time.perf_counter() - t0
+    step_ms = [t * 1e3 for t in trainer.step_seconds]
+    return {"cfg": cfg, "topo": topo, "tc": tc, "params": params, "opt": opt,
+            "history": history, "step_ms": step_ms,
+            "ms_per_step": float(np.median(step_ms[1:] or step_ms)),
+            "tok_per_s": batch * seq * len(history) / wall,
+            "slow_steps": trainer.slow_steps,
+            "flash_launches": flash.LAUNCHES - launches0[0],
+            "flash_bwd_launches": flash_bwd.LAUNCHES - launches0[1]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-scale)")
+    ap.add_argument("--fp32-moments", action="store_true")
+    ap.add_argument("--pes", type=int, default=1,
+                    help="virtual PEs of the cube (the JAX launcher's "
+                         "device count)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' to run there)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="")
+    args = ap.parse_args(argv)
+    if args.ckpt_dir:
+        raise NotImplementedError(
+            "--ckpt-dir: checkpointing is not ported to repro_torch yet "
+            "(ROADMAP queue A item 7: checkpointing with Trainer restart)")
+
+    run = train(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
+                lr=args.lr, warmup=args.warmup, smoke=args.smoke,
+                pes=args.pes, fp32_moments=args.fp32_moments,
+                device=args.device, seed=args.seed)
+    cfg, hist = run["cfg"], run["history"]
+    print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
+          f"cube={run['topo'].cube.describe()}")
+    print(f"final loss {hist[-1]['loss']:.4f} (first {hist[0]['loss']:.4f}); "
+          f"{run['ms_per_step']:.1f} ms/step, {run['tok_per_s']:.1f} tok/s; "
+          f"straggler steps: {run['slow_steps']}; flash kernel launches="
+          f"{run['flash_launches']}, backward launches="
+          f"{run['flash_bwd_launches']}")
+    return run
+
+
+if __name__ == "__main__":
+    main()

@@ -5,7 +5,8 @@ leading axes may include the cube's (``(*cube.dim_sizes, ...)``): the math
 is the JAX package's per-shard math broadcast over those axes.
 ``chunked_attention`` -- the flash-attention function -- runs on the
 hand-written Hopper kernel for CUDA tensors and on its plain PyTorch version
-for CPU tensors (``repro_torch.kernels.attention.ops``).
+for CPU tensors (``repro_torch.kernels.attention.ops``); under grad it goes
+through ``ops.FlashAttention``, whose backward is the backward kernel.
 """
 from __future__ import annotations
 
@@ -90,6 +91,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l (*lead, H, Sq))`` for an LSE combine across shards (head h = kv
     head h // G, group member h % G: the JAX package's (KV, G) axes
     flattened).
+
+    Under grad it goes through ``FlashAttention``, whose forward also
+    writes the row statistics the backward reads. Without grad (serving)
+    it launches the forward alone: no statistics are written for a
+    backward that never comes, and the output is the same bits.
     """
     lead = tuple(q.shape[:-3])
     Sq, H, hd = q.shape[-3:]
@@ -99,13 +105,21 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k_pos is None:
         k_pos = _positions(k_offset, Sk, lead, q.device)
     n = math.prod(lead)
-    res = attention_ops.flash_attention(
-        q.reshape(n, Sq, H, hd).contiguous(),
-        k.reshape(n, Sk, KV, hd).contiguous(),
-        v.reshape(n, Sk, KV, hd).contiguous(),
-        q_pos.expand(lead + (Sq,)).reshape(n, Sq).to(torch.int32),
-        k_pos.expand(lead + (Sk,)).reshape(n, Sk).to(torch.int32),
-        causal=causal, window=window, partial=partial)
+    args = (q.reshape(n, Sq, H, hd).contiguous(),
+            k.reshape(n, Sk, KV, hd).contiguous(),
+            v.reshape(n, Sk, KV, hd).contiguous(),
+            q_pos.expand(lead + (Sq,)).reshape(n, Sq).to(torch.int32),
+            k_pos.expand(lead + (Sk,)).reshape(n, Sk).to(torch.int32))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if partial:
+            raise NotImplementedError(
+                "chunked_attention(partial=True) under grad: training "
+                "through the partial form (fused_comm's ring attention) "
+                "waits for ROADMAP queue A item 7.3, fused_comm training")
+        out = attention_ops.FlashAttention.apply(*args, causal, window)
+        return out.reshape(lead + (Sq, H, hd))
+    res = attention_ops.flash_attention(*args, causal=causal, window=window,
+                                        partial=partial)
     if partial:
         acc, m, l = res
         return (acc.reshape(lead + (H, Sq, hd)), m.reshape(lead + (H, Sq)),

@@ -7,21 +7,27 @@ stacked units is a Python loop. The compute dtype is an explicit argument
 (default bf16).
 
 Ported: token embedding (vocab-parallel), the trunk of attention layers
-with dense or MoE FFNs and of RWKV6 layers (time-mix + channel-mix), and
-``forward_logits``. The training loss, the encoder and the patch frontend
-wait for later slices.
+with dense or MoE FFNs and of RWKV6 layers (time-mix + channel-mix), with
+the per-position remat of the training path, the training loss
+(``loss_shard``) and ``forward_logits``. The encoder and the patch
+frontend wait for later slices.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig, MOE, RWKV, RWKVCM
 from repro_torch.models.layers import rms_norm, cube_matmul, pe_slice
 from repro_torch.models.params import param_specs
 from repro_torch.models.topology import Topology
+
+AUX_COEF = 0.01
+CE_CHUNK = 512
 
 
 class Model:
@@ -94,7 +100,9 @@ class Model:
 
     # ------------------------------------------------------------ the trunk
     def _position_fn(self, x_sp, w_shards, window: int, *, p: int):
-        """One layer (mixer + ffn) at unit position ``p``."""
+        """One layer (mixer + ffn) at unit position ``p``, from sharded
+        params. Returns (x_sp, aux): aux is the MoE load-balance loss per
+        PE (*cube), zero for the other FFNs."""
         cfg, topo = self.cfg, self.topo
         w = blocks.gather_params(w_shards, self.unit_specs[f"p{p}"], topo,
                                  self.dtype)
@@ -105,20 +113,38 @@ class Model:
         else:
             x_sp = blocks.attn_block(cfg, topo, w, x_sp, window=window)
         if ffn == MOE:
-            # the aux load-balance loss feeds only the training loss
-            return blocks.moe_ffn(cfg, topo, w, x_sp)[0]
+            x_sp, aux = blocks.moe_ffn(cfg, topo, w, x_sp)
+            return x_sp, aux.float()
         if ffn == RWKVCM:
-            return blocks.rwkv_channel_mix(cfg, topo, w, x_sp)
-        return blocks.dense_ffn(cfg, topo, w, x_sp)
+            x_sp = blocks.rwkv_channel_mix(cfg, topo, w, x_sp)
+        else:
+            x_sp = blocks.dense_ffn(cfg, topo, w, x_sp)
+        return x_sp, x_sp.new_zeros(topo.cube.dim_sizes, dtype=torch.float32)
 
-    def trunk(self, params, x_sp):
-        """The unit stack, as a loop over units and positions."""
+    def trunk(self, params, x_sp, *, remat: bool = False):
+        """The unit stack, as a loop over units and positions. Returns
+        (x_sp, aux) with aux the summed MoE load-balance loss (*cube).
+        ``remat`` runs each position under ``torch.utils.checkpoint``
+        (non-reentrant), as the reference's ``_unit_fn`` runs each under
+        ``jax.checkpoint``: the backward keeps one layer's gathered weights
+        and activations, recomputing the position's forward. The stacked
+        leaves are unbound once, so each leaf's gradient is one stack of
+        the per-unit gradients."""
+        cn = self.topo.cube.ndim
+        stacked = {pos: {k: v.unbind(cn) for k, v in ws.items()}
+                   for pos, ws in params["units"].items()}
+        aux = x_sp.new_zeros(self.topo.cube.dim_sizes, dtype=torch.float32)
         for u in range(self.n_units):
             for p in range(self.unit):
-                x_sp = self._position_fn(
-                    x_sp, self.unit_params(params, u, p),
-                    int(self.windows[u, p]), p=p)
-        return x_sp
+                w = {k: v[u] for k, v in stacked[f"p{p}"].items()}
+                fn = functools.partial(self._position_fn,
+                                       window=int(self.windows[u, p]), p=p)
+                if remat:
+                    x_sp, a = checkpoint(fn, x_sp, w, use_reentrant=False)
+                else:
+                    x_sp, a = fn(x_sp, w)
+                aux = aux + a
+        return x_sp, aux
 
     # ------------------------------------------------------------- the head
     def final_norm(self, params):
@@ -133,11 +159,74 @@ class Model:
             {"h": params["lm_head"]}, {"h": self.specs["lm_head"]},
             self.topo, self.dtype)["h"]
 
+    # ------------------------------------------------------------- the loss
+    def loss_shard(self, params, batch):
+        """The training loss on the cube: vocab-parallel cross-entropy over
+        ``CE_CHUNK``-token chunks, each chunk's logits recomputed in the
+        backward (a checkpoint), as ``repro.models.lm.Model.loss_shard``.
+        batch["tokens"], batch["labels"]: (*cube, B_l, S); labels < 0 are
+        masked out. Returns ``(loss, metrics)``, each a (*cube) tensor
+        holding the same value on every PE: ``loss + AUX_COEF * aux`` and
+        {"ce_loss", "aux_loss", "tokens"}.
+
+        The cube's all-reduces are sums over its axes, so autograd through
+        them is exact; the reference's ``replicated_psum`` (whose identity
+        backward undoes the transpose's x G under shard_map) has no
+        counterpart here. The max all-reduce runs on detached logits, as
+        the reference stops its gradient. A backward seeded from every
+        PE's copy of the loss would count it once per PE: the trainer
+        seeds from their mean."""
+        cfg, topo = self.cfg, self.topo
+        if topo.cp:
+            raise ValueError("context parallelism is an inference-only path")
+        cn = topo.cube.ndim
+        x_sp = self.embed_input(params, batch)
+        x_sp, aux = self.trunk(params, x_sp, remat=True)
+        full = topo.comm(topo.sp).all_gather(x_sp, axis=1)
+        hn = rms_norm(full, self.final_norm(params), cfg.norm_eps)
+        head = self._head(params)
+        labels = batch["labels"]
+        tpc = topo.comm(topo.tp)
+        Vl = head.shape[-1]
+        lo = topo.axis_index(topo.tp, labels.device) * Vl
+        lo = lo.reshape(lo.shape + (1, 1))
+        S = hn.shape[cn + 1]
+        nck = max(S // min(CE_CHUNK, S), 1)
+        Ck = S // nck
+
+        def ce(hc, head, lc):
+            logits = cube_matmul(hc, head, cn).float()     # (.., B, Ck, Vl)
+            m = tpc.all_reduce(logits.detach().amax(dim=-1), op="max")
+            se = tpc.all_reduce(torch.exp(logits - m[..., None]).sum(-1))
+            lse = torch.log(se) + m
+            ids = lc - lo
+            ok = (ids >= 0) & (ids < Vl)
+            tl = torch.gather(logits, -1,
+                              ids.clamp(0, Vl - 1)[..., None])[..., 0]
+            tl = tpc.all_reduce(torch.where(ok, tl, torch.zeros_like(tl)))
+            msk = (lc >= 0).float()
+            return (((lse - tl) * msk).sum(dim=(-2, -1)),
+                    msk.sum(dim=(-2, -1)))
+
+        tot = cnt = x_sp.new_zeros(topo.cube.dim_sizes, dtype=torch.float32)
+        for i in range(nck):
+            hc = hn.narrow(cn + 1, i * Ck, Ck)
+            lc = labels.narrow(cn + 1, i * Ck, Ck)
+            t, c = checkpoint(ce, hc, head, lc, use_reentrant=False)
+            tot, cnt = tot + t, cnt + c
+        dpc = topo.comm(topo.dp)
+        tot, cnt = dpc.all_reduce(tot), dpc.all_reduce(cnt)
+        loss = tot / torch.clamp_min(cnt, 1.0)
+        aux_all = topo.comm(topo.dp + topo.tp).all_reduce(aux) / (
+            topo.size(topo.dp) * topo.tp_size)
+        metrics = {"ce_loss": loss, "aux_loss": aux_all, "tokens": cnt}
+        return loss + AUX_COEF * aux_all, metrics
+
     def forward_logits(self, params, batch):
         """Full-sequence logits (*cube, B, S, Vl), f32."""
         topo = self.topo
         x_sp = self.embed_input(params, batch)
-        x_sp = self.trunk(params, x_sp)
+        x_sp, _ = self.trunk(params, x_sp)
         full = topo.comm(topo.sp).all_gather(x_sp, axis=1)
         hn = rms_norm(full, self.final_norm(params), self.cfg.norm_eps)
         return cube_matmul(hn, self._head(params), topo.cube.ndim).float()

@@ -37,6 +37,7 @@ class ParamDef:
     init: str = "normal"       # normal | zeros | ones | out_proj | embed
                                # | decay
     dtype: Any = MASTER_DTYPE
+    sum_axes: str = ""         # "" | "tp" | "ep" -- grad psum group
 
 
 def _round_up(x: int, m: int) -> int:
@@ -57,15 +58,16 @@ def _attn_defs(cfg, topo):
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     tp = topo.tp
     kv_spec = ("data", tp) if kv_is_sharded(cfg, topo) else ("data", None)
+    kv_sum = "" if kv_is_sharded(cfg, topo) else "tp"
     d = {
-        "ln": ParamDef((D,), ("data",), "zeros"),
+        "ln": ParamDef((D,), ("data",), "zeros", sum_axes="tp"),
         "wq": ParamDef((D, H * hd), ("data", tp)),
-        "wkv": ParamDef((D, 2 * KV * hd), kv_spec),
+        "wkv": ParamDef((D, 2 * KV * hd), kv_spec, sum_axes=kv_sum),
         "wo": ParamDef((H * hd, D), (tp, "data"), "out_proj"),
     }
     if cfg.qk_norm:
-        d["q_norm"] = ParamDef((hd,), (None,), "zeros")
-        d["k_norm"] = ParamDef((hd,), (None,), "zeros")
+        d["q_norm"] = ParamDef((hd,), (None,), "zeros", sum_axes="tp")
+        d["k_norm"] = ParamDef((hd,), (None,), "zeros", sum_axes="tp")
     return d
 
 
@@ -73,7 +75,7 @@ def _dense_ffn_defs(cfg, topo):
     D, F = cfg.d_model, cfg.d_ff
     tp = topo.tp
     return {
-        "fln": ParamDef((D,), ("data",), "zeros"),
+        "fln": ParamDef((D,), ("data",), "zeros", sum_axes="tp"),
         "wg": ParamDef((D, F), ("data", tp)),
         "wu": ParamDef((D, F), ("data", tp)),
         "wd": ParamDef((F, D), (tp, "data"), "out_proj"),
@@ -85,17 +87,18 @@ def _moe_ffn_defs(cfg, topo):
     Ep = cfg.n_experts_padded
     ep, etp = topo.ep, topo.etp
     d = {
-        "fln": ParamDef((D,), ("data",), "zeros"),
-        "router": ParamDef((D, Ep), ("data", None)),
+        "fln": ParamDef((D,), ("data",), "zeros", sum_axes="ep"),
+        "router": ParamDef((D, Ep), ("data", None), sum_axes="ep"),
         "we_g": ParamDef((Ep, D, Fe), (ep, "data", etp)),
         "we_u": ParamDef((Ep, D, Fe), (ep, "data", etp)),
         "we_d": ParamDef((Ep, Fe, D), (ep, etp, "data"), "out_proj"),
     }
     if cfg.n_shared_experts:
         Fs = cfg.n_shared_experts * Fe
-        d["ws_g"] = ParamDef((D, Fs), ("data", None))
-        d["ws_u"] = ParamDef((D, Fs), ("data", None))
-        d["ws_d"] = ParamDef((Fs, D), (None, "data"), "out_proj")
+        d["ws_g"] = ParamDef((D, Fs), ("data", None), sum_axes="ep")
+        d["ws_u"] = ParamDef((D, Fs), ("data", None), sum_axes="ep")
+        d["ws_d"] = ParamDef((Fs, D), (None, "data"), "out_proj",
+                             sum_axes="ep")
     return d
 
 
@@ -104,13 +107,13 @@ def _rwkv_defs(cfg, topo):
     tp = topo.tp
     lora = 64
     return {
-        "ln": ParamDef((D,), ("data",), "zeros"),
-        "mu": ParamDef((5, D), (None, "data")),
+        "ln": ParamDef((D,), ("data",), "zeros", sum_axes="tp"),
+        "mu": ParamDef((5, D), (None, "data"), sum_axes="tp"),
         "wr": ParamDef((D, D), ("data", tp)),
         "wk": ParamDef((D, D), ("data", tp)),
         "wv": ParamDef((D, D), ("data", tp)),
         "wg": ParamDef((D, D), ("data", tp)),
-        "w_lora_a": ParamDef((D, lora), ("data", None)),
+        "w_lora_a": ParamDef((D, lora), ("data", None), sum_axes="tp"),
         "w_lora_b": ParamDef((lora, D), (None, tp)),
         "decay_w0": ParamDef((D,), (tp,), "decay"),
         "bonus_u": ParamDef((D,), (tp,)),
@@ -122,9 +125,9 @@ def _rwkvcm_defs(cfg, topo):
     D, F = cfg.d_model, cfg.d_ff
     tp = topo.tp
     return {
-        "fln": ParamDef((D,), ("data",), "zeros"),
-        "cm_mu": ParamDef((2, D), (None, "data")),
-        "cm_r": ParamDef((D, D), ("data", None)),
+        "fln": ParamDef((D,), ("data",), "zeros", sum_axes="tp"),
+        "cm_mu": ParamDef((2, D), (None, "data"), sum_axes="tp"),
+        "cm_r": ParamDef((D, D), ("data", None), sum_axes="tp"),
         "cm_k": ParamDef((D, F), ("data", tp)),
         "cm_v": ParamDef((F, D), (tp, "data"), "out_proj"),
     }
@@ -143,8 +146,8 @@ def _not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
 
 def _stack(defs: dict, n: int) -> dict:
     """Prepend the unit-stack dimension to every leaf."""
-    return {k: ParamDef((n,) + d.shape, (None,) + tuple(d.spec), d.init,
-                        d.dtype)
+    return {k: dataclasses.replace(d, shape=(n,) + d.shape,
+                                   spec=(None,) + tuple(d.spec))
             for k, d in defs.items()}
 
 
@@ -173,30 +176,34 @@ def param_defs(cfg: ModelConfig, topo: Topology) -> dict:
     tree = {
         "embed": ParamDef((Vp, D), (tp, "data"), "embed"),
         "units": units,
-        "final_norm": ParamDef((D,), ("data",), "zeros"),
+        "final_norm": ParamDef((D,), ("data",), "zeros", sum_axes="tp"),
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = ParamDef((D, Vp), ("data", tp))
     return tree
 
 
-def _leaves(tree: dict, path: tuple = ()):
-    """(path, leaf) pairs of a nested dict, keys in sorted order."""
+def leaves(tree: dict, path: tuple = ()):
+    """(path, leaf) pairs of a nested dict, keys in sorted order (the order
+    of ``jax.tree.flatten`` on the JAX package's dicts)."""
     for k in sorted(tree):
         v = tree[k]
         if isinstance(v, dict):
-            yield from _leaves(v, path + (k,))
+            yield from leaves(v, path + (k,))
         else:
             yield path + (k,), v
 
 
-def _set(tree: dict, path: tuple, value) -> None:
+def set_path(tree: dict, path: tuple, value) -> None:
+    """Put ``value`` at ``path`` of nested dicts, making the dicts on the
+    way."""
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
     tree[path[-1]] = value
 
 
-def _get(tree, path: tuple):
+def get_path(tree, path: tuple):
+    """The subtree or leaf of nested dicts at ``path``."""
     for k in path:
         tree = tree[k]
     return tree
@@ -204,8 +211,8 @@ def _get(tree, path: tuple):
 
 def param_specs(cfg: ModelConfig, topo: Topology) -> dict:
     out: dict = {}
-    for path, d in _leaves(param_defs(cfg, topo)):
-        _set(out, path, d.spec)
+    for path, d in leaves(param_defs(cfg, topo)):
+        set_path(out, path, d.spec)
     return out
 
 
@@ -245,9 +252,9 @@ def init_params(cfg: ModelConfig, topo: Topology, seed: int = 0, *,
     gen.manual_seed(seed)
     cube = topo.cube
     out: dict = {}
-    for path, d in _leaves(param_defs(cfg, topo)):
+    for path, d in leaves(param_defs(cfg, topo)):
         if path[0] != "units":
-            _set(out, path, cube.to_cube(_init_leaf(d, cfg, gen, device),
+            set_path(out, path, cube.to_cube(_init_leaf(d, cfg, gen, device),
                                          d.spec))
             continue
         unit = dataclasses.replace(d, shape=d.shape[1:], spec=d.spec[1:])
@@ -259,7 +266,7 @@ def init_params(cfg: ModelConfig, topo: Topology, seed: int = 0, *,
                                      + y.shape[c:])
             placed.select(c, u).copy_(y)
             del y                   # before the next unit is made
-        _set(out, path, placed.expand(cube.dim_sizes
+        set_path(out, path, placed.expand(cube.dim_sizes
                                       + tuple(placed.shape[c:])))
     return out
 
@@ -272,11 +279,125 @@ def from_jax_params(cfg: ModelConfig, topo: Topology, tree, *,
     a NumPy array (``np.asarray`` of the JAX leaf); each one lands under its
     ``ParamDef.spec``, so both packages compute the same model."""
     out: dict = {}
-    for path, d in _leaves(param_defs(cfg, topo)):
-        arr = np.asarray(_get(tree, path))
+    for path, d in leaves(param_defs(cfg, topo)):
+        arr = np.asarray(get_path(tree, path))
         if tuple(arr.shape) != tuple(d.shape):
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != "
                              f"{d.shape} of the port's def")
         glob = torch.tensor(arr, dtype=d.dtype, device=device)
-        _set(out, path, topo.cube.to_cube(glob, d.spec))
+        set_path(out, path, topo.cube.to_cube(glob, d.spec))
     return out
+
+
+# ------------------------------------------------------------ spec trees
+def tree_map(fn, tree: dict, *rest: dict) -> dict:
+    """``fn`` over the leaves of nested dicts of one structure (the port's
+    ``jax.tree.map``); leaves in ``leaves`` order."""
+    out: dict = {}
+    for path, leaf in leaves(tree):
+        set_path(out, path, fn(leaf, *(get_path(r, path) for r in rest)))
+    return out
+
+
+def flat_leaves(tree: dict) -> list:
+    """The leaves of nested dicts in ``leaves`` order, so flat indices
+    agree with the JAX package's."""
+    return [leaf for _, leaf in leaves(tree)]
+
+
+def unflatten(tree: dict, leaves) -> dict:
+    """Nested dicts of ``tree``'s structure holding ``leaves`` in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def drop_axis(spec_tree: dict, axis: str = "data") -> dict:
+    """Replace ``axis`` with None in every spec of a tree (the reference's
+    serve-time resident weights: parameters replicated over the data axis
+    so decode never re-gathers them)."""
+    def fix(spec):
+        out = []
+        for e in tuple(spec):
+            if e == axis:
+                out.append(None)
+            elif isinstance(e, tuple):
+                kept = tuple(a for a in e if a != axis)
+                out.append(kept if kept else None)
+            else:
+                out.append(e)
+        return tuple(out)
+    return tree_map(fix, spec_tree)
+
+
+def grad_sum_spec(cfg: ModelConfig, topo: Topology) -> dict:
+    """Per-leaf tuple of logical axes over which gradients are summed (the
+    ``sum_axes`` tags). The trainer derives its reductions from the specs
+    (``runtime.trainer.replication_dims``); this is the manual rule, kept
+    as executable documentation and for audits, as in the reference."""
+    def axes(d: ParamDef):
+        if d.sum_axes == "tp":
+            return topo.tp
+        if d.sum_axes == "ep":
+            return topo.ep if topo.ep else topo.tp
+        return ()
+    return tree_map(axes, param_defs(cfg, topo))
+
+
+def _spec_dims(spec) -> set:
+    names = set()
+    for e in tuple(spec):
+        if e is not None:
+            names.update((e,) if isinstance(e, str) else e)
+    return names
+
+
+def compact(x: torch.Tensor, spec, cube) -> torch.Tensor:
+    """``x`` (*cube, *local) with index 0 kept on every cube dim ``spec``
+    does not name (size 1 there): ``Hypercube.place``'s layout. A view
+    where ``x`` is a broadcast of such a tensor."""
+    named = _spec_dims(spec)
+    for a, d in enumerate(cube.dim_names):
+        if d not in named:
+            x = x.narrow(a, 0, 1)
+    return x
+
+
+def trainable(params: dict, specs: dict, cube) -> dict:
+    """The compact master weights of cube-layout ``params``: each leaf as
+    ``Hypercube.place`` lays it out (size 1 on the dims its spec does not
+    name), each replicated block held once. The trainer updates these and
+    hands the model per-step view leaves over the full cube
+    (``runtime.trainer.view_leaves``), whose per-PE gradients the grad-sync
+    program sums over the replicated dims."""
+    return tree_map(lambda x, s: compact(x, s, cube).contiguous(), params,
+                    specs)
+
+
+def to_global(tree: dict, specs: dict, cube) -> dict:
+    """Every leaf's global tensor (``Hypercube.from_cube``; replicated dims
+    read index 0). For tests and checks."""
+    return tree_map(lambda x, s: cube.from_cube(x, s), tree, specs)
+
+
+def from_jax_opt_state(cfg: ModelConfig, topo: Topology, state, *,
+                       device) -> dict:
+    """Place the JAX package's AdamW state (``repro.optim.adamw.init_state``
+    or a state after ``update``, every leaf a NumPy array) on the port's
+    cube as compact per-PE tensors, as ``from_jax_params`` places weights.
+    A moment takes its parameter's spec; a scale array (global last axis =
+    the number of shards of the parameter's last axis) takes it too, so
+    each PE holds its own row scales ``(..., 1)``."""
+    cube = topo.cube
+    defs = param_defs(cfg, topo)
+    mu: dict = {}
+    for path, d in leaves(defs):
+        leaf = get_path(state["mu"], path)
+        out = {}
+        for name in sorted(leaf):
+            arr = np.asarray(leaf[name])
+            dtype = torch.int8 if arr.dtype == np.int8 else torch.float32
+            glob = torch.tensor(arr, dtype=dtype, device=device)
+            out[name] = cube.place(glob, d.spec)
+        set_path(mu, path, out)
+    return {"mu": mu, "step": torch.tensor(int(np.asarray(state["step"])),
+                                           dtype=torch.int32, device=device)}

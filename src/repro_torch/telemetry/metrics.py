@@ -76,6 +76,28 @@ DECLARED: dict[str, tuple[str, str]] = {
                                  "measured coverage"),
     "planner.est_source.measured": ("counter", "Program plans priced "
                                     "entirely from measured models"),
+    # runtime/trainer.py -- step loop (split phases only under
+    # TrainConfig.telemetry_split)
+    "train.steps": ("counter", "Optimizer steps completed"),
+    "train.step_seconds": ("histogram", "Wall seconds per train step"),
+    "train.straggler_steps": ("counter", "Steps exceeding the straggler "
+                              "deadline"),
+    "train.fwd_seconds": ("histogram", "Wall seconds of the forward pass "
+                          "(telemetry_split mode; timed separately)"),
+    "train.fwd_bwd_seconds": ("histogram", "Wall seconds of the fused "
+                              "forward+backward phase (telemetry_split "
+                              "mode; bwd alone is fwd_bwd minus fwd)"),
+    "train.sync_seconds": ("histogram", "Wall seconds of the gradient-sync "
+                           "phase (telemetry_split mode)"),
+    "train.opt_seconds": ("histogram", "Wall seconds of the clip+AdamW "
+                          "phase (telemetry_split mode)"),
+    "train.sync_serial_est_us": ("gauge", "Planner estimate of the step's "
+                                 "grad-sync wire time, all on the critical "
+                                 "path (us; from the traced first step)"),
+    "train.sync_exposed_est_us": ("gauge", "Planner estimate of the "
+                                  "*exposed* grad-sync wire time under "
+                                  "the overlap model: only the final "
+                                  "bucket cannot hide under backward (us)"),
     # serving/engine.py -- per-engine registry (always on)
     "serve.steps": ("counter", "Engine decode steps"),
     "serve.generated_tokens": ("counter", "Generated (post-prefill) "

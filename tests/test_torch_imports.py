@@ -50,7 +50,11 @@ SLICE_MODULES = ["repro_torch.telemetry", "repro_torch.telemetry.metrics",
                  "repro_torch.core.compress",
                  "repro_torch.kernels.collective.attention",
                  "repro_torch.kernels.collective",
-                 "repro_torch.apps.paper_apps"]
+                 "repro_torch.apps.paper_apps",
+                 "repro_torch.kernels.attention.flash_bwd",
+                 "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+                 "repro_torch.runtime.trainer", "repro_torch.runtime.overlap",
+                 "repro_torch.launch.train"]
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

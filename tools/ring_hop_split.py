@@ -56,7 +56,9 @@ def main() -> int:
         print(json.dumps({
             "rows": name, "q": list(t[0].shape), "kv": list(t[1].shape),
             "ms": cs.time_ms(lambda: flash.flash_attention(*t, **kw)),
-            "library_ms": cs.time_ms(cs._sdpa(*t, True, -1)),
+            "library_ms": cs._library_ms(
+                cs.time_ms, lambda f: cs._sdpa(*t[:3], f), t[3], t[4],
+                True, -1)[0],
             "library_output_only": True,
             **cs._bound(t[0], t[1], t[3], t[4], True, -1, True)}),
             flush=True)
