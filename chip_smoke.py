@@ -38,14 +38,16 @@ Phases, each printed as one JSON line:
           37 around the 16-step sub-chunk, one u per folded PE, K = 16 and
           32, grids under and over the 132 SMs; and the flash backward
           kernel (flash_bwd.cu) against its plain version on dq, dk and dv
-          (f32 within 1e-4, bf16 within 5e-2 of max(1, max|plain|)), fed
+          (f32 within 1e-4, bf16 within 5e-2 of each output's own
+          max|plain|), fed
           the forward kernel's output and row statistics (those held to
           the plain forward's, and the output bit-identical to a launch
           without them): G = 1, 2 and 8, causal and not, windows, offsets,
           Sq and Sk off the tiles, rows that see no key, a 512-token
           causal run, a 3-row query, qwen3's 1-PE training shape (4 x
-          1,024 causal tokens, 16 / 8 heads); two launches on the same
-          inputs bit-identical;
+          1,024 causal tokens, 16 / 8 heads), G * Sq and Sk off the bf16
+          passes' tiles, a key tile across the causal diagonal; two
+          launches on the same inputs bit-identical;
   comm    every ported stage of all_reduce / all_gather / reduce_scatter on
           virtual 8-PE cubes on the card, and every stage of all_to_all on
           the 8-PE cubes and the 16-PE shapes, bit-identical to a plain
@@ -546,7 +548,11 @@ def _flash_long_rows(dev) -> list:
 # G = 1, 2 and 8; causal and not; windows; offsets; Sq and Sk off the
 # 64-row / 64-key tiles; rows that see no key (q0 < k0); a 512-token causal
 # run that skips tiles; a 3-row query (the forward's decode form); qwen3's
-# 1-PE training shape (4 x 1,024 causal tokens, 16 query and 8 kv heads)
+# 1-PE training shape (4 x 1,024 causal tokens, 16 query and 8 kv heads);
+# G * Sq and Sk off the bf16 passes' CTA tiles (64 or 128 rows / keys) and
+# their 64-key / 64-row ring stages, with 4-warp CTAs in both passes (2 x
+# 200 x 8 / 4) and 8-warp ones (16 x 300 x 8 / 4: 600 rows, 300 keys); a
+# key tile that straddles the causal diagonal (q0 = 37) in both passes
 FLASH_BWD_CASES = [
     (2, 64, 64, 8, 8, True, -1, 0, 0),
     (2, 100, 100, 16, 8, True, -1, 0, 0),
@@ -559,13 +565,17 @@ FLASH_BWD_CASES = [
     (2, 512, 512, 16, 8, True, -1, 0, 0),
     (2, 3, 40, 4, 2, True, -1, 37, 0),
     (4, 1024, 1024, 16, 8, True, -1, 0, 0),
+    (2, 200, 333, 8, 4, True, -1, 0, 0),
+    (16, 300, 300, 8, 4, True, -1, 0, 0),
+    (2, 192, 229, 8, 2, True, -1, 37, 0),
 ]
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
 
 def _flash_bwd_checks(dev) -> dict:
     """The backward kernel against ``ref.flash_attention_backward`` on dq,
-    dk and dv (FLASH_BWD_TOL of max(1, max|plain|)), both fed the kernel
+    dk and dv (each within FLASH_BWD_TOL of its own max|plain|, no floor at
+    1, as the main-path rows are held), both fed the kernel
     forward's output and row statistics (the statistics themselves held
     to the plain forward's); two launches on the same inputs must give the
     same bits."""
@@ -594,7 +604,7 @@ def _flash_bwd_checks(dev) -> dict:
             torch.cuda.synchronize()
             want = ref.flash_attention_backward(q, k, v, o, m, l, do, q_pos,
                                                 k_pos, **kw)
-            errs = [_compare(g, w, False) for g, w in zip(got, want)]
+            errs, peaks = _rel_to_peak(got, want)
             live = plain_m > -1e29      # rows that see a key
             m_err = (_compare(m[live], plain_m[live], False)
                      if bool(live.any()) else 0.0)
@@ -615,7 +625,8 @@ def _flash_bwd_checks(dev) -> dict:
                            "causal": causal, "window": window,
                            "offsets": [q0, k0], "rows_without_key": dead,
                            "dq_err": errs[0], "dk_err": errs[1],
-                           "dv_err": errs[2], "m_err": m_err,
+                           "dv_err": errs[2], "max_abs_plain": peaks,
+                           "m_err": m_err,
                            "l_err": l_err, "out_as_without_stats":
                                bool(torch.equal(base, o)),
                            "deterministic": same, "ok": ok})
@@ -1325,9 +1336,15 @@ def _routes(calls: list, steps: int) -> torch.Tensor:
 # device kernels of the port, by the name of their CUDA function
 KERNEL_NAMES = {"flash": ("flash_decode_kernel", "flash_fwd_mma_kernel",
                           "flash_fwd_f32_kernel"),
-                "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"),
+                "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+                              "flash_bwd_dq_mma_kernel",
+                              "flash_bwd_dkdv_mma_kernel"),
                 "reorder": ("tile_swizzle",),
                 "rwkv6": ("rwkv6_fwd",)}
+
+
+# the backward kernel's two passes (f32 and bf16 forms), by name prefix
+FLASH_BWD_PASSES = {"dq": "flash_bwd_dq_", "dkdv": "flash_bwd_dkdv_"}
 
 
 def profile_decode(run, dev, steps: int = 3) -> dict:
@@ -1355,7 +1372,8 @@ def profile_decode(run, dev, steps: int = 3) -> dict:
 def profile_steps(step, steps: int = 3) -> dict:
     """``step(0)`` once to warm, then ``step(1..steps)`` under
     ``torch.profiler``: device kernels summed by name, each kernel's share
-    of device time, and the device's idle share of the wall time."""
+    of device time, the backward kernel's device ms a step by pass, and
+    the device's idle share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step(0)
@@ -1380,12 +1398,14 @@ def profile_steps(step, steps: int = 3) -> dict:
               sum(r[0] for name, r in by_name.items()
                   if any(fn in name for fn in fns)) / busy
               for k, fns in KERNEL_NAMES.items()}
+    passes = {p: sum(r[0] for name, r in by_name.items() if pre in name)
+              / 1e3 / steps for p, pre in FLASH_BWD_PASSES.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"steps": steps,
             "wall_ms_per_step": wall_us / 1e3 / steps,
             "device_busy_ms_per_step": busy / 1e3 / steps,
             "idle_share": max(0.0, 1.0 - busy / wall_us),
-            **shares,
+            **shares, "flash_bwd_pass_ms_per_step": passes,
             "kernels_per_step": sum(r[1] for r in by_name.values()) / steps,
             "top": [[k[:80], v[0] / 1e3 / steps, v[1] // steps]
                     for k, v in top]}
@@ -3009,6 +3029,27 @@ def _event_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters: int = 10) -> float:
+    """Device time of one ``fn()`` call: the durations of the kernels it
+    launches under ``torch.profiler``, summed, without the host's gaps
+    between them (for a call that autograd drives, which ``time_ms`` cannot
+    capture in a graph)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler traced no device events")
+    return us / 1e3 / iters
+
+
 def _sdpa_backward(q, k, v, do, form: dict):
     """Autograd of one SDPA call on the same mask: the library's backward
     (timed only; the port never calls it)."""
@@ -3041,7 +3082,9 @@ def _flash_bwd_main_path(name: str, args: tuple, kw: dict) -> dict:
     unit-scale ``do`` drawn from randn. Then timed with the plain version,
     the bound (10 * hd FLOPs per visible (query head, key) pair: the
     scores and dP recomputed, dq, dk, dv; each input and output byte once)
-    and autograd of SDPA."""
+    and autograd of SDPA: between CUDA events (``library_ms``, the host's
+    gaps included) and as the sum of its kernels' device time
+    (``library_device_ms``)."""
     from repro_torch.kernels.attention import flash_bwd, ref
     q, k, v, o, m, l, do, q_pos, k_pos = args
     gen = torch.Generator(device=q.device)
@@ -3073,6 +3116,9 @@ def _flash_bwd_main_path(name: str, args: tuple, kw: dict) -> dict:
     lib_ms, lib_form = _library_ms(
         _event_ms, lambda f: _sdpa_backward(q, k, v, do, f), q_pos, k_pos,
         kw["causal"], kw["window"])
+    lib_dev_ms, lib_dev_form = _library_ms(
+        _device_ms, lambda f: _sdpa_backward(q, k, v, do, f), q_pos, k_pos,
+        kw["causal"], kw["window"])
     return {"name": name, "dtype": str(q.dtype).split(".")[-1],
             "q": list(q.shape), "kv": list(k.shape), **kw,
             "max_abs_err": abs_err, "err": rel, "held": held,
@@ -3082,6 +3128,8 @@ def _flash_bwd_main_path(name: str, args: tuple, kw: dict) -> dict:
             "plain_ms": time_ms(lambda: ref.flash_attention_backward(
                 *args, **kw), reps=2, iters=5),
             "library_ms": lib_ms, "library_form": lib_form,
+            "library_device_ms": lib_dev_ms,
+            "library_device_form": lib_dev_form,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -3121,8 +3169,8 @@ def _flash_bwd_entry(rows: list, launches: int) -> dict:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "at": head["name"],
         "shapes": {t["name"]: {k: t[k] for k in (
-            "q", "kv", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "max_abs_err")} for t in rows}}
+            "q", "kv", "ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by", "max_abs_err")} for t in rows}}
 
 
 def card_line() -> str:

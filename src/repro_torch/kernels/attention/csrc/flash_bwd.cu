@@ -12,27 +12,74 @@
 // 1 / Sk over every key: dv gets do / Sk from it, dq and dk nothing (a
 // masked score is a constant). D = rowsum(do * o) in f32.
 //
-// Deterministic: no float atomics. Two kernels, each output written by one
-// CTA that sums in a fixed order:
-//   (a) dq: one CTA per (batch, kv head, 64 query rows), a loop over key
-//       tiles of 64: S = q k^T, dP = do v^T, dS = p (dP - D), dq += dS k.
-//       It also writes D for the rows, which (b) reads after it on the
-//       same stream.
-//   (b) dk / dv: one CTA per (batch, kv head, 64 keys), a loop over the
-//       G * Sq query rows of the kv head in tiles of 64: dv += p^T do,
-//       dk += dS^T q. The GQA sum over the group runs inside the loop.
-// A (row tile, key tile) pair is skipped when the tiles' position bounds
-// show no visible pair; (b) keeps a pair whose rows include one that sees
-// no key (its dv term covers every key).
-//
 // Bound: operations. 10 * hd FLOPs per visible (query head, key) pair
-// (4 * hd of the forward recomputed, 6 * hd of the three products), about
-// 2.5x the forward's. This first kernel runs every product on CUDA cores in
-// f32 (bf16 inputs are widened as they are loaded): 256 threads, each
-// holding a 4 x 4 block of the 64 x 64 score tile and a 4 x 8 block of its
-// 64 x 128 output tile, with the tiles in f32 shared memory padded so that
-// no access conflicts on a bank. Tensor cores (mma.sync / wgmma) are left
-// for later. Head dim 128 only (qwen3's); the wrapper raises on others.
+// (4 * hd of the forward recomputed, 6 * hd of the three products); both
+// passes recompute S and dP, so they do 14 * hd. Head dim 128 only
+// (qwen3's); the wrapper raises on others.
+//
+// Deterministic: no float atomics. Two passes, each output written by one
+// CTA that sums in a fixed order; the wrapper picks each pass's form, grid
+// and CTA size (flash_bwd.launch_geometry) and passes them in, and this file
+// checks them:
+//   (a) dq: one CTA per (batch, kv head, row tile), a loop over the key
+//       tiles it may see: S = q k^T, dP = do v^T, dS = p (dP - D),
+//       dq += dS k. It also computes D for its rows (from do and o, before
+//       the loop) and writes it, which (b) reads after it on the same
+//       stream (bf16: with 1 / max(l, 1e-30) beside it). Row tiles run
+//       last first: under a causal mask the latest rows see the most
+//       keys, so the heaviest CTAs start first.
+//   (b) dk / dv: one CTA per (batch, kv head, key tile), a loop over the
+//       G * Sq query rows of the kv head in position order: dv += p^T do,
+//       dk += dS^T q. The GQA sum over the group runs inside the loop. Key
+//       tiles run first to last: the earliest keys are seen by the most
+//       rows.
+// A (row tile, key tile) pair is skipped when the tiles' position bounds
+// show no visible pair (the live tiles of a CTA are listed before its loop,
+// so the loop starts at the first row tile that can see its keys); (b)
+// keeps a row tile that holds a row which sees no key (its dv term covers
+// every key). Tiles that every pair of the CTA sees skip the mask.
+//
+// bf16: tensor cores (mma.sync.m16n8k16, f32 accumulators: HMMA). Each
+// warp owns 16 rows (a) or 16 keys (b) and keeps their 16 x 128 f32
+// accumulators in registers (dq: 64 a thread; dk and dv: 128). What it
+// streams comes by cp.async (16 bytes a thread, zero-filled past the ragged
+// edge) into a ring of 64-key or 64-row bf16 tiles (three stages for CTAs
+// of 8 warps, two for 4), tiles ahead loading while one computes: K, V and
+// key positions in (a); Q, dO and the rows' m, 1 / max(l, 1e-30), D and
+// positions in (b). (a) writes 1 / max(l, 1e-30) beside D (the second half
+// of the delta scratch), so that (b) divides nothing in its loop. The
+// owned side (Q and dO in (a), K and V in (b)) is loaded once into shared
+// memory too. (a) then holds its warp's Q and dO A fragments in registers
+// for the whole loop (64 of them); (b) has no room for K's and V's beside
+// its 128 accumulators and reloads them by ldmatrix at each step, as it
+// does every streamed fragment. 136-element row pitches keep ldmatrix free
+// of bank conflicts. Both passes compute in steps of 32 keys (a) or 32
+// rows (b), one step at a time: 32 score registers beside the accumulators
+// (ptxas: about 248 registers in (a), 250 in (b), no spill; steps of 64
+// spill, steps of 16 are slower: tools/flash_bwd_variants.py). (b)
+// computes S^T and dP^T, keys as the mma rows, so that P^T and dS^T are
+// already the A operand of dv and dk. P and dS are rounded to bf16 only as
+// mma operands, passed register to register from the accumulator layout
+// into the A-fragment layout, as the forward passes P; m, l, D and every
+// accumulator stay f32; p is 2^x on the SFU (ex2.approx). Q^T / dO^T (for
+// dk, dv) and K^T (for dq) come by ldmatrix.trans. CTAs of 8 warps (128
+// rows or keys) where the grid still fills the 132 SMs, one to an SM (about
+// 175 KB of shared memory); else 4 warps, two to an SM. What holds it back,
+// as far as its instruction mix shows (no hardware counters were read):
+// each warp shares each streamed fragment with only 16 mma rows, and (b)
+// reloads its K / V fragments at every step, about 0.6 ldmatrix.x4 per
+// mma; the scalar work per score (exp, masks, selects) competes with them
+// for issue slots, two warps a scheduler leaving little to hide latency;
+// and the dq pass recomputes S and dP (14 x hd FLOPs a pair in all, not
+// 10). wgmma on 64-row warpgroup tiles is the next step.
+//
+// f32: CUDA cores (TF32 would break the 1e-4 f32 gates), the first design,
+// kept: 256 threads, each holding a 4 x 4 block of the 64 x 64 score tile
+// and a 4 x 8 block of its 64 x 128 output tile, with the tiles in f32
+// shared memory padded so that no access conflicts on a bank.
+//
+// Registers, shared memory and spills (ptxas, printed by chip_smoke.py's
+// build phase): see PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,22 +87,25 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kHD = 128;
+// f32 passes
 constexpr int kTile = 64;          // rows of a query tile, keys of a key tile
-constexpr int kThreads = 256;      // 16 x 16: thread (a, b)
+constexpr int kThreads = 256;      // 16 x 16, thread (a, b)
 constexpr int kLD = kHD + 1;       // f32 pitch of a 64 x 128 tile
 constexpr int kLDS = kTile + 16;   // f32 pitch of a 64 x 64 tile
 constexpr int kDims = kHD / 16;    // output dims a thread holds (b + 16 j)
-
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+// bf16 passes
+constexpr int kLDB = kHD + 8;      // pitch of a shared tile (elements)
+constexpr int kChunks = kHD / 8;   // 16-byte pieces of a row
+constexpr int kStream = 64;        // keys (a) or rows (b) a ring stage holds
+constexpr int kStepQ = 32;         // (a): keys of one compute step
+constexpr int kStepKV = 32;        // (b): rows of one compute step
+constexpr int kMaxList = 1024;     // tiles listed at a time
 
 __device__ __forceinline__ bool visible(int qp, int kp, int causal,
                                         int window) {
@@ -68,8 +118,15 @@ __device__ __forceinline__ bool may_see(int qmin, int qmax, int kmin,
                                         int kmax, int causal, int window) {
   if (kmax < 0) return false;
   if (causal && kmin > qmax) return false;
-  if (window > 0 && qmin - kmax >= window) return false;
+  if (window > 0 && (long long)qmin - kmax >= window) return false;
   return true;
+}
+
+// whether every pair of the ranges is visible (keys all at positions >= 0)
+__device__ __forceinline__ bool sees_all(int qmin, int qmax, int kmin,
+                                         int kmax, int causal, int window) {
+  return kmin >= 0 && (!causal || kmax <= qmin) &&
+         (window <= 0 || (long long)qmax - kmin < window);
 }
 
 struct Shape {
@@ -89,16 +146,17 @@ __device__ __forceinline__ size_t stat_row(const Shape& s, int b, int kvh,
   return (size_t)(b * s.H + kvh * G + r % G) * s.Sq + r / G;
 }
 
-// (a) dq and D. grid = (B * KV, ceil(G * Sq / 64)), block 256.
-template <typename T>
+// ---------------------------------------------------- f32, CUDA cores
+// (a) dq and D. grid = (B * KV, ceil(G * Sq / 64)), block 256; row tiles
+// last first.
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ dout,
                     const float* __restrict__ m_in,
                     const float* __restrict__ l_in,
                     const int* __restrict__ q_pos,
-                    const int* __restrict__ k_pos, T* __restrict__ dq,
+                    const int* __restrict__ k_pos, float* __restrict__ dq,
                     float* __restrict__ delta, Shape s) {
   extern __shared__ __align__(16) float sm[];
   float* Qs = sm;                       // [64][kLD], q * scale
@@ -115,7 +173,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int G = s.H / s.KV, R = s.Sq * G;
   const int b = blockIdx.x / s.KV, kvh = blockIdx.x % s.KV;
-  const int row0 = blockIdx.y * kTile;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kTile;
   const int t = threadIdx.x, ta = t / 16, tb = t % 16;
   const int warp = t / 32, lane = t % 32;
 
@@ -128,8 +186,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float qv = 0.f, dv = 0.f;
     if (r < R) {
       const size_t off = qrow(s, b, kvh, r) + d;
-      qv = load(q + off) * s.scale;
-      dv = load(dout + off);
+      qv = q[off] * s.scale;
+      dv = dout[off];
     }
     Qs[rr * kLD + d] = qv;
     dOs[rr * kLD + d] = dv;
@@ -153,10 +211,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r < R) {
       const size_t off = qrow(s, b, kvh, r);
       for (int d = lane; d < kHD; d += 32)
-        acc = fmaf(dOs[rr * kLD + d], load(o + off + d), acc);
+        acc = fmaf(dOs[rr * kLD + d], o[off + d], acc);
     }
     for (int w = 16; w > 0; w >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, w);
+      acc += __shfl_xor_sync(kFull, acc, w);
     if (lane == 0) {
       Dr[rr] = acc;
       if (r < R) delta[stat_row(s, b, kvh, r)] = acc;
@@ -172,8 +230,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kDims; ++j) acc[i][j] = 0.f;
 
   const size_t kv_row = (size_t)s.KV * kHD;
-  const T* kb = k + ((size_t)b * s.Sk * s.KV + kvh) * kHD;
-  const T* vb = v + ((size_t)b * s.Sk * s.KV + kvh) * kHD;
+  const float* kb = k + ((size_t)b * s.Sk * s.KV + kvh) * kHD;
+  const float* vb = v + ((size_t)b * s.Sk * s.KV + kvh) * kHD;
   for (int k0 = 0; k0 < s.Sk; k0 += kTile) {
     __syncthreads();   // the previous tile is consumed
     if (t == 0) {
@@ -195,8 +253,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = t; e < kTile * kHD; e += kThreads) {
       const int j = e / kHD, d = e % kHD, c = k0 + j;
       const bool ok = c < s.Sk;
-      Ks[j * kLD + d] = ok ? load(kb + (size_t)c * kv_row + d) : 0.f;
-      Vs[j * kLD + d] = ok ? load(vb + (size_t)c * kv_row + d) : 0.f;
+      Ks[j * kLD + d] = ok ? kb[(size_t)c * kv_row + d] : 0.f;
+      Vs[j * kLD + d] = ok ? vb[(size_t)c * kv_row + d] : 0.f;
     }
     __syncthreads();
     float sc[4][4], dp[4][4];
@@ -257,21 +315,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t off = qrow(s, b, kvh, r);
 #pragma unroll
     for (int j = 0; j < kDims; ++j)
-      store(dq + off + tb + 16 * j, acc[i][j] * s.scale);
+      dq[off + tb + 16 * j] = acc[i][j] * s.scale;
   }
 }
 
 // (b) dk and dv. grid = (B * KV, ceil(Sk / 64)), block 256.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
                       const float* __restrict__ m_in,
                       const float* __restrict__ l_in,
                       const float* __restrict__ delta,
                       const int* __restrict__ q_pos,
-                      const int* __restrict__ k_pos, T* __restrict__ dk,
-                      T* __restrict__ dv, Shape s) {
+                      const int* __restrict__ k_pos, float* __restrict__ dk,
+                      float* __restrict__ dv, Shape s) {
   extern __shared__ __align__(16) float sm[];
   float* Ks = sm;                       // [64][kLD]
   float* Vs = Ks + kTile * kLD;         // [64][kLD]
@@ -292,8 +351,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t = threadIdx.x, ta = t / 16, tb = t % 16;
 
   const size_t kv_row = (size_t)s.KV * kHD;
-  const T* kb = k + ((size_t)b * s.Sk * s.KV + kvh) * kHD;
-  const T* vb = v + ((size_t)b * s.Sk * s.KV + kvh) * kHD;
+  const float* kb = k + ((size_t)b * s.Sk * s.KV + kvh) * kHD;
+  const float* vb = v + ((size_t)b * s.Sk * s.KV + kvh) * kHD;
   if (t == 0) {
     bounds[0] = 0x7fffffff;
     bounds[1] = -0x7fffffff - 1;
@@ -301,8 +360,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = t; e < kTile * kHD; e += kThreads) {
     const int j = e / kHD, d = e % kHD, c = k0 + j;
     const bool ok = c < s.Sk;
-    Ks[j * kLD + d] = ok ? load(kb + (size_t)c * kv_row + d) : 0.f;
-    Vs[j * kLD + d] = ok ? load(vb + (size_t)c * kv_row + d) : 0.f;
+    Ks[j * kLD + d] = ok ? kb[(size_t)c * kv_row + d] : 0.f;
+    Vs[j * kLD + d] = ok ? vb[(size_t)c * kv_row + d] : 0.f;
   }
   __syncthreads();
   if (t < kTile) {
@@ -353,8 +412,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float qv = 0.f, dv2 = 0.f;
       if (r < R) {
         const size_t off = qrow(s, b, kvh, r) + d;
-        qv = load(q + off) * s.scale;
-        dv2 = load(dout + off);
+        qv = q[off] * s.scale;
+        dv2 = dout[off];
       }
       Qs[rr * kLD + d] = qv;
       dOs[rr * kLD + d] = dv2;
@@ -431,8 +490,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t off = ((size_t)(b * s.Sk + c) * s.KV + kvh) * kHD;
 #pragma unroll
     for (int j = 0; j < kDims; ++j) {
-      store(dk + off + tb + 16 * j, gk[i][j]);
-      store(dv + off + tb + 16 * j, gv[i][j]);
+      dk[off + tb + 16 * j] = gk[i][j];
+      dv[off + tb + 16 * j] = gv[i][j];
     }
   }
 }
@@ -444,34 +503,746 @@ constexpr int dkdv_smem_bytes() {
   return (4 * kTile * kLD + 2 * kTile * kLDS + 3 * kTile) * 4 + 2 * kTile * 4;
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const void* dout, const float* m, const float* l,
-                   const int* qp, const int* kp, void* dq, void* dk, void* dv,
-                   float* delta, int B, const Shape& s, cudaStream_t st) {
-  const int R = s.Sq * (s.H / s.KV);
+// ------------------------------------------------ bf16, tensor cores
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 2^x on the SFU alone (ex2.approx.ftz: 2 ulp, subnormal results flushed
+// to 0), for p in the bf16 passes; exp2f adds range handling around it
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cp.async: 16 or 4 bytes global -> shared, zero-filled when !pred
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A CTA of NW warps owns 16 * NW rows (a) or keys (b) and streams the other
+// side through a ring of STAGES tiles of kStream. Bytes of dynamic shared
+// memory (flash_bwd.launch_geometry computes the same).
+template <int NW>
+struct MmaLayout {
+  static constexpr int OWN = 16 * NW;
+  static constexpr int STAGES = NW == 8 ? 3 : 2;
+  static constexpr int TILE = kStream * kLDB * 2;          // one bf16 tile
+  // (a): K, V and key positions; (b): Q, dO and the rows' m, 1 / max(l,
+  // 1e-30), D and positions
+  static constexpr int DQ_STAGE = 2 * TILE + kStream * 4;
+  static constexpr int DKDV_STAGE = 2 * TILE + 4 * kStream * 4;
+  static constexpr int OWNED = 2 * OWN * kLDB * 2;         // Q, dO or K, V
+  static constexpr int DQ_SMEM = OWNED + STAGES * DQ_STAGE;
+  static constexpr int DKDV_SMEM = OWNED + STAGES * DKDV_STAGE + OWN * 4;
+};
+
+// The live tiles of [c0, c1) into list[] as 2 * t + full, and their count;
+// scan(t, lane) -> (live, full) is warp-uniform. Ends with a barrier.
+template <typename Scan>
+__device__ __forceinline__ int list_tiles(int c0, int c1, int nw, int warp,
+                                          int lane, int* list, int* n_live,
+                                          Scan scan) {
+  for (int t = c0 + warp; t < c1; t += nw) {
+    const int2 lf = scan(t, lane);
+    if (lane == 0) list[t - c0] = lf.x ? 1 + lf.y : 0;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int t = c0; t < c1; ++t)
+      if (list[t - c0]) list[n++] = 2 * t + (list[t - c0] - 1);
+    *n_live = n;
+  }
+  __syncthreads();
+  return *n_live;
+}
+
+// (a) dq and D. grid = (B * KV, ceil(G * Sq / (16 * NW))), block 32 * NW,
+// dynamic shared memory MmaLayout<NW>::DQ_SMEM; row tiles last first.
+template <int NW>
+__global__ void __launch_bounds__(32 * NW, 8 / NW)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ o,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ m_in,
+                        const float* __restrict__ l_in,
+                        const int* __restrict__ q_pos,
+                        const int* __restrict__ k_pos, bf16* __restrict__ dq,
+                        float* __restrict__ delta, float* __restrict__ linv,
+                        Shape s) {
+  using L = MmaLayout<NW>;
+  constexpr int RT = L::OWN, ST = L::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);       // [RT][kLDB]
+  bf16* dos = qs + RT * kLDB;                     // [RT][kLDB]
+  unsigned char* ring = smem + L::OWNED;          // [ST] x (K, V, positions)
+  __shared__ int list[kMaxList];
+  __shared__ int n_live_s, qmin_s, qmax_s, rows_ok_s;
+
+  const int G = s.H / s.KV, R = s.Sq * G;
+  const int b = blockIdx.x / s.KV, kvh = blockIdx.x % s.KV;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * RT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quad = lane / 4, qlane = lane % 4;
+
+  // the CTA's Q and dO rows: the first commit group
+  for (int e = threadIdx.x; e < RT * kChunks; e += blockDim.x) {
+    const int i = e / kChunks, c = e % kChunks, r = row0 + i;
+    const bool ok = r < R;
+    const size_t off = ok ? qrow(s, b, kvh, r) + c * 8 : 0;
+    cp_async16(qs + i * kLDB + c * 8, q + off, ok);
+    cp_async16(dos + i * kLDB + c * 8, dout + off, ok);
+  }
+  cp_async_commit();
+  if (threadIdx.x == 0) {
+    qmin_s = 0x7fffffff;
+    qmax_s = -0x7fffffff - 1;
+    rows_ok_s = row0 + RT <= R;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < RT; i += blockDim.x) {
+    const int r = row0 + i;
+    if (r < R) {
+      const int p = q_pos[(size_t)b * s.Sq + r / G];
+      atomicMin(&qmin_s, p);
+      atomicMax(&qmax_s, p);
+    }
+  }
+
+  // this thread's rows r0 and r1 = r0 + 8: position, m log2(e),
+  // 1 / max(l, 1e-30), and D, which the warp sums over its 16 rows (lanes
+  // over the head dim) and writes
+  const int r0 = row0 + warp * 16 + quad, r1 = r0 + 8;
+  const bool ok0 = r0 < R, ok1 = r1 < R;
+  const int qp0 = ok0 ? q_pos[(size_t)b * s.Sq + r0 / G] : 0;
+  const int qp1 = ok1 ? q_pos[(size_t)b * s.Sq + r1 / G] : 0;
+  const float ml0 = ok0 ? m_in[stat_row(s, b, kvh, r0)] * kLog2e : 0.f;
+  const float ml1 = ok1 ? m_in[stat_row(s, b, kvh, r1)] * kLog2e : 0.f;
+  const float li0 =
+      ok0 ? 1.f / fmaxf(l_in[stat_row(s, b, kvh, r0)], 1e-30f) : 0.f;
+  const float li1 =
+      ok1 ? 1.f / fmaxf(l_in[stat_row(s, b, kvh, r1)], 1e-30f) : 0.f;
+  float D0 = 0.f, D1 = 0.f;
+  for (int i = 0; i < 16; ++i) {
+    const int r = row0 + warp * 16 + i;
+    float acc = 0.f;
+    if (r < R) {
+      const size_t off = qrow(s, b, kvh, r) + 4 * lane;
+      const uint2 a = *reinterpret_cast<const uint2*>(dout + off);
+      const uint2 c = *reinterpret_cast<const uint2*>(o + off);
+      const float2 a0 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&a.x));
+      const float2 a1 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&a.y));
+      const float2 c0 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&c.x));
+      const float2 c1 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&c.y));
+      acc = a0.x * c0.x + a0.y * c0.y + a1.x * c1.x + a1.y * c1.y;
+    }
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(kFull, acc, w);
+    if (i == quad) D0 = acc;
+    if (i == quad + 8) D1 = acc;
+    if (lane == 0 && r < R) {
+      const size_t so = stat_row(s, b, kvh, r);
+      delta[so] = acc;
+      linv[so] = 1.f / fmaxf(l_in[so], 1e-30f);
+    }
+  }
+  __syncthreads();
+  const int qmin = qmin_s, qmax = qmax_s;
+  const bool rows_ok = rows_ok_s;
+
+  const size_t kv_row = (size_t)s.KV * kHD;
+  const bf16* kb = k + ((size_t)b * s.Sk * s.KV + kvh) * kHD;
+  const bf16* vb = v + ((size_t)b * s.Sk * s.KV + kvh) * kHD;
+  const int* kpb = k_pos + (size_t)b * s.Sk;
+  const auto stage_k = [&](int st) {
+    return reinterpret_cast<bf16*>(ring + st * L::DQ_STAGE);
+  };
+  const auto load_tile = [&](int t, int st) {
+    bf16* kd = stage_k(st);
+    bf16* vd = kd + kStream * kLDB;
+    int* pd = reinterpret_cast<int*>(vd + kStream * kLDB);
+    for (int e = threadIdx.x; e < kStream * kChunks; e += blockDim.x) {
+      const int j = e / kChunks, c = e % kChunks, sk = t * kStream + j;
+      const bool ok = sk < s.Sk;
+      const size_t off = (size_t)(ok ? sk : 0) * kv_row + c * 8;
+      cp_async16(kd + j * kLDB + c * 8, kb + off, ok);
+      cp_async16(vd + j * kLDB + c * 8, vb + off, ok);
+    }
+    for (int j = threadIdx.x; j < kStream; j += blockDim.x) {
+      const int sk = t * kStream + j;
+      cp_async4(pd + j, kpb + (sk < s.Sk ? sk : 0), sk < s.Sk);
+    }
+  };
+  const auto scan = [&](int t, int ln) -> int2 {
+    int kmin = 0x7fffffff, kmax = -1, lo = 0x7fffffff, gone = 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int sk = t * kStream + h * 32 + ln;
+      if (sk < s.Sk) {
+        const int p = kpb[sk];
+        lo = min(lo, p);
+        if (p >= 0) {
+          kmin = min(kmin, p);
+          kmax = max(kmax, p);
+        }
+      } else {
+        gone = 1;
+      }
+    }
+    kmin = __reduce_min_sync(kFull, kmin);
+    kmax = __reduce_max_sync(kFull, kmax);
+    lo = __reduce_min_sync(kFull, lo);
+    gone = __reduce_or_sync(kFull, gone);
+    const bool live = may_see(qmin, qmax, kmin, kmax, s.causal, s.window);
+    const bool full = rows_ok && !gone && lo >= 0 &&
+                      sees_all(qmin, qmax, kmin, kmax, s.causal, s.window);
+    return make_int2(live, full);
+  };
+
+  const float sl2 = s.scale * kLog2e;
+  // ldmatrix addresses: A fragments of the warp's Q / dO rows; B fragments
+  // of K / V rows (non-transposed); K^T fragments (transposed)
+  const bf16* qa_p = qs + (warp * 16 + (lane & 15)) * kLDB + 8 * (lane >> 4);
+  const bf16* da_p = dos + (warp * 16 + (lane & 15)) * kLDB + 8 * (lane >> 4);
+  const int b_off = (lane & 7) * kLDB + 8 * (lane >> 3);
+  const int t_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLDB +
+                    8 * (lane >> 4);
+  float acc[kHD / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < kHD / 8; ++nb)
+    acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+  // the warp's Q and dO A fragments, held for the whole loop
+  cp_async_wait<0>();   // Q and dO: the only group in flight
+  __syncthreads();
+  uint32_t qf[kHD / 16][4], df[kHD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kHD / 16; ++kk) {
+    ldmatrix_x4(qf[kk], qa_p + 16 * kk);
+    ldmatrix_x4(df[kk], da_p + 16 * kk);
+  }
+
+  const int n_tiles = (s.Sk + kStream - 1) / kStream;
+  for (int c0 = 0; c0 < n_tiles; c0 += kMaxList) {
+    const int n_live = list_tiles(c0, min(n_tiles, c0 + kMaxList), NW, warp,
+                                  lane, list, &n_live_s, scan);
+#pragma unroll
+    for (int i = 0; i < ST - 1; ++i) {
+      if (i < n_live) load_tile(list[i] / 2, i);
+      cp_async_commit();
+    }
+    for (int i = 0; i < n_live; ++i) {
+      const int t = list[i] / 2, st = i % ST;
+      const bool full = list[i] & 1;
+      cp_async_wait<ST - 2>();   // tile i has landed
+      __syncthreads();           // ... for every thread; tile i - 1 consumed
+      if (i + ST - 1 < n_live)
+        load_tile(list[i + ST - 1] / 2, (i + ST - 1) % ST);
+      cp_async_commit();
+      const bf16* kt = stage_k(st);
+      const bf16* vt = kt + kStream * kLDB;
+      const int* kpt = reinterpret_cast<const int*>(vt + kStream * kLDB);
+
+      // in halves of 32 keys (kept apart: 32 score registers beside the
+      // 64 accumulators)
+#pragma unroll 1
+      for (int h = 0; h < kStream / kStepQ; ++h) {
+        float sc[kStepQ / 8][4], dp[kStepQ / 8][4];
+#pragma unroll
+        for (int j = 0; j < kStepQ / 8; ++j)
+          sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = dp[j][0] = dp[j][1] =
+              dp[j][2] = dp[j][3] = 0.f;
+        const bf16* kh = kt + kStepQ * h * kLDB;
+        const bf16* vh = vt + kStepQ * h * kLDB;
+#pragma unroll
+        for (int kk = 0; kk < kHD / 16; kk += 2) {
+#pragma unroll
+          for (int j = 0; j < kStepQ / 8; ++j) {
+            uint32_t bk[4];
+            ldmatrix_x4(bk, kh + 8 * j * kLDB + b_off + 16 * kk);
+            mma16816(sc[j], qf[kk], bk[0], bk[1]);
+            mma16816(sc[j], qf[kk + 1], bk[2], bk[3]);
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < kHD / 16; kk += 2) {
+#pragma unroll
+          for (int j = 0; j < kStepQ / 8; ++j) {
+            uint32_t bv[4];
+            ldmatrix_x4(bv, vh + 8 * j * kLDB + b_off + 16 * kk);
+            mma16816(dp[j], df[kk], bv[0], bv[1]);
+            mma16816(dp[j], df[kk + 1], bv[2], bv[3]);
+          }
+        }
+        // dS = p (dP - D) on visible pairs, in place of dP
+#pragma unroll
+        for (int j = 0; j < kStepQ / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool lo_row = e < 2;
+            const float p =
+                ex2(fmaf(sc[j][e], sl2, -(lo_row ? ml0 : ml1))) *
+                (lo_row ? li0 : li1);
+            bool vis = full;
+            if (!full) {   // CTA-uniform
+              const int jj = kStepQ * h + 8 * j + 2 * qlane + (e & 1);
+              vis = (lo_row ? ok0 : ok1) && t * kStream + jj < s.Sk &&
+                    visible(lo_row ? qp0 : qp1, kpt[jj], s.causal, s.window);
+            }
+            dp[j][e] = vis ? p * (dp[j][e] - (lo_row ? D0 : D1)) : 0.f;
+          }
+        }
+        // dq += dS k: dS from the accumulators (bf16), K^T by
+        // ldmatrix.trans
+#pragma unroll
+        for (int kt2 = 0; kt2 < kStepQ / 16; ++kt2) {
+          uint32_t a[4];
+          a[0] = pack_bf16(dp[2 * kt2][0], dp[2 * kt2][1]);
+          a[1] = pack_bf16(dp[2 * kt2][2], dp[2 * kt2][3]);
+          a[2] = pack_bf16(dp[2 * kt2 + 1][0], dp[2 * kt2 + 1][1]);
+          a[3] = pack_bf16(dp[2 * kt2 + 1][2], dp[2 * kt2 + 1][3]);
+          const bf16* kr = kh + 16 * kt2 * kLDB + t_off;
+#pragma unroll
+          for (int nb2 = 0; nb2 < kHD / 16; ++nb2) {
+            uint32_t bk[4];
+            ldmatrix_x4_trans(bk, kr + 16 * nb2);
+            mma16816(acc[2 * nb2], a, bk[0], bk[1]);
+            mma16816(acc[2 * nb2 + 1], a, bk[2], bk[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();   // the empty groups
+    __syncthreads();      // the list and the ring are free again
+  }
+
+#pragma unroll
+  for (int nb = 0; nb < kHD / 8; ++nb) {
+    const int c = 8 * nb + 2 * qlane;
+    if (ok0)
+      *reinterpret_cast<__nv_bfloat162*>(dq + qrow(s, b, kvh, r0) + c) =
+          __floats2bfloat162_rn(acc[nb][0] * s.scale, acc[nb][1] * s.scale);
+    if (ok1)
+      *reinterpret_cast<__nv_bfloat162*>(dq + qrow(s, b, kvh, r1) + c) =
+          __floats2bfloat162_rn(acc[nb][2] * s.scale, acc[nb][3] * s.scale);
+  }
+}
+
+// (b) dk and dv. grid = (B * KV, ceil(Sk / (16 * NW))), block 32 * NW,
+// dynamic shared memory MmaLayout<NW>::DKDV_SMEM; key tiles first to last.
+template <int NW>
+__global__ void __launch_bounds__(32 * NW, 8 / NW)
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ m_in,
+                          const float* __restrict__ linv,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ q_pos,
+                          const int* __restrict__ k_pos,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          Shape s) {
+  using L = MmaLayout<NW>;
+  constexpr int KT = L::OWN, ST = L::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);       // [KT][kLDB]
+  bf16* vs = ks + KT * kLDB;                      // [KT][kLDB]
+  unsigned char* ring = smem + L::OWNED;   // [ST] x (Q, dO, m, 1/l, D, pos)
+  int* kps = reinterpret_cast<int*>(ring + ST * L::DKDV_STAGE);  // [KT]
+  __shared__ int list[kMaxList];
+  __shared__ int n_live_s, kmin_s, kmax_s, keys_ok_s;
+
+  const int G = s.H / s.KV, R = s.Sq * G;
+  const int b = blockIdx.x / s.KV, kvh = blockIdx.x % s.KV;
+  const int k0 = blockIdx.y * KT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int quad = lane / 4, qlane = lane % 4;
+
+  // the CTA's K and V: the first commit group
+  const size_t kv_row = (size_t)s.KV * kHD;
+  const bf16* kb = k + ((size_t)b * s.Sk * s.KV + kvh) * kHD;
+  const bf16* vb = v + ((size_t)b * s.Sk * s.KV + kvh) * kHD;
+  for (int e = threadIdx.x; e < KT * kChunks; e += blockDim.x) {
+    const int j = e / kChunks, c = e % kChunks, sk = k0 + j;
+    const bool ok = sk < s.Sk;
+    const size_t off = (size_t)(ok ? sk : 0) * kv_row + c * 8;
+    cp_async16(ks + j * kLDB + c * 8, kb + off, ok);
+    cp_async16(vs + j * kLDB + c * 8, vb + off, ok);
+  }
+  cp_async_commit();
+  if (threadIdx.x == 0) {
+    kmin_s = 0x7fffffff;
+    kmax_s = -1;
+    keys_ok_s = 1;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < KT; j += blockDim.x) {
+    const int sk = k0 + j;
+    const int p = sk < s.Sk ? k_pos[(size_t)b * s.Sk + sk] : -1;
+    kps[j] = p;
+    if (p < 0) keys_ok_s = 0;
+    if (p >= 0) {
+      atomicMin(&kmin_s, p);
+      atomicMax(&kmax_s, p);
+    }
+  }
+  __syncthreads();
+  const int kmin = kmin_s, kmax = kmax_s;
+  const bool keys_ok = keys_ok_s;
+  // this thread's keys c0 and c1 = c0 + 8 (local): whether they exist, and
+  // their positions
+  const int c0 = warp * 16 + quad, c1 = c0 + 8;
+  const bool kok0 = k0 + c0 < s.Sk, kok1 = k0 + c1 < s.Sk;
+  const int kp0 = kps[c0], kp1 = kps[c1];
+
+  const int* qpb = q_pos + (size_t)b * s.Sq;
+  const auto stage_q = [&](int st) {
+    return reinterpret_cast<bf16*>(ring + st * L::DKDV_STAGE);
+  };
+  const auto load_tile = [&](int t, int st) {
+    bf16* qd = stage_q(st);
+    bf16* dd = qd + kStream * kLDB;
+    float* md = reinterpret_cast<float*>(dd + kStream * kLDB);
+    float* ld = md + kStream;
+    float* Dd = ld + kStream;
+    int* pd = reinterpret_cast<int*>(Dd + kStream);
+    for (int e = threadIdx.x; e < kStream * kChunks; e += blockDim.x) {
+      const int i = e / kChunks, c = e % kChunks, r = t * kStream + i;
+      const bool ok = r < R;
+      const size_t off = ok ? qrow(s, b, kvh, r) + c * 8 : 0;
+      cp_async16(qd + i * kLDB + c * 8, q + off, ok);
+      cp_async16(dd + i * kLDB + c * 8, dout + off, ok);
+    }
+    for (int i = threadIdx.x; i < kStream; i += blockDim.x) {
+      const int r = t * kStream + i;
+      const bool ok = r < R;
+      const size_t so = ok ? stat_row(s, b, kvh, r) : 0;
+      cp_async4(md + i, m_in + so, ok);
+      cp_async4(ld + i, linv + so, ok);
+      cp_async4(Dd + i, delta + so, ok);
+      cp_async4(pd + i, qpb + (ok ? r / G : 0), ok);
+    }
+  };
+  const auto scan = [&](int t, int ln) -> int2 {
+    int qmin = 0x7fffffff, qmax = -0x7fffffff - 1, gone = 0, dead = 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = t * kStream + h * 32 + ln;
+      if (r < R) {
+        const int p = qpb[r / G];
+        qmin = min(qmin, p);
+        qmax = max(qmax, p);
+        dead |= m_in[stat_row(s, b, kvh, r)] <= 0.5f * kNegInf;
+      } else {
+        gone = 1;
+      }
+    }
+    qmin = __reduce_min_sync(kFull, qmin);
+    qmax = __reduce_max_sync(kFull, qmax);
+    gone = __reduce_or_sync(kFull, gone);
+    dead = __reduce_or_sync(kFull, dead);
+    const bool live =
+        dead || may_see(qmin, qmax, kmin, kmax, s.causal, s.window);
+    const bool full = !gone && !dead && keys_ok &&
+                      sees_all(qmin, qmax, kmin, kmax, s.causal, s.window);
+    return make_int2(live, full);
+  };
+
+  const float sl2 = s.scale * kLog2e;
+  // ldmatrix addresses: A fragments of the warp's K / V rows; B fragments
+  // of Q / dO rows (non-transposed); Q^T / dO^T fragments (transposed)
+  const bf16* ka_p = ks + (warp * 16 + (lane & 15)) * kLDB + 8 * (lane >> 4);
+  const bf16* va_p = vs + (warp * 16 + (lane & 15)) * kLDB + 8 * (lane >> 4);
+  const int b_off = (lane & 7) * kLDB + 8 * (lane >> 3);
+  const int t_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLDB +
+                    8 * (lane >> 4);
+  float gk[kHD / 8][4], gv[kHD / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < kHD / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[nb][e] = gv[nb][e] = 0.f;
+
+  const int n_tiles = (R + kStream - 1) / kStream;
+  for (int ch = 0; ch < n_tiles; ch += kMaxList) {
+    const int n_live = list_tiles(ch, min(n_tiles, ch + kMaxList), NW, warp,
+                                  lane, list, &n_live_s, scan);
+#pragma unroll
+    for (int i = 0; i < ST - 1; ++i) {
+      if (i < n_live) load_tile(list[i] / 2, i);
+      cp_async_commit();
+    }
+    for (int i = 0; i < n_live; ++i) {
+      const int t = list[i] / 2, st = i % ST;
+      const bool full = list[i] & 1;
+      cp_async_wait<ST - 2>();   // tile i (and K, V) have landed
+      __syncthreads();           // ... for every thread; tile i - 1 consumed
+      if (i + ST - 1 < n_live)
+        load_tile(list[i + ST - 1] / 2, (i + ST - 1) % ST);
+      cp_async_commit();
+      const bf16* qt = stage_q(st);
+      const bf16* dt = qt + kStream * kLDB;
+      const float* md = reinterpret_cast<const float*>(dt + kStream * kLDB);
+      const float* ld = md + kStream;
+      const float* Dd = ld + kStream;
+      const int* pd = reinterpret_cast<const int*>(Dd + kStream);
+
+#pragma unroll 1
+      for (int h = 0; h < kStream / kStepKV; ++h) {
+        // S^T = K Q^T and dP^T = V dO^T for rows 32 h .. 32 h + 31: keys
+        // are the mma rows, the tile's rows its columns
+        float sc[kStepKV / 8][4], dp[kStepKV / 8][4];
+#pragma unroll
+        for (int j = 0; j < kStepKV / 8; ++j)
+          sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = dp[j][0] = dp[j][1] =
+              dp[j][2] = dp[j][3] = 0.f;
+        const bf16* qb = qt + kStepKV * h * kLDB + b_off;
+        const bf16* db = dt + kStepKV * h * kLDB + b_off;
+#pragma unroll
+        for (int kk = 0; kk < kHD / 16; kk += 2) {
+          uint32_t a0[4], a1[4];
+          ldmatrix_x4(a0, ka_p + 16 * kk);
+          ldmatrix_x4(a1, ka_p + 16 * kk + 16);
+#pragma unroll
+          for (int j = 0; j < kStepKV / 8; ++j) {
+            uint32_t bq[4];
+            ldmatrix_x4(bq, qb + 8 * j * kLDB + 16 * kk);
+            mma16816(sc[j], a0, bq[0], bq[1]);
+            mma16816(sc[j], a1, bq[2], bq[3]);
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < kHD / 16; kk += 2) {
+          uint32_t a0[4], a1[4];
+          ldmatrix_x4(a0, va_p + 16 * kk);
+          ldmatrix_x4(a1, va_p + 16 * kk + 16);
+#pragma unroll
+          for (int j = 0; j < kStepKV / 8; ++j) {
+            uint32_t bd[4];
+            ldmatrix_x4(bd, db + 8 * j * kLDB + 16 * kk);
+            mma16816(dp[j], a0, bd[0], bd[1]);
+            mma16816(dp[j], a1, bd[2], bd[3]);
+          }
+        }
+        // P^T in place of S^T, dS^T in place of dP^T. Element e of block
+        // j: key c0 (e < 2) or c1, row 32 h + 8 j + 2 qlane + (e & 1). A
+        // masked key of a row that sees no key (m = -1e30) has p = 1 / l.
+#pragma unroll
+        for (int j = 0; j < kStepKV / 8; ++j) {
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int row = kStepKV * h + 8 * j + 2 * qlane + e2;
+            const float m = md[row];
+            const float li = ld[row];
+            const float D = Dd[row];
+            const bool rok = t * kStream + row < R;
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1) {
+              const int e = 2 * e1 + e2;
+              const float p =
+                  ex2(fmaf(sc[j][e], sl2, -m * kLog2e)) * li;
+              bool vis = full, exists = full;
+              if (!full) {   // CTA-uniform
+                exists = rok && (e1 ? kok1 : kok0);
+                vis = exists &&
+                      visible(pd[row], e1 ? kp1 : kp0, s.causal, s.window);
+              }
+              sc[j][e] = vis ? p
+                             : (exists && m <= 0.5f * kNegInf ? li : 0.f);
+              dp[j][e] = vis ? p * (dp[j][e] - D) : 0.f;
+            }
+          }
+        }
+        // dv += P^T do and dk += dS^T q: the A operand from the
+        // accumulators (bf16), dO^T / Q^T by ldmatrix.trans
+#pragma unroll
+        for (int kt2 = 0; kt2 < kStepKV / 16; ++kt2) {
+          uint32_t ap[4], as[4];
+          ap[0] = pack_bf16(sc[2 * kt2][0], sc[2 * kt2][1]);
+          ap[1] = pack_bf16(sc[2 * kt2][2], sc[2 * kt2][3]);
+          ap[2] = pack_bf16(sc[2 * kt2 + 1][0], sc[2 * kt2 + 1][1]);
+          ap[3] = pack_bf16(sc[2 * kt2 + 1][2], sc[2 * kt2 + 1][3]);
+          as[0] = pack_bf16(dp[2 * kt2][0], dp[2 * kt2][1]);
+          as[1] = pack_bf16(dp[2 * kt2][2], dp[2 * kt2][3]);
+          as[2] = pack_bf16(dp[2 * kt2 + 1][0], dp[2 * kt2 + 1][1]);
+          as[3] = pack_bf16(dp[2 * kt2 + 1][2], dp[2 * kt2 + 1][3]);
+          const int ro = (kStepKV * h + 16 * kt2) * kLDB + t_off;
+#pragma unroll
+          for (int nb2 = 0; nb2 < kHD / 16; ++nb2) {
+            uint32_t bb[4];
+            ldmatrix_x4_trans(bb, dt + ro + 16 * nb2);
+            mma16816(gv[2 * nb2], ap, bb[0], bb[1]);
+            mma16816(gv[2 * nb2 + 1], ap, bb[2], bb[3]);
+            ldmatrix_x4_trans(bb, qt + ro + 16 * nb2);
+            mma16816(gk[2 * nb2], as, bb[0], bb[1]);
+            mma16816(gk[2 * nb2 + 1], as, bb[2], bb[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();   // the empty groups, and K / V if nothing ran
+    __syncthreads();      // the list and the ring are free again
+  }
+
+  const auto out_row = [&](int c) {
+    return ((size_t)(b * s.Sk + k0 + c) * s.KV + kvh) * kHD;
+  };
+#pragma unroll
+  for (int nb = 0; nb < kHD / 8; ++nb) {
+    const int d = 8 * nb + 2 * qlane;
+    if (kok0) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + out_row(c0) + d) =
+          __floats2bfloat162_rn(gk[nb][0] * s.scale, gk[nb][1] * s.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + out_row(c0) + d) =
+          __floats2bfloat162_rn(gv[nb][0], gv[nb][1]);
+    }
+    if (kok1) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + out_row(c1) + d) =
+          __floats2bfloat162_rn(gk[nb][2] * s.scale, gk[nb][3] * s.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + out_row(c1) + d) =
+          __floats2bfloat162_rn(gv[nb][2], gv[nb][3]);
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *o, *dout;
+  const float *m, *l;
+  const int *qp, *kp;
+  void *dq, *dk, *dv;
+  float* delta;
+  int B;
+};
+
+cudaError_t launch_f32(const Args& a, const Shape& s, int gq, int gk,
+                       cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       dq_smem_bytes());
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T>,
+  e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            dkdv_smem_bytes());
   if (e != cudaSuccess) return e;
-  const dim3 g1(B * s.KV, (R + kTile - 1) / kTile);
-  flash_bwd_dq_kernel<T><<<g1, kThreads, dq_smem_bytes(), st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), m, l, qp, kp, static_cast<T*>(dq), delta,
-      s);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  flash_bwd_dq_kernel<<<dim3(a.B * s.KV, gq), kThreads, dq_smem_bytes(),
+                        st>>>(q, k, v, static_cast<const float*>(a.o),
+                              static_cast<const float*>(a.dout), a.m, a.l,
+                              a.qp, a.kp, static_cast<float*>(a.dq), a.delta,
+                              s);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const dim3 g2(B * s.KV, (s.Sk + kTile - 1) / kTile);
-  flash_bwd_dkdv_kernel<T><<<g2, kThreads, dkdv_smem_bytes(), st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), m, l, delta, qp,
-      kp, static_cast<T*>(dk), static_cast<T*>(dv), s);
+  flash_bwd_dkdv_kernel<<<dim3(a.B * s.KV, gk), kThreads, dkdv_smem_bytes(),
+                          st>>>(q, k, v, static_cast<const float*>(a.dout),
+                                a.m, a.l, a.delta, a.qp, a.kp,
+                                static_cast<float*>(a.dk),
+                                static_cast<float*>(a.dv), s);
   return cudaGetLastError();
+}
+
+// 1 / max(l, 1e-30) of every row: the second half of the delta scratch,
+// which the bf16 dq pass writes and the dk / dv pass reads
+float* linv_of(const Args& a, const Shape& s) {
+  return a.delta + (size_t)a.B * s.H * s.Sq;
+}
+
+template <int NW>
+cudaError_t launch_dq_mma(const Args& a, const Shape& s, int gy,
+                          cudaStream_t st) {
+  constexpr int smem = MmaLayout<NW>::DQ_SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<NW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq_mma_kernel<NW><<<dim3(a.B * s.KV, gy), 32 * NW, smem, st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
+      static_cast<const bf16*>(a.dout), a.m, a.l, a.qp, a.kp,
+      static_cast<bf16*>(a.dq), a.delta, linv_of(a, s), s);
+  return cudaGetLastError();
+}
+
+template <int NW>
+cudaError_t launch_dkdv_mma(const Args& a, const Shape& s, int gy,
+                            cudaStream_t st) {
+  constexpr int smem = MmaLayout<NW>::DKDV_SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkdv_mma_kernel<NW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv_mma_kernel<NW><<<dim3(a.B * s.KV, gy), 32 * NW, smem, st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.m,
+      linv_of(a, s), a.delta, a.qp, a.kp, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), s);
+  return cudaGetLastError();
+}
+
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// whether a bf16 pass of `block` threads with grid.y `gy` and `smem` bytes
+// is one that this file launches for `own` rows or keys
+bool mma_ok(int block, int gy, int smem, int own, bool dq_pass) {
+  if (block != 128 && block != 256) return false;
+  const int nw = block / 32;
+  const int want = dq_pass ? (nw == 8 ? MmaLayout<8>::DQ_SMEM
+                                      : MmaLayout<4>::DQ_SMEM)
+                           : (nw == 8 ? MmaLayout<8>::DKDV_SMEM
+                                      : MmaLayout<4>::DKDV_SMEM);
+  return gy == ceil_div(own, 16 * nw) && smem == want;
 }
 
 }  // namespace
@@ -479,11 +1250,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, do, dq, dk, dv share it).
-// q, o, do, dq: (B, Sq, H, hd); k, v, dk, dv: (B, Sk, KV, hd); m, l, delta:
-// f32 (B, H, Sq) (delta is scratch that this call writes); positions int32
-// (B, Sq) / (B, Sk). hd must be 128. Two launches on `stream`; returns the
-// first cudaError_t that is not cudaSuccess, or 0. Nothing is synchronized
-// and nothing is allocated.
+// q, o, do, dq: (B, Sq, H, hd); k, v, dk, dv: (B, Sk, KV, hd); m, l: f32
+// (B, H, Sq); delta: f32 scratch of 2 x (B, H, Sq) that this call writes (D
+// = rowsum(do * o), then 1 / max(l, 1e-30) in bf16); positions int32
+// (B, Sq) / (B, Sk). hd must be 128. The launch geometry of the dq pass and
+// of the dk / dv pass (grid.y, threads a CTA, dynamic shared-memory bytes;
+// grid.x is B * KV) comes from flash_bwd.launch_geometry and must be one
+// that this file launches for the shape: bf16 takes the tensor-core passes
+// (CTAs of 128 or 256 threads), f32 the CUDA-core ones (256). Two launches
+// on `stream`; returns the first cudaError_t that is not cudaSuccess, or 0.
+// Nothing is synchronized and nothing is allocated.
 int repro_flash_attention_backward(int dtype, const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* m,
@@ -491,25 +1267,36 @@ int repro_flash_attention_backward(int dtype, const void* q, const void* k,
                                    const void* k_pos, void* dq, void* dk,
                                    void* dv, void* delta, int B, int Sq,
                                    int Sk, int H, int KV, int hd, int causal,
-                                   int window, float scale, void* stream) {
+                                   int window, float scale, int dq_grid_y,
+                                   int dq_block, int dq_smem,
+                                   int dkdv_grid_y, int dkdv_block,
+                                   int dkdv_smem, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || hd != kHD ||
       (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  if ((Sq * (H / KV) + kTile - 1) / kTile > 65535 ||
-      (Sk + kTile - 1) / kTile > 65535)
+  const int R = Sq * (H / KV);
+  if (dq_grid_y > 65535 || dkdv_grid_y > 65535) return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (dq_block != kThreads || dkdv_block != kThreads ||
+        dq_grid_y != ceil_div(R, kTile) || dkdv_grid_y != ceil_div(Sk, kTile) ||
+        dq_smem != dq_smem_bytes() || dkdv_smem != dkdv_smem_bytes())
+      return cudaErrorInvalidValue;
+  } else if (!mma_ok(dq_block, dq_grid_y, dq_smem, R, true) ||
+             !mma_ok(dkdv_block, dkdv_grid_y, dkdv_smem, Sk, false)) {
     return cudaErrorInvalidValue;
+  }
   const Shape s{Sq, Sk, H, KV, causal, window, scale};
-  const float* mm = static_cast<const float*>(m);
-  const float* ll = static_cast<const float*>(l);
-  const int* qp = static_cast<const int*>(q_pos);
-  const int* kp = static_cast<const int*>(k_pos);
-  float* dl = static_cast<float*>(delta);
+  const Args a{q,  k,  v,  o,  dout,
+               static_cast<const float*>(m), static_cast<const float*>(l),
+               static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),
+               dq, dk, dv, static_cast<float*>(delta), B};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-             ? launch<float>(q, k, v, o, dout, mm, ll, qp, kp, dq, dk, dv, dl,
-                             B, s, st)
-             : launch<__nv_bfloat16>(q, k, v, o, dout, mm, ll, qp, kp, dq, dk,
-                                     dv, dl, B, s, st);
+  if (dtype == 0) return launch_f32(a, s, dq_grid_y, dkdv_grid_y, st);
+  cudaError_t e = dq_block == 256 ? launch_dq_mma<8>(a, s, dq_grid_y, st)
+                                  : launch_dq_mma<4>(a, s, dq_grid_y, st);
+  if (e != cudaSuccess) return e;
+  return dkdv_block == 256 ? launch_dkdv_mma<8>(a, s, dkdv_grid_y, st)
+                           : launch_dkdv_mma<4>(a, s, dkdv_grid_y, st);
 }
 
 const char* repro_flash_bwd_error_string(int code) {

@@ -5,20 +5,109 @@ The JAX package has no Pallas backward: its train step differentiates the
 jnp ``chunked_attention`` (``repro.models.layers``), so this kernel
 replaces no TPU kernel; it is the backward of ``flash.py``'s forward, and
 ``ref.flash_attention_backward`` is its plain version. One call is one
-count in ``LAUNCHES`` (the call issues the dq pass and the dk / dv pass on
-the current stream). Head dim 128 only, f32 and bf16.
+count in ``LAUNCHES``: it launches the dq pass (which also writes D =
+rowsum(do * o)) and then the dk / dv pass on the current stream.
+``launch_geometry`` picks each pass's form, grid and CTA size from the
+shapes (a pure function, so the CPU tests can check it): bf16 takes the
+tensor-core passes (mma.sync, a cp.async ring of bf16 tiles), f32 the
+CUDA-core ones (f32 arithmetic throughout, which the f32 gates need). The
+source note says what bounds each and what its design does about it. Head
+dim 128 only.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import _build, guard_grad
-from repro_torch.kernels.attention.flash import _DTYPES
+from repro_torch.kernels.attention.flash import _DTYPES, SMS
 
 HEAD_DIMS = (128,)
 LAUNCHES = 0
+MAX_GRID_Y = 65535
+MAX_SMEM = 232448             # dynamic shared memory a CTA may have
+F32_TILE = 64                 # f32 passes: 64 rows x 64 keys, 256 threads
+MMA_WARPS = (8, 4)            # bf16 passes: warps a CTA, largest first
+STREAM_TILE = 64              # bf16: keys (dq) / rows (dk dv) a ring stage
+PITCH = 128 + 8               # bf16 row pitch in shared memory, elements
+
+
+@dataclasses.dataclass(frozen=True)
+class Pass:
+    """One launch: ``grid`` = (B * KV, y) CTAs of ``block`` threads with
+    ``smem`` bytes of dynamic shared memory. CTA (x, y) serves batch
+    x // KV, kv head x % KV and owns tile ``tile(y)`` of ``own_tile`` rows
+    (the dq pass) or keys (the dk / dv pass); it loops over the other side,
+    ``stream_tile`` at a time through a ring of ``stages`` tiles. A query
+    row is (position, group member): row r is position r // G of query
+    head kv_head * G + r % G."""
+    name: str                 # "dq" or "dkdv"
+    form: str                 # "mma" (bf16, tensor cores) or "f32"
+    grid: tuple[int, int]
+    block: int
+    own_tile: int
+    stream_tile: int
+    stages: int
+    smem: int
+    reversed: bool            # y runs the tiles last first
+
+    def tile(self, y: int) -> int:
+        """The tile CTA row y owns: launch order is y order."""
+        return self.grid[1] - 1 - y if self.reversed else y
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    dq: Pass
+    dkdv: Pass
+
+
+def _f32_smem(name: str) -> int:
+    ld, lds = 128 + 1, F32_TILE + 16
+    scores = 1 if name == "dq" else 2
+    return ((4 * F32_TILE * ld + scores * F32_TILE * lds + 3 * F32_TILE) * 4
+            + 2 * F32_TILE * 4)
+
+
+def _mma_smem(name: str, warps: int) -> int:
+    """``MmaLayout<NW>::DQ_SMEM`` / ``DKDV_SMEM`` of the source."""
+    stages = 3 if warps == 8 else 2
+    tile = STREAM_TILE * PITCH * 2
+    owned = 2 * 16 * warps * PITCH * 2
+    if name == "dq":      # K, V and key positions a stage
+        return owned + stages * (2 * tile + STREAM_TILE * 4)
+    # Q, dO and the rows' m, l, D and positions a stage; key positions
+    return owned + stages * (2 * tile + 4 * STREAM_TILE * 4) + 16 * warps * 4
+
+
+def launch_geometry(B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
+                    dtype: torch.dtype) -> Geometry:
+    """The form, grid and CTA size of both passes (see ``Pass``). The dq
+    pass owns row tiles and runs them last first (under a causal mask the
+    latest rows see the most keys); the dk / dv pass owns key tiles and
+    runs them first to last (the earliest keys are seen by the most rows),
+    so the heaviest CTAs start first. bf16 CTAs have 8 warps where the
+    grid still reaches the 132 SMs, else 4."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_backward kernel takes head_dim "
+                         f"in {HEAD_DIMS}, got {hd}")
+    R = Sq * (H // KV)
+
+    def one(name: str, own: int) -> Pass:
+        if dtype == torch.float32:
+            return Pass(name, "f32", (B * KV, -(-own // F32_TILE)), 256,
+                        F32_TILE, F32_TILE, 1, _f32_smem(name),
+                        name == "dq")
+        warps = next((w for w in MMA_WARPS
+                      if -(-own // (16 * w)) * B * KV >= SMS), MMA_WARPS[-1])
+        return Pass(name, "mma", (B * KV, -(-own // (16 * warps))),
+                    32 * warps, 16 * warps, STREAM_TILE,
+                    3 if warps == 8 else 2, _mma_smem(name, warps),
+                    name == "dq")
+
+    return Geometry(one("dq", R), one("dkdv", Sk))
 
 
 def _lib() -> ctypes.CDLL:
@@ -26,15 +115,19 @@ def _lib() -> ctypes.CDLL:
     fn = lib.repro_flash_attention_backward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 13 + [i] * 8 + [ctypes.c_float, p]
+        # dtype, 13 pointers, B .. window, scale, 3 ints of each pass's
+        # geometry, stream
+        fn.argtypes = ([i] + [p] * 13 + [i] * 8 + [ctypes.c_float]
+                       + [i] * 6 + [p])
         fn.restype = i
         lib.repro_flash_bwd_error_string.argtypes = [i]
         lib.repro_flash_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def check_layout(q, k, v, o, m, l, do, q_pos, k_pos) -> None:
-    """Types, shapes and contiguity the kernel takes, on any device."""
+def check_layout(q, k, v, o, m, l, do, q_pos, k_pos) -> Geometry:
+    """Types, shapes, contiguity and alignment the kernel takes, on any
+    device; returns the launch geometry."""
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype
                                      for t in (k, v, o, do)):
         raise TypeError("flash_attention_backward takes f32 or bf16 q/k/v/o/"
@@ -67,6 +160,18 @@ def check_layout(q, k, v, o, m, l, do, q_pos, k_pos) -> None:
         if not t.is_contiguous():
             raise ValueError("flash_attention_backward takes contiguous "
                              "tensors")
+    geo = launch_geometry(B, Sq, Sk, H, KV, hd, q.dtype)
+    if geo.dq.form == "mma":   # 16-byte cp.async pieces, 8-byte do / o loads
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention_backward: {name} must "
+                                 f"start on a 16-byte boundary")
+    for p in (geo.dq, geo.dkdv):
+        if p.grid[1] > MAX_GRID_Y or p.smem > MAX_SMEM:
+            raise ValueError(f"flash_attention_backward: the {p.name} pass "
+                             f"needs grid.y {p.grid[1]} and {p.smem} bytes "
+                             f"of shared memory")
+    return geo
 
 
 def flash_attention_backward(q, k, v, o, m, l, do, q_pos, k_pos, *,
@@ -81,11 +186,12 @@ def flash_attention_backward(q, k, v, o, m, l, do, q_pos, k_pos, *,
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("flash_attention_backward: every tensor must be on "
                          "one CUDA device")
-    check_layout(*tensors)
+    geo = check_layout(*tensors)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # scratch: D = rowsum(do * o), then (bf16) 1 / max(l, 1e-30)
+    delta = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -94,6 +200,8 @@ def flash_attention_backward(q, k, v, o, m, l, do, q_pos, k_pos, *,
             *(t.data_ptr() for t in (q, k, v, o, do, m, l, q_pos, k_pos)),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
             B, Sq, Sk, H, KV, hd, int(causal), int(window), hd ** -0.5,
+            *(x for p in (geo.dq, geo.dkdv)
+              for x in (p.grid[1], p.block, p.smem)),
             stream)
     if rc != 0:
         msg = lib.repro_flash_bwd_error_string(rc).decode()
