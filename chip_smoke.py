@@ -121,6 +121,30 @@ Phases, each printed as one JSON line:
           1e-4 * max(1, max|ref|), identical greedy tokens, the same launch
           counts, and the 1,024-token forward within 1e-4 * max(1, max|ref|)
           of its witness;
+  serve_prefill  ``Server.prefill_shard`` of attention layers into the
+          decode cache, bf16 over f32 masters unless named: qwen3-1.7b at 1
+          and 8 PEs on the serve cell (batch 4, prompt 32): the launcher's
+          teacher-forced loop, then prefill of its prompt and 15 decode
+          steps from the prefilled cache fed the loop's tokens, within
+          5e-2 x max(1, max|ref|) of the loop's logits at positions 31-46
+          with the share of greedy tokens that agree reported, and again
+          in f32 (TF32 off) within 1e-4 with the greedy tokens identical;
+          qwen3-1.7b at 1 and 8 PEs with a 2,048-token prompt (batch 4):
+          prefill's last logits and 16 greedy decode steps from its cache
+          within 5e-2 x max(1, max|ref|) of forward_logits of the prompt
+          and the generated tokens, the prefill's wall s (synchronized,
+          the second of two) and tok/s; gemma3-1b at 1 and 4 PEs the same
+          with a 1,024-token prompt, past its local layers' 512 window.
+          Exact launches: n_layers flash launches a prefill and n_layers a
+          decode step; one reorder launch a layer and prefill where the KV
+          heads are sharded over tp (the K/V reshard's all_to_all:
+          qwen3 at 8 PEs), none at 1 PE or with gemma3's one KV head. And,
+          on the 8-PE weights ``serve_moe`` holds, qwen2-moe-a2.7b's
+          forward_logits and 4 decode steps under moe_dispatch "sort"
+          against "scatter": the max differences reported (expected
+          bit-identical), routing decisions identical, and 2 x n_layers
+          reorder launches a forward and a decode step. The inputs of the
+          kernels' last prefill launches are kept;
   serve_engine  the paged continuous-batching ``ServeEngine`` serving
           full-width qwen3-1.7b (bf16 over f32 master weights, random from
           seed 0; B = 4 lanes, S_ctx 48, page_size 3) at 1 and 8 PEs, one
@@ -147,6 +171,27 @@ Phases, each printed as one JSON line:
           before they saturate), ms per call, peak
           memory, the inputs' bytes, and the reorder kernel's launches
           (exactly 2 a DLRM pidcomm call);
+  tune    ``Tuner.tune`` (``repro_torch.tuning``) on the card over three
+          cubes -- ring8, the 2x2x2 cube (selections 010, 110, 011) and
+          pod2x4x2 (innermost dim and whole cube) -- at 64 KiB, 1 MiB, 16
+          MiB and 64 MiB a PE, 5 timed calls after 2 of warm-up a cell
+          (CUDA events, median): each (flow, stage, domain) fit's alpha in
+          us, 1 / beta in GB/s, r2 and sample count, the overlap factors,
+          and per primitive, selection and size the planner's pick under
+          the profile, the measured fastest and the ratio of their times
+          (reported). Gates: the profile saves, reloads equal, and is
+          refused on another cube's fingerprint; ``auto`` under the
+          installed profile dispatches the flow the planner names,
+          bit-identical to that flow on integer payloads, for the four
+          PE primitives at 64 KiB and 16 MiB; every all_to_all cell
+          launches the reorder kernel once a call of its cm flow;
+          where a cell's moved bytes over all PEs (a rooted flow's: the
+          host value's) exceed 4x the 50 MB L2 its rate stays under 3.35
+          TB/s (a missed synchronize reads faster); ``select`` on a cube never tuned takes its measuring
+          fallback; and qwen3-1.7b's grad-sync program at tp 8 (one
+          all_reduce of each replicated leaf), planned under its cube's
+          profile, executed, and its planned against its measured
+          seconds filed in a ``DriftMonitor``;
   fused_forward  full-width qwen3-1.7b forward_logits at 8 PEs with tp = 2
           and cp = 2 (global batch 2 of 2,048 tokens) with fused_comm on and
           off: bf16 within 5e-2 and f32 within 1e-4 x max(1, max|ref|),
@@ -175,8 +220,8 @@ Phases, each printed as one JSON line:
           the backward's bucket hooks (bit for bit on the synced leaves).
           The inputs of each layout's last forward and backward launch are
           kept;
-  main_path  each kernel on the inputs the serve, fused_forward, train and
-          apps phases kept (the shapes and positions the path gives it; for
+  main_path  each kernel on the inputs the serve, serve_prefill,
+          fused_forward, train and apps phases kept (the shapes and positions the path gives it; for
           DLRM's AA(xyz), whose blocks repeat across the PEs, a random
           tensor of that shape): checked
           against the plain version, then timed with the plain version, the
@@ -202,6 +247,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1874,13 +1920,18 @@ def _drop(run, *extra) -> dict:
     return out
 
 
-def phase_serve_moe(dev, kept: dict, kept_reorder: dict) -> dict:
+def phase_serve_moe(dev, kept: dict, kept_reorder: dict,
+                    moe_sort: dict) -> dict:
     """The MoE main path in bf16 at 1 and 8 PEs; ``kept`` and
-    ``kept_reorder`` receive the inputs of each kernel's last launch."""
+    ``kept_reorder`` receive the inputs of each kernel's last launch, and
+    ``moe_sort`` the sort-vs-scatter check on the 8-PE run's weights
+    (reported by serve_prefill)."""
     runs = {}
     for pes in PES:
         run = _moe_run(dev, pes, torch.bfloat16, kept, kept_reorder)
         run["summary"]["profile"] = profile_decode(run, dev)
+        if pes == PES[-1]:
+            moe_sort.update(_moe_sort_vs_scatter(run, dev))
         runs[pes] = _drop(run, "routes")
     a, b = runs[PES[0]], runs[PES[-1]]
     # steps whose inputs agree: the prompt, then while greedy tokens agree
@@ -2121,6 +2172,488 @@ def phase_serve_dense_f32(dev) -> dict:
                      f"pe1_vs_pe{pes_list[-1]}": pair,
                      "bound": F32_TOL * pair["scale"]}
     return {"ok": ok, "archs": out}
+
+
+# ---------------------------------------------------------- serve_prefill
+PREFILL_LONG, PREFILL_GEN = 2048, 16   # qwen3's long prompt, decode steps
+MOE_SORT_STEPS = 4                     # decode steps of the sort check
+
+
+def _counted(fn):
+    """``fn()`` with the flash and reorder counts set to 0 just before it
+    and read just after: (its result, flash launches, reorder launches)."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.reorder import reorder
+    flash.LAUNCHES = reorder.LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, flash.LAUNCHES, reorder.LAUNCHES
+
+
+def _prefill(server, params, tokens):
+    """``prefill_shard`` of global tokens (B, S) on the server's cube:
+    (global last logits (B, V_padded), the cache, wall seconds between
+    synchronizations)."""
+    topo, ba = server.topo, server.plan.batch_axes or None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = server.prefill_shard(
+        params, {"tokens": topo.cube.to_cube(tokens, (ba, None))})
+    torch.cuda.synchronize()
+    return (topo.cube.from_cube(logits, (ba, topo.tp)), cache,
+            time.perf_counter() - t0)
+
+
+def _decode_from(server, params, cache, pos0: int, steps: int, *,
+                 first=None, feed=None):
+    """``steps`` decode steps from ``cache`` at positions pos0, pos0 + 1,
+    ...: feeding ``feed[:, i]`` (teacher-forced) or greedy from ``first``.
+    Returns (global logits (B, steps, V_padded), the tokens fed (B,
+    steps))."""
+    topo, ba = server.topo, server.plan.batch_axes or None
+    cube = topo.cube
+    tok, outs, fed = first, [], []
+    for i in range(steps):
+        if feed is not None:
+            tok = feed[:, i]
+        pos = torch.full_like(tok, pos0 + i)
+        lg, cache = server.decode_shard(params, cache,
+                                        cube.to_cube(tok, (ba,)),
+                                        cube.to_cube(pos, (ba,)))
+        lg = cube.from_cube(lg, (ba, topo.tp))
+        outs.append(lg)
+        fed.append(tok)
+        tok = lg.argmax(-1)
+    return torch.stack(outs, 1), torch.stack(fed, 1)
+
+
+def _reshards(cfg, topo) -> int:
+    """Reorder launches of one prefill: one all_to_all of K and V stacked
+    per attention layer where the KV heads are sharded over tp (more than
+    one PE); none where they are replicated."""
+    from repro_torch.models.params import kv_is_sharded
+    sharded = topo.tp_size > 1 and kv_is_sharded(cfg, topo)
+    return cfg.n_layers if sharded else 0
+
+
+def _prefill_vs_loop(dev, pes: int, dtype, params=None) -> dict:
+    """qwen3's serve cell (batch 4, prompt 32, gen 16): the launcher's
+    teacher-forced loop, then prefill of its prompt and 15 decode steps
+    from the prefilled cache fed the loop's tokens, against the loop's
+    logits at positions 31..46 (SERVE_TOL in bf16, F32_TOL in f32) and
+    its greedy tokens. Returns the summary and the weights."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.serving import Server
+    run = serve(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, pes=pes,
+                device=dev, seed=0, dtype=dtype, params=params,
+                keep_logits=True)
+    cfg, topo = run["cfg"], run["topo"]
+    server = Server(cfg, topo, run["plan"], dtype=dtype)
+    toks = torch.from_numpy(run["tokens"]).to(dev)
+    loop = torch.stack(run["logits"], 1)[:, PROMPT - 1:]     # (B, GEN, V)
+    (last, cache, wall), n_flash, n_reorder = _counted(
+        lambda: _prefill(server, run["params"], toks[:, :PROMPT]))
+    (dec, _), n_flash_dec, _ = _counted(lambda: _decode_from(
+        server, run["params"], cache, PROMPT, GEN - 1,
+        feed=toks[:, PROMPT:PROMPT + GEN - 1]))
+    got = torch.cat((last[:, None], dec), 1)
+    held = _held(got, loop, SERVE_TOL if dtype == torch.bfloat16
+                 else F32_TOL)
+    greedy = float((got.argmax(-1) == toks[:, PROMPT:]).float().mean())
+    s = {"pes": pes, "dtype": str(dtype).split(".")[-1],
+         "prompt_len": PROMPT, "prefill_s": wall,
+         "prefill_vs_loop_err": held["err"], "bound": held["bound"],
+         "last_logits_err": float((last - loop[:, 0]).abs().max()),
+         "greedy_agreement": greedy,
+         "flash_launches": n_flash, "reorder_launches": n_reorder,
+         "flash_launches_decode": n_flash_dec,
+         "expected_flash_launches": cfg.n_layers,
+         "expected_reorder_launches": _reshards(cfg, topo),
+         "expected_flash_launches_decode": cfg.n_layers * (GEN - 1),
+         "finite": bool(torch.isfinite(got).all())}
+    s["ok"] = (held["ok"] and s["finite"]
+               and n_flash == s["expected_flash_launches"]
+               and n_reorder == s["expected_reorder_launches"]
+               and n_flash_dec == s["expected_flash_launches_decode"]
+               and (dtype == torch.bfloat16 or greedy == 1.0))
+    return s, run["params"]
+
+
+def _prefill_long(dev, arch: str, pes: int, S: int, kept: dict,
+                  kept_reorder: dict, params=None) -> dict:
+    """A long prompt (batch 4, S tokens): prefill, a timed second prefill
+    (both counted), PREFILL_GEN greedy decode steps from the first one's
+    cache, and
+    forward_logits of the prompt and the generated tokens; prefill's last
+    logits and every decode step against the forward's (SERVE_TOL, bf16).
+    The flash and reorder inputs of the prefill's last launches are kept
+    for main_path."""
+    from repro_torch import configs
+    from repro_torch.models.params import init_params
+    from repro_torch.models.serving import Server, make_serve_plan
+    from repro_torch.models.topology import build_serve_topology
+    cfg = configs.get(arch)
+    topo = build_serve_topology(cfg, pes)
+    plan = make_serve_plan(cfg, topo, S_ctx=S + PREFILL_GEN,
+                           global_batch=BATCH)
+    server = Server(cfg, topo, plan, dtype=torch.bfloat16)
+    if params is None:
+        params = init_params(cfg, topo, 0, device=dev)
+    prompt = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (BATCH, S))).to(dev)
+    with keep_kernel_inputs(kept, f"{arch}/prefill{S}/{pes}pe"), \
+            keep_reorder_inputs(kept_reorder, f"prefill{S}/{pes}pe"):
+        (last, cache, wall0), n_flash, n_reorder = _counted(
+            lambda: _prefill(server, params, prompt))
+    (_, _, wall), n_flash2, n_reorder2 = _counted(           # warm
+        lambda: _prefill(server, params, prompt))
+    n_flash, n_reorder = n_flash + n_flash2, n_reorder + n_reorder2
+    (dec, fed), n_flash_dec, _ = _counted(lambda: _decode_from(
+        server, params, cache, S, PREFILL_GEN, first=last.argmax(-1)))
+    del cache
+    fwd = _dense_forward({"cfg": cfg, "topo": topo, "params": params}, pes,
+                         torch.bfloat16, torch.cat((prompt, fed), 1))
+    last_held = _held(last, fwd[:, S - 1], SERVE_TOL)
+    dec_held = _held(dec, fwd[:, S:], SERVE_TOL)
+    s = {"arch": arch, "pes": pes, "batch": BATCH, "prompt_len": S,
+         "windows": sorted({int(w) for w in cfg.windows()}),
+         "S_cache": plan.S_cache,
+         "prefill_s_first": wall0, "prefill_s": wall,
+         "prefill_tok_per_s": BATCH * S / wall,
+         "last_vs_forward_err": last_held["err"],
+         "decode_vs_forward_err": dec_held["err"],
+         "bound": max(last_held["bound"], dec_held["bound"]),
+         "decode_greedy_matches_forward": float(
+             (dec.argmax(-1) == fwd[:, S:].argmax(-1)).float().mean()),
+         "flash_launches": n_flash, "reorder_launches": n_reorder,
+         "flash_launches_decode": n_flash_dec,
+         "expected_flash_launches": 2 * cfg.n_layers,        # 2 prefills
+         "expected_reorder_launches": 2 * _reshards(cfg, topo),
+         "expected_flash_launches_decode": cfg.n_layers * PREFILL_GEN,
+         "finite": bool(torch.isfinite(dec).all()
+                        and torch.isfinite(last).all()),
+         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+    s["ok"] = (last_held["ok"] and dec_held["ok"] and s["finite"]
+               and n_flash == s["expected_flash_launches"]
+               and n_reorder == s["expected_reorder_launches"]
+               and n_flash_dec == s["expected_flash_launches_decode"])
+    return s
+
+
+def _moe_sort_vs_scatter(run, dev) -> dict:
+    """On the weights a full-width MoE serve holds: forward_logits of its
+    tokens and MOE_SORT_STEPS teacher-forced decode steps under
+    moe_dispatch "sort" against "scatter" (expected bit-identical), the
+    forward's routing decisions, and the reorder launches of each (two
+    all_to_alls per layer and forward or decode step)."""
+    from repro_torch.models.lm import Model
+    from repro_torch.models.serving import Server, init_cache
+    from repro_torch.models.topology import build_topology
+    topo, params = run["topo"], run["params"]
+    toks = torch.from_numpy(run["tokens"]).to(dev)
+    out = {}
+    for dispatch in ("scatter", "sort"):
+        cfg = dataclasses.replace(run["cfg"], moe_dispatch=dispatch,
+                                  ep=topo.size(topo.ep),
+                                  etp=topo.size(topo.etp))
+        ftopo = build_topology(cfg, topo.cube.ndev)
+        if ftopo.cube != topo.cube:
+            raise RuntimeError("forward and serve cubes differ")
+        calls = []
+        with record_routes(calls):
+            fwd, nf, nr = _counted(lambda: Model(
+                cfg, ftopo, dtype=torch.bfloat16).forward_logits(
+                    params, {"tokens": ftopo.cube.to_cube(
+                        toks, (ftopo.dp, None))}))
+        server = Server(cfg, topo, run["plan"], dtype=torch.bfloat16)
+        cache = init_cache(cfg, topo, run["plan"], device=dev)
+        (dec, _), nf_dec, nr_dec = _counted(lambda: _decode_from(
+            server, params, cache, 0, MOE_SORT_STEPS,
+            feed=toks[:, :MOE_SORT_STEPS]))
+        out[dispatch] = {"fwd": fwd, "dec": dec,
+                         "routes": torch.stack(calls), "reorder": nr,
+                         "reorder_decode": nr_dec, "flash": nf + nf_dec}
+        del cache, server
+    a, b = out["scatter"], out["sort"]
+    n_layers = run["cfg"].n_layers
+    s = {"forward_identical": bool(torch.equal(a["fwd"], b["fwd"])),
+         "decode_identical": bool(torch.equal(a["dec"], b["dec"])),
+         "forward_max_diff": float((a["fwd"] - b["fwd"]).abs().max()),
+         "decode_max_diff": float((a["dec"] - b["dec"]).abs().max()),
+         "routes_identical": bool(torch.equal(a["routes"], b["routes"])),
+         "routing_decisions": int(a["routes"][..., 0].numel()),
+         "reorder_launches": {d: [out[d]["reorder"],
+                                  out[d]["reorder_decode"]]
+                              for d in out},
+         "expected_reorder_launches": [2 * n_layers,
+                                       2 * n_layers * MOE_SORT_STEPS],
+         "flash_launches": a["flash"] + b["flash"],
+         "reorder_launches_total": sum(out[d]["reorder"]
+                                       + out[d]["reorder_decode"]
+                                       for d in out)}
+    s["ok"] = (s["routes_identical"] and all(
+        v == s["expected_reorder_launches"]
+        for v in s["reorder_launches"].values())
+        and bool(torch.isfinite(b["fwd"]).all()))
+    return s
+
+
+def phase_serve_prefill(dev, kept: dict, kept_reorder: dict,
+                        moe_sort: dict) -> dict:
+    """Prefill of attention layers into the decode cache: qwen3-1.7b at 1
+    and 8 PEs against the teacher-forced loop (bf16 and f32) and at 2,048
+    tokens against forward_logits; gemma3-1b at 1 and 4 PEs at 1,024
+    tokens; and the MoE sort check ``serve_moe`` ran on its 8-PE weights
+    (``moe_sort``)."""
+    loop, long_cells = [], []
+    for pes in PES:
+        torch.cuda.reset_peak_memory_stats(dev)
+        s, params = _prefill_vs_loop(dev, pes, torch.bfloat16)
+        loop.append(s)
+        s32, _ = _prefill_vs_loop(dev, pes, torch.float32, params)
+        loop.append(s32)
+        long_cells.append(_prefill_long(dev, ARCH, pes, PREFILL_LONG, kept,
+                                        kept_reorder, params))
+        del params
+        torch.cuda.empty_cache()
+    for pes in DENSE_ARCHS[LONG_ARCH]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        long_cells.append(_prefill_long(dev, LONG_ARCH, pes, LONG_SEQ, kept,
+                                        kept_reorder))
+        torch.cuda.empty_cache()
+    cells = loop + long_cells
+    launches = {k: sum(c[k] + (c["flash_launches_decode"]
+                               if k == "flash_launches" else 0)
+                       for c in cells)
+                for k in ("flash_launches", "reorder_launches")}
+    return {"ok": all(c["ok"] for c in cells) and moe_sort.get("ok", False),
+            "loop_cells": loop, "long_cells": long_cells,
+            "moe_sort_vs_scatter": moe_sort,
+            "flash_launches": launches["flash_launches"]
+            + moe_sort.get("flash_launches", 0),
+            "reorder_launches": launches["reorder_launches"]
+            + moe_sort.get("reorder_launches_total", 0)}
+
+
+# -------------------------------------------------------------------- tune
+# the tuner's cubes: (name, dims, pods, selections or None for the sweep's
+# own: the innermost dim and the whole cube)
+TUNE_CUBES = [("ring8", {"d": 8}, 1, None),
+              ("2x2x2", {"a": 2, "b": 2, "c": 2}, 1,
+               [("b",), ("a", "b"), ("b", "c")]),
+              ("pod2x4x2", {"pod": 2, "dp": 4, "tp": 2}, 2, None)]
+TUNE_SIZES = (64 << 10, 1 << 20, 16 << 20, 64 << 20)   # per-PE bytes
+L2_BYTES = 50e6
+
+
+def _moved_bytes(s, cube) -> float:
+    """A sample's moved bytes over all PEs: a PE<->PE flow's per-PE ICI +
+    DCN bytes x the cube's PEs; a rooted flow's bytes are the host value's
+    already."""
+    from repro_torch.tuning.microbench import PE_PRIMITIVES
+    n = cube.ndev if s.primitive in PE_PRIMITIVES else 1
+    return (s.ici_bytes + s.dcn_bytes) * n
+
+
+def _auto_checks(cube, prof, dev) -> list:
+    """Under the installed profile, ``auto`` on each PE primitive at two
+    sizes dispatches the flow the planner names, bit-identical to that
+    flow on an integer payload."""
+    from repro_torch.core import planner
+    from repro_torch.core.comm import CommTrace
+    out = []
+    sel = cube.dim_names
+    comm = cube.comm(sel)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for nbytes in (64 << 10, 16 << 20):
+        n = nbytes // 4 // comm.group_size * comm.group_size
+        x = torch.randint(-4, 5, cube.dim_sizes + (n,), generator=gen,
+                          device=dev).float()
+        calls = {
+            "all_reduce": lambda a: comm.all_reduce(x, algorithm=a),
+            "all_gather": lambda a: comm.all_gather(x, axis=0, algorithm=a),
+            "reduce_scatter": lambda a: comm.reduce_scatter(
+                x, axis=0, algorithm=a),
+            "all_to_all": lambda a: comm.all_to_all(
+                x, split_axis=0, concat_axis=0, algorithm=a)}
+        for prim, call in calls.items():
+            with planner.install_profile(prof):
+                est = planner.plan(cube, prim, sel, 4 * n)
+                if est.algorithm == "direct":
+                    named = comm._resolve_flow(prim, "pidcomm", 4 * n)[0]
+                else:
+                    named = est.algorithm
+                with CommTrace() as tr:
+                    got = call(None)
+            want = call(named)
+            out.append({"primitive": prim, "bytes": 4 * n,
+                        "pick": est.algorithm, "flow": tr.events[0].flow,
+                        "named": named, "seconds": est.seconds,
+                        "ok": (tr.events[0].flow == named
+                               and est.est_source == "measured"
+                               and torch.equal(got, want))})
+    return out
+
+
+def _picks(cube, prof, samples) -> list:
+    """Per primitive, selection and size: the planner's pick under the
+    profile, the measured fastest candidate, and the ratio of their
+    measured times (reported, not gated)."""
+    from repro_torch.core import planner
+    cells = {}
+    for s in samples:
+        cells.setdefault((s.primitive, s.bitmap, s.nbytes), []).append(s)
+    out = []
+    for (prim, bitmap, nbytes), cell in sorted(cells.items()):
+        dims = cube.dims_from_bitmap(bitmap)
+        pick = planner.plan(cube, prim, dims, nbytes, profile=prof)
+        fastest = min(cell, key=lambda s: s.seconds)
+        mine = [s for s in cell if s.algorithm == pick.algorithm]
+        out.append({"primitive": prim, "bitmap": bitmap, "bytes": nbytes,
+                    "pick": pick.algorithm, "fastest": fastest.algorithm,
+                    "pick_over_fastest": (mine[0].seconds / fastest.seconds
+                                          if mine else None)})
+    return out
+
+
+def _grad_sync_drift(dev, tuner) -> dict:
+    """qwen3-1.7b's grad-sync program at tp 8 (one all_reduce of each
+    parameter replicated over tp, recorded as ``sync_replicated_grads``
+    records it, on random gradients), tuned on its own cube, planned under
+    the profile, executed, and its planned seconds against the measured
+    (the DriftMonitor ratio)."""
+    from repro_torch import configs
+    from repro_torch.core import planner
+    from repro_torch.models.params import leaves, param_defs
+    from repro_torch.models.topology import build_topology
+    from repro_torch.runtime.trainer import replication_dims
+    from repro_torch.telemetry.drift import DriftMonitor
+    from repro_torch.tuning import microbench
+    cfg = dataclasses.replace(configs.get(ARCH), tp=8)
+    topo = build_topology(cfg, 8)
+    cube = topo.cube
+    prof = tuner.tune(cube, sizes=TUNE_SIZES, primitives=("all_reduce",))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    grads = []
+    for _, d in leaves(param_defs(cfg, topo)):
+        dims = replication_dims(d.spec, cube)
+        if dims:
+            grads.append((cube.comm(dims), torch.randn(
+                cube.dim_sizes + cube.local_shape(d.shape, d.spec),
+                generator=gen, device=dev)))
+    prog = cube.program(name="grad-sync")
+    with prog:
+        prog.output(*(c.all_reduce(g) for c, g in grads))
+    with planner.install_profile(prof):
+        lowered = prog.lower()
+    measured = microbench.measure_program(lowered, (), device=dev)
+    mon = DriftMonitor()
+    mon.observe_plan(lowered.plan, measured)
+    return {"leaves": len(grads),
+            "bytes": sum(g.numel() * 4 for _, g in grads) // cube.ndev,
+            "ops": len(lowered.ops), "est_source": lowered.plan.est_source,
+            "planned_s": lowered.plan.seconds,
+            "serial_s": lowered.plan.serial_seconds, "measured_s": measured,
+            "drift_medians": {"/".join(k): v
+                              for k, v in mon.medians().items()},
+            "ok": lowered.plan.seconds is not None and bool(mon.medians())}
+
+
+def phase_tune(dev) -> dict:
+    """The tuner on the card: ``Tuner.tune`` of three cubes over TUNE_SIZES,
+    the fitted models, the planner's picks against the measured fastest,
+    and the gates of the module docstring."""
+    import shutil
+    from repro_torch.core.hypercube import Hypercube
+    from repro_torch.kernels.reorder import reorder
+    from repro_torch.tuning import CommProfile, ProfileMismatchError, Tuner
+    cache = ROOT / "build" / "tuning"
+    shutil.rmtree(cache, ignore_errors=True)
+    tuner = Tuner(cache, device=dev)
+    cubes, out, ok = {}, {}, True
+    reps, warmup = 5, 2
+    for name, dims, pods, sels in TUNE_CUBES:
+        cube = cubes[name] = Hypercube.build(dims, pods=pods)
+        a2a = []
+
+        def progress(prim, sel, nbytes, cell, a2a=a2a):
+            if prim == "all_to_all":
+                a2a.append((sel, nbytes, reorder.LAUNCHES, [
+                    s.stage for s in cell]))
+
+        reorder.LAUNCHES = 0
+        t0 = time.perf_counter()
+        prof = tuner.tune(cube, sizes=TUNE_SIZES, dims=sels, reps=reps,
+                          warmup=warmup, progress=progress)
+        tune_s = time.perf_counter() - t0
+        # reorder launches of each all_to_all cell: one a call of its cm
+        # (and pr) flows, warmup + reps calls a flow
+        launches, prev = [], 0
+        for sel, nbytes, count, stages in a2a:
+            want = (warmup + reps) * sum(st in ("cm", "pr") for st in stages)
+            launches.append({"dims": "x".join(sel), "bytes": nbytes,
+                             "launches": count - prev, "expected": want})
+            prev = count
+        big = [(s, _moved_bytes(s, cube) / s.seconds) for s in prof.samples
+               if _moved_bytes(s, cube) > 4 * L2_BYTES]
+        fastest = max(big, key=lambda t: t[1]) if big else (None, 0.0)
+        checks = {
+            "reorder_launches_exact": all(c["launches"] == c["expected"]
+                                          for c in launches),
+            "no_rate_over_hbm": all(r <= HBM_BYTES_PER_S for _, r in big),
+            "auto": _auto_checks(cube, prof, dev)}
+        reloaded = tuner.load(cube)
+        checks["reload_equal"] = reloaded.to_json() == prof.to_json()
+        other = cubes.get("ring8") if name != "ring8" else \
+            Hypercube.build({"d": 4})
+        try:
+            CommProfile.load(tuner.profile_path(cube), cube=other,
+                             device=dev)
+            checks["refused_elsewhere"] = False
+        except ProfileMismatchError:
+            checks["refused_elsewhere"] = True
+        cube_ok = (checks["reorder_launches_exact"]
+                   and checks["no_rate_over_hbm"]
+                   and all(c["ok"] for c in checks["auto"])
+                   and checks["reload_equal"] and checks["refused_elsewhere"])
+        ok &= cube_ok
+        out[name] = {
+            "ok": cube_ok, "cube": cube.describe(), "tune_s": tune_s,
+            "samples": len(prof.samples),
+            "models": {k: {"alpha_us": m.alpha * 1e6,
+                           "GB_per_s": (1e-9 / m.beta if m.beta > 0
+                                        else None),
+                           "r2": m.r2, "n": m.n}
+                       for k, m in sorted(prof.models.items())},
+            "overlap": {k: m.factor for k, m in prof.overlap.items()},
+            "picks": (picks := _picks(cube, prof, prof.samples)),
+            "picks_summary": {
+                "cells": len(picks),
+                "pick_is_fastest": sum(p["pick"] == p["fastest"]
+                                       for p in picks),
+                "max_ratio": max(p["pick_over_fastest"] or 1.0
+                                 for p in picks)},
+            "a2a_reorder_launches": launches,
+            "fastest_big_cell": None if fastest[0] is None else {
+                "primitive": fastest[0].primitive,
+                "algorithm": fastest[0].algorithm,
+                "bytes": fastest[0].nbytes, "rate_B_per_s": fastest[1]},
+            **{k: v for k, v in checks.items() if k != "auto"},
+            "auto": checks["auto"]}
+    # select through its fallback: a cube never tuned has no fit
+    ring4 = Hypercube.build({"d": 4})
+    before = os.path.exists(tuner.profile_path(ring4))
+    pick = tuner.select("all_reduce", 1 << 20, ring4.comm("d"))
+    grown = len(CommProfile.load(tuner.profile_path(ring4)).samples)
+    out["select_fallback"] = {"pick": pick, "profile_existed": before,
+                              "samples_after": grown,
+                              "ok": not before and grown > 0}
+    out["grad_sync"] = _grad_sync_drift(dev, tuner)
+    ok &= out["select_fallback"]["ok"] and out["grad_sync"]["ok"]
+    return {"ok": ok, "sizes": list(TUNE_SIZES), "cubes": out,
+            "reorder_launches": sum(
+                c["launches"] for name, *_ in TUNE_CUBES
+                for c in out[name]["a2a_reorder_launches"])}
 
 
 # -------------------------------------------------------------------- RWKV
@@ -3001,15 +3534,19 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
                         "library_output_only": kw["partial"], **b})
     reorder = _reorder_main_path(kept_reorder, f"decode/{PES[-1]}pe")
     dlrm = _reorder_main_path(kept_reorder, "dlrm_aa_xyz", redraw=True)
+    reshard = _reorder_main_path(kept_reorder,
+                                 f"prefill{PREFILL_LONG}/{PES[-1]}pe")
     rwkv = _rwkv6_main_path(kept_rwkv6)
     bwd = [_flash_bwd_main_path(name, *kept_bwd[name])
            for name in sorted(kept_bwd)]
     return {"ok": (worst_ok and reorder["exact"] and dlrm["exact"]
+                   and reshard["exact"]
                    and len(rwkv) == 4 and all(t["ok"] for t in rwkv)
                    and f"ring_hop/{FUSED_PES}pe" in kept
                    and len(bwd) == len(TRAIN_LAYOUTS)
                    and all(t["ok"] for t in bwd)),
             "main_path": timings, "reorder": reorder, "reorder_dlrm": dlrm,
+            "reorder_prefill": reshard,
             "rwkv6": rwkv, "flash_backward": bwd}
 
 
@@ -3198,7 +3735,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     results, failed, kept, kept_reorder, kept_rwkv6 = {}, [], {}, {}, {}
-    kept_bwd = {}
+    kept_bwd, moe_sort = {}, {}
     for name, fn in (("build", lambda: phase_build()),
                      ("no_spills", lambda: {
                          "ok": not results["build"]["spilling"],
@@ -3207,24 +3744,29 @@ def main() -> int:
                      ("comm", lambda: phase_comm(dev)),
                      ("serve", lambda: phase_serve(dev, kept)),
                      ("serve_f32", lambda: phase_serve_f32(dev)),
-                     ("serve_moe", lambda: phase_serve_moe(dev, kept,
-                                                           kept_reorder)),
+                     ("serve_moe", lambda: phase_serve_moe(
+                         dev, kept, kept_reorder, moe_sort)),
                      ("serve_moe_f32", lambda: phase_serve_moe_f32(dev)),
                      ("serve_rwkv", lambda: phase_serve_rwkv(dev,
                                                              kept_rwkv6)),
                      ("serve_rwkv_f32", lambda: phase_serve_rwkv_f32(dev)),
                      ("serve_dense", lambda: phase_serve_dense(dev, kept)),
                      ("serve_dense_f32", lambda: phase_serve_dense_f32(dev)),
+                     ("serve_prefill", lambda: phase_serve_prefill(
+                         dev, kept, kept_reorder, moe_sort)),
                      ("serve_engine", lambda: phase_serve_engine(dev, kept)),
                      ("apps", lambda: phase_apps(dev, kept_reorder)),
+                     ("tune", lambda: phase_tune(dev)),
                      ("fused_forward", lambda: phase_fused_forward(dev,
                                                                    kept)),
                      ("train", lambda: phase_train(dev, kept, kept_bwd)),
                      ("main_path", lambda: phase_main_path(
                          kept, kept_reorder, kept_rwkv6, kept_bwd))):
-        needs = (("serve", "serve_moe", "serve_rwkv", "serve_dense", "apps",
-                  "fused_forward", "train")
-                 if name == "main_path" else ("build",))
+        needs = {"main_path": ("serve", "serve_moe", "serve_rwkv",
+                               "serve_dense", "serve_prefill", "apps",
+                               "fused_forward", "train"),
+                 "serve_prefill": ("build", "serve_moe")}.get(name,
+                                                             ("build",))
         missing = [n for n in needs if n in failed]
         if name != "build" and missing:
             failed.append(name)
@@ -3252,11 +3794,12 @@ def main() -> int:
     dense_res = results["serve_dense"]["archs"]
     engine_res = results["serve_engine"]
     fused_res, apps_res = results["fused_forward"], results["apps"]
-    train_res = results["train"]
+    train_res, prefill_res = results["train"], results["serve_prefill"]
+    tune_res = results["tune"]
     # the flash headline: the main-path row that fares worst against SDPA
     head = max(kern["main_path"], key=lambda t: t["ms"] / t["library_ms"])
     swz = kern["reorder"]
-    reorder_rows = (swz, kern["reorder_dlrm"])
+    reorder_rows = (swz, kern["reorder_dlrm"], kern["reorder_prefill"])
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
@@ -3264,7 +3807,8 @@ def main() -> int:
                      + results["serve_dense"]["flash_launches"]
                      + engine_res["flash_launches"]
                      + fused_res["flash_launches"]
-                     + train_res["flash_launches"]),
+                     + train_res["flash_launches"]
+                     + prefill_res["flash_launches"]),
         "launches_by_path": {ARCH: serve_res["flash_launches"],
                              MOE_ARCH: moe_res["flash_launches"],
                              **{a: dense_res[a]["flash_launches"]
@@ -3273,7 +3817,8 @@ def main() -> int:
                                  engine_res["flash_launches"],
                              f"{ARCH}/fused_forward":
                                  fused_res["flash_launches"],
-                             f"{ARCH}/train": train_res["flash_launches"]},
+                             f"{ARCH}/train": train_res["flash_launches"],
+                             "serve_prefill": prefill_res["flash_launches"]},
         "max_abs_err": max(t["max_abs_err"] for t in kern["main_path"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3288,10 +3833,14 @@ def main() -> int:
         "name": "tile_swizzle", "route": "cuda", "source": REORDER_SOURCE,
         "replaces": REORDER_TPU_KERNEL,
         "launches": (moe_res["reorder_launches"]
-                     + apps_res["dlrm_reorder_launches"]),
+                     + apps_res["dlrm_reorder_launches"]
+                     + prefill_res["reorder_launches"]
+                     + tune_res["reorder_launches"]),
         "launches_by_path": {MOE_ARCH: moe_res["reorder_launches"],
                              "dlrm/pidcomm":
-                                 apps_res["dlrm_reorder_launches"]},
+                                 apps_res["dlrm_reorder_launches"],
+                             "serve_prefill": prefill_res["reorder_launches"],
+                             "tune": tune_res["reorder_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in reorder_rows),
         "ms": swz["ms"],
         "plain_ms": swz["plain_ms"], "bound_ms": swz["bound_ms"],

@@ -27,9 +27,11 @@ a distinct data movement:
           in the cube layout an all_to_all over a group, across all its
           instances, is one permutation of contiguous blocks.
 
-``algorithm="auto"`` dispatches the planner's pick; the pick is cached per
-(primitive, request, payload bytes, op) on the communicator, so eager decode
-loops do not re-plan every step. Every dispatch appends a :class:`CommEvent`
+``algorithm="auto"`` dispatches the planner's pick (priced from an
+installed measured profile, ``repro_torch.tuning``, where there is one);
+the pick is cached per (primitive, request, payload bytes, op, installed
+profile) on the communicator, so eager decode loops do not re-plan every
+step and a newly installed profile re-plans. Every dispatch appends a :class:`CommEvent`
 to any active :class:`CommTrace`.
 
 The rooted four (scatter / gather / reduce / broadcast) move data between
@@ -90,6 +92,9 @@ _REDUCERS = {
 # candidates drop out of the race past the same size. Tunable by
 # monkeypatching.
 _LADDER_MAX = 32
+
+# planner picks that run as the registry flow of the same name
+_PRICED_FLOWS = ("ring_fused", "ag_prologue", "rs_epilogue", "compressed")
 
 
 # ============================================================ the registry
@@ -338,8 +343,14 @@ class Communicator:
     def _resolve_flow(self, primitive: str, algorithm: str,
                       payload_bytes: int, op: str = "add"):
         """Map an algorithm request onto a registry flow name. Returns
-        (flow_name, planner_estimate_or_None); cached per request."""
-        key = (primitive, algorithm, payload_bytes, op)
+        (flow_name, planner_estimate_or_None); cached per request and
+        installed profile (a profile without a content token is not
+        cached)."""
+        token = planner.profile_token()
+        if token is None:
+            return self._resolve_flow_uncached(primitive, algorithm,
+                                               payload_bytes, op)
+        key = (primitive, algorithm, payload_bytes, op, token)
         got = self._flows.get(key)
         if got is None:
             got = self._flows[key] = self._resolve_flow_uncached(
@@ -354,7 +365,15 @@ class Communicator:
             if (est.algorithm == "hierarchical" and primitive == "all_reduce"
                     and op == "add"):
                 return "hierarchical", est
+            if (est.algorithm in _PRICED_FLOWS
+                    and est.algorithm in _REGISTRY[primitive]):
+                # a measured profile priced a fused ring flow (run without
+                # a consumer or tile function: a plain ring collective) or
+                # the compressed flow cheapest: run it as it is
+                return est.algorithm, est
             if est.algorithm != "direct":
+                # the pick is not executable here (a hierarchical split of
+                # a non-additive op): the trace reports the flow that runs
                 est = None
             return self._escalate(primitive,
                                   resolve_stage(primitive, "pidcomm"),

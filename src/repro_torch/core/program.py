@@ -127,17 +127,6 @@ def clear_lower_cache() -> None:
         getattr(cube, "_lower_cache", {}).clear()
 
 
-def _profile_token() -> str | None:
-    """Cache-key component for the installed profile; None disables
-    caching entirely -- a duck-typed profile without a content ``token()``
-    has no alias-safe identity (``id()`` can be recycled after GC and
-    would silently serve a plan priced under a dead profile)."""
-    prof = planner.active_profile()
-    if prof is None:
-        return "analytic"
-    tok = getattr(prof, "token", None)
-    return tok() if callable(tok) else None
-
 # Stack of CommPrograms currently recording.  ``Communicator._dispatch``
 # consults :func:`active_program` on every call; execution temporarily
 # suspends recording so a program can be executed from inside another scope.
@@ -456,9 +445,10 @@ class CommProgram:
         ``split_all_reduce``: ``False`` never rewrites, ``True`` always
         splits an all_reduce into rs+ag (when the leading axis divides), and
         ``"cost"`` (default) splits only when the planner's estimate is
-        strictly cheaper (fewer DCN bytes, then fewer ICI bytes) -- on this
-        byte model the flat split ties the fused collective, so "cost"
-        effectively keeps the fused form.
+        strictly cheaper: fewer seconds where an installed profile prices
+        all three flows, else fewer DCN bytes, then fewer ICI bytes -- on
+        the byte model the flat split ties the fused collective, so there
+        "cost" keeps the fused form.
 
         ``merge_a2a``: merge consecutive all_to_all ops over disjoint
         hypercube dims into one jointly-planned multi-dim chain op (§VII
@@ -474,7 +464,8 @@ class CommProgram:
                 f"{self.program_id} is still recording; lower() after the "
                 "with-block closes")
         key = cache = None
-        token = _profile_token() if reuse else None
+        # None: a profile without a content token, which disables caching
+        token = planner.profile_token() if reuse else None
         if reuse and token is not None:
             cache = _cube_lower_cache(self.cube)
             key = (self.structural_fingerprint(), fuse, coalesce,
@@ -678,8 +669,9 @@ def _split_all_reduce(program: CommProgram, ops: list[CommOp],
                       *, mode) -> list[CommOp]:
     """Reverse rewrite: all_reduce -> reduce_scatter + all_gather over the
     first group-divisible axis, taken when the planner strictly prefers the
-    split (or always, under ``mode=True``).  Ops created by fusion are left
-    alone."""
+    split (fewer seconds where the installed profile prices all three,
+    else fewer bytes), or always under ``mode=True``.  Ops created by
+    fusion are left alone."""
     out = []
     for o in ops:
         aval = program._avals[o.in_vids[0]]
@@ -697,8 +689,11 @@ def _split_all_reduce(program: CommProgram, ops: list[CommOp],
                                   o.comm.dims, payload)
             ag = planner.estimate(program.cube, "all_gather", o.comm.dims,
                                   payload / g)
-            eligible = ((rs.dcn_bytes + ag.dcn_bytes, rs.ici_bytes
-                         + ag.ici_bytes) < (ar.dcn_bytes, ar.ici_bytes))
+            if None in (ar.seconds, rs.seconds, ag.seconds):
+                eligible = ((rs.dcn_bytes + ag.dcn_bytes, rs.ici_bytes
+                             + ag.ici_bytes) < (ar.dcn_bytes, ar.ici_bytes))
+            else:       # all three priced by the installed profile
+                eligible = rs.seconds + ag.seconds < ar.seconds
         if not eligible:
             out.append(o)
             continue

@@ -14,11 +14,12 @@ KV cache sequence-sharded (flash-decode). Both attention sites run the flash
 kernel (``layers.chunked_attention``).
 
 Ported: attention (self, with the ``fused_comm`` routing through
-``repro_torch.kernels.collective``), the dense FFN (also fused),
-the MoE FFN with the configured ``"scatter"`` dispatch, and the RWKV6
-time-mix (its recurrence on the RWKV6 kernel, ``ssm.rwkv6_chunked``) and
-channel-mix with their decode forms. The int8 KV cache, cross-attention,
-the ``"sort"`` MoE dispatch and Mamba wait for later slices.
+``repro_torch.kernels.collective``, and prefill's K/V in the decode cache
+layout), the dense FFN (also fused), the MoE FFN with both dispatches
+(``"scatter"`` and ``"sort"``), and the RWKV6 time-mix (its recurrence on
+the RWKV6 kernel, ``ssm.rwkv6_chunked``) and channel-mix with their decode
+forms. The int8 KV cache, cross-attention and Mamba wait for later
+slices.
 """
 from __future__ import annotations
 
@@ -54,7 +55,9 @@ def gather_params(w: dict, specs: dict, topo: Topology,
 # ---------------------------------------------------------------- attention
 def _split_qkv(cfg: ModelConfig, topo: Topology, hn_q, hn_kv, w):
     """Project and reshape q/k/v with GQA head bookkeeping. Returns
-    q: (*cube, B, Sq, Hl, hd), k, v: (*cube, B, Sk, KVl, hd)."""
+    q: (*cube, B, Sq, Hl, hd), k, v: (*cube, B, Sk, KVl, hd), and every KV
+    head's (k, v) (*cube, B, Sk, KV, hd) where the heads are replicated
+    over tp (None where they are sharded)."""
     cn = topo.cube.ndim
     cube = topo.cube.dim_sizes
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -69,7 +72,7 @@ def _split_qkv(cfg: ModelConfig, topo: Topology, hn_q, hn_kv, w):
     Sk = kvp.shape[cn + 1]
     if kv_is_sharded(cfg, topo):
         kv = kvp.reshape(cube + (B, Sk, KV // t, 2, hd))
-        k, v = kv[..., 0, :], kv[..., 1, :]
+        return q, kv[..., 0, :], kv[..., 1, :], None
     else:
         kv = kvp.reshape(cube + (B, Sk, KV, 2, hd))
         kf, vf = kv[..., 0, :], kv[..., 1, :]
@@ -83,11 +86,12 @@ def _split_qkv(cfg: ModelConfig, topo: Topology, hn_q, hn_kv, w):
             lo = (me * Hl) // G
         k = pe_slice(kf, lo, cnt, 2, cn)
         v = pe_slice(vf, lo, cnt, 2, cn)
-    return q, k, v
+    return q, k, v, (kf, vf)
 
 
 def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
-               window: int, causal: bool = True):
+               window: int, causal: bool = True, out_cache: bool = False,
+               prompt_len: int = 0, cache_len: int = 0):
     """Sequence-parallel attention block. x_sp: (*cube, B, S_sp, D).
 
     ``cfg.fused_comm`` reroutes the collectives through
@@ -95,10 +99,15 @@ def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
     pre-attention norm into its ring, the context-parallel full-sequence
     gather is replaced by ring attention (kv blocks rotate over the cp ring,
     each hop on the flash kernel's partial form), and the out-projection's
-    reduce_scatter becomes a lazy-tile matmul epilogue."""
+    reduce_scatter becomes a lazy-tile matmul epilogue.
+
+    ``out_cache`` (prefill; the unfused path) also returns the K/V of the
+    first ``prompt_len`` positions in the decode cache's layout
+    (``_decode_cache_kv``): ``cache_len`` slots sequence-sharded over tp,
+    every KV head on every PE."""
     cn = topo.cube.ndim
     tpc = topo.comm(topo.tp)
-    fused = cfg.fused_comm
+    fused = cfg.fused_comm and not out_cache
     if fused:
         from repro_torch.kernels.collective import (
             all_gather_matmul, matmul_reduce_scatter, ring_attention)
@@ -116,7 +125,7 @@ def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
             kv_src = rms_norm(full, w["ln"], cfg.norm_eps)
         else:
             kv_src = hn
-    q, k, v = _split_qkv(cfg, topo, hn, kv_src, w)
+    q, k, v, kv_all = _split_qkv(cfg, topo, hn, kv_src, w)
     B, Sq = q.shape[cn], q.shape[cn + 1]
     if cfg.qk_norm:
         q = rms_norm(q, w["q_norm"], cfg.norm_eps)
@@ -142,7 +151,50 @@ def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
     else:
         out = cube_matmul(o, w["wo"], cn)                     # partial over tp
         out = tpc.reduce_scatter(out, axis=1)
-    return x_sp + out
+    y = x_sp + out
+    if not out_cache:
+        return y
+    if kv_all is not None:
+        # replicated heads: every PE has computed all of them
+        k, v = kv_all
+        if cfg.qk_norm:
+            k = rms_norm(k, w["k_norm"], cfg.norm_eps)
+        k = rope(k, torch.arange(k.shape[cn + 1], device=dev),
+                 cfg.rope_theta)
+    return y, _decode_cache_kv(cfg, topo, k, v, prompt_len, cache_len)
+
+
+def _cache_slots(kv, S: int, S_cache: int, cn: int):
+    """The decode cache's slots from the keys of positions 0..S-1 (payload
+    axis 1 of kv): slot s holds the latest position p < S with p % S_cache
+    == s (the rolling rule; p itself when S <= S_cache), zeros where there
+    is none."""
+    kv = kv.narrow(cn + 1, 0, S)
+    if S <= S_cache:
+        pad = list(kv.shape)
+        pad[cn + 1] = S_cache - S
+        return torch.cat((kv, kv.new_zeros(pad)), dim=cn + 1)
+    tail = kv.narrow(cn + 1, S - S_cache, S_cache)
+    return torch.roll(tail, (S - S_cache) % S_cache, dims=cn + 1)
+
+
+def _decode_cache_kv(cfg, topo, k, v, S: int, S_cache: int):
+    """Prompt K/V (*cube, B, S_pad, KVl, hd), every position of the
+    sequence on every PE, into the decode cache's layout: (*cube, B,
+    S_cache / |tp|, KV, hd) each, slots sequence-sharded over tp with every
+    KV head. Where the heads are sharded over tp, one all_to_all of K and
+    V stacked splits the slots and concatenates the heads (the reorder
+    kernel on the card); where they are replicated (KV < tp, or KV not a
+    multiple of tp) every PE holds them all and slices its slots."""
+    cn = topo.cube.ndim
+    kv = _cache_slots(torch.stack((k, v), dim=cn + 2), S, S_cache, cn)
+    if kv_is_sharded(cfg, topo):
+        kv = topo.comm(topo.tp).all_to_all(kv, split_axis=1, concat_axis=3)
+    else:
+        S_loc = S_cache // topo.tp_size
+        me = topo.axis_index(topo.tp, kv.device)
+        kv = pe_slice(kv, me * S_loc, S_loc, 1, cn)
+    return kv.select(cn + 2, 0), kv.select(cn + 2, 1)
 
 
 def _write_slots(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
@@ -276,27 +328,59 @@ def _route(cfg, hn2d, router, cn: int):
     return topi, topv.to(hn2d.dtype), probs
 
 
-def _expert_ffn(cfg, topo, w, h2, topi, topv, C: int):
-    """Scatter dispatch into (Ep, C) slots, AlltoAll over ep, the local
-    experts, AlltoAll back, and the weighted combine. h2: (*cube, T, D);
-    topi/topv: (*cube, T, k). A choice past its expert's capacity ``C`` is
-    dropped (one-hot cumsum slots, the JAX package's "scatter" dispatch).
-    Returns (*cube, T, D)."""
+def _sort_dispatch(h2, flat_e, Ep: int, C: int, k: int):
+    """The "sort" dispatch (PE-assisted reordering, paper §V-A1): a stable
+    argsort of the (token, choice) pairs by expert, each expert's segment
+    start, and the (Ep, C) buffer built by one gather of the segments'
+    first C choices. h2: (n, T, D); flat_e: (n, T * k). Returns (the
+    buffer (n, Ep * C, D), each choice's rank in its expert's segment)."""
+    n, Tk = flat_e.shape
+    D = h2.shape[-1]
+    dev = flat_e.device
+    order = torch.sort(flat_e, dim=1, stable=True).indices
+    sorted_e = flat_e.gather(1, order)
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(Ep, device=dev).expand(n, Ep).contiguous())
+    ends = torch.cat((starts[:, 1:], starts.new_full((n, 1), Tk)), dim=1)
+    slot_idx = starts[..., None] + torch.arange(C, device=dev)  # (n, Ep, C)
+    in_seg = (slot_idx < ends[..., None]).reshape(n, Ep * C)
+    src = order.gather(1, slot_idx.clamp(max=Tk - 1).reshape(n, Ep * C))
+    rows = h2.gather(1, (src // k)[..., None].expand(n, Ep * C, D))
+    disp = torch.where(in_seg[..., None], rows, torch.zeros_like(rows))
+    rank = torch.empty_like(flat_e)
+    rank.scatter_(1, order, torch.arange(Tk, device=dev).expand(n, Tk)
+                  - starts.gather(1, sorted_e))
+    return disp, rank
+
+
+def _expert_ffn(cfg, topo, w, h2, topi, topv, C: int, sort: bool = False):
+    """Dispatch into (Ep, C) slots, AlltoAll over ep, the local experts,
+    AlltoAll back, and the weighted combine. h2: (*cube, T, D); topi/topv:
+    (*cube, T, k). A choice past its expert's capacity ``C`` is dropped:
+    both dispatches rank a choice by token order within its expert, the
+    "scatter" one by one-hot cumsum slots, the "sort" one
+    (``_sort_dispatch``) by its place in the sorted order, so they drop
+    the same choices and build the same buffer. Returns (*cube, T, D)."""
     cn = topo.cube.ndim
     lead = tuple(h2.shape[:cn])
     n = math.prod(lead)
     T, D = h2.shape[cn:]
     k, Ep = cfg.top_k, cfg.n_experts_padded
     flat_e = topi.reshape(n, T * k)
-    oh = F.one_hot(flat_e, Ep)
-    pos = (oh.cumsum(1) - oh).gather(2, flat_e[..., None])[..., 0]
-    keep = pos < C
-    # kept choices own distinct slots; dropped ones land in a spare row
-    slot = torch.where(keep, flat_e * C + pos, Ep * C)
-    disp = h2.new_zeros((n, Ep * C + 1, D))
-    disp.scatter_(1, slot[..., None].expand(n, T * k, D),
-                  h2.reshape(n, T, D).repeat_interleave(k, dim=1))
-    disp = disp[:, :Ep * C].reshape(lead + (Ep, C, D))
+    if sort:
+        disp, pos = _sort_dispatch(h2.reshape(n, T, D), flat_e, Ep, C, k)
+        keep = pos < C
+    else:
+        oh = F.one_hot(flat_e, Ep)
+        pos = (oh.cumsum(1) - oh).gather(2, flat_e[..., None])[..., 0]
+        keep = pos < C
+        # kept choices own distinct slots; dropped ones land in a spare row
+        slot = torch.where(keep, flat_e * C + pos, Ep * C)
+        disp = h2.new_zeros((n, Ep * C + 1, D))
+        disp.scatter_(1, slot[..., None].expand(n, T * k, D),
+                      h2.reshape(n, T, D).repeat_interleave(k, dim=1))
+        disp = disp[:, :Ep * C]
+    disp = disp.reshape(lead + (Ep, C, D))
 
     epc = topo.comm(topo.ep)
     # (Ep, C, D) -> (E_loc, ep * C, D): my experts' slots from every source
@@ -320,12 +404,10 @@ def _expert_ffn(cfg, topo, w, h2, topi, topv, C: int):
 
 def moe_ffn(cfg, topo, w, x_sp):
     """Expert-parallel MoE over the sequence-parallel activations
-    (*cube, B, S_sp, D), with AlltoAll dispatch. Returns (new x_sp, the
-    switch-style aux load-balance loss per PE (*cube))."""
-    if cfg.moe_dispatch != "scatter":
-        raise NotImplementedError(
-            f"moe_dispatch={cfg.moe_dispatch!r} is not ported to repro_torch "
-            "yet (ported: 'scatter')")
+    (*cube, B, S_sp, D), with AlltoAll dispatch (``cfg.moe_dispatch``:
+    "sort" sorts the choices by expert, anything else scatters them, as in
+    the JAX package). Returns (new x_sp, the switch-style aux load-balance
+    loss per PE (*cube))."""
     cn = topo.cube.ndim
     lead = tuple(x_sp.shape[:cn])
     etp_size = topo.size(topo.etp)
@@ -346,7 +428,8 @@ def moe_ffn(cfg, topo, w, x_sp):
     aux = ne * (pe * (fe.float() / (T * cfg.top_k))).sum(-1)
 
     C = int(math.ceil(T * cfg.top_k / Ep * cfg.capacity_factor))
-    out = _expert_ffn(cfg, topo, w, h2, topi, topv, C).reshape(
+    out = _expert_ffn(cfg, topo, w, h2, topi, topv, C,
+                      sort=cfg.moe_dispatch == "sort").reshape(
         lead + (B, S_e, D))
     if cfg.n_shared_experts:
         out = out + _swiglu(cn, hn, w["ws_g"], w["ws_u"], w["ws_d"])

@@ -9,11 +9,13 @@ all-reduces over the cache axes.
 
 Ported: the bf16 (compute-dtype) attention cache and ``decode_shard`` for
 attention layers with dense or MoE FFNs; the RWKV6 cache (f32 state
-sharded over tp, compute-dtype token shifts), its decode and
-``prefill_shard`` for RWKV6 layers, whose cache drops straight into
-``decode_shard``. The int8 cache, Mamba states and the prefill of
-attention layers (an sp-sharded K/V that the decode layout does not take
-without a reshard) wait for later slices.
+sharded over tp, compute-dtype token shifts) and its decode; and
+``prefill_shard`` for both, whose cache drops straight into
+``decode_shard``: the JAX package's prefill leaves each PE its sequence
+slice of its own KV heads, which the decode layout cannot be rebuilt from,
+so the port reshards the prompt's K/V into the decode layout inside the
+attention block (``blocks._decode_cache_kv``: one all_to_all over tp). The
+int8 cache and Mamba states wait for later slices.
 """
 from __future__ import annotations
 
@@ -164,39 +166,72 @@ class Server:
     # ------------------------------------------------------------- prefill
     def prefill_shard(self, params, batch):
         """Forward over the whole prompt, batch["tokens"] (*cube, B_l, S)
-        with S splitting over the sequence-parallel axes. Returns (the last
-        position's logits (*cube, B_l, V_local) f32, the decode cache of the
-        prompt as cube tensors, stacked over units like ``init_cache``'s).
+        laid out over the plan's batch axes. Returns (the last position's
+        logits (*cube, B_l, V_local) f32, the decode cache of the prompt:
+        ``init_cache``'s layout and dtypes, so ``decode_shard`` takes it as
+        it is, at positions from S on).
 
         The JAX package runs prefill on a training-style topology; here the
-        serve topology is that cube (tp = PEs, no cp), so the cache drops
-        straight into ``decode_shard``. Ported for RWKV6 layers: the
-        recurrence's final state (one kernel launch per layer) and the
-        token shifts. Attention layers raise."""
-        cfg, topo = self.cfg, self.topo
+        serve topology is that cube (tp = PEs, no cp). An attention layer's
+        cache holds the prompt's K/V after RoPE and k_norm, slot s the key
+        of position s (a rolling cache: the last S_cache positions, each at
+        slot position % S_cache, the slot decode's rolling rule reads).
+        A prompt that does not split over the sequence-parallel PEs is
+        padded at its end with token 0: the causal mask keeps the pad out
+        of every prompt position, the cache leaves it out, and an MoE layer
+        routes it like any token (an RWKV6 prompt must split: its state
+        would take the pad in). RWKV6 layers keep the recurrence's final
+        state (one kernel launch per layer) and the token shifts."""
+        cfg, topo, plan = self.cfg, self.topo, self.plan
         m = self.model
         cn = topo.cube.ndim
-        if set(m.mixers) != {RWKV}:
-            raise NotImplementedError(
-                f"{cfg.name}: prefill of attention layers (an sp-sharded "
-                "K/V cache) is not ported to repro_torch yet")
-        x_sp = m.embed_input(params, batch)
+        tokens = batch["tokens"]
+        S = tokens.shape[cn + 1]
+        rolling = plan.S_cache < plan.S_ctx
+        if ATTN in m.mixers and S > plan.S_cache and not rolling:
+            raise ValueError(
+                f"{cfg.name}: a prompt of {S} tokens does not fit the "
+                f"decode cache's {plan.S_cache} positions (S_ctx "
+                f"{plan.S_ctx}); serve it with a plan whose S_ctx holds the "
+                "prompt and the tokens to generate")
+        sp = topo.size(topo.sp)
+        pad = -S % sp
+        if pad and RWKV in m.mixers:
+            raise ValueError(
+                f"{cfg.name}: a prompt of {S} tokens does not split over the "
+                f"{sp} sequence-parallel PEs, and a pad would run through "
+                "the RWKV6 recurrence into its final state")
+        if pad:
+            tokens = torch.cat((tokens, tokens.new_zeros(
+                tokens.shape[:cn + 1] + (pad,))), dim=cn + 1)
+        x_sp = m.embed_input(params, {"tokens": tokens})
         parts = {f"p{p}": {} for p in range(m.unit)}
         for u in range(m.n_units):
             for p in range(m.unit):
                 key = f"p{p}"
                 w = blocks.gather_params(m.unit_params(params, u, p),
                                          m.unit_specs[key], topo, self.dtype)
-                x_sp, (state, shift) = blocks.rwkv_mix(cfg, topo, w, x_sp,
-                                                       out_cache=True)
-                x_sp, cm_shift = blocks.rwkv_channel_mix(cfg, topo, w, x_sp,
-                                                         out_cache=True)
-                for k, t in (("state", state), ("shift", shift),
-                             ("cm_shift", cm_shift)):
+                c = {}
+                if m.mixers[p] == RWKV:
+                    x_sp, (c["state"], c["shift"]) = blocks.rwkv_mix(
+                        cfg, topo, w, x_sp, out_cache=True)
+                else:
+                    x_sp, (c["k"], c["v"]) = blocks.attn_block(
+                        cfg, topo, w, x_sp, window=int(m.windows[u, p]),
+                        out_cache=True, prompt_len=S,
+                        cache_len=plan.S_cache)
+                if m.ffns[p] == MOE:
+                    x_sp, _ = blocks.moe_ffn(cfg, topo, w, x_sp)
+                elif m.ffns[p] == RWKVCM:
+                    x_sp, c["cm_shift"] = blocks.rwkv_channel_mix(
+                        cfg, topo, w, x_sp, out_cache=True)
+                else:
+                    x_sp = blocks.dense_ffn(cfg, topo, w, x_sp)
+                for k, t in c.items():
                     parts[key].setdefault(k, []).append(t)
         cache = {key: {k: torch.stack(v, dim=cn) for k, v in c.items()}
                  for key, c in parts.items()}
         full = topo.comm(topo.sp).all_gather(x_sp, axis=1)
-        hn = rms_norm(full[..., -1, :], m.final_norm(params), cfg.norm_eps)
+        hn = rms_norm(full[..., S - 1, :], m.final_norm(params), cfg.norm_eps)
         logits = cube_matmul(hn, m._head(params), cn).float()
         return logits, cache

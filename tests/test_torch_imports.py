@@ -54,7 +54,9 @@ SLICE_MODULES = ["repro_torch.telemetry", "repro_torch.telemetry.metrics",
                  "repro_torch.kernels.attention.flash_bwd",
                  "repro_torch.optim.adamw", "repro_torch.data.pipeline",
                  "repro_torch.runtime.trainer", "repro_torch.runtime.overlap",
-                 "repro_torch.launch.train"]
+                 "repro_torch.launch.train", "repro_torch.tuning",
+                 "repro_torch.tuning.profile", "repro_torch.tuning.microbench",
+                 "repro_torch.tuning.tuner"]
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -268,16 +268,6 @@ def test_moe_ffn_matches_jax(f32_reference, monkeypatch, pes):
     np.testing.assert_allclose(aux.reshape(-1).numpy(), ref_aux, rtol=1e-5)
 
 
-def test_sort_dispatch_is_not_ported():
-    _, pcfg = _configs("qwen2-moe-a2.7b", 1)
-    pcfg = dataclasses.replace(pcfg, moe_dispatch="sort")
-    topo = build_topology(pcfg, 1)
-    w = _port_block_weights(pcfg, topo, _moe_weights(pcfg, 0))
-    x = topo.cube.to_cube(torch.zeros(1, 4, pcfg.d_model), (None,) * 3)
-    with pytest.raises(NotImplementedError, match="sort"):
-        blocks.moe_ffn(pcfg, topo, w, x)
-
-
 # ------------------------------------------------------------ model level
 @pytest.mark.parametrize("arch", ARCHS)
 def test_from_jax_params_carries_moe_weights(arch):

@@ -544,15 +544,6 @@ def test_prefill_then_decode_equals_teacher_forced_loop(pes):
                                   torch.stack(ref_tokens, 1).numpy())
 
 
-def test_prefill_of_attention_layers_is_not_ported():
-    cfg = configs.get("qwen3-1.7b").scaled_for_smoke()
-    topo = build_serve_topology(cfg, 1)
-    plan = make_serve_plan(cfg, topo, S_ctx=8, global_batch=1)
-    with pytest.raises(NotImplementedError, match="prefill"):
-        Server(cfg, topo, plan).prefill_shard(
-            {}, {"tokens": torch.zeros((1, 1, 4), dtype=torch.int64)})
-
-
 def test_from_jax_params_carries_rwkv_weights():
     jcfg, pcfg = _configs(8)
     jtopo = jax_serve_topology(jcfg, _mesh(8))
