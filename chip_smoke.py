@@ -220,6 +220,38 @@ Phases, each printed as one JSON line:
           the backward's bucket hooks (bit for bit on the synced leaves).
           The inputs of each layout's last forward and backward launch are
           kept;
+  checkpoint  ``repro_torch.checkpoint`` at qwen3-1.7b's full width and
+          depth (12.2 GB a checkpoint; the free bytes and host RAM where
+          it goes, in the checkout's build/, printed before the first save,
+          and two checkpoints must fit; keep_last=1; removed at the end).
+          At 1 PE and at tp 8 (bf16, int8 moments, 4 x 1,024 tokens from
+          TokenStream): steps 1-2 through ``Trainer`` with a topology-bound
+          async manager saving at step 2, steps 3-4 behind the write (they
+          must end before ``checkpoint-durable``; the save's blocking
+          seconds, the seconds to durable, those steps' ms and
+          ``ckpt.saved_bytes`` reported); two control runs of steps 3-4 from
+          one in-memory clone of the step-2 state; restore of step 2 (every
+          leaf bit for bit against the clone; seconds and
+          ``ckpt.restored_bytes``); steps 3-4 resumed from it with a second
+          save at step 4, whose gather programs come from the lower cache
+          (lowered 2, then 0 and 2 hits). The resumed losses and state must
+          equal the uninterrupted run's bit for bit where the controls are
+          bit-identical, else the losses within twice the controls' spread
+          (and the gradients that differ between two backwards of one state
+          are named). From the tp-8 checkpoint, params only onto the serve
+          cube at 8 and 1 PEs: every leaf ``to_cube`` of the saved global
+          arrays bit for bit, the ``ckpt-restore-params`` program traced,
+          restore's and direct init's peak memory, and ``ServeEngine``
+          lockstep on the launcher's 4 prompts (32 tokens, 16 greedy) from
+          the restored and from the directly placed weights: identical
+          tokens, 28 flash launches a step; at 8 PEs one ``prefill_shard``
+          of the prompts against the loop (the serve_prefill bound, 28
+          flash and 28 reorder launches). HF: the trained masters through
+          ``export_state_dict`` into an F32 ``model.safetensors``, read
+          back and imported onto the 8-PE serve cube by
+          ``import_checkpoint`` (the ``hf-import`` program): bit for bit but
+          the norms (1 + w in the file), within 2^-24; export, write, read
+          and import seconds;
   main_path  each kernel on the inputs the serve, serve_prefill,
           fused_forward, train and apps phases kept (the shapes and positions the path gives it; for
           DLRM's AA(xyz), whose blocks repeat across the PEs, a random
@@ -248,6 +280,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -3412,6 +3445,427 @@ def phase_train(dev, kept: dict, kept_bwd: dict) -> dict:
             "flash_launches": launches[0], "flash_bwd_launches": launches[1]}
 
 
+# -------------------------------------------------------------- checkpoint
+# qwen3-1.7b at full width and depth through repro_torch.checkpoint: train
+# at 1 PE and at tp 8 (TRAIN_LAYOUTS), save after step 2 with steps 3-4
+# behind the write, restore and resume; serve from the tp-8 checkpoint at 8
+# and 1 PEs; an HF safetensors round trip. The directory lies in the
+# checkout's build/ (ignored by git), keep_last=1, removed at the end.
+CKPT_LAYOUTS = ("1pe", "8pe")
+CKPT_SAVE_AT, CKPT_STEPS = 2, 4         # saves after steps 1 and 2
+CKPT_DIR = ROOT / "build" / "checkpoint_phase"
+# HF stores a norm as 1 + w: the round trip (w + 1) - 1 rounds once in f32,
+# by at most half an ulp of 1 + w (2^-24 for |w| < 1); other leaves are
+# bit for bit, as JAX's test_hf_roundtrip_qwen3 holds them
+CKPT_NORMS = ("ln", "fln", "q_norm", "k_norm", "final_norm")
+CKPT_NORM_TOL = 2.0 ** -24
+
+
+def _ckpt_counted(fn):
+    """``fn()`` with the flash forward, backward and reorder counts set to
+    0 just before it and read just after: (result, launches)."""
+    from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.kernels.reorder import reorder
+    flash.LAUNCHES = flash_bwd.LAUNCHES = reorder.LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"flash": flash.LAUNCHES, "flash_bwd": flash_bwd.LAUNCHES,
+                 "reorder": reorder.LAUNCHES}
+
+
+def _add(total: dict, part: dict) -> None:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _clone_tree(tree):
+    from repro_torch.checkpoint import layout
+    flat = list(layout.flatten(tree))
+    return layout.tree_from_paths([p for p, _ in flat],
+                                  [t.clone() for _, t in flat])
+
+
+def _tree_cmp(got, want) -> dict:
+    """Leaf by leaf: bit-identical, the largest |got - want|, and the leaves
+    that differ."""
+    from repro_torch.checkpoint import layout
+    differ, worst = [], 0.0
+    for (path, g), (_, w) in zip(layout.flatten(got), layout.flatten(want)):
+        if g.shape != w.shape or not torch.equal(g, w):
+            differ.append("/".join(path))
+            if g.shape == w.shape:
+                worst = max(worst, float((g.double() - w.double())
+                                         .abs().max()))
+            else:
+                worst = math.inf
+    return {"equal": not differ, "max_abs_diff": worst,
+            "differing": differ[:8], "n_differing": len(differ)}
+
+
+def _ckpt_disk(root: Path, n_bytes: int) -> dict:
+    """Free bytes where the checkpoints go and the host's RAM, printed
+    before the first save; whether two checkpoints fit."""
+    root.mkdir(parents=True, exist_ok=True)
+    usage = shutil.disk_usage(root)
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":")
+            mem[k] = int(v.split()[0]) * 1024
+    out = {"dir": str(root.relative_to(ROOT)), "free_bytes": usage.free,
+           "host_ram_bytes": mem["MemTotal"],
+           "host_ram_available_bytes": mem["MemAvailable"],
+           "checkpoint_bytes_est": n_bytes,
+           "two_checkpoints_fit": usage.free >= 2 * n_bytes}
+    print(f"checkpoint: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _ckpt_cell(dev, layout_: str, root: Path) -> tuple[dict, dict]:
+    """One layout: steps 1-2 saving after each (async, topology-bound,
+    keep_last=1; the first save lowers the gather programs, the second is
+    served from the lower cache and is the one measured, past the host's
+    first-write costs), steps 3-4 behind the second write (the
+    uninterrupted run); two control runs of steps 3-4 from one in-memory
+    clone of the step-2 state; restore of step 2 against that clone, bit
+    for bit; steps 3-4 resumed from the restored state. Returns the summary
+    and the step-2 masters as global tensors."""
+    from repro_torch import telemetry
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import program
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models.params import param_specs, to_global
+    from repro_torch.runtime.trainer import (
+        Trainer, TrainConfig, opt_specs, place_batch, resume_state)
+    tc = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100)
+    cfg, topo, masters, opt = _train_setup(dev, layout_, tc)
+    L = cfg.n_layers
+    stream = TokenStream(cfg, DataConfig(seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH,
+                                         vocab_size=cfg.vocab_size))
+    batches = [place_batch(stream.global_batch_at(s), cfg, topo, dev)
+               for s in range(CKPT_STEPS)]
+    early, late = batches[:CKPT_SAVE_AT], batches[CKPT_SAVE_AT:]
+    mgr = CheckpointManager(str(root), topo=topo, keep_last=1, device=dev,
+                            specs={"params": param_specs(cfg, topo),
+                                   "opt": opt_specs(cfg, topo, tc)})
+    saves = []
+    save = mgr.save
+
+    def counted_save(*a, **kw):
+        low = dict(program.LOWER_STATS)
+        t0 = time.perf_counter()
+        save(*a, **kw)
+        saves.append({"block_s": time.perf_counter() - t0,
+                      "lowered": program.LOWER_STATS["lowered"]
+                      - low["lowered"],
+                      "cache_hits": program.LOWER_STATS["cache_hits"]
+                      - low["cache_hits"]})
+
+    mgr.save = counted_save
+    program.clear_lower_cache()
+    launches: dict = {}
+    out = {"layout": layout_, "cube": topo.cube.describe(), "layers": L}
+
+    def run(m, o, bs, start, every=0, ckpt=None, tr=None):
+        tr = tr or Trainer(cfg, topo, tc, checkpointer=ckpt)
+        (m, o, h), n = _ckpt_counted(lambda: tr.run(
+            m, o, bs, start_step=start, checkpoint_every=every,
+            log_every=0))
+        _add(launches, n)
+        ok = n["flash"] == 2 * L * len(bs) and n["flash_bwd"] == L * len(bs)
+        return m, o, [x["loss"] for x in h], tr.step_seconds[-len(bs):], ok
+
+    # 1. train saving after steps 1 and 2, steps 3-4 behind the second
+    # write (one trainer: its loop goes on after a save as the launcher's)
+    with telemetry.Tracer() as trc, telemetry.scoped_metrics() as reg:
+        trainer = Trainer(cfg, topo, tc, checkpointer=mgr)
+        masters, opt, losses, _, ok1 = run(masters, opt, early, 0, 1,
+                                           tr=trainer)
+        snap = _clone_tree({"params": masters, "opt": opt})
+        masters, opt, ref_losses, behind_s, ok2 = run(
+            masters, opt, late, CKPT_SAVE_AT, tr=trainer)
+        mgr.wait()
+    ev = trc.finished()
+    durable = [sp.ts for sp in ev if sp.name == "checkpoint-durable"]
+    gathers = [sp for sp in ev if sp.name.startswith("checkpoint:gather:")]
+    steps = [sp for sp in ev if sp.name == "train-step"]
+    g2 = gathers[2:]                    # the measured save's two sections
+    out["save"] = {
+        "save_block_s": [sv["block_s"] for sv in saves],
+        "gather_s": [sum(g.dur for g in gathers[i:i + 2]) / 1e6
+                     for i in (0, 2)],
+        "durable_after_s": (durable[-1] - g2[0].ts) / 1e6,
+        "write_after_save_s": (durable[-1] - g2[-1].ts - g2[-1].dur) / 1e6,
+        "behind_write_step_ms": [t * 1e3 for t in behind_s],
+        "step_span_ms": [sp.dur / 1e3 for sp in steps],
+        "behind_write_steps_end_before_durable": len(durable) == 2 and all(
+            sp.ts + sp.dur < durable[-1] for sp in steps[CKPT_SAVE_AT:]),
+        "saved_bytes": reg.value("ckpt.saved_bytes"),
+        "save_seconds": reg.quantile("ckpt.save_seconds", 1.0),
+        "lowered": [sv["lowered"] for sv in saves],
+        "cache_hits": [sv["cache_hits"] for sv in saves],
+        "steps_on_disk": mgr.all_steps(), "losses": losses + ref_losses}
+    ref = {"params": masters, "opt": opt}
+
+    # 2. the control: steps 3-4 twice from one clone of the step-2 state
+    controls = []
+    for _ in range(2):
+        c = _clone_tree(snap)
+        m, o, closs, cs, okc = run(c["params"], c["opt"], late, CKPT_SAVE_AT)
+        controls.append({"losses": closs, "step_ms": [t * 1e3 for t in cs],
+                         "vs_uninterrupted": _tree_cmp(
+                             {"params": m, "opt": o}, ref), "ok": okc})
+        del c, m, o
+    deterministic = all(c["vs_uninterrupted"]["equal"]
+                        and c["losses"] == ref_losses for c in controls)
+    allowance = max([abs(a - b) for c in controls
+                     for a, b in zip(c["losses"], ref_losses)]
+                    + [abs(a - b) for a, b in zip(controls[0]["losses"],
+                                                  controls[1]["losses"])])
+    out["control"] = {"deterministic": deterministic,
+                      "loss_allowance": allowance, "runs": controls}
+    if not deterministic:
+        # which gradients differ between two backwards of one state
+        step = Trainer(cfg, topo, tc).step_fn
+        c = _clone_tree(snap)
+        l1, _, g1 = step.fwd_bwd(c["params"], late[0], overlap=step.overlap)
+        l2, _, g2 = step.fwd_bwd(c["params"], late[0], overlap=step.overlap)
+        out["control"]["repeat_backward"] = {
+            "loss_equal": bool(torch.equal(l1, l2)),
+            "grads": _tree_cmp(g1, g2)}
+        del c, g1, g2
+
+    # 3. restore step 2 onto the same topology, bit for bit
+    torch.cuda.synchronize()
+    with telemetry.scoped_metrics() as reg:
+        t0 = time.perf_counter()
+        st = mgr.restore(CKPT_SAVE_AT)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    rm, ro = resume_state(st, cfg, topo, tc)
+    del st
+    out["restore"] = {"restore_s": restore_s,
+                      "restored_bytes": reg.value("ckpt.restored_bytes"),
+                      "vs_saved": _tree_cmp({"params": rm, "opt": ro},
+                                            snap)}
+    glob = to_global(snap["params"], param_specs(cfg, topo), topo.cube)
+    del snap
+    # 4. resume steps 3-4
+    rm, ro, res_losses, res_s, ok3 = run(rm, ro, late, CKPT_SAVE_AT)
+    vs = _tree_cmp({"params": rm, "opt": ro}, ref)
+    loss_diff = max(abs(a - b) for a, b in zip(res_losses, ref_losses))
+    out["resume"] = {
+        "losses": res_losses, "uninterrupted_losses": ref_losses,
+        "max_loss_diff": loss_diff, "vs_uninterrupted": vs,
+        "step_ms": [t * 1e3 for t in res_s]}
+    held = (vs["equal"] and res_losses == ref_losses) if deterministic \
+        else loss_diff <= 2 * allowance
+    out["launches"] = launches
+    out["ok"] = bool(
+        ok1 and ok2 and ok3 and all(c["ok"] for c in controls)
+        and out["save"]["behind_write_steps_end_before_durable"]
+        and out["save"]["lowered"] == [2, 0]
+        and out["save"]["cache_hits"] == [0, 2]
+        and out["save"]["steps_on_disk"] == [CKPT_SAVE_AT]
+        and out["restore"]["vs_saved"]["equal"] and held
+        and all(np.isfinite(out["save"]["losses"] + res_losses)))
+    del masters, opt, ref, rm, ro, batches, early, late
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, glob
+
+
+def _ckpt_serve(dev, root: Path, glob: dict, pes: int) -> dict:
+    """Restore the tp-8 checkpoint's params onto the serve cube at ``pes``
+    PEs: every leaf against ``to_cube`` of the saved global arrays, bit for
+    bit; the ``ckpt-restore-params`` program in the trace; restore's and
+    direct init's peak memory; the engine's lockstep tokens from the
+    restored weights and from the globals placed directly; at 8 PEs one
+    prefill of the prompts against the loop's logits (``_prefill_vs_loop``).
+    """
+    from repro_torch import configs, telemetry
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.comm import CommTrace
+    from repro_torch.models.params import (
+        flat_leaves, init_params, param_specs, tree_map)
+    from repro_torch.models.serving import make_serve_plan
+    from repro_torch.models.topology import build_serve_topology
+    from repro_torch.serving import Request, ServeEngine
+    cfg = configs.get(ARCH)
+    topo = build_serve_topology(cfg, pes)
+    specs = param_specs(cfg, topo)
+    mgr = CheckpointManager(str(root), device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with CommTrace() as ct, telemetry.scoped_metrics() as reg:
+        t0 = time.perf_counter()
+        restored = mgr.restore_params(mgr.latest_step(), serve_topo=topo,
+                                      specs=specs)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    peak_restore = torch.cuda.max_memory_allocated(dev) - base
+    held = tree_map(lambda g, s: topo.cube.to_cube(g, s), glob, specs)
+    same = _tree_cmp(restored, held)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    init_params(cfg, topo, 0, device=dev)
+    torch.cuda.synchronize()
+    peak_init = torch.cuda.max_memory_allocated(dev) - base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plan = make_serve_plan(cfg, topo, S_ctx=PROMPT + GEN, global_batch=BATCH)
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                               (BATCH, PROMPT))
+    lock = [Request(rid=b, prompt=prompts[b].tolist(), max_new=GEN)
+            for b in range(BATCH)]
+    engines, launches = {}, {}
+    for name, params in (("restored", restored), ("direct", held)):
+        m, n = _ckpt_counted(lambda: _engine_run(
+            lambda **kw: ServeEngine(cfg, topo, plan, params,
+                                     page_size=ENGINE_PAGE, device=dev,
+                                     **kw), lock, dev=dev))
+        _add(launches, n)
+        engines[name] = {"tokens": m["tokens"], "steps": m["steps"],
+                         "flash_launches": n["flash"],
+                         "launches_ok": n["flash"]
+                         == cfg.n_layers * m["steps"],
+                         "complete": _engine_summary(
+                             m, cfg.n_layers, cfg.vocab_size, lock)
+                         ["complete"]}
+    out = {"pes": pes, "cube": topo.cube.describe(),
+           "restore_s": restore_s,
+           "restored_bytes": reg.value("ckpt.restored_bytes"),
+           "programs": sorted({str(e.program_id) for e in ct.events}),
+           "leaves": len(flat_leaves(restored)),
+           "vs_saved_global_placed": same,
+           "peak_mem_gb_restore": peak_restore / 2**30,
+           "peak_mem_gb_direct_init": peak_init / 2**30,
+           "engine": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                      for k, v in engines.items()},
+           "engine_tokens_equal": engines["restored"]["tokens"]
+           == engines["direct"]["tokens"]}
+    ok = (same["equal"] and "ckpt-restore-params" in out["programs"]
+          and out["engine_tokens_equal"]
+          and all(e["launches_ok"] and e["complete"]
+                  for e in engines.values()))
+    del held
+    if pes == PES[-1]:
+        s, _ = _prefill_vs_loop(dev, pes, torch.bfloat16, params=restored)
+        out["prefill"] = s
+        _add(launches, {"flash": s["flash_launches"]
+                        + s["flash_launches_decode"],
+                        "reorder": s["reorder_launches"]})
+        ok = ok and s["ok"]
+    out["launches"] = launches
+    out["ok"] = bool(ok)
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ckpt_hf(dev, root: Path, glob: dict) -> dict:
+    """The trained masters through ``export_state_dict`` into an F32
+    ``model.safetensors``, read back, and imported onto the 8-PE serve cube
+    through ``import_checkpoint`` (the ``hf-import`` program): bit for bit
+    but the norms, within CKPT_NORM_TOL. The file is removed."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import hf_import
+    from repro_torch.core.comm import CommTrace
+    from repro_torch.models.params import leaves, param_specs
+    from repro_torch.models.topology import build_serve_topology
+    cfg = configs.get(ARCH)
+    topo = build_serve_topology(cfg, PES[-1])
+    specs = param_specs(cfg, topo)
+    path = root / "model.safetensors"
+    t0 = time.perf_counter()
+    sd = hf_import.export_state_dict(glob, cfg)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hf_import.write_safetensors(str(path), sd)
+    write_s = time.perf_counter() - t0
+    del sd
+    file_bytes = path.stat().st_size
+    t0 = time.perf_counter()
+    back = hf_import.read_state_dict(str(path))
+    read_s = time.perf_counter() - t0
+    keys = len(back)
+    del back
+    with CommTrace() as ct:
+        t0 = time.perf_counter()
+        imported = hf_import.import_checkpoint(str(path), cfg, topo,
+                                               specs=specs, device=dev)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+    path.unlink()
+    worst_norm, differ = 0.0, []
+    for (p, got), (_, g), (_, s) in zip(leaves(imported), leaves(glob),
+                                        leaves(specs)):
+        want = topo.cube.to_cube(g, s)
+        if p[-1] in CKPT_NORMS:
+            worst_norm = max(worst_norm, float((got - want).abs().max()))
+        elif not torch.equal(got, want):
+            differ.append("/".join(p))
+    del imported
+    torch.cuda.empty_cache()
+    out = {"keys": keys, "file_bytes": file_bytes, "export_s": export_s,
+           "write_s": write_s, "read_s": read_s,
+           "import_checkpoint_s": import_s,
+           "programs": sorted({str(e.program_id) for e in ct.events}),
+           "non_norm_leaves_differing": differ,
+           "norm_max_abs_err": worst_norm, "norm_bound": CKPT_NORM_TOL}
+    out["ok"] = (not differ and worst_norm <= CKPT_NORM_TOL
+                 and out["programs"] == ["hf-import"])
+    return out
+
+
+def phase_checkpoint(dev) -> dict:
+    """Elastic checkpointing of full-width qwen3-1.7b (``_ckpt_cell`` at 1
+    PE and tp 8, ``_ckpt_serve`` from the tp-8 checkpoint at 8 and 1 PEs,
+    ``_ckpt_hf``); the kernels' launches are counted from 0 just before
+    each run and read just after. The checkpoint directory is removed."""
+    from repro_torch import configs
+    cfg = configs.get(ARCH)
+    n = cfg.param_count()
+    disk = _ckpt_disk(CKPT_DIR, 6 * n)      # f32 masters, two int8 moments
+    if not disk["two_checkpoints_fit"]:
+        return {"ok": False, "disk": disk,
+                "error": "two checkpoints do not fit where they go"}
+    out: dict = {"arch": ARCH, "params": n, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+                 "disk": disk, "cells": {}, "serve": {}}
+    launches: dict = {}
+    glob = None
+    try:
+        for name in CKPT_LAYOUTS:
+            cell, glob = _ckpt_cell(dev, name, CKPT_DIR / name)
+            out["cells"][name] = cell
+            _add(launches, cell["launches"])
+            if name != CKPT_LAYOUTS[-1]:
+                shutil.rmtree(CKPT_DIR / name)
+                glob = None
+        for pes in PES[::-1]:
+            s = out["serve"][f"{pes}pe"] = _ckpt_serve(
+                dev, CKPT_DIR / CKPT_LAYOUTS[-1], glob, pes)
+            _add(launches, s["launches"])
+        out["hf"] = _ckpt_hf(dev, CKPT_DIR, glob)
+    finally:
+        glob = None
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["ok"] = (all(c["ok"] for c in out["cells"].values())
+                 and all(s["ok"] for s in out["serve"].values())
+                 and out["hf"]["ok"])
+    out["flash_launches"] = launches.get("flash", 0)
+    out["flash_bwd_launches"] = launches.get("flash_bwd", 0)
+    out["reorder_launches"] = launches.get("reorder", 0)
+    return out
+
+
 def _rwkv6_bound(r, k, v, logw, u, state) -> dict:
     """Least time the card could take: each input byte read once (r, k, v,
     u in their dtype, logw and an incoming state in f32), each output byte
@@ -3691,16 +4145,17 @@ def _rwkv6_entry(timings: list, launches: int, kernel: dict) -> dict:
         "off_main_path": kernel["timed"]}
 
 
-def _flash_bwd_entry(rows: list, launches: int) -> dict:
+def _flash_bwd_entry(rows: list, by_path: dict) -> dict:
     """The backward kernel's entry of the kernels line: its numbers at the
-    1-PE training step; every kept training launch under ``shapes``. The
-    JAX package has no Pallas backward: ``replaces`` names the jnp
-    function whose autodiff its train step takes."""
+    1-PE training step; its launches on each path; every kept training
+    launch under ``shapes``. The JAX package has no Pallas backward:
+    ``replaces`` names the jnp function whose autodiff its train step
+    takes."""
     head = next(t for t in rows if t["name"] == "train_backward/1pe")
     return {
         "name": "flash_attention_backward", "route": "cuda",
         "source": FLASH_BWD_SOURCE, "replaces": FLASH_BWD_REPLACES,
-        "launches": launches,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(t["max_abs_err"] for t in rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3760,13 +4215,14 @@ def main() -> int:
                      ("fused_forward", lambda: phase_fused_forward(dev,
                                                                    kept)),
                      ("train", lambda: phase_train(dev, kept, kept_bwd)),
+                     ("checkpoint", lambda: phase_checkpoint(dev)),
                      ("main_path", lambda: phase_main_path(
                          kept, kept_reorder, kept_rwkv6, kept_bwd))):
         needs = {"main_path": ("serve", "serve_moe", "serve_rwkv",
                                "serve_dense", "serve_prefill", "apps",
-                               "fused_forward", "train"),
-                 "serve_prefill": ("build", "serve_moe")}.get(name,
-                                                             ("build",))
+                               "fused_forward", "train", "checkpoint"),
+                 "serve_prefill": ("build", "serve_moe"),
+                 "checkpoint": ("build", "train")}.get(name, ("build",))
         missing = [n for n in needs if n in failed]
         if name != "build" and missing:
             failed.append(name)
@@ -3795,7 +4251,7 @@ def main() -> int:
     engine_res = results["serve_engine"]
     fused_res, apps_res = results["fused_forward"], results["apps"]
     train_res, prefill_res = results["train"], results["serve_prefill"]
-    tune_res = results["tune"]
+    tune_res, ckpt_res = results["tune"], results["checkpoint"]
     # the flash headline: the main-path row that fares worst against SDPA
     head = max(kern["main_path"], key=lambda t: t["ms"] / t["library_ms"])
     swz = kern["reorder"]
@@ -3808,7 +4264,8 @@ def main() -> int:
                      + engine_res["flash_launches"]
                      + fused_res["flash_launches"]
                      + train_res["flash_launches"]
-                     + prefill_res["flash_launches"]),
+                     + prefill_res["flash_launches"]
+                     + ckpt_res["flash_launches"]),
         "launches_by_path": {ARCH: serve_res["flash_launches"],
                              MOE_ARCH: moe_res["flash_launches"],
                              **{a: dense_res[a]["flash_launches"]
@@ -3818,7 +4275,9 @@ def main() -> int:
                              f"{ARCH}/fused_forward":
                                  fused_res["flash_launches"],
                              f"{ARCH}/train": train_res["flash_launches"],
-                             "serve_prefill": prefill_res["flash_launches"]},
+                             "serve_prefill": prefill_res["flash_launches"],
+                             f"{ARCH}/checkpoint":
+                                 ckpt_res["flash_launches"]},
         "max_abs_err": max(t["max_abs_err"] for t in kern["main_path"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3835,12 +4294,15 @@ def main() -> int:
         "launches": (moe_res["reorder_launches"]
                      + apps_res["dlrm_reorder_launches"]
                      + prefill_res["reorder_launches"]
-                     + tune_res["reorder_launches"]),
+                     + tune_res["reorder_launches"]
+                     + ckpt_res["reorder_launches"]),
         "launches_by_path": {MOE_ARCH: moe_res["reorder_launches"],
                              "dlrm/pidcomm":
                                  apps_res["dlrm_reorder_launches"],
                              "serve_prefill": prefill_res["reorder_launches"],
-                             "tune": tune_res["reorder_launches"]},
+                             "tune": tune_res["reorder_launches"],
+                             f"{ARCH}/checkpoint":
+                                 ckpt_res["reorder_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in reorder_rows),
         "ms": swz["ms"],
         "plain_ms": swz["plain_ms"], "bound_ms": swz["bound_ms"],
@@ -3851,8 +4313,9 @@ def main() -> int:
             "bound_by", "max_abs_err")} for r in reorder_rows},
     }, _rwkv6_entry(kern["rwkv6"], rwkv_res["rwkv6_launches"],
                     results["kernel"]["rwkv6"]),
-        _flash_bwd_entry(kern["flash_backward"],
-                         train_res["flash_bwd_launches"])],
+        _flash_bwd_entry(kern["flash_backward"], {
+            f"{ARCH}/train": train_res["flash_bwd_launches"],
+            f"{ARCH}/checkpoint": ckpt_res["flash_bwd_launches"]})],
         "total_s": round(time.perf_counter() - t_all, 3)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -115,7 +115,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise NotImplementedError(
                 "chunked_attention(partial=True) under grad: training "
                 "through the partial form (fused_comm's ring attention) "
-                "waits for ROADMAP queue A item 7.3, fused_comm training")
+                "waits for ROADMAP item A6, fused_comm training")
         out = attention_ops.FlashAttention.apply(*args, causal, window)
         return out.reshape(lead + (Sq, H, hd))
     res = attention_ops.flash_attention(*args, causal=causal, window=window,

@@ -27,8 +27,10 @@ PE holds the same value; their sum would count it once per PE).
 
 The port always takes the reference's explicit (pre-vma) sync path:
 autograd here inserts no collective. The loop driver adds per-step
-deadlines (straggler counting) and telemetry; checkpointing waits for its
-ROADMAP item (queue A, item 7).
+deadlines (straggler counting), telemetry and checkpoints
+(``repro_torch.checkpoint``): every ``checkpoint_every`` steps it saves
+``TrainState(params=masters, opt=opt_state)``, and ``resume_state`` turns a
+restored state back into the step's compact layout.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ from repro_torch.core.comm import CommTrace
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import Model
 from repro_torch.models.params import (
-    compact, flat_leaves, param_defs, param_specs, tree_map, unflatten)
+    compact, flat_leaves, get_path, leaves, param_defs, param_specs,
+    trainable, tree_map, unflatten)
 from repro_torch.models.topology import Topology
 from repro_torch.optim import adamw
 from repro_torch.telemetry import metrics as _telemetry
@@ -124,6 +127,7 @@ def sync_replicated_grads(grads: dict, specs: dict, cube, *,
     returns ``(synced, new_ef)``."""
     flat = flat_leaves(grads)
     sflat = flat_leaves(specs)
+    cn = cube.ndim
     out: list = [None] * len(flat)
     new_ef = dict(ef) if ef is not None else None
     deferred: list = []                 # (leaf index, ProgramValue)
@@ -140,9 +144,9 @@ def sync_replicated_grads(grads: dict, specs: dict, cube, *,
                     # eager two-output flow: correct by the carried error,
                     # keep the fresh quantization residual
                     red, err = comm.all_reduce_with_error(
-                        g.float(), error=new_ef[str(i)])
+                        g.float(), error=new_ef[str(i)].squeeze(cn))
                     out[i] = red.to(g.dtype)
-                    new_ef[str(i)] = err
+                    new_ef[str(i)] = err.unsqueeze(cn)
                 else:
                     deferred.append(
                         (i, comm.all_reduce(g, algorithm="compressed")))
@@ -162,17 +166,28 @@ def sync_replicated_grads(grads: dict, specs: dict, cube, *,
 def init_error_feedback(params: dict, specs: dict, cube) -> dict:
     """Zero error-feedback buffers for the §V-C compressed gradient hop: one
     per leaf whose replication dims cross DCN, keyed by flat leaf index (a
-    string). A buffer is per PE, ``(*cube, *local)``: the error is the same
-    within a pod's ICI group and differs across pods (the reference keeps
-    the pod axis materialized for the same reason)."""
+    string). A buffer is per PE, ``(*cube, 1, *local)``: the cube tensor of
+    the reference's global ``(n_slow, *leaf.shape)`` array under
+    ``(dcn_dims, *spec)`` (``error_feedback_specs``). The error is the same
+    within a pod's ICI group and differs across pods, so the pod axis is
+    materialized and a checkpoint keeps every pod's buffer."""
     out = {}
     for i, (p, s) in enumerate(zip(flat_leaves(params), flat_leaves(specs))):
         missing = replication_dims(s, cube)
         if missing and any(d in cube.dcn_dims for d in missing):
             out[str(i)] = torch.zeros(
-                cube.dim_sizes + tuple(p.shape[cube.ndim:]),
+                cube.dim_sizes + (1,) + tuple(p.shape[cube.ndim:]),
                 dtype=torch.float32, device=p.device)
     return out
+
+
+def error_feedback_specs(cfg: ModelConfig, topo: Topology) -> dict:
+    """Specs of ``init_error_feedback``'s buffers: each leaf's spec behind
+    the cube's DCN dims (the reference's ``P(dcn_dims, *spec)``)."""
+    cube = topo.cube
+    return {str(i): (cube.dcn_dims,) + tuple(s)
+            for i, s in enumerate(flat_leaves(param_specs(cfg, topo)))
+            if any(d in cube.dcn_dims for d in replication_dims(s, cube))}
 
 
 def use_error_feedback(tc: TrainConfig, cube) -> bool:
@@ -344,20 +359,47 @@ def init_opt_state(params: dict, cfg: ModelConfig, topo: Topology,
 
 
 def opt_specs(cfg: ModelConfig, topo: Topology, tc: TrainConfig) -> dict:
-    """Specs of ``init_opt_state``'s tree: each moment and scale under its
-    parameter's spec, the step replicated, an error buffer (per PE) under
-    its parameter's spec."""
+    """Specs of ``init_opt_state``'s tree -- the opt half of a
+    topology-bound ``CheckpointManager``'s ``specs={"params": ...,
+    "opt": ...}``: each moment and scale under its parameter's spec, the
+    step replicated, an error buffer under ``error_feedback_specs``."""
     sd = adamw.state_defs(param_defs(cfg, topo), tc.adamw, cube=topo.cube)
     mu = tree_map(lambda d: d[1], sd["mu"])
     out = {"mu": mu, "step": ()}
     if use_error_feedback(tc, topo.cube):
-        specs = param_specs(cfg, topo)
-        sflat = flat_leaves(specs)
-        cube = topo.cube
-        out["ef"] = {str(i): s for i, s in enumerate(sflat)
-                     if any(d in cube.dcn_dims
-                            for d in replication_dims(s, cube))}
+        out["ef"] = error_feedback_specs(cfg, topo)
     return out
+
+
+def resume_state(state, cfg: ModelConfig, topo: Topology,
+                 tc: TrainConfig) -> tuple[dict, dict]:
+    """``(masters, opt_state)`` for ``make_train_step`` from a
+    ``TrainState`` restored onto ``topo`` under ``param_specs`` /
+    ``opt_specs`` (cube tensors): compact masters and moments
+    (``models.params.trainable``), the 0-d step counter, the error buffers
+    as placed. Raises where a moment's per-PE shape is not the one
+    ``init_opt_state`` gives on this topology: an int8 scale holds one
+    column per shard of its weight's last axis, so a full state saved on a
+    layout that shards that axis another number of ways cannot resume here
+    (restore the params only)."""
+    cube = topo.cube
+    ospecs = opt_specs(cfg, topo, tc)
+    want = adamw.state_defs(param_defs(cfg, topo), tc.adamw, cube=cube)
+    for path, (shape, spec, _) in leaves(want["mu"]):
+        got = tuple(get_path(state.opt["mu"], path).shape[cube.ndim:])
+        local = cube.local_shape(shape, spec)
+        if got != local:
+            raise ValueError(
+                f"opt/mu/{'/'.join(path)}: restored per-PE shape {got} != "
+                f"{local} on {cube.describe()} -- the optimizer state was "
+                "saved on a layout that shards this weight's last axis "
+                "another number of ways; restore the params only")
+    masters = trainable(state.params, param_specs(cfg, topo), cube)
+    opt = {"mu": trainable(state.opt["mu"], ospecs["mu"], cube),
+           "step": state.opt["step"].reshape(-1)[0].clone()}
+    if "ef" in ospecs:
+        opt["ef"] = dict(state.opt["ef"])
+    return masters, opt
 
 
 def _first(v) -> float:
@@ -371,11 +413,8 @@ class Trainer:
 
     def __init__(self, cfg, topo, tc: TrainConfig, checkpointer=None, *,
                  dtype: torch.dtype = torch.bfloat16):
-        if checkpointer is not None:
-            raise NotImplementedError(
-                "checkpointing is not ported to repro_torch yet (ROADMAP "
-                "queue A item 7: checkpointing with Trainer restart)")
         self.cfg, self.topo, self.tc = cfg, topo, tc
+        self.checkpointer = checkpointer
         self.step_fn = make_train_step(cfg, topo, tc, dtype=dtype)
         self.split_fns = (make_split_train_step(cfg, topo, tc, dtype=dtype)
                           if tc.telemetry_split else None)
@@ -435,11 +474,9 @@ class Trainer:
             checkpoint_every=0, log_every=1, log=print):
         """Run one step per batch (each on the cube: ``place_batch``).
         Returns ``(params, opt_state, history)``, history a list of float
-        metric dicts (PE 0's values)."""
-        if checkpoint_every:
-            raise NotImplementedError(
-                "checkpoint_every: checkpointing is not ported to "
-                "repro_torch yet (ROADMAP queue A item 7)")
+        metric dicts (PE 0's values). With a checkpointer, every
+        ``checkpoint_every``-th step is saved as ``TrainState(params=...,
+        opt=...)``; the next step does not wait for the disk write."""
         device = flat_leaves(params)[0].device
 
         def sync_dev():
@@ -481,4 +518,21 @@ class Trainer:
             if log_every and step % log_every == 0:
                 log(f"step {step}: loss={metrics['loss']:.4f} "
                     f"gnorm={metrics['grad_norm']:.3f} {dt*1e3:.0f}ms")
+            if (checkpoint_every and self.checkpointer
+                    and step % checkpoint_every == 0):
+                self._save(step, params, opt_state)
         return params, opt_state, history
+
+    def _save(self, step: int, params, opt_state) -> None:
+        """Gather-at-dispatch: ``save()`` copies masters and optimizer state
+        to the host before it returns (the next step updates both in
+        place), then writes them behind the next steps. A manager without
+        a topology gets this trainer's, since its leaves are cube
+        tensors."""
+        from repro_torch.checkpoint.manager import TrainState
+        ckpt = self.checkpointer
+        kw = {} if ckpt.topo is not None else {
+            "topo": self.topo,
+            "specs": {"params": param_specs(self.cfg, self.topo),
+                      "opt": opt_specs(self.cfg, self.topo, self.tc)}}
+        ckpt.save(step, TrainState(params=params, opt=opt_state), **kw)

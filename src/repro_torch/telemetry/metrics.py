@@ -119,6 +119,21 @@ DECLARED: dict[str, tuple[str, str]] = {
     "serve.lower_cache_hit_ratio": ("gauge", "Cumulative hit ratio of the "
                                     "per-step program's lower-cache "
                                     "lookups"),
+    # checkpoint/manager.py -- elastic checkpoint subsystem
+    "ckpt.saves": ("counter", "Checkpoint saves dispatched"),
+    "ckpt.restores": ("counter", "Checkpoint restores completed "
+                      "(params-only restores included)"),
+    "ckpt.save_seconds": ("histogram", "Wall seconds from save() dispatch "
+                          "to the atomic rename (gather + write; runs on "
+                          "the background executor when async)"),
+    "ckpt.restore_seconds": ("histogram", "Wall seconds per restore: host "
+                             "load plus program-scattered placement"),
+    "ckpt.saved_bytes": ("gauge", "Host bytes gathered and written by the "
+                         "last durable save"),
+    "ckpt.restored_bytes": ("gauge", "Host bytes loaded and placed by the "
+                            "last restore"),
+    "ckpt.write_errors": ("counter", "Background save failures captured "
+                          "for re-raise at wait()/next save()"),
     # telemetry/drift.py
     "drift.observations": ("counter", "meas_over_est residuals recorded by "
                            "the installed drift monitor"),

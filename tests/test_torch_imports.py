@@ -40,8 +40,10 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-# the serving slice's modules: present, covered above, and importable in a
-# process where ``jax`` and ``repro`` cannot be imported at all
+# the slices' modules: present, covered above, and importable in a process
+# where ``jax``, ``repro`` and ``ml_dtypes`` (which ships with jax, not on
+# the card's machine: the checkpoint's BF16 reader must not lean on it)
+# cannot be imported at all
 SLICE_MODULES = ["repro_torch.telemetry", "repro_torch.telemetry.metrics",
                  "repro_torch.telemetry.spans", "repro_torch.telemetry.drift",
                  "repro_torch.core.program", "repro_torch.core.planner",
@@ -56,7 +58,11 @@ SLICE_MODULES = ["repro_torch.telemetry", "repro_torch.telemetry.metrics",
                  "repro_torch.runtime.trainer", "repro_torch.runtime.overlap",
                  "repro_torch.launch.train", "repro_torch.tuning",
                  "repro_torch.tuning.profile", "repro_torch.tuning.microbench",
-                 "repro_torch.tuning.tuner"]
+                 "repro_torch.tuning.tuner", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.layout",
+                 "repro_torch.checkpoint.reshard",
+                 "repro_torch.checkpoint.manager",
+                 "repro_torch.checkpoint.hf_import"]
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -67,7 +73,7 @@ def test_slice_module_imports_without_jax(module):
     assert (path.with_suffix(".py") in FILES
             or path / "__init__.py" in FILES), module
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "for m in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):\n"
             "    sys.modules[m] = None\n"
             f"import {module}\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -356,11 +356,24 @@ def test_trainer_split_phases_time_each():
     assert np.isfinite(hist[0]["loss"])
 
 
-def test_trainer_checkpointer_raises():
+def test_trainer_checkpointer_raises(tmp_path, monkeypatch):
+    """A checkpoint write that fails behind the steps is not swallowed by
+    the loop: the next save inside ``Trainer.run`` raises it."""
+    from repro_torch.checkpoint import CheckpointManager
     tc = tr.TrainConfig()
-    pcfg, topo, _, _ = _smoke_trainer(tc)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tr.Trainer(pcfg, topo, tc, checkpointer=object())
+    pcfg, topo, masters, opt = _smoke_trainer(tc)
+    b = tr.place_batch(_batch(), pcfg, topo, CPU)
+
+    def failing_save(*a, **k):
+        raise OSError("disk full (simulated)")
+
+    monkeypatch.setattr(np, "save", failing_save)
+    mgr = CheckpointManager(str(tmp_path), device="cpu")
+    trainer = tr.Trainer(pcfg, topo, tc, checkpointer=mgr,
+                         dtype=torch.float32)
+    with pytest.raises(OSError, match="disk full"):
+        trainer.run(masters, opt, [b] * 3, checkpoint_every=1, log_every=0)
+    assert len(trainer.step_seconds) == 2 and mgr.all_steps() == []
 
 
 def test_loss_falls_on_a_repeated_batch():
@@ -403,13 +416,14 @@ def test_launcher_trains_on_cpu(capsys):
     assert run["topo"].cube.dim_sizes == (2, 1)
 
 
-def test_launcher_needs_a_gpu_or_cpu_flag(monkeypatch):
+def test_launcher_needs_a_gpu_or_cpu_flag(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no GPU"):
         launcher.main(["--arch", ARCH, "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        launcher.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                       "--ckpt-dir", "x"])
+    # a checkpointed, resumed run does not fall back to the CPU either
+    with pytest.raises(RuntimeError, match="no GPU"):
+        launcher.main(["--arch", ARCH, "--smoke", "--steps", "1",
+                       "--ckpt-dir", str(tmp_path), "--resume"])
 
 
 @pytest.mark.cuda
