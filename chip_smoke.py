@@ -47,7 +47,22 @@ Phases, each printed as one JSON line:
           causal run, a 3-row query, qwen3's 1-PE training shape (4 x
           1,024 causal tokens, 16 / 8 heads), G * Sq and Sk off the bf16
           passes' tiles, a key tile across the causal diagonal; two
-          launches on the same inputs bit-identical;
+          launches on the same inputs bit-identical; the reorder under
+          autograd (``TileSwizzle``): output and gradient bit-identical to
+          autograd of index_select on random perms, and the pr and cm
+          all_to_alls of the 8-PE cubes under autograd bit-identical to
+          autograd of a plain transpose, each launching the kernel twice
+          (forward, backward with the inverse perm); and the RWKV6
+          backward kernel (rwkv6_bwd.cu) on the forward kernel's saved
+          sub-chunk states (held to the plain ones within 1e-5, the
+          forward's o and state bit-identical to a launch without them)
+          against the plain backward and against autograd of the plain
+          forward: dr, dk, dv, dlogw, du and dstate each within 5e-4 (f32)
+          / 5e-2 (bf16) of max(1, max|plain|), K = 16, 32 and 64, state in
+          and out, lengths 1, 15, 16, 17, 37, 144 and 1,024, the strong
+          decay, one u per folded PE, two launches bit-identical; the
+          training shape (4, 1024, 64, 64) bf16 timed with its plain
+          version and bound;
   comm    every ported stage of all_reduce / all_gather / reduce_scatter on
           virtual 8-PE cubes on the card, and every stage of all_to_all on
           the 8-PE cubes and the 16-PE shapes, bit-identical to a plain
@@ -185,9 +200,11 @@ Phases, each printed as one JSON line:
           bit-identical to that flow on integer payloads, for the four
           PE primitives at 64 KiB and 16 MiB; every all_to_all cell
           launches the reorder kernel once a call of its cm flow;
-          where a cell's moved bytes over all PEs (a rooted flow's: the
-          host value's) exceed 4x the 50 MB L2 its rate stays under 3.35
-          TB/s (a missed synchronize reads faster); ``select`` on a cube never tuned takes its measuring
+          where the least bytes a cell's call moves through the card's
+          memory (every PE's payload read and result written once; a
+          rooted flow's: the host value's) exceed 4x the 50 MB L2, their
+          rate stays under 3.35 TB/s (a missed synchronize reads
+          faster); ``select`` on a cube never tuned takes its measuring
           fallback; and qwen3-1.7b's grad-sync program at tp 8 (one
           all_reduce of each replicated leaf), planned under its cube's
           profile, executed, and its planned against its measured
@@ -220,6 +237,29 @@ Phases, each printed as one JSON line:
           the backward's bucket hooks (bit for bit on the synced leaves).
           The inputs of each layout's last forward and backward launch are
           kept;
+  train_moe_rwkv  qwen2-moe-a2.7b (4 of 24 layers) and rwkv6-7b (12 of 32)
+          training at full width through ``Trainer`` at 1 PE and at 8 PEs
+          as the launcher lays them out (MoE ep 8, the reorder on every
+          all_to_all; RWKV6 tp 8), one cell's weights on the card at a
+          time: bf16 over f32 masters, int8 moments, a warm-up and 3 timed
+          steps of 4 x 1,024 tokens from TokenStream (ms/step, tok/s, mfu
+          -- MoE's over active parameters --, peak memory, a profile of
+          one step with the RWKV6 backward's share); exact launches a
+          step (``_mr_expected``: flash 2 L / L, reorder 6 L at ep 8,
+          RWKV6 2 L / L); one batch repeated 5 steps at 1 PE: the loss
+          falls; f32 (TF32 off) at 2 x 256 tokens and full width, RWKV6
+          at 4 layers (1 PE, tp 8) and MoE at 2 (ep 8): the synced
+          gradients against the witness (every kernel's plain version in
+          its place: autograd of index_select, of the plain attention and
+          of the plain recurrence) within 1e-4 x each leaf's own max, MoE
+          within the larger of that and twice the spread of two witness
+          runs; controls: the RWKV6 backward with dlogw zeroed and the
+          reorder's backward with the identity must fail it, the reorder's
+          with perm in place of its inverse too unless every perm it ran
+          is its own inverse. The inputs of each bf16 cell's last launch
+          of every kernel of its path are kept: MoE's flash forward (with
+          row statistics), flash backward and reorder; RWKV6's forward
+          (saving the sub-chunk states) and backward;
   checkpoint  ``repro_torch.checkpoint`` at qwen3-1.7b's full width and
           depth (12.2 GB a checkpoint; the free bytes and host RAM where
           it goes, in the checkout's build/, printed before the first save,
@@ -234,11 +274,11 @@ Phases, each printed as one JSON line:
           leaf bit for bit against the clone; seconds and
           ``ckpt.restored_bytes``); steps 3-4 resumed from it with a second
           save at step 4, whose gather programs come from the lower cache
-          (lowered 2, then 0 and 2 hits). The resumed losses and state must
-          equal the uninterrupted run's bit for bit where the controls are
-          bit-identical, else the losses within twice the controls' spread
-          (and the gradients that differ between two backwards of one state
-          are named). From the tp-8 checkpoint, params only onto the serve
+          (lowered 2, then 0 and 2 hits). The step is deterministic (the
+          embedding's backward sums in a fixed order): both controls and
+          the resumed run must equal the uninterrupted run's losses and
+          state bit for bit (where they do not, the gradients that differ
+          between two backwards of one state are named). From the tp-8 checkpoint, params only onto the serve
           cube at 8 and 1 PEs: every leaf ``to_cube`` of the saved global
           arrays bit for bit, the ``ckpt-restore-params`` program traced,
           restore's and direct init's peak memory, and ``ServeEngine``
@@ -253,7 +293,8 @@ Phases, each printed as one JSON line:
           the norms (1 + w in the file), within 2^-24; export, write, read
           and import seconds;
   main_path  each kernel on the inputs the serve, serve_prefill,
-          fused_forward, train and apps phases kept (the shapes and positions the path gives it; for
+          fused_forward, train, train_moe_rwkv and apps phases kept (the
+          shapes and positions the path gives it; for
           DLRM's AA(xyz), whose blocks repeat across the PEs, a random
           tensor of that shape): checked
           against the plain version, then timed with the plain version, the
@@ -265,7 +306,16 @@ Phases, each printed as one JSON line:
           never calls. The backward's dq, dk and dv are each held within
           FLASH_BWD_TOL of their own max|plain| (no floor at 1: a training
           step's gradients lie far below 1), on the step's own do and on a
-          unit-scale do drawn from randn.
+          unit-scale do drawn from randn; the RWKV6 backward's outputs
+          within RWKV6_TOL of their own max|plain| the same way; the RWKV6
+          forward that saves the states on o and the final state within
+          RWKV6_TOL and on the states within RWKV6_STATES_TOL of max(1,
+          max|plain|). Every training layout's rows must be there: the
+          flash forward and backward at qwen3's three and qwen2-moe's two,
+          the RWKV6 forward with states and backward at rwkv6's two. The
+          RWKV6 backward's bound counts the function's bytes (its inputs
+          and gradients); the saved states it reads are reported beside
+          it.
 
 Then the card's name and power limit, the kernels' JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -336,6 +386,9 @@ RWKV6_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu"
 # three pieces read at most 1.5e-6, two pieces up to
 # 4.4e-6 in bf16 and 1.4e-5 in f32 (tools/rwkv6_pieces.py)
 RWKV6_STATE_TOL = 2.5e-6
+# the forward kernel's saved sub-chunk states against ``ref.chunk_states``,
+# x max(1, max|plain|)
+RWKV6_STATES_TOL = 1e-5
 # the serving engine: page size (S_loc = 48 / 8 = 6 at 8 PEs), the pool of
 # the preemption run (pages per shard), and a bound on any run's steps
 ENGINE_PAGE, ENGINE_TIGHT, ENGINE_MAX_STEPS = 3, 4, 400
@@ -717,11 +770,16 @@ def phase_kernel(dev) -> dict:
     long_rows = _flash_long_rows(dev)
     bwd = _flash_bwd_checks(dev)
     reorder = _reorder_checks(dev)
+    reorder_grad = _reorder_grad_checks(dev)
     rwkv = _rwkv6_checks(dev)
+    rwkv_bwd = _rwkv6_bwd_checks(dev)
     return {"ok": (attn["ok"] and all(r["ok"] for r in long_rows)
-                   and bwd["ok"] and reorder["ok"] and rwkv["ok"]),
+                   and bwd["ok"] and reorder["ok"] and reorder_grad["ok"]
+                   and rwkv["ok"] and rwkv_bwd["ok"]),
             "checks": attn["checks"], "flash_long_rows": long_rows,
-            "flash_backward": bwd, "reorder": reorder, "rwkv6": rwkv}
+            "flash_backward": bwd, "reorder": reorder,
+            "reorder_backward": reorder_grad, "rwkv6": rwkv,
+            "rwkv6_backward": rwkv_bwd}
 
 
 def _rwkv6_inputs(gen, dev, dtype, B, S, H, K, *, strong, state, G=0):
@@ -850,6 +908,231 @@ def _rwkv6_checks(dev) -> dict:
                                 for d in ("float32", "bfloat16")},
             "failed": [c for c in checks if not c["ok"]][:10],
             "timed": timed, "checks": checks}
+
+
+# RWKV6 backward sweep: B, S, H, K, strong decay, state in (and its
+# gradient out), u groups (0: one u). K = 16, 32 and 64; lengths 1, 15, 16,
+# 17, 37 and 144 around the 16-step sub-chunk; the JAX sweep's strong
+# decay; one u per folded PE; the training shape (4, 1024, 64, 64), timed
+RWKV6_BWD_CASES = [
+    (1, 128, 2, 16, True, False, 0),
+    (2, 64, 4, 32, True, True, 0),
+    (1, 1, 4, 64, False, True, 0),
+    (2, 15, 4, 64, False, True, 2),
+    (2, 16, 4, 32, False, True, 0),
+    (2, 17, 4, 16, False, True, 2),
+    (4, 37, 2, 64, False, True, 4),
+    (2, 144, 4, 64, False, True, 0),
+    (4, 1024, 64, 64, False, False, 0),
+]
+RWKV6_BWD_TIMED = (4, 1024, 64, 64)
+RWKV6_BWD_NAMES = ("dr", "dk", "dv", "dlogw", "du", "dstate")
+
+
+def _rwkv6_bwd_bound(r, k, v, logw, u, state, do, dstate, states) -> dict:
+    """Least time the card could take for the backward as a function of
+    (r, k, v, logw, u, state, do, dstate): each input byte read once (r,
+    k, v, u, do in their type; logw, an incoming state and its gradient in
+    f32), each output byte written once (dr, dk, dv, du in their type,
+    dlogw and the incoming state's gradient in f32), over HBM rate; the
+    operations its algorithm needs per 16-step sub-chunk and (batch, head)
+    -- the state products S0 do, dS v, kw dS and the dS update (4 C K V),
+    the pair terms below the diagonal (P, dP, their products with kd, qd
+    and do: 5 C (C - 1) / 2 x K), the diagonal terms and the state term of
+    dtot -- at 2 FLOPs each, over the peak for the inputs' type. The
+    larger of the two. The f32 sub-chunk states that this design saves
+    are not the function's: their bytes (written by the forward, read
+    here) are reported beside the bound (``saved_states_bytes``,
+    ``saved_states_read_ms``), not in it."""
+    from repro_torch.kernels.rwkv6.ref import SUB
+    B, S, H, K = r.shape
+    es = r.element_size()
+    n = -(-S // SUB)
+    sb = 4 * B * H * K * K
+    read = (es * (r.numel() + k.numel() + v.numel() + u.numel()
+                  + do.numel()) + 4 * logw.numel()
+            + (0 if state is None else sb) + (0 if dstate is None else sb))
+    write = (es * (3 * r.numel() + u.numel()) + 4 * logw.numel()
+             + (0 if state is None else sb))
+    C = SUB
+    flops = B * H * n * 2 * (4 * C * K * K + 5 * C * (C - 1) // 2 * K
+                             + 4 * C * K + K * K)
+    t_bytes = (read + write) / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[r.dtype]
+    saved = 4 * states.numel()
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": read + write, "flops": flops,
+            "saved_states_bytes": saved,
+            "saved_states_read_ms": saved / HBM_BYTES_PER_S * 1e3}
+
+
+def _rwkv6_autograd(r, k, v, logw, u, state, do, dstate, strong):
+    """Gradients of sum(o * do) + sum(state_out * dstate) by autograd of
+    the plain forward (chunks of 16 under the strong decay where they
+    divide S, else the reference's rule)."""
+    from repro_torch.kernels.rwkv6 import ref
+    S = r.shape[1]
+    chunk = 16 if strong and S % 16 == 0 else 64
+    xs = [t.detach().clone().requires_grad_() for t in (r, k, v, logw, u)]
+    s0 = None if state is None else state.detach().clone().requires_grad_()
+    with torch.enable_grad():
+        o, s = ref.rwkv6_chunked(*xs, state=s0, chunk=chunk)
+        loss = (o.float() * do.float()).sum()
+        if dstate is not None:
+            loss = loss + (s * dstate).sum()
+        grads = torch.autograd.grad(loss, xs + ([] if s0 is None else [s0]))
+    return list(grads) + ([None] if s0 is None else [])
+
+
+def _rwkv6_rel(got, want) -> list:
+    """Per output, |kernel - ref| over max(1, max|ref|) (None where the
+    reference has no such output)."""
+    return [None if w is None else
+            float((g.float() - w.float()).abs().max())
+            / max(1.0, float(w.float().abs().max()))
+            for g, w in zip(got, want)]
+
+
+def _rwkv6_bwd_checks(dev) -> dict:
+    """The RWKV6 backward kernel (rwkv6_bwd.cu) over RWKV6_BWD_CASES in f32
+    and bf16, fed the states the forward kernel saves (held to
+    ``ref.chunk_states`` within RWKV6_STATES_TOL x max(1, max|plain|); the
+    forward's
+    o and final state bit-identical to a launch without them): against
+    the plain backward on the same inputs and against autograd of the
+    plain forward, each of dr, dk, dv, dlogw, du and dstate within
+    RWKV6_TOL x max(1, max|plain|); two launches bit-identical. The
+    training shape is timed with its plain version and bound."""
+    from repro_torch.kernels.rwkv6 import ref, rwkv6, rwkv6_bwd
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    checks, timed, ok_all = [], [], True
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, H, K, strong, state, G in RWKV6_BWD_CASES:
+            r, k, v, logw, u, s0 = _rwkv6_inputs(
+                gen, dev, dtype, B, S, H, K, strong=strong, state=state,
+                G=G)
+            do = torch.randn(B, S, H, K, generator=gen, device=dev).to(dtype)
+            ds = (torch.randn(B, H, K, K, generator=gen, device=dev)
+                  if state else None)
+            o, s_out, states = rwkv6.rwkv6_chunked(r, k, v, logw, u, s0,
+                                                   states=True)
+            o2, s2 = rwkv6.rwkv6_chunked(r, k, v, logw, u, s0)
+            args = (r, k, v, logw, u, s0, do, ds)
+            got = rwkv6_bwd.rwkv6_chunked_backward(*args, states)
+            again = rwkv6_bwd.rwkv6_chunked_backward(*args, states)
+            torch.cuda.synchronize()
+            want_states = ref.chunk_states(k, v, logw, s0)
+            states_err = float((states - want_states).abs().max()) / max(
+                1.0, float(want_states.abs().max()))
+            plain = ref.rwkv6_chunked_backward(*args, states)
+            auto = _rwkv6_autograd(*args, strong)
+            err_plain = _rwkv6_rel(got, plain)
+            err_auto = _rwkv6_rel(got, auto)
+            same = all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None)
+            finite = all(bool(torch.isfinite(t.float()).all())
+                         for t in got if t is not None)
+            tol = RWKV6_TOL[dtype]
+            ok = (finite and same and states_err <= RWKV6_STATES_TOL
+                  and torch.equal(o, o2) and torch.equal(s_out, s2)
+                  and all(e is None or e <= tol
+                          for e in err_plain + err_auto))
+            ok_all &= ok
+            checks.append({
+                "dtype": str(dtype).split(".")[-1], "shape": [B, S, H, K],
+                "strong_decay": strong, "state_in": state, "u_groups": G,
+                "err_vs_plain": dict(zip(RWKV6_BWD_NAMES, err_plain)),
+                "err_vs_autograd": dict(zip(RWKV6_BWD_NAMES, err_auto)),
+                "states_err": states_err, "deterministic": same,
+                "forward_same_bits": bool(torch.equal(o, o2)
+                                          and torch.equal(s_out, s2)),
+                "finite": finite, "ok": ok})
+            if (B, S, H, K) == RWKV6_BWD_TIMED and dtype == torch.bfloat16:
+                a = args + (states,)
+                timed.append({
+                    "dtype": "bfloat16", "shape": [B, S, H, K],
+                    "ms": time_ms(lambda: rwkv6_bwd.rwkv6_chunked_backward(
+                        *a)),
+                    "plain_ms": time_ms(
+                        lambda: ref.rwkv6_chunked_backward(*a), reps=2,
+                        iters=5),
+                    "forward_states_ms": time_ms(lambda: rwkv6.rwkv6_chunked(
+                        r, k, v, logw, u, s0, states=True)),
+                    "forward_ms": time_ms(lambda: rwkv6.rwkv6_chunked(
+                        r, k, v, logw, u, s0)),
+                    "library_ms": None, **_rwkv6_bwd_bound(*a)})
+            del r, k, v, logw, u, s0, do, ds, got, again, plain, auto
+            del states, want_states, o, o2
+    worst = {n: max(max(c["err_vs_plain"][n] or 0.0,
+                        c["err_vs_autograd"][n] or 0.0) for c in checks)
+             for n in RWKV6_BWD_NAMES}
+    return {"ok": ok_all, "cases": len(checks), "worst_err": worst,
+            "failed": [c for c in checks if not c["ok"]][:10],
+            "timed": timed, "checks": checks}
+
+
+def _reorder_grad_checks(dev) -> dict:
+    """The reorder under autograd (``TileSwizzle``): its output and
+    gradient bit-identical to autograd of ``index_select`` on random
+    perms (f32, bf16; its backward launches the kernel with the inverse
+    perm), and every all_to_all of the pr and cm flows on the 8-PE cubes
+    under autograd bit-identical to autograd of the plain transpose
+    (integer payloads), each flow launching the kernel twice a call (the
+    forward and the backward)."""
+    from repro_torch.core.hypercube import Hypercube
+    from repro_torch.kernels.reorder import ops, reorder
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    cases, failed = 0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for G, b, D in ((4, 8, 64), (16, 1, 128), (64, 4, 2048)):
+            x = torch.randn(G * b, D, generator=gen, device=dev).to(dtype)
+            dy = torch.randn(G * b, D, generator=gen, device=dev).to(dtype)
+            perm = torch.randperm(G, generator=gen, device=dev)
+            p32 = perm.to(torch.int32)
+            inv = torch.argsort(perm).to(torch.int32)
+            xa = x.clone().requires_grad_()
+            n0 = reorder.LAUNCHES
+            y = ops.tile_swizzle(xa, p32, inv)
+            (g,) = torch.autograd.grad(y, xa, dy)
+            launched = reorder.LAUNCHES - n0
+            xb = x.clone().requires_grad_()
+            yb = torch.index_select(xb.view(G, -1), 0, perm).view(x.shape)
+            (gb,) = torch.autograd.grad(yb, xb, dy)
+            cases += 1
+            if not (torch.equal(_bits(y), _bits(yb))
+                    and torch.equal(_bits(g), _bits(gb)) and launched == 2):
+                failed.append(["swizzle", str(dtype), G, b, D, launched])
+    for name, dims, bitmaps in CUBES:
+        cube = Hypercube.build(dims)
+        for bm in bitmaps:
+            comm = cube.comm(bm)
+            gs = comm.group_size
+            axes = [i for i, c in enumerate(bm) if c == "1"]
+            x = torch.randint(-4, 5, cube.dim_sizes + (2 * gs, gs, 64),
+                              generator=gen, device=dev).float()
+            dy = torch.randint(-4, 5, x.shape, generator=gen,
+                               device=dev).float()
+            for sa, ca in ((0, 1), (1, 0), (1, 2)):
+                xp = x.clone().requires_grad_()
+                want = _plain_all_to_all(xp, cube.dim_sizes, axes, sa, ca)
+                (gw,) = torch.autograd.grad(want, xp, dy.reshape(want.shape))
+                for flow in ("pr", "cm"):
+                    xa = x.clone().requires_grad_()
+                    n0 = reorder.LAUNCHES
+                    got = comm.all_to_all(xa, split_axis=sa, concat_axis=ca,
+                                          algorithm=flow)
+                    (ga,) = torch.autograd.grad(got, xa,
+                                                dy.reshape(got.shape))
+                    launched = reorder.LAUNCHES - n0
+                    cases += 1
+                    if not (torch.equal(got, want) and torch.equal(ga, gw)
+                            and launched == 2):
+                        failed.append([name, bm, sa, ca, flow, launched])
+    torch.cuda.synchronize()
+    return {"ok": not failed, "cases": cases, "failed": failed[:10]}
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -1419,7 +1702,8 @@ KERNEL_NAMES = {"flash": ("flash_decode_kernel", "flash_fwd_mma_kernel",
                               "flash_bwd_dq_mma_kernel",
                               "flash_bwd_dkdv_mma_kernel"),
                 "reorder": ("tile_swizzle",),
-                "rwkv6": ("rwkv6_fwd",)}
+                "rwkv6": ("rwkv6_kernel",),
+                "rwkv6_bwd": ("rwkv6_bwd_kernel", "rwkv6_du_kernel")}
 
 
 # the backward kernel's two passes (f32 and bf16 forms), by name prefix
@@ -2479,13 +2763,21 @@ TUNE_SIZES = (64 << 10, 1 << 20, 16 << 20, 64 << 20)   # per-PE bytes
 L2_BYTES = 50e6
 
 
-def _moved_bytes(s, cube) -> float:
-    """A sample's moved bytes over all PEs: a PE<->PE flow's per-PE ICI +
-    DCN bytes x the cube's PEs; a rooted flow's bytes are the host value's
-    already."""
+def _card_bytes(s, cube) -> float:
+    """The least bytes a sample's call moves through the card's memory: a
+    PE<->PE flow reads every PE's payload once and writes every PE's
+    result once (all_reduce and all_to_all the payload's size,
+    reduce_scatter 1 / g of it, all_gather g times it); a rooted flow's
+    ICI + DCN bytes are the host value's. (The flows' ICI + DCN bytes are
+    no such bound: a hierarchical flow counts a byte once for each link
+    it crosses, 1.375 x the payload for reduce_scatter over pod2x4x2.)"""
     from repro_torch.tuning.microbench import PE_PRIMITIVES
-    n = cube.ndev if s.primitive in PE_PRIMITIVES else 1
-    return (s.ici_bytes + s.dcn_bytes) * n
+    if s.primitive not in PE_PRIMITIVES:
+        return s.ici_bytes + s.dcn_bytes
+    g = cube.comm(cube.dims_from_bitmap(s.bitmap)).group_size
+    out = {"all_reduce": 1.0, "all_to_all": 1.0, "reduce_scatter": 1 / g,
+           "all_gather": float(g)}[s.primitive]
+    return cube.ndev * s.nbytes * (1.0 + out)
 
 
 def _auto_checks(cube, prof, dev) -> list:
@@ -2627,8 +2919,8 @@ def phase_tune(dev) -> dict:
             launches.append({"dims": "x".join(sel), "bytes": nbytes,
                              "launches": count - prev, "expected": want})
             prev = count
-        big = [(s, _moved_bytes(s, cube) / s.seconds) for s in prof.samples
-               if _moved_bytes(s, cube) > 4 * L2_BYTES]
+        big = [(s, _card_bytes(s, cube) / s.seconds) for s in prof.samples
+               if _card_bytes(s, cube) > 4 * L2_BYTES]
         fastest = max(big, key=lambda t: t[1]) if big else (None, 0.0)
         checks = {
             "reorder_launches_exact": all(c["launches"] == c["expected"]
@@ -3445,6 +3737,399 @@ def phase_train(dev, kept: dict, kept_bwd: dict) -> dict:
             "flash_launches": launches[0], "flash_bwd_launches": launches[1]}
 
 
+# ---------------------------------------------------------- train_moe_rwkv
+# qwen2-moe-a2.7b and rwkv6-7b training at full width through the same
+# functions, depth cut so that f32 masters and gradients, int8 moments and
+# the backward's transients fit in 80 GB. qwen3's 13.5 GB of peak per
+# billion parameters planned 6 MoE layers (4.05 B) and 16 RWKV6 ones
+# (4.03 B); at 6 MoE layers the first step ran out of memory on an H100
+# (59.7 GB allocated and 16.6 GB held free by the allocator when a 4.1 GB
+# stacked expert gradient was asked for: the backward stacks each unit's
+# gradients of a stacked leaf), so the cut is MoE 4 of 24 layers (2.90 B
+# parameters at 1 PE, 3.04 B at ep 8 with the 64 padded experts) and
+# RWKV6 12 of 32 (3.15 B, whose channel-mix leaves stack the same way).
+# The 8-PE layouts are ``launch/train.py --pes 8``'s (MoE: ep 8, etp 1,
+# the one that runs the reorder; RWKV6: tp 8).
+TRAIN_MR_ARCHS = {"moe": (MOE_ARCH, 4), "rwkv": (RWKV_ARCH, 12)}
+TRAIN_MR_PES = {"1pe": 1, "8pe": 8}
+# the f32 witness cells, at full width and a smaller cut: one step's
+# gradients only (no optimizer state), so the run's gradients and the
+# witness's stay on the card together
+TRAIN_MR_F32 = {("rwkv", "1pe"): 4, ("rwkv", "8pe"): 4, ("moe", "8pe"): 2}
+TRAIN_MR_CONTROLS = ("rwkv6_dlogw_zero", "reorder_perm_for_inverse",
+                     "reorder_identity_backward")
+RWKV6_BWD_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6_bwd.cu"
+RWKV6_BWD_REPLACES = "src/repro/models/ssm.py:21"
+
+
+def _mr_cfg(arch: str, layers: int, pes: int):
+    """Full width, ``layers`` deep, laid out as ``launch/train.py --pes``
+    does: all PEs model-parallel (ep for MoE, tp otherwise)."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+    if cfg.n_experts:
+        return dataclasses.replace(cfg, ep=pes, etp=1)
+    return dataclasses.replace(cfg, tp=pes)
+
+
+def _mr_setup(dev, cfg, pes: int, tc=None):
+    """Topology, compact masters (random, seed 0) and, with ``tc``, the
+    optimizer state."""
+    from repro_torch.models.params import init_params, param_specs, trainable
+    from repro_torch.models.topology import build_topology
+    from repro_torch.runtime.trainer import init_opt_state
+    topo = build_topology(cfg, pes)
+    masters = trainable(init_params(cfg, topo, 0, device=dev),
+                        param_specs(cfg, topo), topo.cube)
+    opt = None if tc is None else init_opt_state(masters, cfg, topo, tc)
+    return topo, masters, opt
+
+
+def _mr_kernels():
+    from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.kernels.reorder import reorder
+    from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_bwd
+    return {"flash": flash, "flash_bwd": flash_bwd, "reorder": reorder,
+            "rwkv6": rwkv6, "rwkv6_bwd": rwkv6_bwd}
+
+
+def _mr_expected(cfg, pes: int) -> dict:
+    """Launches a train step: the remat runs each layer's forward twice
+    (the forward, then its recompute in the backward) and the backward
+    once. Attention: 2 L flash forwards (with row statistics) and L
+    backwards; MoE at ep > 1: two all_to_alls a layer (dispatch, combine),
+    each a reorder in the forward, again in the recompute and once in the
+    backward with the inverse perm: 6 L; RWKV6: 2 L forwards (saving the
+    sub-chunk states) and L backwards."""
+    L = cfg.n_layers
+    moe = bool(cfg.n_experts)
+    return {"flash": 2 * L if moe else 0, "flash_bwd": L if moe else 0,
+            "reorder": 6 * L if moe and pes > 1 else 0,
+            "rwkv6": 0 if moe else 2 * L, "rwkv6_bwd": 0 if moe else L}
+
+
+def keep_rwkv6_train_inputs(kept_fwd: dict, kept_bwd: dict, label: str):
+    """While open, every launch of the RWKV6 forward wrapper that saves
+    the sub-chunk states stores its inputs in ``kept_fwd`` under
+    ``train_forward/<label>``, and every launch of the backward wrapper in
+    ``kept_bwd`` under ``train_backward/<label>`` (the last launch
+    wins)."""
+    from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_bwd
+
+    def detached(args):
+        return tuple(None if t is None else t.detach() for t in args)
+
+    def wrap_fwd(launch):
+        def keeping(*args, states=False):
+            if states:
+                kept_fwd[f"train_forward/{label}"] = detached(args)
+            return launch(*args, states=states)
+        return keeping
+
+    def wrap_bwd(launch):
+        def keeping(*args):
+            kept_bwd[f"train_backward/{label}"] = detached(args)
+            return launch(*args)
+        return keeping
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(patched(rwkv6, "rwkv6_chunked", wrap_fwd))
+    stack.enter_context(patched(rwkv6_bwd, "rwkv6_chunked_backward",
+                                wrap_bwd))
+    return stack
+
+
+def _mr_bf16(dev, name: str, layout: str, kept: dict) -> dict:
+    """One cell's bf16 run: a warm-up step and TRAIN_TIMED timed steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens from TokenStream through
+    ``Trainer.run``, each step's launches of every kernel against
+    ``_mr_expected``, peak memory, and a profile of one step. mfu counts
+    active parameters (MoE: the top-4 of 60 routed experts and the 4
+    shared ones; ``active_param_count``). Each kernel's inputs of its last
+    launch go to ``kept`` (dicts ``flash``, ``flash_bwd``, ``reorder``,
+    ``rwkv6``, ``rwkv6_bwd``) for ``main_path``."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.runtime.trainer import Trainer, TrainConfig, place_batch
+    arch, layers = TRAIN_MR_ARCHS[name]
+    pes = TRAIN_MR_PES[layout]
+    label = f"{name}/{layout}"
+    cfg = _mr_cfg(arch, layers, pes)
+    tc = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100)
+    torch.cuda.reset_peak_memory_stats(dev)
+    topo, masters, opt = _mr_setup(dev, cfg, pes, tc)
+    stream = TokenStream(cfg, DataConfig(seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH,
+                                         vocab_size=cfg.vocab_size))
+    trainer = Trainer(cfg, topo, tc)
+    kernels = _mr_kernels()
+    want = _mr_expected(cfg, pes)
+    steps, hist = [], []
+    for s in range(1 + TRAIN_TIMED):
+        batch = place_batch(stream.global_batch_at(s), cfg, topo, dev)
+        n0 = {k: m.LAUNCHES for k, m in kernels.items()}
+        keep = contextlib.ExitStack()
+        if cfg.n_experts:
+            keep.enter_context(keep_train_inputs(
+                kept["flash"], kept["flash_bwd"], label))
+            keep.enter_context(keep_reorder_inputs(kept["reorder"],
+                                                   f"train/{label}"))
+        else:
+            keep.enter_context(keep_rwkv6_train_inputs(
+                kept["rwkv6"], kept["rwkv6_bwd"], label))
+        with keep:
+            masters, opt, h = trainer.run(masters, opt, [batch],
+                                          log_every=0)
+        hist += h
+        steps.append({k: m.LAUNCHES - n0[k] for k, m in kernels.items()})
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    step_ms = [t * 1e3 for t in trainer.step_seconds]
+    ms = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_active = cfg.active_param_count()
+    step_fn = trainer.step_fn
+    state = {"m": masters, "o": opt}
+    prof_batch = place_batch(stream.global_batch_at(0), cfg, topo, dev)
+
+    def step(_):
+        state["m"], state["o"], _m = step_fn(state["m"], state["o"],
+                                             prof_batch)
+
+    prof = profile_steps(step, steps=1)
+    del masters, opt, state, trainer, step_fn, prof_batch, batch
+    torch.cuda.empty_cache()
+    ok = (all(st == want for st in steps)
+          and all(np.isfinite(h["loss"]) for h in hist))
+    return {"ok": ok, "arch": arch, "layout": layout,
+            "cube": topo.cube.describe(), "layers": layers,
+            "params": cfg.param_count(), "active_params": n_active,
+            "tokens_per_step": tokens, "ms_per_step": ms,
+            "step_ms": step_ms, "tok_per_s": tokens / (ms / 1e3),
+            "mfu": 6 * n_active * tokens / (ms / 1e3) / PEAK_BF16_FLOPS,
+            "mfu_counts": "active parameters" if cfg.n_experts
+            else "all parameters",
+            "peak_mem_gb": peak, "losses": [h["loss"] for h in hist],
+            "per_step": steps, "expected_per_step": want,
+            "launches": {k: sum(st[k] for st in steps) for k in want},
+            "profile": prof}
+
+
+def _mr_loss_falls(dev, name: str) -> dict:
+    """One batch repeated TRAIN_LOSS_STEPS steps at 1 PE (bf16), the lr
+    warming up over the run (the first step's lr is 0): every loss after
+    the first update below the first, the last the lowest."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.runtime.trainer import Trainer, TrainConfig, place_batch
+    arch, layers = TRAIN_MR_ARCHS[name]
+    cfg = _mr_cfg(arch, layers, 1)
+    tc = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_LOSS_STEPS, total_steps=100)
+    topo, masters, opt = _mr_setup(dev, cfg, 1, tc)
+    batch = place_batch(TokenStream(cfg, DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        vocab_size=cfg.vocab_size)).global_batch_at(0), cfg, topo, dev)
+    _, _, hist = Trainer(cfg, topo, tc).run(
+        masters, opt, [batch] * TRAIN_LOSS_STEPS, log_every=0)
+    del masters, opt, batch
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    return {"ok": (all(np.isfinite(losses))
+                   and all(x < losses[0] for x in losses[2:])
+                   and losses[-1] == min(losses)),
+            "arch": arch, "losses": losses,
+            "ln_vocab": math.log(cfg.vocab_size)}
+
+
+def plain_moe_rwkv_training():
+    """While open, the training path runs every kernel's plain version on
+    the card in its place (the witness: no launch): the reorder as
+    autograd of ``index_select``, attention as ``plain_attention_training``
+    and the RWKV6 recurrence as autograd of ``ref.rwkv6_chunked``."""
+    from repro_torch.kernels.reorder import ops as reorder_ops
+    from repro_torch.kernels.reorder import ref as reorder_ref
+    from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
+    from repro_torch.kernels.rwkv6 import ref as rwkv6_ref
+    stack = contextlib.ExitStack()
+    stack.enter_context(plain_attention_training())
+    stack.enter_context(patched(
+        reorder_ops, "tile_swizzle",
+        lambda _: lambda x, perm, inv=None: reorder_ref.tile_swizzle(x,
+                                                                     perm)))
+    stack.enter_context(patched(
+        rwkv6_ops, "rwkv6_chunked",
+        lambda _: lambda r, k, v, logw, u, state=None:
+        rwkv6_ref.rwkv6_chunked(r, k, v, logw, u, state)))
+    return stack
+
+
+def spoiled_moe_rwkv(kind: str, perms: list):
+    """While open, one kernel's backward is spoiled:
+    ``rwkv6_dlogw_zero`` returns the RWKV6 backward kernel's gradients
+    with dlogw zeroed; ``reorder_perm_for_inverse`` runs the reorder's
+    backward with ``perm`` in place of its inverse (each (perm, inverse)
+    pair goes to ``perms``); ``reorder_identity_backward`` leaves the
+    gradient's blocks where they are."""
+    from repro_torch.kernels.reorder import ops as reorder_ops
+    from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
+    if kind == "rwkv6_dlogw_zero":
+        def wrap(pick):
+            def spoiled_pick(r):
+                backward = pick(r)
+
+                def spoiled(*args):
+                    g = list(backward(*args))
+                    g[3] = torch.zeros_like(g[3])
+                    return tuple(g)
+                return spoiled
+            return spoiled_pick
+        return patched(rwkv6_ops, "_backward", wrap)
+
+    def swizzle(x, perm, inv=None):
+        perms.append((perm, inv))
+        if kind == "reorder_perm_for_inverse":
+            return reorder_ops.TileSwizzle.apply(x, perm, perm)
+        ident = torch.arange(perm.numel(), dtype=torch.int32,
+                             device=perm.device)
+        return reorder_ops.TileSwizzle.apply(x, perm, ident)
+    return patched(reorder_ops, "tile_swizzle", lambda _: swizzle)
+
+
+def _mr_grads_held(got: dict, want: dict, spread: dict | None) -> dict:
+    """Per leaf |got - want| against max(F32_TOL x max|want|, 2 x spread)
+    (no floor at 1: weight gradients lie far below 1), ``spread`` being
+    max|want - second witness| per leaf where two witness runs differ
+    (as a backward that sums with atomics would), else F32_TOL x
+    max|want|; also each leaf against F32_TOL x
+    max(1, max|want|) (``with_floor_at_1``)."""
+    from repro_torch.models.params import flat_leaves, leaves
+    failing, failing_floor, per_leaf = [], [], {}
+    worst, name = 0.0, ""
+    for (path, w), g in zip(leaves(want), flat_leaves(got)):
+        key = "/".join(path)
+        w, g = w.float(), g.float()
+        peak = float(w.abs().max())
+        err = float((g - w).abs().max())
+        sp = 0.0 if spread is None else spread[key]
+        bound = max(F32_TOL * peak, 2 * sp)
+        if err > bound:
+            failing.append(key)
+        if err > F32_TOL * max(1.0, peak):
+            failing_floor.append(key)
+        ratio = err / bound if bound > 0 else (0.0 if err == 0
+                                               else math.inf)
+        per_leaf[key] = {"err": err, "max_abs": peak, "spread": sp}
+        if ratio >= worst:
+            worst, name = ratio, key
+    return {"ok": not failing, "failing": failing,
+            "failing_with_floor_at_1": failing_floor,
+            "worst_leaf": name, "worst_err_over_bound": worst,
+            "leaves": per_leaf}
+
+
+def _mr_f32(dev, name: str, layout: str) -> dict:
+    """f32 (TF32 off), TRAIN_F32_BATCH x TRAIN_F32_SEQ tokens, full width
+    at TRAIN_MR_F32's depth, one forward and backward with the grad-sync:
+    the synced gradients against the witness (``plain_moe_rwkv_training``)
+    per leaf (``_mr_grads_held``; for MoE the witness runs twice and its
+    spread widens the bound), and the controls of this arch: the RWKV6
+    backward with dlogw zeroed must fail it; the reorder's backward with
+    the identity must fail it; with ``perm`` in place of its inverse it
+    must fail it unless every perm it ran is its own inverse (then it is
+    the same computation)."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.runtime.trainer import (
+        TrainConfig, make_train_step, place_batch)
+    arch, _ = TRAIN_MR_ARCHS[name]
+    pes = TRAIN_MR_PES[layout]
+    cfg = _mr_cfg(arch, TRAIN_MR_F32[(name, layout)], pes)
+    topo, masters, _ = _mr_setup(dev, cfg, pes)
+    step = make_train_step(cfg, topo, TrainConfig(), dtype=torch.float32)
+    b0 = place_batch(TokenStream(cfg, DataConfig(
+        seq_len=TRAIN_F32_SEQ, global_batch=TRAIN_F32_BATCH,
+        vocab_size=cfg.vocab_size)).global_batch_at(0), cfg, topo, dev)
+    kernels = _mr_kernels()
+
+    def grads():
+        n0 = {k: m.LAUNCHES for k, m in kernels.items()}
+        loss, _, raw = step.fwd_bwd(masters, b0)
+        g = _global_grads(step, step.sync(raw, {}), topo)
+        del raw
+        return g, float(loss.reshape(-1)[0]), {
+            k: m.LAUNCHES - n0[k] for k, m in kernels.items()}
+
+    got, loss, launched = grads()
+    with plain_moe_rwkv_training():
+        witness, w_loss, w_launched = grads()
+    spread = None
+    out = {"arch": arch, "layout": layout, "cube": topo.cube.describe(),
+           "layers": cfg.n_layers, "loss": loss, "witness_loss": w_loss,
+           "launches": launched, "witness_launches": w_launched}
+    if cfg.n_experts:
+        with plain_moe_rwkv_training():
+            again, _, _ = grads()
+        from repro_torch.models.params import flat_leaves, leaves
+        spread = {"/".join(p): float((a.float() - w.float()).abs().max())
+                  for (p, w), a in zip(leaves(witness), flat_leaves(again))}
+        del again
+        out["witness_spread"] = {k: v for k, v in spread.items() if v > 0}
+    out["witness"] = _mr_grads_held(got, witness, spread)
+    del got
+    kinds = (("rwkv6_dlogw_zero",) if not cfg.n_experts
+             else ("reorder_perm_for_inverse", "reorder_identity_backward"))
+    controls = out["controls"] = {}
+    for kind in kinds:
+        perms: list = []
+        with spoiled_moe_rwkv(kind, perms):
+            spoiled, _, _ = grads()
+        held = _mr_grads_held(spoiled, witness, spread)
+        del spoiled
+        own_inverse = bool(perms) and all(
+            inv is not None and torch.equal(p, inv) for p, inv in perms)
+        controls[kind] = {
+            "caught": not held["ok"], "failing": held["failing"],
+            "caught_with_floor_at_1": bool(held["failing_with_floor_at_1"]),
+            **({"reorder_calls": len(perms),
+                "every_perm_its_own_inverse": own_inverse}
+               if kind.startswith("reorder") else {})}
+    del witness, masters, b0, step
+    torch.cuda.empty_cache()
+    want = _mr_expected(cfg, pes)
+    out["ok"] = (out["witness"]["ok"] and launched == want
+                 and all(v == 0 for v in w_launched.values())
+                 and abs(loss - w_loss) <= 1e-5 * abs(w_loss)
+                 and all(c["caught"] or (k == "reorder_perm_for_inverse"
+                                         and c["every_perm_its_own_inverse"])
+                         for k, c in controls.items()))
+    return out
+
+
+def phase_train_moe_rwkv(dev, kept: dict) -> dict:
+    """qwen2-moe-a2.7b and rwkv6-7b training at full width and cut depth
+    through ``Trainer`` / ``make_train_step``: every kernel of their
+    paths (flash forward and backward, the reorder forward and backward,
+    the RWKV6 forward with saved states and its backward) counted from 0
+    just before the bf16 runs. See ``_mr_bf16``, ``_mr_loss_falls`` and
+    ``_mr_f32``."""
+    kernels = _mr_kernels()
+    for m in kernels.values():
+        m.LAUNCHES = 0                   # the main path starts here
+    bf16 = {f"{n}/{lay}": _mr_bf16(dev, n, lay, kept)
+            for n in TRAIN_MR_ARCHS for lay in TRAIN_MR_PES}
+    launches = {k: sum(r["launches"][k] for r in bf16.values())
+                for k in kernels}
+    by_arch = {TRAIN_MR_ARCHS[n][0]: {k: sum(
+        r["launches"][k] for c, r in bf16.items() if c.startswith(n))
+        for k in kernels} for n in TRAIN_MR_ARCHS}
+    falls = {n: _mr_loss_falls(dev, n) for n in TRAIN_MR_ARCHS}
+    f32 = {f"{n}/{lay}": _mr_f32(dev, n, lay) for n, lay in TRAIN_MR_F32}
+    return {"ok": (all(r["ok"] for r in bf16.values())
+                   and all(r["ok"] for r in falls.values())
+                   and all(r["ok"] for r in f32.values())),
+            "cut": {TRAIN_MR_ARCHS[n][0]: TRAIN_MR_ARCHS[n][1]
+                    for n in TRAIN_MR_ARCHS},
+            "batch": [TRAIN_BATCH, TRAIN_SEQ], "bf16": bf16,
+            "loss_falls": falls, "f32": f32, "launches": launches,
+            "launches_by_arch": by_arch}
+
+
 # -------------------------------------------------------------- checkpoint
 # qwen3-1.7b at full width and depth through repro_torch.checkpoint: train
 # at 1 PE and at tp 8 (TRAIN_LAYOUTS), save after step 2 with steps 3-4
@@ -3527,9 +4212,11 @@ def _ckpt_cell(dev, layout_: str, root: Path) -> tuple[dict, dict]:
     served from the lower cache and is the one measured, past the host's
     first-write costs), steps 3-4 behind the second write (the
     uninterrupted run); two control runs of steps 3-4 from one in-memory
-    clone of the step-2 state; restore of step 2 against that clone, bit
-    for bit; steps 3-4 resumed from the restored state. Returns the summary
-    and the step-2 masters as global tensors."""
+    clone of the step-2 state, each bit for bit the uninterrupted run (the
+    step is deterministic); restore of step 2 against that clone, bit for
+    bit; steps 3-4 resumed from the restored state, bit for bit the
+    uninterrupted run. Returns the summary and the step-2 masters as
+    global tensors."""
     from repro_torch import telemetry
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import program
@@ -3619,12 +4306,7 @@ def _ckpt_cell(dev, layout_: str, root: Path) -> tuple[dict, dict]:
         del c, m, o
     deterministic = all(c["vs_uninterrupted"]["equal"]
                         and c["losses"] == ref_losses for c in controls)
-    allowance = max([abs(a - b) for c in controls
-                     for a, b in zip(c["losses"], ref_losses)]
-                    + [abs(a - b) for a, b in zip(controls[0]["losses"],
-                                                  controls[1]["losses"])])
-    out["control"] = {"deterministic": deterministic,
-                      "loss_allowance": allowance, "runs": controls}
+    out["control"] = {"deterministic": deterministic, "runs": controls}
     if not deterministic:
         # which gradients differ between two backwards of one state
         step = Trainer(cfg, topo, tc).step_fn
@@ -3659,17 +4341,23 @@ def _ckpt_cell(dev, layout_: str, root: Path) -> tuple[dict, dict]:
         "losses": res_losses, "uninterrupted_losses": ref_losses,
         "max_loss_diff": loss_diff, "vs_uninterrupted": vs,
         "step_ms": [t * 1e3 for t in res_s]}
-    held = (vs["equal"] and res_losses == ref_losses) if deterministic \
-        else loss_diff <= 2 * allowance
     out["launches"] = launches
-    out["ok"] = bool(
-        ok1 and ok2 and ok3 and all(c["ok"] for c in controls)
-        and out["save"]["behind_write_steps_end_before_durable"]
-        and out["save"]["lowered"] == [2, 0]
-        and out["save"]["cache_hits"] == [0, 2]
-        and out["save"]["steps_on_disk"] == [CKPT_SAVE_AT]
-        and out["restore"]["vs_saved"]["equal"] and held
-        and all(np.isfinite(out["save"]["losses"] + res_losses)))
+    gates = {
+        "deterministic": deterministic,
+        "resume_bit_for_bit": bool(vs["equal"]
+                                   and res_losses == ref_losses),
+        "launches": bool(ok1 and ok2 and ok3
+                         and all(c["ok"] for c in controls)),
+        "steps_behind_write":
+            out["save"]["behind_write_steps_end_before_durable"],
+        "lowered_once": (out["save"]["lowered"] == [2, 0]
+                         and out["save"]["cache_hits"] == [0, 2]),
+        "keep_last": out["save"]["steps_on_disk"] == [CKPT_SAVE_AT],
+        "restore_bit_for_bit": out["restore"]["vs_saved"]["equal"],
+        "finite": bool(np.all(np.isfinite(out["save"]["losses"]
+                                          + res_losses)))}
+    out["failed_gates"] = [k for k, v in gates.items() if not v]
+    out["ok"] = not out["failed_gates"]
     del masters, opt, ref, rm, ro, batches, early, late
     gc.collect()
     torch.cuda.empty_cache()
@@ -3866,12 +4554,14 @@ def phase_checkpoint(dev) -> dict:
     return out
 
 
-def _rwkv6_bound(r, k, v, logw, u, state) -> dict:
+def _rwkv6_bound(r, k, v, logw, u, state, states: bool = False) -> dict:
     """Least time the card could take: each input byte read once (r, k, v,
     u in their dtype, logw and an incoming state in f32), each output byte
-    written once (o, the f32 final state), over HBM rate; per chunk of the
-    reference's rule and per (batch, head) 2 * (2 C K V + C^2 K + C^2 V)
-    FLOPs, over the peak for the inputs' type. The larger of the two."""
+    written once (o, the f32 final state, and with ``states`` the f32
+    state at each 16-step sub-chunk's start, which that call returns),
+    over HBM rate; per chunk of the reference's rule and per (batch, head)
+    2 * (2 C K V + C^2 K + C^2 V) FLOPs, over the peak for the inputs'
+    type. The larger of the two."""
     from repro_torch.kernels.rwkv6 import ref
     B, S, H, K = r.shape
     V = v.shape[-1]
@@ -3880,6 +4570,8 @@ def _rwkv6_bound(r, k, v, logw, u, state) -> dict:
     read = (es * (r.numel() + k.numel() + v.numel() + u.numel())
             + 4 * logw.numel() + (0 if state is None else state_bytes))
     write = es * B * S * H * V + state_bytes
+    if states:
+        write += state_bytes * -(-S // ref.SUB)
     C = ref.chunk_len(S)
     flops = B * H * (S // C) * 2 * (2 * C * K * V + C * C * K + C * C * V)
     t_bytes = (read + write) / HBM_BYTES_PER_S
@@ -3914,6 +4606,46 @@ def _rwkv6_main_path(kept: dict) -> list:
     return out
 
 
+def _rwkv6_states_main_path(kept: dict) -> list:
+    """The RWKV6 forward kernel asked for the saved sub-chunk states, on
+    the inputs of its last such launch in each bf16 cell of
+    ``train_moe_rwkv`` (1 PE and tp 8, one u per PE): o and the final
+    state held against the plain version within RWKV6_TOL, the states
+    against ``ref.chunk_states`` within RWKV6_STATES_TOL, each x max(1,
+    max|plain|); then timed with the plain pair and the bound, which
+    counts the states it writes."""
+    from repro_torch.kernels.rwkv6 import ref, rwkv6
+    out = []
+    for name in sorted(kept):
+        x = kept[name]
+        o, s, st = rwkv6.rwkv6_chunked(*x, states=True)
+
+        def plain():
+            o, s = ref.rwkv6_chunked(*x)
+            return o, s, ref.chunk_states(x[1], x[2], x[3], x[5])
+        want = plain()
+        torch.cuda.synchronize()
+        err = _rwkv6_compare((o, s), want[:2])
+        states_err = _rwkv6_compare((st,), want[2:])
+        abs_err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip((o, s, st), want))
+        del o, s, st, want
+        out.append({
+            "name": name, "dtype": str(x[0].dtype).split(".")[-1],
+            "r": list(x[0].shape), "u": list(x[4].shape),
+            "state_in": x[5] is not None, "states": True,
+            "max_abs_err": abs_err, "err": err, "states_err": states_err,
+            "ok": (err <= RWKV6_TOL[x[0].dtype]
+                   and states_err <= RWKV6_STATES_TOL),
+            "ms": time_ms(lambda: rwkv6.rwkv6_chunked(*x, states=True),
+                          reps=4),
+            "ms_without_states": time_ms(lambda: rwkv6.rwkv6_chunked(*x),
+                                         reps=4),
+            "plain_ms": time_ms(plain, reps=2, iters=5),
+            "library_ms": None, **_rwkv6_bound(*x, states=True)})
+    return out
+
+
 def _reorder_main_path(kept: dict, name: str, redraw: bool = False) -> dict:
     """The reorder kernel on the inputs kept under ``name``: the 8-PE MoE
     decode path's last launch (the combine all_to_all of layer 24 at step
@@ -3945,14 +4677,56 @@ def _reorder_main_path(kept: dict, name: str, redraw: bool = False) -> dict:
             "bytes": nbytes}
 
 
+def _rwkv6_bwd_main_path(name: str, args: tuple) -> dict:
+    """The RWKV6 backward kernel on a training step's last launch, against
+    the plain version on the same inputs (the forward kernel's saved
+    states): each output within RWKV6_TOL of its own max|plain| (no floor
+    at 1: a training step's gradients lie far below 1), on the step's own
+    ``do`` and again on a unit-scale ``do`` drawn from randn. Then timed
+    with the plain version and the bound; no single PyTorch call computes
+    it (``library_ms`` None)."""
+    from repro_torch.kernels.rwkv6 import ref, rwkv6_bwd
+    r, k, v, logw, u, state, do, dstate, states = args
+    gen = torch.Generator(device=r.device)
+    gen.manual_seed(3)
+    unit = torch.randn(do.shape, generator=gen, device=r.device).to(do.dtype)
+    held, abs_err = {}, 0.0
+    for label, d in (("step_do", do), ("unit_do", unit)):
+        a = (r, k, v, logw, u, state, d, dstate, states)
+        got = rwkv6_bwd.rwkv6_chunked_backward(*a)
+        want = ref.rwkv6_chunked_backward(*a)
+        torch.cuda.synchronize()
+        pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+        errs, peaks = _rel_to_peak([g for g, _ in pairs],
+                                   [w for _, w in pairs])
+        names = [n for n, w in zip(RWKV6_BWD_NAMES, want) if w is not None]
+        held[label] = {"err": dict(zip(names, errs)),
+                       "max_abs_plain": dict(zip(names, peaks))}
+        abs_err = max([abs_err] + [float((g.float() - w.float()).abs().max())
+                                   for g, w in pairs])
+        del got, want, pairs
+    del unit
+    rel = max(e for h in held.values() for e in h["err"].values())
+    return {"name": name, "dtype": str(r.dtype).split(".")[-1],
+            "r": list(r.shape), "u": list(u.shape),
+            "states": list(states.shape), "max_abs_err": abs_err,
+            "err": rel, "held": held, "ok": rel <= RWKV6_TOL[r.dtype],
+            "ms": time_ms(lambda: rwkv6_bwd.rwkv6_chunked_backward(*args)),
+            "plain_ms": time_ms(lambda: ref.rwkv6_chunked_backward(*args),
+                                reps=2, iters=5),
+            "library_ms": None, **_rwkv6_bwd_bound(*args)}
+
+
 def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
-                    kept_bwd: dict) -> dict:
+                    kept_bwd: dict, kept_rwkv6_train: dict,
+                    kept_rwkv6_bwd: dict) -> dict:
     """Each kernel on the inputs of its last launch in each form and run of
-    the serve, serve_moe, serve_rwkv, serve_dense and fused_forward phases
-    (and the reorder's first launch of a DLRM pidcomm call): held against
-    the plain version, then timed. For the fused forward's ring hop, a
-    partial launch, SDPA is timed on the same mask computing the output
-    only (``library_output_only``)."""
+    the serve, serve_moe, serve_rwkv, serve_dense, fused_forward, train
+    and train_moe_rwkv phases (and the reorder's first launch of a DLRM
+    pidcomm call): held against the plain version, then timed; every
+    training layout's rows must be there. For the fused forward's ring
+    hop, a partial launch, SDPA is timed on the same mask computing the
+    output only (``library_output_only``)."""
     from repro_torch.kernels.attention import flash, ref
     timings = []
     worst_ok = bool(kept)
@@ -3990,18 +4764,38 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
     dlrm = _reorder_main_path(kept_reorder, "dlrm_aa_xyz", redraw=True)
     reshard = _reorder_main_path(kept_reorder,
                                  f"prefill{PREFILL_LONG}/{PES[-1]}pe")
+    train_swz = _reorder_main_path(kept_reorder, "train/moe/8pe")
     rwkv = _rwkv6_main_path(kept_rwkv6)
     bwd = [_flash_bwd_main_path(name, *kept_bwd[name])
            for name in sorted(kept_bwd)]
+    rwkv_bwd = [_rwkv6_bwd_main_path(name, kept_rwkv6_bwd[name])
+                for name in sorted(kept_rwkv6_bwd)]
+    rwkv_states = _rwkv6_states_main_path(kept_rwkv6_train)
+    # every training layout's rows: flash at qwen3's and qwen2-moe's,
+    # RWKV6 at rwkv6's
+    flash_lays = list(TRAIN_LAYOUTS) + [f"moe/{lay}" for lay in TRAIN_MR_PES]
+    rwkv_lays = [f"rwkv/{lay}" for lay in TRAIN_MR_PES]
+    missing = [f"train_{p}/{lay}" for p, d, lays in (
+        ("forward", kept, flash_lays), ("backward", kept_bwd, flash_lays),
+        ("forward", kept_rwkv6_train, rwkv_lays),
+        ("backward", kept_rwkv6_bwd, rwkv_lays))
+        for lay in lays if f"train_{p}/{lay}" not in d]
     return {"ok": (worst_ok and reorder["exact"] and dlrm["exact"]
-                   and reshard["exact"]
+                   and reshard["exact"] and train_swz["exact"]
                    and len(rwkv) == 4 and all(t["ok"] for t in rwkv)
                    and f"ring_hop/{FUSED_PES}pe" in kept
-                   and len(bwd) == len(TRAIN_LAYOUTS)
-                   and all(t["ok"] for t in bwd)),
+                   and not missing
+                   and len(bwd) == len(flash_lays)
+                   and all(t["ok"] for t in bwd)
+                   and len(rwkv_bwd) == len(TRAIN_MR_PES)
+                   and all(t["ok"] for t in rwkv_bwd)
+                   and len(rwkv_states) == len(TRAIN_MR_PES)
+                   and all(t["ok"] for t in rwkv_states)),
+            "missing_training_rows": missing,
             "main_path": timings, "reorder": reorder, "reorder_dlrm": dlrm,
-            "reorder_prefill": reshard,
-            "rwkv6": rwkv, "flash_backward": bwd}
+            "reorder_prefill": reshard, "reorder_train": train_swz,
+            "rwkv6": rwkv, "rwkv6_train_forward": rwkv_states,
+            "flash_backward": bwd, "rwkv6_backward": rwkv_bwd}
 
 
 def _event_ms(fn, iters: int = 10) -> float:
@@ -4020,25 +4814,28 @@ def _event_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int = 10) -> float:
+def _device_ms(fn, iters: int = 10, attempts: int = 3) -> float:
     """Device time of one ``fn()`` call: the durations of the kernels it
     launches under ``torch.profiler``, summed, without the host's gaps
     between them (for a call that autograd drives, which ``time_ms`` cannot
-    capture in a graph)."""
+    capture in a graph). A profile that traced no device event is taken
+    again, up to ``attempts`` times: late in a run that has profiled many
+    times, one such profile came back empty on the H100."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("the profiler traced no device events")
-    return us / 1e3 / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError("the profiler traced no device events")
 
 
 def _sdpa_backward(q, k, v, do, form: dict):
@@ -4127,21 +4924,23 @@ def _flash_bwd_main_path(name: str, args: tuple, kw: dict) -> dict:
 
 
 # -------------------------------------------------------------------- main
-def _rwkv6_entry(timings: list, launches: int, kernel: dict) -> dict:
+def _rwkv6_entry(timings: list, by_path: dict, kernel: dict) -> dict:
     """The RWKV6 kernel's entry of the kernels line: its numbers at the
-    1-PE forward; each kept path input under ``shapes``; the timed rows
-    off the main path of the kernel phase."""
+    1-PE forward; its launches on each path; each kept path input under
+    ``shapes``; the timed rows off the main path of the kernel phase."""
     head = next(t for t in timings if t["name"] == "forward/1pe")
     return {
         "name": "rwkv6_chunked", "route": "cuda", "source": RWKV6_SOURCE,
-        "replaces": RWKV6_TPU_KERNEL, "launches": launches,
+        "replaces": RWKV6_TPU_KERNEL, "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": max(t["max_abs_err"] for t in timings),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "at": head["name"],
         "shapes": {t["name"]: {k: t[k] for k in (
             "r", "u", "state_in", "ms", "plain_ms", "bound_ms", "bound_by",
-            "max_abs_err")} for t in timings},
+            "max_abs_err", "states", "ms_without_states") if k in t}
+            for t in timings},
         "off_main_path": kernel["timed"]}
 
 
@@ -4163,6 +4962,50 @@ def _flash_bwd_entry(rows: list, by_path: dict) -> dict:
         "shapes": {t["name"]: {k: t[k] for k in (
             "q", "kv", "ms", "plain_ms", "library_ms", "library_device_ms",
             "bound_ms", "bound_by", "max_abs_err")} for t in rows}}
+
+
+def _rwkv6_bwd_entry(rows: list, launches: int, kernel: dict) -> dict:
+    """The RWKV6 backward kernel's entry of the kernels line: its numbers
+    at the 1-PE training step; every kept training launch under
+    ``shapes``; the kernel phase's timed training shape. The JAX package
+    has no Pallas backward: ``replaces`` names the jnp function whose
+    autodiff its train step takes."""
+    head = next(t for t in rows if t["name"] == "train_backward/rwkv/1pe")
+    return {
+        "name": "rwkv6_backward", "route": "cuda",
+        "source": RWKV6_BWD_SOURCE, "replaces": RWKV6_BWD_REPLACES,
+        "launches": launches,
+        "launches_by_path": {f"{RWKV_ARCH}/train": launches},
+        "max_abs_err": max(t["max_abs_err"] for t in rows),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "at": head["name"],
+        "shapes": {t["name"]: {k: t[k] for k in (
+            "r", "u", "states", "ms", "plain_ms", "bound_ms", "bound_by",
+            "saved_states_bytes", "saved_states_read_ms",
+            "max_abs_err")} for t in rows},
+        "off_main_path": kernel["timed"]}
+
+
+def _why(res, path: str = "") -> list:
+    """Where a failed phase's result says it failed: its ``error``, each
+    nested ``"ok": false`` and each ``failed_gates`` list, by path."""
+    out = []
+    if isinstance(res, dict):
+        for k, v in res.items():
+            p = f"{path}/{k}" if path else str(k)
+            if k == "error":
+                out.append(f"{p}: {v}")
+            elif k == "ok" and v is False and path:
+                out.append(p)
+            elif k == "failed_gates" and v:
+                out.append(f"{p}: {v}")
+            else:
+                out += _why(v, p)
+    elif isinstance(res, list):
+        for i, v in enumerate(res):
+            out += _why(v, f"{path}[{i}]")
+    return out
 
 
 def card_line() -> str:
@@ -4190,7 +5033,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
     results, failed, kept, kept_reorder, kept_rwkv6 = {}, [], {}, {}, {}
-    kept_bwd, moe_sort = {}, {}
+    kept_bwd, moe_sort, kept_rwkv6_bwd, kept_rwkv6_train = {}, {}, {}, {}
+    kept_train = {"flash": kept, "flash_bwd": kept_bwd,
+                  "reorder": kept_reorder, "rwkv6": kept_rwkv6_train,
+                  "rwkv6_bwd": kept_rwkv6_bwd}
     for name, fn in (("build", lambda: phase_build()),
                      ("no_spills", lambda: {
                          "ok": not results["build"]["spilling"],
@@ -4215,12 +5061,16 @@ def main() -> int:
                      ("fused_forward", lambda: phase_fused_forward(dev,
                                                                    kept)),
                      ("train", lambda: phase_train(dev, kept, kept_bwd)),
+                     ("train_moe_rwkv", lambda: phase_train_moe_rwkv(
+                         dev, kept_train)),
                      ("checkpoint", lambda: phase_checkpoint(dev)),
                      ("main_path", lambda: phase_main_path(
-                         kept, kept_reorder, kept_rwkv6, kept_bwd))):
+                         kept, kept_reorder, kept_rwkv6, kept_bwd,
+                         kept_rwkv6_train, kept_rwkv6_bwd))):
         needs = {"main_path": ("serve", "serve_moe", "serve_rwkv",
                                "serve_dense", "serve_prefill", "apps",
-                               "fused_forward", "train", "checkpoint"),
+                               "fused_forward", "train", "train_moe_rwkv",
+                               "checkpoint"),
                  "serve_prefill": ("build", "serve_moe"),
                  "checkpoint": ("build", "train")}.get(name, ("build",))
         missing = [n for n in needs if n in failed]
@@ -4243,6 +5093,9 @@ def main() -> int:
 
     print(card_line(), flush=True)
     if failed:
+        for name in failed:
+            print(f"chip_smoke: {name}: {_why(results.get(name, {}))[:20]}",
+                  file=sys.stderr)
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
     kern, serve_res = results["main_path"], results["serve"]
@@ -4252,10 +5105,12 @@ def main() -> int:
     fused_res, apps_res = results["fused_forward"], results["apps"]
     train_res, prefill_res = results["train"], results["serve_prefill"]
     tune_res, ckpt_res = results["tune"], results["checkpoint"]
+    mr = results["train_moe_rwkv"]["launches_by_arch"]
     # the flash headline: the main-path row that fares worst against SDPA
     head = max(kern["main_path"], key=lambda t: t["ms"] / t["library_ms"])
     swz = kern["reorder"]
-    reorder_rows = (swz, kern["reorder_dlrm"], kern["reorder_prefill"])
+    reorder_rows = (swz, kern["reorder_dlrm"], kern["reorder_prefill"],
+                    kern["reorder_train"])
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
@@ -4265,7 +5120,8 @@ def main() -> int:
                      + fused_res["flash_launches"]
                      + train_res["flash_launches"]
                      + prefill_res["flash_launches"]
-                     + ckpt_res["flash_launches"]),
+                     + ckpt_res["flash_launches"]
+                     + mr[MOE_ARCH]["flash"]),
         "launches_by_path": {ARCH: serve_res["flash_launches"],
                              MOE_ARCH: moe_res["flash_launches"],
                              **{a: dense_res[a]["flash_launches"]
@@ -4277,7 +5133,8 @@ def main() -> int:
                              f"{ARCH}/train": train_res["flash_launches"],
                              "serve_prefill": prefill_res["flash_launches"],
                              f"{ARCH}/checkpoint":
-                                 ckpt_res["flash_launches"]},
+                                 ckpt_res["flash_launches"],
+                             f"{MOE_ARCH}/train": mr[MOE_ARCH]["flash"]},
         "max_abs_err": max(t["max_abs_err"] for t in kern["main_path"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4295,14 +5152,16 @@ def main() -> int:
                      + apps_res["dlrm_reorder_launches"]
                      + prefill_res["reorder_launches"]
                      + tune_res["reorder_launches"]
-                     + ckpt_res["reorder_launches"]),
+                     + ckpt_res["reorder_launches"]
+                     + mr[MOE_ARCH]["reorder"]),
         "launches_by_path": {MOE_ARCH: moe_res["reorder_launches"],
                              "dlrm/pidcomm":
                                  apps_res["dlrm_reorder_launches"],
                              "serve_prefill": prefill_res["reorder_launches"],
                              "tune": tune_res["reorder_launches"],
                              f"{ARCH}/checkpoint":
-                                 ckpt_res["reorder_launches"]},
+                                 ckpt_res["reorder_launches"],
+                             f"{MOE_ARCH}/train": mr[MOE_ARCH]["reorder"]},
         "max_abs_err": max(r["max_abs_err"] for r in reorder_rows),
         "ms": swz["ms"],
         "plain_ms": swz["plain_ms"], "bound_ms": swz["bound_ms"],
@@ -4311,11 +5170,16 @@ def main() -> int:
         "shapes": {r["name"]: {k: r[k] for k in (
             "x", "blocks", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "max_abs_err")} for r in reorder_rows},
-    }, _rwkv6_entry(kern["rwkv6"], rwkv_res["rwkv6_launches"],
-                    results["kernel"]["rwkv6"]),
+    }, _rwkv6_entry(kern["rwkv6"] + kern["rwkv6_train_forward"], {
+        RWKV_ARCH: rwkv_res["rwkv6_launches"],
+        f"{RWKV_ARCH}/train": mr[RWKV_ARCH]["rwkv6"]},
+        results["kernel"]["rwkv6"]),
         _flash_bwd_entry(kern["flash_backward"], {
             f"{ARCH}/train": train_res["flash_bwd_launches"],
-            f"{ARCH}/checkpoint": ckpt_res["flash_bwd_launches"]})],
+            f"{ARCH}/checkpoint": ckpt_res["flash_bwd_launches"],
+            f"{MOE_ARCH}/train": mr[MOE_ARCH]["flash_bwd"]}),
+        _rwkv6_bwd_entry(kern["rwkv6_backward"], mr[RWKV_ARCH]["rwkv6_bwd"],
+                         results["kernel"]["rwkv6_backward"])],
         "total_s": round(time.perf_counter() - t_all, 3)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

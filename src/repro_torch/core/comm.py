@@ -25,7 +25,9 @@ a distinct data movement:
           and its ``cm`` is one launch of the reorder kernel
           (``repro_torch.kernels.reorder``) over the stored cube tensor:
           in the cube layout an all_to_all over a group, across all its
-          instances, is one permutation of contiguous blocks.
+          instances, is one permutation of contiguous blocks. Both reorder
+          launches go through ``TileSwizzle``: their gradient is the same
+          kernel with the inverse permutation.
 
 ``algorithm="auto"`` dispatches the planner's pick (priced from an
 installed measured profile, ``repro_torch.tuning``, where there is one);
@@ -283,8 +285,9 @@ class Communicator:
         self.inst_axes = tuple(i for i in range(cube.ndim)
                                if i not in self.group_axes)
         self._flows: dict[tuple, tuple[str, planner.CommEstimate | None]] = {}
-        # block permutations of the reorder kernel (``block_perm``)
-        self._perms: dict[tuple, tuple[torch.Tensor, int]] = {}
+        # block permutations of the reorder kernel and their inverses
+        # (``block_perm``)
+        self._perms: dict[tuple, tuple] = {}
         # communicators over sub-selections (the hierarchical split's hops)
         self._subs: dict[tuple[str, ...], "Communicator"] = {}
 
@@ -544,7 +547,8 @@ class Communicator:
                               split_axis=split_axis, concat_axis=concat_axis)
 
     def block_perm(self, move_key: tuple, x: torch.Tensor, axis: int,
-                   splits: bool, move: Callable) -> tuple[torch.Tensor, int]:
+                   splits: bool, move: Callable
+                   ) -> tuple[torch.Tensor, int, torch.Tensor | None]:
         """The reorder kernel's permutation for ``move``, a pure data
         movement of cube tensors shaped like ``x`` (named by ``move_key``),
         computed once and cached on x's device per (move_key, shape,
@@ -552,7 +556,8 @@ class Communicator:
         payload ``axis`` with, at ``axis``, one group block if the move
         ``splits`` that axis, else the whole axis. ``move`` runs once, on a
         tensor of unit indices; returns (perm int32 on the device, unit
-        elements)."""
+        elements, its inverse int32 on the device or None where the move
+        is not a bijection of the units)."""
         key = (move_key, tuple(x.shape), x.device)
         got = self._perms.get(key)
         if got is None:
@@ -561,10 +566,13 @@ class Communicator:
             k = self.group_size if splits else 1
             lead = tuple(x.shape[:c]) + pay[:axis]
             idx = torch.arange(math.prod(lead) * k).reshape(lead + (k,))
-            perm = move(idx).reshape(-1).to(device=x.device,
-                                            dtype=torch.int32)
+            host = move(idx).reshape(-1)
+            perm = host.to(device=x.device, dtype=torch.int32)
+            inv = reorder_ops.inverse_perm(host)
+            if inv is not None:
+                inv = inv.to(device=x.device, dtype=torch.int32)
             unit = pay[axis] // k * math.prod(pay[axis + 1:])
-            got = self._perms[key] = (perm, unit)
+            got = self._perms[key] = (perm, unit, inv)
         return got
 
     # ------------------------------------------------- rooted (host) four
@@ -818,10 +826,11 @@ def _aa_pr(comm, x, *, split_axis, concat_axis):
     # then each member takes its column of the replicated buffer in one
     # slice
     blocks = _a2a_blocks(comm, x, split_axis)
-    perm, unit = comm.block_perm(
+    perm, unit, inv = comm.block_perm(
         ("pr", split_axis), x, split_axis, True,
         lambda idx: _a2a_blocks(comm, idx, split_axis).contiguous())
-    pre = reorder_ops.tile_swizzle(x.contiguous().reshape(-1, unit), perm)
+    pre = reorder_ops.tile_swizzle(x.contiguous().reshape(-1, unit), perm,
+                                   inv)
     gathered = _replicated(pre.reshape(blocks.shape))  # (G_mem, G_src, ...)
     me = torch.arange(comm.group_size, device=x.device)
     return _a2a_out(comm, gathered[me, :, me], concat_axis)
@@ -844,10 +853,11 @@ def _aa_swizzle(comm, x, *, split_axis, concat_axis):
     # the whole all_to_all, across all instances, as one launch of the
     # reorder kernel over the stored cube tensor
     axis = max(split_axis, concat_axis)
-    perm, unit = comm.block_perm(
+    perm, unit, inv = comm.block_perm(
         ("cm", split_axis, concat_axis), x, axis, axis == split_axis,
         lambda idx: _a2a_transpose(comm, idx, split_axis, concat_axis))
-    out = reorder_ops.tile_swizzle(x.contiguous().reshape(-1, unit), perm)
+    out = reorder_ops.tile_swizzle(x.contiguous().reshape(-1, unit), perm,
+                                   inv)
     return out.reshape(_a2a_shape(comm, x, split_axis, concat_axis))
 
 

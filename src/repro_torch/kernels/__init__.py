@@ -8,13 +8,14 @@ import torch
 def guard_grad(name: str, *tensors) -> None:
     """Raise when autograd would record through a kernel launch: a launch
     writes into ``torch.empty`` outputs that carry no ``grad_fn``, so the
-    gradient would be dropped without a word. Attention trains through
-    ``repro_torch.kernels.attention.ops.FlashAttention``, whose backward is
-    a kernel too; the reorder and RWKV6 kernels have no backward yet."""
+    gradient would be dropped without a word. Training goes through the
+    ``autograd.Function`` beside each kernel, whose backward is a kernel
+    too: ``attention.ops.FlashAttention``, ``reorder.ops.TileSwizzle`` and
+    ``rwkv6.ops.RWKV6Chunked``."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad and the kernel's output would "
-            "carry none; train attention through "
-            "repro_torch.kernels.attention.ops.FlashAttention, or launch "
-            "under torch.no_grad()")
+            "carry none; train through the kernel's autograd.Function "
+            "(attention.ops.FlashAttention, reorder.ops.TileSwizzle, "
+            "rwkv6.ops.RWKV6Chunked), or launch under torch.no_grad()")

@@ -26,6 +26,7 @@ SOURCES = {
     "flash_bwd": "attention/csrc/flash_bwd.cu",
     "reorder": "reorder/csrc/reorder.cu",
     "rwkv6": "rwkv6/csrc/rwkv6.cu",
+    "rwkv6_bwd": "rwkv6/csrc/rwkv6_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -58,6 +58,12 @@
 // operations bound; the FP32 FMA form took 0.170, bound by shared-memory
 // reads).
 //
+// For training the kernel also writes, when asked (states non-null), the f32
+// state at the start of each sub-chunk, (N, H, ceil(S / 16), K, K): what
+// the backward kernel (rwkv6_bwd.cu) rebuilds each sub-chunk from. The
+// write sits outside the arithmetic, so a launch without it returns the
+// same bits.
+//
 // Build (nvcc -O3, sm_90a): 204 / 172 / 128 registers a thread at K = 64 /
 // 32 / 16 in bf16, 150 / 192 / 148 in f32, no spill; cuobjdump -sass shows
 // HMMA (126 / 66 / 36 in bf16, 156 / 84 / 48 in f32), FFMA 272 (the decays
@@ -194,15 +200,17 @@ struct Tiles {
 
 // r, k, v, logw, o: (N, S, H, K) (V == K), r, k, v, u, o in T; u: (G, H,
 // K), batch row n reads u row n / u_div; state_in (may be null),
-// state_out: (N, H, K, K). grid = N * H CTAs, one per (batch, head);
+// state_out: (N, H, K, K); states (may be null): (N, H, ceil(S / kSub),
+// K, K), the state at each sub-chunk's start. grid = N * H CTAs, one per
+// (batch, head);
 // block = 2 K threads (K / 16 warps); two Tiles of dynamic shared memory.
 template <typename T, int K>
 __global__ void __launch_bounds__(2 * K, 2)
 rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
              const T* __restrict__ v, const float* __restrict__ logw,
              const T* __restrict__ u, const float* __restrict__ state_in,
-             T* __restrict__ o, float* __restrict__ state_out, int S, int H,
-             long long u_div) {
+             T* __restrict__ o, float* __restrict__ state_out,
+             float* __restrict__ states, int S, int H, long long u_div) {
   using bf16 = __nv_bfloat16;
   using Q = Quad<T>;
   constexpr int V = K;
@@ -439,6 +447,17 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   __syncthreads();
   for (int i = 0; i < nsub; ++i) {
     const int b = i & 1;
+    if (states) {
+      float* dst = states + (bh * nsub + i) * K * V;
+#pragma unroll
+      for (int nt = 0; nt < K / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 16 * w + g + 8 * (e >> 1);
+          const int c = 8 * nt + 2 * q + (e & 1);
+          dst[c * V + j] = st[nt][e];
+        }
+    }
     products(b, i * kSub);
     if (i + 1 < nsub) {
       make_tiles(b ^ 1);
@@ -458,8 +477,8 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
 template <typename T, int K>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const void* logw, const void* u, const void* state_in,
-                   void* o, void* state_out, long long N, int S, int H,
-                   long long u_div, cudaStream_t stream) {
+                   void* o, void* state_out, void* states, long long N,
+                   int S, int H, long long u_div, cudaStream_t stream) {
   constexpr int bytes = 2 * sizeof(Tiles<K, kVPieces<T>>);
   static_assert(sizeof(Tiles<K, kVPieces<T>>) % 16 == 0,
                 "16-byte aligned second tile");
@@ -470,20 +489,21 @@ cudaError_t launch(const void* r, const void* k, const void* v,
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(logw),
       static_cast<const T*>(u), static_cast<const float*>(state_in),
-      static_cast<T*>(o), static_cast<float*>(state_out), S, H, u_div);
+      static_cast<T*>(o), static_cast<float*>(state_out),
+      static_cast<float*>(states), S, H, u_div);
   return cudaGetLastError();
 }
 
 template <int K>
 cudaError_t launch_k(int dtype, const void* r, const void* k, const void* v,
                      const void* logw, const void* u, const void* state_in,
-                     void* o, void* state_out, long long N, int S, int H,
-                     long long u_div, cudaStream_t stream) {
+                     void* o, void* state_out, void* states, long long N,
+                     int S, int H, long long u_div, cudaStream_t stream) {
   if (dtype == 0)
-    return launch<float, K>(r, k, v, logw, u, state_in, o, state_out, N, S,
-                            H, u_div, stream);
+    return launch<float, K>(r, k, v, logw, u, state_in, o, state_out,
+                            states, N, S, H, u_div, stream);
   return launch<__nv_bfloat16, K>(r, k, v, logw, u, state_in, o, state_out,
-                                  N, S, H, u_div, stream);
+                                  states, N, S, H, u_div, stream);
 }
 
 }  // namespace
@@ -493,13 +513,14 @@ extern "C" {
 // dtype: 0 = f32, 1 = bf16 for r, k, v, u, o. r, k, v, logw, o: (N, S, H,
 // K) contiguous, 16-byte aligned (f32) or 8-byte (bf16); u: (G, H, K) with
 // G dividing N; state_in: (N, H, K, K) f32 or null (zeros); state_out: (N,
-// H, K, K) f32. K = V in {16, 32, 64}. Returns the cudaError_t of the
+// H, K, K) f32; states: (N, H, ceil(S / 16), K, K) f32 or null (not
+// written). K = V in {16, 32, 64}. Returns the cudaError_t of the
 // launch (0 on success); nothing is synchronized and nothing allocated.
 int repro_rwkv6_chunked(int dtype, int K, const void* r,
                         const void* k, const void* v, const void* logw,
                         const void* u, const void* state_in, void* o,
-                        void* state_out, long long N, int S, int H,
-                        long long G, void* stream) {
+                        void* state_out, void* states, long long N, int S,
+                        int H, long long G, void* stream) {
   if (N <= 0 || S <= 0 || H <= 0 || G <= 0 || N % G ||
       N * H > 0x7fffffffLL || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
@@ -507,14 +528,14 @@ int repro_rwkv6_chunked(int dtype, int K, const void* r,
   const long long u_div = N / G;
   switch (K) {
     case 16:
-      return launch_k<16>(dtype, r, k, v, logw, u, state_in, o, state_out, N,
-                          S, H, u_div, s);
+      return launch_k<16>(dtype, r, k, v, logw, u, state_in, o, state_out,
+                          states, N, S, H, u_div, s);
     case 32:
-      return launch_k<32>(dtype, r, k, v, logw, u, state_in, o, state_out, N,
-                          S, H, u_div, s);
+      return launch_k<32>(dtype, r, k, v, logw, u, state_in, o, state_out,
+                          states, N, S, H, u_div, s);
     case 64:
-      return launch_k<64>(dtype, r, k, v, logw, u, state_in, o, state_out, N,
-                          S, H, u_div, s);
+      return launch_k<64>(dtype, r, k, v, logw, u, state_in, o, state_out,
+                          states, N, S, H, u_div, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -7,6 +7,11 @@ S_t = diag(exp(logw_t)) S_{t-1} + k_t v_t^T; inside a chunk the products
 are taken relative to the chunk's start (k_s e^{-cum_s} against
 r_t e^{cum_{t-1}}). The CPU path of ``ops.rwkv6_chunked`` and the kernel's
 yardstick on the card.
+
+``chunk_states`` and ``rwkv6_chunked_backward`` are the plain versions of
+the forward kernel's saved states and of the backward kernel
+(``rwkv6_bwd.py``): the same algorithm, over the kernel's own 16-step
+sub-chunks, last to first.
 """
 from __future__ import annotations
 
@@ -73,3 +78,125 @@ def rwkv6_chunked(r, k, v, logw, u, state=None, chunk: int = 64):
             "bshk,bshv->bhkv", kc * torch.exp(tot[:, None] - cum), vc)
     out = torch.stack(outs, 1).reshape(B, S, H, V)
     return out.to(r.dtype), S0
+
+
+SUB = 16    # the kernels' sub-chunk: e^{-cum} stays far from f32's limit
+
+
+def _pad_steps(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x (B, S, H, K) as f32 (B, n, SUB, H, K), zero steps past S: a zero
+    step carries no r, k, v or do and decays by e^0 = 1."""
+    B, S = x.shape[:2]
+    x = x.float()
+    if n * SUB != S:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n * SUB - S))
+    return x.reshape((B, n, SUB) + tuple(x.shape[2:]))
+
+
+def chunk_states(k, v, logw, state=None) -> torch.Tensor:
+    """The f32 state at the start of each SUB-step sub-chunk, (B, H,
+    ceil(S / SUB), K, V): what the forward kernel saves for the backward.
+    Entry 0 is the incoming state (zeros for None)."""
+    B, S, H, K = k.shape
+    V = v.shape[-1]
+    n = -(-S // SUB)
+    kf, vf, lw = (_pad_steps(x, n) for x in (k, v, logw))
+    st = (torch.zeros((B, H, K, V), dtype=torch.float32, device=k.device)
+          if state is None else state.float())
+    out = []
+    for i in range(n):
+        out.append(st)
+        cum = lw[:, i].cumsum(1)
+        tot = cum[:, -1]
+        st = torch.exp(tot)[..., None] * st + torch.einsum(
+            "bshk,bshv->bhkv", kf[:, i] * torch.exp(tot[:, None] - cum),
+            vf[:, i])
+    return torch.stack(out, 2)
+
+
+def rwkv6_chunked_backward(r, k, v, logw, u, state, do, dstate=None,
+                           states=None):
+    """The gradient of ``rwkv6_chunked`` by the backward kernel's
+    algorithm. r, k, v, logw, u, state: the forward's inputs; do: (B, S,
+    H, V), the output's gradient; dstate: (B, H, K, V) the final state's,
+    or None (zeros); states: ``chunk_states`` of the forward (computed
+    here when None). Returns (dr, dk, dv in r's dtype, dlogw f32, du in u's
+    dtype, dstate_in f32 or None when no state came in).
+
+    Per sub-chunk, last to first, with dS the carried gradient of its end
+    state and S0 its saved start state (cum inclusive, excl = cum - logw,
+    tot = cum at the last step; qd = r e^{excl}, kd = k e^{-cum}, kw =
+    k e^{tot - cum}; P[t, s] = qd_t . kd_s and dP[t, s] = do_t . v_s for
+    s < t; D_t = r_t . (u k_t), dD_t = do_t . v_t):
+      dqd_t = S0 do_t + sum_{s<t} dP[t, s] kd_s
+      dkd_s = sum_{t>s} dP[t, s] qd_t,   dkw_s = dS v_s
+      dv_s  = sum_{t>s} P[t, s] do_t + D_s do_s + dS^T kw_s
+      dr = dqd e^{excl} + u k dD,  dk = dkd e^{-cum} + dkw e^{tot-cum}
+           + u r dD,  du += sum_t r_t k_t dD_t
+      dlogw_tau = sum_{t>=tau} a_t + sum_{t>tau} b_t + dtot, with a =
+           -(dkd kd + dkw kw) (through cum), b = dqd qd (through excl),
+           dtot = sum_s dkw_s kw_s + e^{tot} rowsum(S0 * dS)
+      dS <- e^{tot} dS + sum_t qd_t do_t^T
+    the gradient of the inclusive cumulative log-decay summed back over
+    the sub-chunk (the identity of chunked gated-linear-attention
+    backwards), plus the state's term."""
+    B, S, H, K = r.shape
+    V = v.shape[-1]
+    n = -(-S // SUB)
+    if states is None:
+        states = chunk_states(k, v, logw, state)
+    rf, kf, vf, lw, dof = (_pad_steps(x, n) for x in (r, k, v, logw, do))
+    uf = _u_rows(u, B)[:, None]                         # (B, 1, H, K)
+    dS = (torch.zeros((B, H, K, V), dtype=torch.float32, device=r.device)
+          if dstate is None else dstate.float())
+    below = torch.tril(torch.ones((SUB, SUB), dtype=torch.bool,
+                                  device=r.device), diagonal=-1)
+    grads = {name: [None] * n for name in ("r", "k", "v", "w")}
+    du = torch.zeros((B, H, K), dtype=torch.float32, device=r.device)
+    for i in reversed(range(n)):
+        rc, kc, vc, lc, dc = (x[:, i] for x in (rf, kf, vf, lw, dof))
+        S0 = states[:, :, i].float()
+        cum = lc.cumsum(1)
+        excl = cum - lc
+        tot = cum[:, -1]                                # (B, H, K)
+        qd = rc * torch.exp(excl)
+        kd = kc * torch.exp(-cum)
+        kw = kc * torch.exp(tot[:, None] - cum)
+        zero = torch.zeros((), device=r.device)
+        P = torch.where(below, torch.einsum("bthk,bshk->bhts", qd, kd), zero)
+        dP = torch.where(below, torch.einsum("bthv,bshv->bhts", dc, vc),
+                         zero)
+        D = (rc * uf * kc).sum(-1)                      # (B, C, H)
+        dD = (dc * vc).sum(-1)
+        dqd = (torch.einsum("bhkv,bthv->bthk", S0, dc)
+               + torch.einsum("bhts,bshk->bthk", dP, kd))
+        dkd = torch.einsum("bhts,bthk->bshk", dP, qd)
+        dkw = torch.einsum("bhkv,bshv->bshk", dS, vc)
+        grads["v"][i] = (torch.einsum("bhts,bthv->bshv", P, dc)
+                         + D[..., None] * dc
+                         + torch.einsum("bshk,bhkv->bshv", kw, dS))
+        grads["r"][i] = dqd * torch.exp(excl) + uf * kc * dD[..., None]
+        grads["k"][i] = (dkd * torch.exp(-cum)
+                         + dkw * torch.exp(tot[:, None] - cum)
+                         + uf * rc * dD[..., None])
+        du = du + (rc * kc * dD[..., None]).sum(1)
+        a = -(dkd * kd) - dkw * kw
+        b = dqd * qd
+        dtot = (dkw * kw).sum(1) + torch.exp(tot) * (S0 * dS).sum(-1)
+        grads["w"][i] = ((a + b).flip(1).cumsum(1).flip(1) - b
+                         + dtot[:, None])
+        dS = torch.exp(tot)[..., None] * dS + torch.einsum(
+            "bthk,bthv->bhkv", qd, dc)
+
+    def steps(parts, width):
+        return torch.stack(parts, 1).reshape(B, n * SUB, H, width)[:, :S]
+
+    dr, dk = (steps(grads[x], K).to(r.dtype) for x in ("r", "k"))
+    dv = steps(grads["v"], V).to(r.dtype)
+    dlogw = steps(grads["w"], K)
+    if u.dim() == 3:
+        du = du.reshape((u.shape[0], B // u.shape[0], H, K)).sum(1)
+    else:
+        du = du.sum(0)
+    return (dr, dk, dv, dlogw, du.to(u.dtype),
+            None if state is None else dS)

@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, guard_grad
+from repro_torch.kernels.rwkv6.ref import SUB
 
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,7 +40,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.repro_rwkv6_chunked
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, ll, i, i, ll, p]
+        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, ll, i, i, ll, p]
         fn.restype = i
         lib.repro_rwkv6_error_string.argtypes = [i]
         lib.repro_rwkv6_error_string.restype = ctypes.c_char_p
@@ -85,12 +86,15 @@ def _check(r, k, v, logw, u, state):
                              "a 4-element boundary")
 
 
-def rwkv6_chunked(r, k, v, logw, u, state=None):
+def rwkv6_chunked(r, k, v, logw, u, state=None, *, states: bool = False):
     """Launch the kernel on CUDA tensors (see ``ref.rwkv6_chunked`` for the
     function; the kernel takes any length S). r, k, v: (B, S, H, K) f32 or
     bf16; logw: (B, S, H, K) f32; u: (H, K) or (G, H, K) in r's dtype;
     state: (B, H, K, K) f32 or None. Returns (o in r's dtype, final state
-    f32). Raises on anything the kernel does not take, and under grad."""
+    f32), and with ``states`` also the f32 state at the start of each
+    16-step sub-chunk, (B, H, ceil(S / 16), K, K) (``ref.chunk_states``),
+    which the backward kernel takes. Raises on anything the kernel does
+    not take, and under grad."""
     global LAUNCHES
     guard_grad("rwkv6_chunked", r, k, v, logw, u, state)
     _check(r, k, v, logw, u, state)
@@ -99,6 +103,8 @@ def rwkv6_chunked(r, k, v, logw, u, state=None):
     state_out = torch.empty((B, H, K, K), dtype=torch.float32,
                             device=r.device)
     G = 1 if u.dim() == 2 else u.shape[0]
+    saved = (torch.empty((B, H, -(-S // SUB), K, K), dtype=torch.float32,
+                         device=r.device) if states else None)
     lib = _lib()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -106,10 +112,11 @@ def rwkv6_chunked(r, k, v, logw, u, state=None):
             _DTYPES[r.dtype], K, r.data_ptr(), k.data_ptr(), v.data_ptr(),
             logw.data_ptr(), u.data_ptr(),
             None if state is None else state.data_ptr(), o.data_ptr(),
-            state_out.data_ptr(), B, S, H, G, stream)
+            state_out.data_ptr(), None if saved is None else saved.data_ptr(),
+            B, S, H, G, stream)
     if rc != 0:
         msg = lib.repro_rwkv6_error_string(rc).decode()
         raise RuntimeError(f"rwkv6_chunked kernel launch failed: CUDA error "
                            f"{rc} ({msg})")
     LAUNCHES += 1
-    return o, state_out
+    return (o, state_out, saved) if states else (o, state_out)

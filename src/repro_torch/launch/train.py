@@ -7,12 +7,16 @@
 The port of ``repro.launch.train``: ``--pes N`` (default 1) stands in for
 the JAX launcher's device count, and the model-parallel degree is
 ``min(cfg.model_parallel, N)`` (1 with ``--smoke``), the rest data
-parallelism. Weights are random from ``--seed``; batches come from the
+parallelism: tp for a dense or RWKV6 model, ep for an MoE one (etp 1; at
+``--pes 8`` qwen2-moe-a2.7b's 64 padded experts go 8 a PE, and every
+all_to_all of its dispatch runs on the reorder kernel, forward and
+backward). Weights are random from ``--seed``; batches come from the
 synthetic ``TokenStream``. It trains on CUDA unless ``--device cpu`` is
 given, and raises when no GPU is visible. bf16 compute over f32 master
 weights, 8-bit AdamW moments unless ``--fp32-moments``. Prints the loss
 every few steps, ms per step, tokens/s and the flash kernels' launch
-counts (forward and backward).
+counts (forward and backward), the reorder kernel's, and the RWKV6
+kernels' (forward and backward).
 
 ``--ckpt-dir`` binds a ``CheckpointManager`` to the run's topology with
 ``{"params": param_specs, "opt": opt_specs}``: every ``--ckpt-every``
@@ -37,6 +41,8 @@ from repro_torch import configs, resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, TokenStream
 from repro_torch.kernels.attention import flash, flash_bwd
+from repro_torch.kernels.reorder import reorder
+from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_bwd
 from repro_torch.models.params import init_params, param_specs, trainable
 from repro_torch.models.topology import build_topology
 from repro_torch.optim import adamw
@@ -53,14 +59,17 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 256,
     """Train up to step ``steps``; returns the run's record: ``history``
     (per step float metrics), ``step_ms``, ``tok_per_s``, the final
     ``params`` and ``opt`` state, the flash forward / backward launch
-    counts, ``start`` (the step resumed from, else 0) and ``ckpt`` (the
-    manager, or None)."""
+    counts, the reorder's and the RWKV6 forward / backward counts,
+    ``start`` (the step resumed from, else 0) and ``ckpt`` (the manager,
+    or None)."""
     dev = resolve_device(device)
     cfg = configs.get(arch)
     if smoke:
         cfg = cfg.scaled_for_smoke()
     mp = 1 if smoke else min(cfg.model_parallel, pes)
-    if not cfg.n_experts:
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, ep=mp, etp=1)
+    else:
         cfg = dataclasses.replace(cfg, tp=mp)
     topo = build_topology(cfg, pes, global_batch=batch)
     tc = TrainConfig(lr=lr, warmup=warmup, total_steps=steps,
@@ -89,7 +98,8 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 256,
         for s in range(start, steps):
             yield place_batch(stream.global_batch_at(s), cfg, topo, dev)
 
-    launches0 = flash.LAUNCHES, flash_bwd.LAUNCHES
+    kernels = (flash, flash_bwd, reorder, rwkv6, rwkv6_bwd)
+    launches0 = [m.LAUNCHES for m in kernels]
     t0 = time.perf_counter()
     params, opt, history = trainer.run(
         params, opt, batches(), start_step=start,
@@ -105,8 +115,9 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 256,
             "tok_per_s": batch * seq * len(history) / wall,
             "start": start, "ckpt": ckpt,
             "slow_steps": trainer.slow_steps,
-            "flash_launches": flash.LAUNCHES - launches0[0],
-            "flash_bwd_launches": flash_bwd.LAUNCHES - launches0[1]}
+            **{f"{name}_launches": m.LAUNCHES - n0 for name, m, n0 in zip(
+                ("flash", "flash_bwd", "reorder", "rwkv6", "rwkv6_bwd"),
+                kernels, launches0)}}
 
 
 def main(argv=None):
@@ -147,7 +158,10 @@ def main(argv=None):
           f"{run['ms_per_step']:.1f} ms/step, {run['tok_per_s']:.1f} tok/s; "
           f"straggler steps: {run['slow_steps']}; flash kernel launches="
           f"{run['flash_launches']}, backward launches="
-          f"{run['flash_bwd_launches']}")
+          f"{run['flash_bwd_launches']}; reorder kernel launches="
+          f"{run['reorder_launches']}; rwkv6 kernel launches="
+          f"{run['rwkv6_launches']}, backward launches="
+          f"{run['rwkv6_bwd_launches']}")
     return run
 
 

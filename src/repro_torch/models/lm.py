@@ -18,6 +18,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
@@ -73,8 +74,11 @@ class Model:
         valid = (ids >= 0) & (ids < Vl)
         n = math.prod(emb_l.shape[:cn])
         flat = ids.clamp(0, Vl - 1).reshape(n, -1)
-        x = torch.gather(emb_l.reshape(n, Vl, D), 1,
-                         flat[..., None].expand(flat.shape + (D,)))
+        # one table of every PE's shard: the embedding backward sums
+        # repeated ids in a fixed order on CUDA (sorted segments), where
+        # torch.gather's backward sums them with atomics in any order
+        rows = flat + torch.arange(n, device=flat.device)[:, None] * Vl
+        x = F.embedding(rows, emb_l.reshape(n * Vl, D))
         x = x.reshape(tuple(tokens.shape) + (D,))
         return torch.where(valid[..., None], x, torch.zeros_like(x))
 

@@ -6,6 +6,8 @@ its slice). ``rwkv6_chunked`` runs the chunked form on the hand-written
 Hopper kernel for CUDA tensors and on its plain PyTorch version for CPU
 tensors (``repro_torch.kernels.rwkv6.ops``); leading axes (the cube's PEs
 and the batch) fold into the kernel's batch, so a layer is one launch.
+Under autograd it goes through ``ops.RWKV6Chunked``, whose backward is the
+RWKV6 backward kernel.
 Decode takes the one-token ``rwkv6_step``, plain math as in the JAX
 package.
 """

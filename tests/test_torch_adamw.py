@@ -249,3 +249,56 @@ def _subtrees(tree, specs):
     for path, _ in leaves(specs):
         set_path(out, path, get_path(tree, path))
     return out
+
+
+def _sliced_vs_whole(monkeypatch, use_8bit, lead, device):
+    """Three steps with every leaf whole and again in slices of its
+    outermost axis longer than 1; the final params and moments of both,
+    as NumPy."""
+    cfg = adamw.AdamWConfig(use_8bit=use_8bit)
+    cn = len(lead)
+    runs = []
+    for elems in (1 << 40, 7):
+        monkeypatch.setattr(adamw, "SLICE_ELEMS", elems)
+        params = jax.tree.map(lambda t: t.to(device),
+                              _to_torch(_tree(5, lead)))
+        state = adamw.init_state(params, cfg)
+        for s in range(3):
+            grads = jax.tree.map(lambda t: t.to(device),
+                                 _to_torch(_tree(10 + s, lead)))
+            params, state = adamw.update(params, state, grads, lr=1e-2,
+                                         cfg=cfg, cube_ndim=cn)
+        runs.append(jax.tree.leaves(jax.tree.map(
+            lambda t: t.cpu().numpy(), (params, state["mu"]))))
+    n_slices = next((n for n in lead + (6,) if n > 1))
+    assert len(adamw._slices(torch.zeros(lead + (6, 40)))) == n_slices
+    return runs
+
+
+@pytest.mark.parametrize("use_8bit", [True, False])
+@pytest.mark.parametrize("lead", [(), (2,), (1,)])
+def test_sliced_update_matches_whole_leaves(monkeypatch, use_8bit, lead):
+    """A leaf updated in slices along its outermost axis longer than 1 (a
+    cube axis at (2,), the first local axis at () and (1,); as a large
+    leaf is, ``SLICE_ELEMS``) computes what the whole leaf does: on the
+    CPU within PARAM_TOL (params, fp32 moments), SCALE_TOL (int8 scales)
+    and one step of int8 (a vectorized loop rounds a short slice's tail
+    elements on its scalar path, by an ulp)."""
+    sliced, whole = _sliced_vs_whole(monkeypatch, use_8bit, lead, "cpu")
+    for a, b in zip(sliced, whole):
+        if a.dtype == np.int8:
+            assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+        else:
+            assert _rel(a, b) <= PARAM_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_8bit", [True, False])
+def test_sliced_update_is_bit_identical_on_the_card(monkeypatch, use_8bit):
+    """On the card every element goes through the same device function
+    whatever the slice, and the scales are maxima: bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sliced, whole = _sliced_vs_whole(monkeypatch, use_8bit, (2,), "cuda")
+    for a, b in zip(sliced, whole):
+        np.testing.assert_array_equal(a, b)

@@ -190,9 +190,9 @@ def test_dlrm_pidcomm_runs_the_reorder_twice(monkeypatch):
     calls = []
     swizzle = reorder_ops.tile_swizzle
 
-    def counting(x, perm):
+    def counting(x, perm, inv=None):
         calls.append(tuple(x.shape))
-        return swizzle(x, perm)
+        return swizzle(x, perm, inv)
 
     monkeypatch.setattr(reorder_ops, "tile_swizzle", counting)
     cube = _cubes(3)[1]

@@ -123,9 +123,9 @@ def test_all_to_all_auto_runs_cm_on_one_kernel_launch(monkeypatch):
     calls = []
     swizzle = reorder_ops.tile_swizzle
 
-    def counting(x, perm):
+    def counting(x, perm, inv=None):
         calls.append((tuple(x.shape), perm.dtype))
-        return swizzle(x, perm)
+        return swizzle(x, perm, inv)
 
     monkeypatch.setattr(reorder_ops, "tile_swizzle", counting)
     cube, c, x, axes = _a2a_case("2x2x2", "011", 5, "float32")

@@ -62,7 +62,10 @@ SLICE_MODULES = ["repro_torch.telemetry", "repro_torch.telemetry.metrics",
                  "repro_torch.checkpoint.layout",
                  "repro_torch.checkpoint.reshard",
                  "repro_torch.checkpoint.manager",
-                 "repro_torch.checkpoint.hf_import"]
+                 "repro_torch.checkpoint.hf_import",
+                 "repro_torch.kernels.rwkv6.rwkv6_bwd",
+                 "repro_torch.kernels.rwkv6.ops",
+                 "repro_torch.kernels.reorder.ops"]
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

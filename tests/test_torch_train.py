@@ -10,6 +10,12 @@ package's ``init_params`` carried across with ``from_jax_params``; batches
 come from the JAX ``TokenStream``. Both packages compute in f32 (the JAX
 compute dtype is set with ``monkeypatch``). Multi-PE gradients are held to
 the 1-PE ones with the grad-sync program's all-reduces counted.
+
+The loss and the 1-PE gradients are held to JAX for each of the six
+ported archs (smoke configs; gemma3 with ``n_layers=12``, so that a global
+layer runs). MoE's loss depends on the layout (capacity is per shard), so
+its multi-PE gradients are held to autograd through the broadcast masters
+instead of to 1 PE's.
 """
 import dataclasses
 
@@ -47,12 +53,31 @@ from repro_torch.runtime import trainer as tr
 from repro_torch.telemetry import metrics as telemetry
 
 ARCH = "qwen3-1.7b"
+MOE = "qwen2-moe-a2.7b"
+OTHER_ARCHS = (MOE, "mixtral-8x7b", "rwkv6-7b", "phi3-mini-3.8b",
+               "gemma3-1b")
+# gemma3's stock smoke config has 2 local layers and no global one
+SMOKE_CHANGES = {"gemma3-1b": {"n_layers": 12}}
 CPU = torch.device("cpu")
 LOSS_TOL = 1e-5     # relative, f32 in both packages
 GRAD_TOL = 1e-4     # x max(1, max|ref|) per leaf
 STEP_TOL = 1e-5     # x max(1, max|ref|) per leaf, after 2 steps
 # (data, tp) layouts of the cube: 1, 2 and 4 PEs, tensor- and data-parallel
 LAYOUTS = [(1, 1), (1, 2), (2, 1), (1, 4), (2, 2)]
+
+
+def _lid(layout):
+    return f"{layout[0]}x{layout[1]}"
+
+
+# qwen3 over every layout, masked rows and not; the other archs at 1 PE
+# and tp (ep for MoE) 2, and MoE also at 2 x 2
+LOSS_CASES = (
+    [pytest.param(ARCH, lay, mask, id=f"{mask}-{_lid(lay)}")
+     for mask in (False, True) for lay in LAYOUTS]
+    + [pytest.param(a, lay, False, id=f"{a}-{_lid(lay)}")
+       for a in OTHER_ARCHS for lay in [(1, 1), (1, 2)]]
+    + [pytest.param(MOE, (2, 2), False, id=f"{MOE}-2x2")])
 
 
 @pytest.fixture
@@ -83,14 +108,19 @@ def _reset_port_state():
     telemetry.REGISTRY.reset()
 
 
-def _cfgs(tp):
-    jcfg = dataclasses.replace(jax_get(ARCH).scaled_for_smoke(), tp=tp)
-    pcfg = dataclasses.replace(configs.get(ARCH).scaled_for_smoke(), tp=tp)
-    return jcfg, pcfg
+def _cfgs(tp, arch=ARCH):
+    """The smoke configs of both packages with model parallelism ``tp``:
+    tensor parallelism, or for an MoE arch expert parallelism (etp 1)."""
+    def cut(cfg):
+        cfg = dataclasses.replace(cfg.scaled_for_smoke(),
+                                  **SMOKE_CHANGES.get(arch, {}))
+        return dataclasses.replace(
+            cfg, **({"ep": tp, "etp": 1} if cfg.n_experts else {"tp": tp}))
+    return cut(jax_get(arch)), cut(configs.get(arch))
 
 
-def _jax_setup(data, tp, seed=0):
-    jcfg, _ = _cfgs(tp)
+def _jax_setup(data, tp, seed=0, arch=ARCH):
+    jcfg, _ = _cfgs(tp, arch)
     jtopo = jax_topology(jcfg, make_mesh((data, tp), ("data", "model")))
     return jcfg, jtopo, jax_params.init_params(jcfg, jtopo, seed=seed)
 
@@ -117,8 +147,8 @@ def _batch(B=2, S=24, seed=0, mask_row=False):
     return b
 
 
-def _port(data, tp, jparams):
-    _, pcfg = _cfgs(tp)
+def _port(data, tp, jparams, arch=ARCH):
+    _, pcfg = _cfgs(tp, arch)
     topo = build_topology(pcfg, data * tp)
     params = from_jax_params(pcfg, topo, jax.tree.map(np.asarray, jparams),
                              device=CPU)
@@ -131,11 +161,10 @@ def _first(v):
 
 
 # --------------------------------------------------------------------- loss
-@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda l: f"{l[0]}x{l[1]}")
-@pytest.mark.parametrize("mask_row", [False, True])
-def test_loss_shard_matches_jax(f32_reference, layout, mask_row):
+@pytest.mark.parametrize("arch,layout,mask_row", LOSS_CASES)
+def test_loss_shard_matches_jax(f32_reference, arch, layout, mask_row):
     data, tp = layout
-    jcfg, jtopo, jparams = _jax_setup(data, tp)
+    jcfg, jtopo, jparams = _jax_setup(data, tp, arch=arch)
     b = _batch(B=2 * data, mask_row=False)
     if mask_row:      # data-parallel split needs an even batch: mask 2 rows
         b = {"tokens": np.concatenate([b["tokens"], b["tokens"]]),
@@ -143,7 +172,7 @@ def test_loss_shard_matches_jax(f32_reference, layout, mask_row):
                  [b["labels"], np.full_like(b["labels"], -1)])}
     ref = float(_jax_loss_fn(jcfg, jtopo)(
         jparams, {k: jnp.asarray(v) for k, v in b.items()}))
-    pcfg, topo, masters = _port(data, tp, jparams)
+    pcfg, topo, masters = _port(data, tp, jparams, arch)
     with torch.no_grad():
         loss, metrics = Model(pcfg, topo, dtype=torch.float32).loss_shard(
             tr.view_leaves(masters, topo.cube),
@@ -210,15 +239,74 @@ def _close(got, want, tol):
                                                         np.abs(b).max())
 
 
-def test_single_pe_grads_match_jax_grad(f32_reference, pvary_identity):
-    jcfg, jtopo, jparams = _jax_setup(1, 1)
+def _single_pe_grads_match_jax_grad(arch):
+    jcfg, jtopo, jparams = _jax_setup(1, 1, arch=arch)
     b = _batch()
     ref = _jax_grads(jcfg, jtopo, jparams, b)
-    pcfg, topo, masters = _port(1, 1, jparams)
+    pcfg, topo, masters = _port(1, 1, jparams, arch)
     got = _port_grads(pcfg, topo, masters, b)
     _close(got, ref, GRAD_TOL)
     # every leaf received a gradient
     assert all(float(g.abs().max()) > 0 for g in flat_leaves(got))
+
+
+def test_single_pe_grads_match_jax_grad(f32_reference, pvary_identity):
+    _single_pe_grads_match_jax_grad(ARCH)
+
+
+@pytest.mark.parametrize("arch", OTHER_ARCHS)
+def test_single_pe_grads_match_jax_grad_other_archs(f32_reference,
+                                                    pvary_identity, arch):
+    """The same for the other ported archs: MoE's experts and router, the
+    RWKV6 time-mix and channel-mix (through ``RWKV6Chunked`` and its plain
+    backward), phi3's and gemma3's attention (gemma3's windows)."""
+    _single_pe_grads_match_jax_grad(arch)
+
+
+@pytest.mark.parametrize("layout", [(1, 2), (2, 2)], ids=_lid)
+def test_moe_multi_pe_grads_match_autograd_through_broadcast(f32_reference,
+                                                             layout):
+    """MoE at ep 2 (and data 2): the step's per-PE gradients, synced by the
+    grad-sync program, equal autograd of the same loss through the compact
+    masters broadcast over the cube (which sums every replica's partial),
+    bit for bit. The all_to_alls' reorders run forward and backward
+    (``TileSwizzle``) on both sides."""
+    data, tp = layout
+    _, _, jparams = _jax_setup(data, tp, arch=MOE)
+    pcfg, topo, masters = _port(data, tp, jparams, MOE)
+    b = _batch(B=2 * data)
+    cube = topo.cube
+    specs = param_specs(pcfg, topo)
+    batch = tr.place_batch(b, pcfg, topo, CPU)
+    calls = []
+    from repro_torch.kernels.reorder import ops as reorder_ops
+    swizzle = reorder_ops._dispatch
+
+    def counting(x, perm):
+        calls.append(tuple(x.shape))
+        return swizzle(x, perm)
+
+    reorder_ops._dispatch = counting
+    try:
+        step = tr.make_train_step(pcfg, topo, tr.TrainConfig(),
+                                  dtype=torch.float32)
+        _, _, raw = step.fwd_bwd(masters, batch)
+        n_step = len(calls)
+        synced = step.sync(raw, {})
+        got = tree_map(lambda g, s: compact(g, s, cube), synced, specs)
+        leaves = tree_map(lambda m: m.detach().clone().requires_grad_(),
+                          masters)
+        views = tree_map(lambda m: m.expand(
+            cube.dim_sizes + tuple(m.shape[cube.ndim:])), leaves)
+        loss, _ = Model(pcfg, topo, dtype=torch.float32).loss_shard(views,
+                                                                   batch)
+        loss.mean().backward()
+    finally:
+        reorder_ops._dispatch = swizzle
+    # two all_to_alls a layer: forward, remat recompute, backward
+    assert n_step == 6 * pcfg.n_layers
+    for g, m in zip(flat_leaves(got), flat_leaves(leaves)):
+        assert torch.equal(g, m.grad)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS[1:], ids=lambda l: f"{l[0]}x{l[1]}")
@@ -447,6 +535,43 @@ def test_train_step_launches_both_kernels_on_the_card():
     torch.cuda.synchronize()
     assert flash.LAUNCHES - f0 == 2 * pcfg.n_layers
     assert flash_bwd.LAUNCHES - b0 == pcfg.n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,pes", [(MOE, 8), ("rwkv6-7b", 1)])
+def test_moe_and_rwkv6_train_on_the_card(arch, pes):
+    """qwen2-moe at ep 8 and rwkv6 train a step on the card: the remat
+    runs each layer's forward twice, so a step launches the reorder 6 times
+    a MoE layer (two all_to_alls: forward, recompute, backward with the
+    inverse perm), and the RWKV6 forward twice and its backward once a
+    layer; the loss is finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.reorder import reorder
+    from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_bwd
+    from repro_torch.models.params import init_params
+    dev = torch.device("cuda")
+    pcfg = _cfgs(pes, arch)[1]
+    if pcfg.n_experts:
+        # 8 query heads for 8 PEs; the backward kernel takes head_dim 128
+        pcfg = dataclasses.replace(pcfg, n_heads=8, n_kv_heads=8,
+                                   head_dim=128)
+    topo = build_topology(pcfg, pes)
+    masters = trainable(init_params(pcfg, topo, 0, device=dev),
+                        param_specs(pcfg, topo), topo.cube)
+    tc = tr.TrainConfig()
+    opt = tr.init_opt_state(masters, pcfg, topo, tc)
+    kernels = (flash, flash_bwd, reorder, rwkv6, rwkv6_bwd)
+    n0 = [m.LAUNCHES for m in kernels]
+    _, _, m = tr.make_train_step(pcfg, topo, tc)(
+        masters, opt, tr.place_batch(_batch(), pcfg, topo, dev))
+    torch.cuda.synchronize()
+    got = [k.LAUNCHES - n for k, n in zip(kernels, n0)]
+    L = pcfg.n_layers
+    want = ([2 * L, L, 6 * L, 0, 0] if pcfg.n_experts
+            else [0, 0, 0, 2 * L, L])
+    assert got == want
+    assert np.isfinite(_first(m["loss"]))
 
 
 def test_spec_helpers_match_jax():
