@@ -53,16 +53,19 @@ Phases, each printed as one JSON line:
           all_to_alls of the 8-PE cubes under autograd bit-identical to
           autograd of a plain transpose, each launching the kernel twice
           (forward, backward with the inverse perm); and the RWKV6
-          backward kernel (rwkv6_bwd.cu) on the forward kernel's saved
-          sub-chunk states (held to the plain ones within 1e-5, the
+          backward kernels (rwkv6_bwd.cu: the state-gradient pass, the
+          chunk pass, the du sum) on the states the forward kernel saves
+          every 64 steps (held to the plain ones within 1e-5, the
           forward's o and state bit-identical to a launch without them)
           against the plain backward and against autograd of the plain
           forward: dr, dk, dv, dlogw, du and dstate each within 5e-4 (f32)
           / 5e-2 (bf16) of max(1, max|plain|), K = 16, 32 and 64, state in
-          and out, lengths 1, 15, 16, 17, 37, 144 and 1,024, the strong
-          decay, one u per folded PE, two launches bit-identical; the
-          training shape (4, 1024, 64, 64) bf16 timed with its plain
-          version and bound;
+          and out, lengths 1, 15, 16, 17, 37, 63, 64, 65, 129, 144 and
+          1,024 around the sub-chunk and the 64-step chunk, the strong
+          decay, one u per folded PE, one (batch, head) of 1,024 steps,
+          two launches bit-identical; the training shape (4, 1024, 64, 64)
+          bf16 timed with its plain version, its bound and each pass's
+          device ms;
   comm    every ported stage of all_reduce / all_gather / reduce_scatter on
           virtual 8-PE cubes on the card, and every stage of all_to_all on
           the 8-PE cubes and the 16-PE shapes, bit-identical to a plain
@@ -314,8 +317,10 @@ Phases, each printed as one JSON line:
           flash forward and backward at qwen3's three and qwen2-moe's two,
           the RWKV6 forward with states and backward at rwkv6's two. The
           RWKV6 backward's bound counts the function's bytes (its inputs
-          and gradients); the saved states it reads are reported beside
-          it.
+          and gradients); the design's own traffic (the saved states
+          read, pass 1's chunk-end gradients written and read, the du
+          scratch) is reported beside it, and each pass's device ms beside
+          the call's.
 
 Then the card's name and power limit, the kernels' JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -386,8 +391,8 @@ RWKV6_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu"
 # three pieces read at most 1.5e-6, two pieces up to
 # 4.4e-6 in bf16 and 1.4e-5 in f32 (tools/rwkv6_pieces.py)
 RWKV6_STATE_TOL = 2.5e-6
-# the forward kernel's saved sub-chunk states against ``ref.chunk_states``,
-# x max(1, max|plain|)
+# the forward kernel's states saved every 64 steps against
+# ``ref.chunk_states``, x max(1, max|plain|)
 RWKV6_STATES_TOL = 1e-5
 # the serving engine: page size (S_loc = 48 / 8 = 6 at 8 PEs), the pool of
 # the preemption run (pages per shard), and a bound on any run's steps
@@ -912,8 +917,10 @@ def _rwkv6_checks(dev) -> dict:
 
 # RWKV6 backward sweep: B, S, H, K, strong decay, state in (and its
 # gradient out), u groups (0: one u). K = 16, 32 and 64; lengths 1, 15, 16,
-# 17, 37 and 144 around the 16-step sub-chunk; the JAX sweep's strong
-# decay; one u per folded PE; the training shape (4, 1024, 64, 64), timed
+# 17, 37, 63, 64, 65, 129 and 144 around the 16-step sub-chunk and the
+# 64-step chunk; the JAX sweep's strong decay; one u per folded PE; one
+# (batch, head) over 1,024 steps (one CTA of the chain); the training
+# shape (4, 1024, 64, 64), timed
 RWKV6_BWD_CASES = [
     (1, 128, 2, 16, True, False, 0),
     (2, 64, 4, 32, True, True, 0),
@@ -923,6 +930,10 @@ RWKV6_BWD_CASES = [
     (2, 17, 4, 16, False, True, 2),
     (4, 37, 2, 64, False, True, 4),
     (2, 144, 4, 64, False, True, 0),
+    (2, 63, 4, 64, False, True, 0),
+    (2, 65, 4, 32, False, True, 2),
+    (1, 129, 2, 16, True, True, 0),
+    (1, 1024, 1, 64, False, False, 0),
     (4, 1024, 64, 64, False, False, 0),
 ]
 RWKV6_BWD_TIMED = (4, 1024, 64, 64)
@@ -940,10 +951,12 @@ def _rwkv6_bwd_bound(r, k, v, logw, u, state, do, dstate, states) -> dict:
     the pair terms below the diagonal (P, dP, their products with kd, qd
     and do: 5 C (C - 1) / 2 x K), the diagonal terms and the state term of
     dtot -- at 2 FLOPs each, over the peak for the inputs' type. The
-    larger of the two. The f32 sub-chunk states that this design saves
-    are not the function's: their bytes (written by the forward, read
-    here) are reported beside the bound (``saved_states_bytes``,
-    ``saved_states_read_ms``), not in it."""
+    larger of the two. The design's own traffic is not the function's and
+    is reported beside the bound, not in it: the f32 states saved every
+    64 steps (written by the forward, read here: ``saved_states_bytes``,
+    ``saved_states_read_ms``), pass 1's f32 chunk-end gradients (written,
+    then read by pass 2) and the f32 du scratch (written, then read):
+    ``design_bytes``, ``design_ms`` their sum over HBM rate."""
     from repro_torch.kernels.rwkv6.ref import SUB
     B, S, H, K = r.shape
     es = r.element_size()
@@ -960,20 +973,65 @@ def _rwkv6_bwd_bound(r, k, v, logw, u, state, do, dstate, states) -> dict:
     t_bytes = (read + write) / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[r.dtype]
     saved = 4 * states.numel()
+    design = {"saved_states_read": saved, "chunk_end_grads": 2 * saved,
+              "du_scratch": 2 * 4 * B * H * states.shape[2] * K}
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": read + write, "flops": flops,
             "saved_states_bytes": saved,
-            "saved_states_read_ms": saved / HBM_BYTES_PER_S * 1e3}
+            "saved_states_read_ms": saved / HBM_BYTES_PER_S * 1e3,
+            "design_bytes": design,
+            "design_ms": sum(design.values()) / HBM_BYTES_PER_S * 1e3}
+
+
+# the RWKV6 backward's CUDA kernels, by pass
+RWKV6_BWD_PASSES = {"pass1": "rwkv6_bwd_state_kernel",
+                    "pass2": "rwkv6_bwd_chunk_kernel",
+                    "du": "rwkv6_du_kernel"}
+
+
+def _rwkv6_bwd_pass_ms(args, iters: int = 10) -> dict:
+    """Device ms of each of the backward's kernels in one call (pass 1, pass
+    2, the du sum) and of the call's kernels together, from ``iters`` calls
+    under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rwkv6 import rwkv6_bwd
+    for _ in range(2):
+        rwkv6_bwd.rwkv6_chunked_backward(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                rwkv6_bwd.rwkv6_chunked_backward(*args)
+            torch.cuda.synchronize()
+        evs = [(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA]
+        if evs:
+            out = {p: sum(us for name, us in evs if fn in name) / 1e3 / iters
+                   for p, fn in RWKV6_BWD_PASSES.items()}
+            out["device_ms"] = sum(us for _, us in evs) / 1e3 / iters
+            return out
+    raise RuntimeError("the profiler traced no device events")
 
 
 def _rwkv6_autograd(r, k, v, logw, u, state, do, dstate, strong):
     """Gradients of sum(o * do) + sum(state_out * dstate) by autograd of
-    the plain forward (chunks of 16 under the strong decay where they
-    divide S, else the reference's rule)."""
+    the plain forward: under the strong decay, chunks of the largest
+    divisor of S up to 16 (16 where it divides S; 3 at S = 129), which keeps
+    e^{-cum} inside f32; else the reference's rule (chunks of up to 64), or
+    the largest divisor of S up to 64 where that rule finds no split."""
     from repro_torch.kernels.rwkv6 import ref
     S = r.shape[1]
-    chunk = 16 if strong and S % 16 == 0 else 64
+    if strong:
+        chunk = max(c for c in range(1, 17) if S % c == 0)
+    else:
+        try:
+            ref.chunk_len(S)
+            chunk = 64
+        except ValueError:
+            chunk = max(c for c in range(1, 65) if S % c == 0)
     xs = [t.detach().clone().requires_grad_() for t in (r, k, v, logw, u)]
     s0 = None if state is None else state.detach().clone().requires_grad_()
     with torch.enable_grad():
@@ -1062,6 +1120,7 @@ def _rwkv6_bwd_checks(dev) -> dict:
                         r, k, v, logw, u, s0, states=True)),
                     "forward_ms": time_ms(lambda: rwkv6.rwkv6_chunked(
                         r, k, v, logw, u, s0)),
+                    "pass_ms": _rwkv6_bwd_pass_ms(a),
                     "library_ms": None, **_rwkv6_bwd_bound(*a)})
             del r, k, v, logw, u, s0, do, ds, got, again, plain, auto
             del states, want_states, o, o2
@@ -1703,7 +1762,8 @@ KERNEL_NAMES = {"flash": ("flash_decode_kernel", "flash_fwd_mma_kernel",
                               "flash_bwd_dkdv_mma_kernel"),
                 "reorder": ("tile_swizzle",),
                 "rwkv6": ("rwkv6_kernel",),
-                "rwkv6_bwd": ("rwkv6_bwd_kernel", "rwkv6_du_kernel")}
+                "rwkv6_bwd": ("rwkv6_bwd_state_kernel",
+                              "rwkv6_bwd_chunk_kernel", "rwkv6_du_kernel")}
 
 
 # the backward kernel's two passes (f32 and bf16 forms), by name prefix
@@ -1763,12 +1823,15 @@ def profile_steps(step, steps: int = 3) -> dict:
               for k, fns in KERNEL_NAMES.items()}
     passes = {p: sum(r[0] for name, r in by_name.items() if pre in name)
               / 1e3 / steps for p, pre in FLASH_BWD_PASSES.items()}
+    rwkv_passes = {p: sum(r[0] for name, r in by_name.items() if fn in name)
+                   / 1e3 / steps for p, fn in RWKV6_BWD_PASSES.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"steps": steps,
             "wall_ms_per_step": wall_us / 1e3 / steps,
             "device_busy_ms_per_step": busy / 1e3 / steps,
             "idle_share": max(0.0, 1.0 - busy / wall_us),
             **shares, "flash_bwd_pass_ms_per_step": passes,
+            "rwkv6_bwd_pass_ms_per_step": rwkv_passes,
             "kernels_per_step": sum(r[1] for r in by_name.values()) / steps,
             "top": [[k[:80], v[0] / 1e3 / steps, v[1] // steps]
                     for k, v in top]}
@@ -4558,7 +4621,7 @@ def _rwkv6_bound(r, k, v, logw, u, state, states: bool = False) -> dict:
     """Least time the card could take: each input byte read once (r, k, v,
     u in their dtype, logw and an incoming state in f32), each output byte
     written once (o, the f32 final state, and with ``states`` the f32
-    state at each 16-step sub-chunk's start, which that call returns),
+    state at each 64-step chunk's start, which that call returns),
     over HBM rate; per chunk of the reference's rule and per (batch, head)
     2 * (2 C K V + C^2 K + C^2 V) FLOPs, over the peak for the inputs'
     type. The larger of the two."""
@@ -4571,7 +4634,7 @@ def _rwkv6_bound(r, k, v, logw, u, state, states: bool = False) -> dict:
             + 4 * logw.numel() + (0 if state is None else state_bytes))
     write = es * B * S * H * V + state_bytes
     if states:
-        write += state_bytes * -(-S // ref.SUB)
+        write += state_bytes * -(-S // ref.SAVE)
     C = ref.chunk_len(S)
     flops = B * H * (S // C) * 2 * (2 * C * K * V + C * C * K + C * C * V)
     t_bytes = (read + write) / HBM_BYTES_PER_S
@@ -4607,7 +4670,7 @@ def _rwkv6_main_path(kept: dict) -> list:
 
 
 def _rwkv6_states_main_path(kept: dict) -> list:
-    """The RWKV6 forward kernel asked for the saved sub-chunk states, on
+    """The RWKV6 forward kernel asked for the states saved every 64 steps, on
     the inputs of its last such launch in each bf16 cell of
     ``train_moe_rwkv`` (1 PE and tp 8, one u per PE): o and the final
     state held against the plain version within RWKV6_TOL, the states
@@ -4683,8 +4746,8 @@ def _rwkv6_bwd_main_path(name: str, args: tuple) -> dict:
     states): each output within RWKV6_TOL of its own max|plain| (no floor
     at 1: a training step's gradients lie far below 1), on the step's own
     ``do`` and again on a unit-scale ``do`` drawn from randn. Then timed
-    with the plain version and the bound; no single PyTorch call computes
-    it (``library_ms`` None)."""
+    with the plain version, the bound and each pass's device ms; no single
+    PyTorch call computes it (``library_ms`` None)."""
     from repro_torch.kernels.rwkv6 import ref, rwkv6_bwd
     r, k, v, logw, u, state, do, dstate, states = args
     gen = torch.Generator(device=r.device)
@@ -4712,6 +4775,7 @@ def _rwkv6_bwd_main_path(name: str, args: tuple) -> dict:
             "states": list(states.shape), "max_abs_err": abs_err,
             "err": rel, "held": held, "ok": rel <= RWKV6_TOL[r.dtype],
             "ms": time_ms(lambda: rwkv6_bwd.rwkv6_chunked_backward(*args)),
+            "pass_ms": _rwkv6_bwd_pass_ms(args),
             "plain_ms": time_ms(lambda: ref.rwkv6_chunked_backward(*args),
                                 reps=2, iters=5),
             "library_ms": None, **_rwkv6_bwd_bound(*args)}
@@ -4981,9 +5045,9 @@ def _rwkv6_bwd_entry(rows: list, launches: int, kernel: dict) -> dict:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "at": head["name"],
         "shapes": {t["name"]: {k: t[k] for k in (
-            "r", "u", "states", "ms", "plain_ms", "bound_ms", "bound_by",
-            "saved_states_bytes", "saved_states_read_ms",
-            "max_abs_err")} for t in rows},
+            "r", "u", "states", "ms", "pass_ms", "plain_ms", "bound_ms",
+            "bound_by", "saved_states_bytes", "saved_states_read_ms",
+            "design_bytes", "design_ms", "max_abs_err")} for t in rows},
         "off_main_path": kernel["timed"]}
 
 

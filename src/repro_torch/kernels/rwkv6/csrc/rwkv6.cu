@@ -59,10 +59,10 @@
 // reads).
 //
 // For training the kernel also writes, when asked (states non-null), the f32
-// state at the start of each sub-chunk, (N, H, ceil(S / 16), K, K): what
-// the backward kernel (rwkv6_bwd.cu) rebuilds each sub-chunk from. The
-// write sits outside the arithmetic, so a launch without it returns the
-// same bits.
+// state at the start of every fourth sub-chunk (every kSave = 64 steps),
+// (N, H, ceil(S / 64), K, K): what the backward kernel (rwkv6_bwd.cu)
+// rebuilds each 64-step chunk from. The write sits outside the
+// arithmetic, so a launch without it returns the same bits.
 //
 // Build (nvcc -O3, sm_90a): 204 / 172 / 128 registers a thread at K = 64 /
 // 32 / 16 in bf16, 150 / 192 / 148 in f32, no spill; cuobjdump -sass shows
@@ -78,6 +78,8 @@
 namespace {
 
 constexpr int kSub = 16;          // steps per sub-chunk
+constexpr int kSave = 64;         // steps between saved states
+constexpr int kPer = kSave / kSub;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Four consecutive elements of an input, as loaded (raw) and in f32; one
@@ -201,7 +203,8 @@ struct Tiles {
 // r, k, v, logw, o: (N, S, H, K) (V == K), r, k, v, u, o in T; u: (G, H,
 // K), batch row n reads u row n / u_div; state_in (may be null),
 // state_out: (N, H, K, K); states (may be null): (N, H, ceil(S / kSub),
-// K, K), the state at each sub-chunk's start. grid = N * H CTAs, one per
+// K, K), the state at every fourth sub-chunk's start. grid = N * H CTAs,
+// one per
 // (batch, head);
 // block = 2 K threads (K / 16 warps); two Tiles of dynamic shared memory.
 template <typename T, int K>
@@ -445,10 +448,11 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   make_tiles(0);
   if (nsub > 1) fetch(kSub);
   __syncthreads();
+  const int nsave = (nsub + kPer - 1) / kPer;
   for (int i = 0; i < nsub; ++i) {
     const int b = i & 1;
-    if (states) {
-      float* dst = states + (bh * nsub + i) * K * V;
+    if (states && i % kPer == 0) {
+      float* dst = states + (bh * nsave + i / kPer) * K * V;
 #pragma unroll
       for (int nt = 0; nt < K / 8; ++nt)
 #pragma unroll
@@ -513,8 +517,8 @@ extern "C" {
 // dtype: 0 = f32, 1 = bf16 for r, k, v, u, o. r, k, v, logw, o: (N, S, H,
 // K) contiguous, 16-byte aligned (f32) or 8-byte (bf16); u: (G, H, K) with
 // G dividing N; state_in: (N, H, K, K) f32 or null (zeros); state_out: (N,
-// H, K, K) f32; states: (N, H, ceil(S / 16), K, K) f32 or null (not
-// written). K = V in {16, 32, 64}. Returns the cudaError_t of the
+// H, K, K) f32; states: (N, H, ceil(S / 64), K, K) f32 or null (not
+// written): the state at steps 0, 64, 128, ... K = V in {16, 32, 64}. Returns the cudaError_t of the
 // launch (0 on success); nothing is synchronized and nothing allocated.
 int repro_rwkv6_chunked(int dtype, int K, const void* r,
                         const void* k, const void* v, const void* logw,

@@ -6,7 +6,7 @@ sub-chunk.
 
 ``rwkv6_chunked`` is the one entry point. Where autograd records it goes
 through ``RWKV6Chunked``, the differentiable form: its forward is the
-forward kernel asked for the state at each sub-chunk's start as well, and
+forward kernel asked for the state at each 64-step chunk's start as well, and
 its backward the backward kernel (``rwkv6_bwd.py``); on CPU tensors the
 plain versions of both. Elsewhere it is the plain dispatch: a serving
 launch saves no states."""
@@ -43,8 +43,8 @@ class RWKV6Chunked(torch.autograd.Function):
     """``rwkv6_chunked`` with a backward: r, k, v (B, S, H, K), logw f32,
     u (H, K) or (G, H, K), state (B, H, K, K) f32 or None; returns (o,
     final state). Saves the inputs and the f32 state at the start of each
-    16-step sub-chunk, (B, H, ceil(S / 16), K, K); the backward sweeps the
-    sub-chunks last to first from them."""
+    64-step chunk, (B, H, ceil(S / 64), K, K); the backward takes each
+    chunk from the state saved at its start and the gradient at its end."""
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, state):

@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, guard_grad
-from repro_torch.kernels.rwkv6.ref import SUB
+from repro_torch.kernels.rwkv6.ref import SAVE
 
 HEAD_DIMS = (16, 32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -92,7 +92,7 @@ def rwkv6_chunked(r, k, v, logw, u, state=None, *, states: bool = False):
     bf16; logw: (B, S, H, K) f32; u: (H, K) or (G, H, K) in r's dtype;
     state: (B, H, K, K) f32 or None. Returns (o in r's dtype, final state
     f32), and with ``states`` also the f32 state at the start of each
-    16-step sub-chunk, (B, H, ceil(S / 16), K, K) (``ref.chunk_states``),
+    64-step chunk, (B, H, ceil(S / 64), K, K) (``ref.chunk_states``),
     which the backward kernel takes. Raises on anything the kernel does
     not take, and under grad."""
     global LAUNCHES
@@ -103,7 +103,7 @@ def rwkv6_chunked(r, k, v, logw, u, state=None, *, states: bool = False):
     state_out = torch.empty((B, H, K, K), dtype=torch.float32,
                             device=r.device)
     G = 1 if u.dim() == 2 else u.shape[0]
-    saved = (torch.empty((B, H, -(-S // SUB), K, K), dtype=torch.float32,
+    saved = (torch.empty((B, H, -(-S // SAVE), K, K), dtype=torch.float32,
                          device=r.device) if states else None)
     lib = _lib()
     with torch.cuda.device(r.device):

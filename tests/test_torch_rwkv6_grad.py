@@ -1,18 +1,22 @@
 """The RWKV6 recurrence under autograd, held on the CPU.
 
 ``ref.rwkv6_chunked_backward`` is the plain version of the backward kernel
-(``csrc/rwkv6_bwd.cu``): the same algorithm, over the kernel's 16-step
-sub-chunks last to first from the states the forward saves
-(``ref.chunk_states``). It is held to autograd of the plain forward
+(``csrc/rwkv6_bwd.cu``): the same two passes over the kernels' 16-step
+sub-chunks -- the state's gradient at each 64-step chunk's end
+(``ref.state_grads``), then each chunk on its own from the state the
+forward saves at its start (``ref.chunk_states``) and that gradient
+(``ref.chunk_grads``). It is held to autograd of the plain forward
 ``ref.rwkv6_chunked`` within 1e-5 x max(1, max|ref|) per output -- K = 16,
 32 and 64, a state in and its gradient out, u of shape (H, K) and (G, H,
-K), lengths off the sub-chunk, and the JAX sweep's strong decay (there the
-forward runs chunks of 16 or one chunk of at most 40 steps, which keeps
-e^{-cum} inside f32) -- and to ``jax.vjp`` of the JAX package's
-``ssm.rwkv6_chunked`` within 1e-4 x max(1, max|ref|), on the model's
-moderate decay: XLA on the CPU flushes subnormals to zero, and under the
-strong decay a chunk of 64 takes e^{cum} there (see
-``tests/test_torch_rwkv6.py``), so those rows are not a reference.
+K), lengths off the sub-chunk and around the 64-step chunk, and the JAX
+sweep's strong decay (there the forward runs chunks of at most 16 steps,
+which keeps e^{-cum} inside f32) -- and to ``jax.vjp`` of
+the JAX package's ``ssm.rwkv6_chunked`` within 1e-4 x max(1, max|ref|), on
+the model's moderate decay: XLA on the CPU flushes subnormals to zero, and
+under the strong decay a chunk of 64 takes e^{cum} there (see
+``tests/test_torch_rwkv6.py``), so those rows are not a reference. Pass 1's
+gradients are autograd's with respect to a state placed at each boundary;
+pass 2 gives the same bits whatever order it takes the chunks in.
 ``RWKV6Chunked``, the differentiable form the model trains through, equals
 the plain backward bit for bit on the CPU. The kernel itself runs only on
 the card (``cuda`` marker). Inputs come from NumPy seeds."""
@@ -38,7 +42,11 @@ CASES = [(2, 37, 2, 16, False, True, 0),
          (2, 15, 2, 32, False, False, 2),
          (2, 16, 2, 64, False, True, 0),
          (1, 40, 2, 16, True, True, 0),
-         (2, 144, 1, 32, False, True, 0)]
+         (2, 144, 1, 32, False, True, 0),
+         (2, 63, 2, 16, False, True, 0),
+         (2, 64, 2, 32, False, False, 2),
+         (2, 65, 2, 16, False, True, 2),
+         (1, 129, 2, 16, False, True, 0)]
 
 
 def _inputs(seed, B, S, H, K, strong, state, G):
@@ -63,11 +71,25 @@ def _t(a):
     return None if a is None else torch.from_numpy(a)
 
 
+def _chunk(S, strong=False):
+    """The plain forward's chunk: under the strong decay the largest
+    divisor of S up to 16 (16 where it divides S), which keeps e^{-cum}
+    inside f32; else 64 where S splits into chunks of up to 64 (the
+    reference's rule), else the largest divisor of S up to 64 (43 for
+    S = 129)."""
+    if strong:
+        return max(c for c in range(1, 17) if S % c == 0)
+    try:
+        ref.chunk_len(S)
+        return 64
+    except ValueError:
+        return max(c for c in range(1, 65) if S % c == 0)
+
+
 def _autograd(r, k, v, logw, u, st, do, ds, strong):
     """Gradients of sum(o * do) + sum(state * ds) by autograd of the plain
     forward."""
-    S = r.shape[1]
-    chunk = 16 if strong and S % 16 == 0 else 64
+    chunk = _chunk(r.shape[1], strong)
     xs = [_t(a).requires_grad_() for a in (r, k, v, logw, u)]
     s0 = None if st is None else _t(st).requires_grad_()
     o, s = ref.rwkv6_chunked(*xs, state=s0, chunk=chunk)
@@ -111,31 +133,89 @@ def test_plain_backward_without_the_final_states_gradient():
 
 
 def test_chunk_states_are_the_recurrences_states():
-    """Entry i of ``chunk_states`` is the final state of the first 16 i
+    """Entry i of ``chunk_states`` is the final state of the first 64 i
     steps."""
-    r, k, v, logw, u, st, _, _ = _inputs(4, 2, 37, 2, 16, False, True, 0)
+    r, k, v, logw, u, st, _, _ = _inputs(4, 2, 150, 2, 16, False, True, 0)
     states = ref.chunk_states(_t(k), _t(v), _t(logw), _t(st))
     assert states.shape == (2, 2, 3, 16, 16)
     torch.testing.assert_close(states[:, :, 0], _t(st), rtol=0, atol=0)
-    for i, n in ((1, 16), (2, 32)):
+    for i, n in ((1, 64), (2, 128)):
         _, s = ssm.rwkv6_reference(*(_t(a[:, :n]) for a in (r, k, v, logw)),
                                    _t(u), state=_t(st))
         torch.testing.assert_close(states[:, :, i], s, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("B,S,H,K,state", [(2, 129, 2, 16, True),
+                                           (1, 200, 1, 32, False),
+                                           (2, 65, 2, 16, True)])
+def test_state_grads_are_autograds_at_each_boundary(B, S, H, K, state):
+    """Pass 1's gradient at the end of chunk c - 1 (step 64 c) is
+    autograd's gradient of sum(o * do) + sum(s_out * dstate) with respect
+    to a leaf state placed at step 64 c, the steps after it run by the
+    sequential recurrence; its step-0 gradient is the incoming state's."""
+    r, k, v, logw, u, st, do, ds = (_t(a) for a in _inputs(
+        S + K, B, S, H, K, False, state, 0))
+    ends, d0 = ref.state_grads(r, logw, do, ds)
+    n_save = -(-S // ref.SAVE)
+    assert ends.shape == (B, H, n_save, K, K)
+    torch.testing.assert_close(ends[:, :, -1], ds, rtol=0, atol=0)
+    for c in range(n_save):
+        t0 = ref.SAVE * c
+        s_c = torch.zeros((B, H, K, K)) if st is None else st
+        if t0:
+            with torch.no_grad():
+                _, s_c = ssm.rwkv6_reference(
+                    r[:, :t0], k[:, :t0], v[:, :t0], logw[:, :t0], u,
+                    state=st)
+        leaf = s_c.clone().requires_grad_()
+        o, s = ssm.rwkv6_reference(r[:, t0:], k[:, t0:], v[:, t0:],
+                                   logw[:, t0:], u, state=leaf)
+        loss = (o * do[:, t0:]).sum() + (s * ds).sum()
+        (want,) = torch.autograd.grad(loss, [leaf])
+        got = d0 if c == 0 else ends[:, :, c - 1]
+        bound = AUTOGRAD_TOL * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= bound, c
+
+
+@pytest.mark.parametrize("order", ["reversed", "shuffled"])
+def test_chunk_grads_do_not_depend_on_the_chunks_order(order):
+    """Pass 2 run over the chunks last to first, or in an order drawn from
+    a NumPy seed, gives the bits of the first-to-last run: no chunk reads
+    another's result, which the kernel's one CTA per chunk relies on."""
+    r, k, v, logw, u, st, do, ds = (_t(a) for a in _inputs(
+        8, 2, 300, 2, 16, True, True, 2))
+    states = ref.chunk_states(k, v, logw, st)
+    ends, _ = ref.state_grads(r, logw, do, ds)
+    nc = states.shape[2]
+    assert nc == 5
+    perm = (list(reversed(range(nc))) if order == "reversed"
+            else [int(i) for i in np.random.RandomState(3).permutation(nc)])
+    args = (r, k, v, logw, u, states, do, ends)
+    want = ref.chunk_grads(*args)
+    got = ref.chunk_grads(*args, order=perm)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def _jax_vjp(r, k, v, logw, u, st, do, ds):
+    chunk = _chunk(r.shape[1])
+
     def f(r, k, v, logw, u, st):
-        return jax_ssm.rwkv6_chunked(r, k, v, logw, u, state=st)
+        return jax_ssm.rwkv6_chunked(r, k, v, logw, u, state=st,
+                                     chunk=chunk)
     args = [jnp.asarray(a) for a in (r, k, v, logw, u, st)]
     _, vjp = jax.vjp(f, *args)
     return [np.asarray(g) for g in vjp((jnp.asarray(do), jnp.asarray(ds)))]
 
 
 @pytest.mark.parametrize("B,S,H,K", [(2, 48, 2, 16), (1, 128, 2, 32),
-                                     (2, 37, 1, 64), (1, 144, 2, 16)])
+                                     (2, 37, 1, 64), (1, 144, 2, 16),
+                                     (2, 63, 2, 16), (1, 64, 2, 32),
+                                     (2, 65, 1, 16), (1, 129, 2, 16)])
 def test_plain_backward_matches_jax_vjp(B, S, H, K):
     """Against ``jax.vjp`` of the JAX package's chunked form (chunks of up
-    to 64, the moderate decay; one u per call, as it takes)."""
+    to 64, 43 at S = 129; the moderate decay; one u per call, as it
+    takes)."""
     r, k, v, logw, u, st, do, ds = _inputs(B * S + K, B, S, H, K, False,
                                            True, 0)
     got = ref.rwkv6_chunked_backward(*(_t(a) for a in (
@@ -221,8 +301,9 @@ def test_launchers_refuse_cpu_tensors_and_grad():
 
 
 # the card's cases: B, S, H, K, strong decay, state in, u groups. K = 16,
-# 32 and 64; lengths 1, 15, 16, 17, 37 and 144; the JAX sweep's strong
-# decay; one u per folded PE; the training shape
+# 32 and 64; lengths 1, 15, 16, 17, 37, 63, 65, 129 and 144 around the
+# sub-chunk and the 64-step chunk; the JAX sweep's strong decay; one u per
+# folded PE; the training shape
 CARD_CASES = [(1, 128, 2, 16, True, False, 0),
               (2, 64, 4, 32, True, True, 0),
               (1, 1, 4, 64, False, True, 0),
@@ -231,15 +312,19 @@ CARD_CASES = [(1, 128, 2, 16, True, False, 0),
               (2, 17, 4, 16, False, True, 2),
               (4, 37, 2, 64, False, True, 4),
               (2, 144, 4, 64, False, True, 0),
+              (2, 63, 4, 64, False, True, 0),
+              (2, 65, 4, 32, False, True, 2),
+              (1, 129, 2, 16, True, True, 0),
               (4, 1024, 64, 64, False, False, 0)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_kernel_matches_plain_on_the_card(dtype):
-    """The kernel against the plain backward on the forward kernel's saved
-    states (held to ``ref.chunk_states``): f32 within 5e-4 and bf16
-    within 5e-2 of max(1, max|plain|); two launches bit-identical."""
+    """The kernel against the plain backward on the states the forward
+    kernel saves every 64 steps, (B, H, ceil(S / 64), K, K) (held to
+    ``ref.chunk_states``): f32 within 5e-4 and bf16 within 5e-2 of max(1,
+    max|plain|); two launches bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -254,6 +339,8 @@ def test_backward_kernel_matches_plain_on_the_card(dtype):
         _, _, states = rwkv6.rwkv6_chunked(r, k, v, logw, u, st,
                                            states=True)
         want_states = ref.chunk_states(k, v, logw, st)
+        assert states.shape == (shape[0], shape[2], -(-shape[1] // 64),
+                                shape[3], shape[3])
         args = (r, k, v, logw, u, st, do, ds if state else None)
         got = rwkv6_bwd.rwkv6_chunked_backward(*args, states)
         again = rwkv6_bwd.rwkv6_chunked_backward(*args, states)

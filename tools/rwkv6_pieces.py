@@ -57,7 +57,7 @@ def build(pieces: list) -> dict:
             raise RuntimeError(f"nvcc, {n} pieces:\n{log}")
         fn = ctypes.CDLL(str(out / f"librwkv6_p{n}.so")).repro_rwkv6_chunked
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, ll, i, i, ll, p]
+        fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, ll, i, i, ll, p]
         fn.restype = i
         fns[n] = fn
     return fns
@@ -69,7 +69,8 @@ def launch(fn, x, out) -> None:
     rc = fn(0 if r.dtype == torch.float32 else 1, K, r.data_ptr(),
             k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
             None if s0 is None else s0.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), B, S, H, 1 if u.dim() == 2 else u.shape[0],
+            out[1].data_ptr(), None, B, S, H,
+            1 if u.dim() == 2 else u.shape[0],
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"launch failed: CUDA error {rc}")
