@@ -42,12 +42,16 @@ Phases, each printed as one JSON line:
           max|plain|), fed
           the forward kernel's output and row statistics (those held to
           the plain forward's, and the output bit-identical to a launch
-          without them): G = 1, 2 and 8, causal and not, windows, offsets,
-          Sq and Sk off the tiles, rows that see no key, a 512-token
-          causal run, a 3-row query, qwen3's 1-PE training shape (4 x
-          1,024 causal tokens, 16 / 8 heads), G * Sq and Sk off the bf16
-          passes' tiles, a key tile across the causal diagonal; two
-          launches on the same inputs bit-identical; the reorder under
+          without them) at every head dim (16, 32, 64, 96, 128, 256): G =
+          1, 2, 4 and 8, causal and not, windows, offsets, Sq and Sk off
+          the tiles, rows that see no key, a 512-token causal run, a 3-row
+          query, qwen3's 1-PE training shape (4 x 1,024 causal tokens, 16
+          / 8 heads), phi3-mini's at 1 PE and tp 8 (hd 96), gemma3's at 1
+          PE with its local window of 512 and its global mask and at data
+          2 x tp 4 (hd 256, one kv head), a windowed G = 4 case at hd 256
+          off the tiles, G * Sq and Sk off the bf16 passes' tiles, a key
+          tile across the causal diagonal; two launches on the same inputs
+          bit-identical at every head dim; the reorder under
           autograd (``TileSwizzle``): output and gradient bit-identical to
           autograd of index_select on random perms, and the pr and cm
           all_to_alls of the 8-PE cubes under autograd bit-identical to
@@ -124,6 +128,24 @@ Phases, each printed as one JSON line:
           and cache against the teacher-forced loop within 2e-4 * max(1,
           max|ref|) (1e-4 and the plain prefill's own distance reported
           beside it); prefill + decode's greedy tokens the loop's;
+  serve_mixtral  mixtral-8x7b (4 of 32 layers at full width: 8 experts of
+          d_ff 14,336, top-2, 32 / 8 heads of 128) through the launcher's
+          function at 1 and 8 PEs (ep 8, etp 1: the reorder on both
+          all_to_alls of every layer), bf16 and f32 (TF32 off), one
+          topology's weights at a time: exact launches (flash 4 x 47 a
+          decode run, reorder 2 x 4 x 47 at 8 PEs; the forward 4 and 8),
+          decode against forward_logits of the served tokens within 5e-2
+          (bf16) / 1e-4 (f32) x max(1, max|ref|) at the positions where no
+          choice was dropped to the expert capacity in either path and the
+          routings agree, at every layer, at and before them (capacity
+          makes the two paths different functions elsewhere: the dropped
+          choices are computed from the recorded routings); 1 PE against
+          8 PEs in bf16 within 5e-2 x max(1, max|ref|) at the steps whose
+          tokens and routings agreed so far; in f32 within 1e-4 x max(1,
+          max|ref|) everywhere, identical greedy tokens and identical
+          top-2 expert ids at every (step, layer, request); ms/step,
+          tok/s, peak memory and a decode profile in bf16. The inputs of
+          each kernel's last bf16 launch are kept;
   serve_dense  full-width phi3-mini-3.8b (hd 96, 32 heads, G = 1) at 1 and
           8 PEs and gemma3-1b (hd 256, G = 4, 5:1 local:global windows of
           512) at 1 and 4 PEs, bf16, through the launcher's function: decode
@@ -164,8 +186,9 @@ Phases, each printed as one JSON line:
           reorder launches a forward and a decode step. The inputs of the
           kernels' last prefill launches are kept;
   serve_engine  the paged continuous-batching ``ServeEngine`` serving
-          full-width qwen3-1.7b (bf16 over f32 master weights, random from
-          seed 0; B = 4 lanes, S_ctx 48, page_size 3) at 1 and 8 PEs, one
+          qwen3-1.7b at full width and 14 of its 28 layers (bf16 over f32
+          master weights, random from seed 0; B = 4 lanes, S_ctx 48,
+          page_size 3) at 1 and 8 PEs, one
           topology's weights on the card at a time: the launcher's four
           prompts, all at step 0, give the launcher's greedy tokens
           exactly; a 12-request Poisson trace completes with every
@@ -175,7 +198,7 @@ Phases, each printed as one JSON line:
           tokens and temperature 0.8 repeats under one seed; at 8 PEs
           lazy admission on pools of 4 pages a shard preempts and gives
           the reserve run's tokens. Every run launches the flash kernel
-          exactly 28 times a step (counted from 0 just before the run).
+          exactly 14 times a step (counted from 0 just before the run).
           Reports steps, tok/s, p50 / p99 per-token seconds, ms/step,
           page occupancy, peak memory and a profile of three steps;
   apps    the paper's five applications (six APPS entries) on their JAX
@@ -240,29 +263,36 @@ Phases, each printed as one JSON line:
           the backward's bucket hooks (bit for bit on the synced leaves).
           The inputs of each layout's last forward and backward launch are
           kept;
-  train_moe_rwkv  qwen2-moe-a2.7b (4 of 24 layers) and rwkv6-7b (12 of 32)
-          training at full width through ``Trainer`` at 1 PE and at 8 PEs
-          as the launcher lays them out (MoE ep 8, the reorder on every
-          all_to_all; RWKV6 tp 8), one cell's weights on the card at a
+  train_moe_rwkv  qwen2-moe-a2.7b (4 of 24 layers), rwkv6-7b (12 of 32),
+          phi3-mini-3.8b (all 32: hd 96), gemma3-1b (all 26: hd 256, 5:1
+          local windows of 512 and global layers) and mixtral-8x7b (2 of
+          32) training at full width through ``Trainer`` at 1 PE and at 8
+          PEs as the launcher lays them out (MoE ep 8, the reorder on every
+          all_to_all; RWKV6 and phi3 tp 8; gemma3 data 2 x tp 4), one
+          cell's weights on the card at a
           time: bf16 over f32 masters, int8 moments, a warm-up and 3 timed
           steps of 4 x 1,024 tokens from TokenStream (ms/step, tok/s, mfu
           -- MoE's over active parameters --, peak memory, a profile of
-          one step with the RWKV6 backward's share); exact launches a
-          step (``_mr_expected``: flash 2 L / L, reorder 6 L at ep 8,
-          RWKV6 2 L / L); one batch repeated 5 steps at 1 PE: the loss
-          falls; f32 (TF32 off) at 2 x 256 tokens and full width, RWKV6
-          at 4 layers (1 PE, tp 8) and MoE at 2 (ep 8): the synced
-          gradients against the witness (every kernel's plain version in
-          its place: autograd of index_select, of the plain attention and
-          of the plain recurrence) within 1e-4 x each leaf's own max, MoE
-          within the larger of that and twice the spread of two witness
-          runs; controls: the RWKV6 backward with dlogw zeroed and the
-          reorder's backward with the identity must fail it, the reorder's
-          with perm in place of its inverse too unless every perm it ran
-          is its own inverse. The inputs of each bf16 cell's last launch
-          of every kernel of its path are kept: MoE's flash forward (with
-          row statistics), flash backward and reorder; RWKV6's forward
-          (saving the sub-chunk states) and backward;
+          one step with the backward kernels' shares and each pass's
+          device ms); exact launches a step (``_mr_expected``: flash 2 L /
+          L, reorder 6 L at ep 8, RWKV6 2 L / L); one batch repeated 5
+          steps at 1 PE: the loss falls; f32 (TF32 off) at 2 x 256 tokens
+          and full width, RWKV6 at 4 layers (1 PE, tp 8), qwen2-moe at 2
+          (ep 8), phi3 at 4 (1 PE, tp 8), gemma3 at 6 (1 PE, data 2 x tp
+          4: five local layers and a global one) and mixtral at 2 (ep 8):
+          the synced gradients against the witness (every kernel's plain
+          version in its place: autograd of index_select, of the plain
+          attention and of the plain recurrence) within 1e-4 x each leaf's
+          own max, MoE within the larger of that and twice the spread of
+          two witness runs; controls: the flash backward's gradients
+          zeroed and its dq scaled by 0.9 (every arch with attention), the
+          RWKV6 backward with dlogw zeroed and the reorder's backward with
+          the identity must fail it, the reorder's with perm in place of
+          its inverse too unless every perm it ran is its own inverse. The
+          inputs of each bf16 cell's last launch of every kernel of its
+          path are kept: the flash forward (with row statistics) and
+          backward; the reorder; RWKV6's forward (saving the sub-chunk
+          states) and backward;
   checkpoint  ``repro_torch.checkpoint`` at qwen3-1.7b's full width and
           depth (12.2 GB a checkpoint; the free bytes and host RAM where
           it goes, in the checkout's build/, printed before the first save,
@@ -295,8 +325,9 @@ Phases, each printed as one JSON line:
           ``import_checkpoint`` (the ``hf-import`` program): bit for bit but
           the norms (1 + w in the file), within 2^-24; export, write, read
           and import seconds;
-  main_path  each kernel on the inputs the serve, serve_prefill,
-          fused_forward, train, train_moe_rwkv and apps phases kept (the
+  main_path  each kernel on the inputs the serve, serve_mixtral,
+          serve_prefill, fused_forward, train, train_moe_rwkv and apps
+          phases kept (the
           shapes and positions the path gives it; for
           DLRM's AA(xyz), whose blocks repeat across the PEs, a random
           tensor of that shape): checked
@@ -314,8 +345,10 @@ Phases, each printed as one JSON line:
           forward that saves the states on o and the final state within
           RWKV6_TOL and on the states within RWKV6_STATES_TOL of max(1,
           max|plain|). Every training layout's rows must be there: the
-          flash forward and backward at qwen3's three and qwen2-moe's two,
-          the RWKV6 forward with states and backward at rwkv6's two. The
+          flash forward and backward at qwen3's three and at qwen2-moe's,
+          phi3's, gemma3's and mixtral's two, the RWKV6 forward with
+          states and backward at rwkv6's two; the reorder at mixtral's
+          8-PE decode and train step too. The
           RWKV6 backward's bound counts the function's bytes (its inputs
           and gradients); the design's own traffic (the saved states
           read, pass 1's chunk-end gradients written and read, the du
@@ -397,6 +430,12 @@ RWKV6_STATES_TOL = 1e-5
 # the serving engine: page size (S_loc = 48 / 8 = 6 at 8 PEs), the pool of
 # the preemption run (pages per shard), and a bound on any run's steps
 ENGINE_PAGE, ENGINE_TIGHT, ENGINE_MAX_STEPS = 3, 4, 400
+# The engine's cells run qwen3 at half its depth: their gates compare runs
+# on the same weights (the launcher's tokens, batching invariance,
+# preemption), and their host-bound steps take time by the layer; the
+# full-depth decode path is the serve phase's. At 28 layers the engine
+# took 133 s of the run's 1,200 s limit.
+ENGINE_LAYERS = 14
 
 
 def emit(phase: str, **fields) -> None:
@@ -440,6 +479,10 @@ def phase_build() -> dict:
                      if "registers" in ln or "spill" in ln
                      or "Compiling entry" in ln] or [log.strip()]
               for name, log in logs.items()}
+    # each library's nvcc wall seconds, all started together
+    nvcc_s = {name: float(ln.split(":")[1]) for name, log in logs.items()
+              for ln in log.splitlines()
+              if ln.startswith("nvcc wall seconds:")}
     # the entry functions whose ptxas report shows a spill
     spilling = []
     for name, lines in report.items():
@@ -451,7 +494,8 @@ def phase_build() -> dict:
                                                       "0 bytes spill stores"):
                 spilling.append([name, entry, ln])
     return {"seconds": round(time.perf_counter() - t0, 3),
-            "libraries": sorted(logs), "spilling": spilling, "ptxas": report}
+            "libraries": sorted(logs), "nvcc_seconds": nvcc_s,
+            "spilling": spilling, "ptxas": report}
 
 
 # ------------------------------------------------------------------ kernel
@@ -681,30 +725,49 @@ def _flash_long_rows(dev) -> list:
     return rows
 
 
-# flash backward sweep (hd 128): B, Sq, Sk, H, KV, causal, window, q0, k0.
-# G = 1, 2 and 8; causal and not; windows; offsets; Sq and Sk off the
-# 64-row / 64-key tiles; rows that see no key (q0 < k0); a 512-token causal
-# run that skips tiles; a 3-row query (the forward's decode form); qwen3's
-# 1-PE training shape (4 x 1,024 causal tokens, 16 query and 8 kv heads);
-# G * Sq and Sk off the bf16 passes' CTA tiles (64 or 128 rows / keys) and
-# their 64-key / 64-row ring stages, with 4-warp CTAs in both passes (2 x
-# 200 x 8 / 4) and 8-warp ones (16 x 300 x 8 / 4: 600 rows, 300 keys); a
-# key tile that straddles the causal diagonal (q0 = 37) in both passes
+# flash backward sweep: B, Sq, Sk, H, KV, causal, window, q0, k0, hd.
+# At hd 128: G = 1, 2 and 8; causal and not; windows; offsets; Sq and Sk off
+# the 64-row / 64-key tiles; rows that see no key (q0 < k0); a 512-token
+# causal run that skips tiles; a 3-row query (the forward's decode form);
+# qwen3's 1-PE training shape (4 x 1,024 causal tokens, 16 query and 8 kv
+# heads); G * Sq and Sk off the bf16 passes' CTA tiles (64 or 128 rows /
+# keys) and their 64-key / 64-row ring stages, with 4-warp CTAs in both
+# passes (2 x 200 x 8 / 4) and 8-warp ones (16 x 300 x 8 / 4: 600 rows, 300
+# keys); a key tile that straddles the causal diagonal (q0 = 37) in both
+# passes. At every other head dim the same kinds at smaller sizes (G = 1, 2
+# and 4, full, windowed with offsets, rows with no key, ragged 4-warp
+# tiles), and the training shapes of the archs that have it: phi3-mini
+# (hd 96) at 1 PE and tp 8; gemma3 (hd 256, one kv head) at 1 PE with its
+# local window of 512 and its global causal mask, at data 2 x tp 4 (the 8
+# PEs folded into the batch, one query head a PE), and a windowed G = 4
+# case off the tiles.
 FLASH_BWD_CASES = [
-    (2, 64, 64, 8, 8, True, -1, 0, 0),
-    (2, 100, 100, 16, 8, True, -1, 0, 0),
-    (1, 37, 130, 8, 1, True, -1, 93, 0),
-    (2, 50, 70, 4, 2, False, -1, 0, 0),
-    (2, 96, 96, 8, 4, True, 24, 0, 0),
-    (1, 40, 72, 8, 2, True, 24, 48, 16),
-    (2, 24, 48, 4, 2, True, -1, 0, 16),
-    (1, 130, 257, 16, 8, True, -1, 127, 0),
-    (2, 512, 512, 16, 8, True, -1, 0, 0),
-    (2, 3, 40, 4, 2, True, -1, 37, 0),
-    (4, 1024, 1024, 16, 8, True, -1, 0, 0),
-    (2, 200, 333, 8, 4, True, -1, 0, 0),
-    (16, 300, 300, 8, 4, True, -1, 0, 0),
-    (2, 192, 229, 8, 2, True, -1, 37, 0),
+    (2, 64, 64, 8, 8, True, -1, 0, 0, 128),
+    (2, 100, 100, 16, 8, True, -1, 0, 0, 128),
+    (1, 37, 130, 8, 1, True, -1, 93, 0, 128),
+    (2, 50, 70, 4, 2, False, -1, 0, 0, 128),
+    (2, 96, 96, 8, 4, True, 24, 0, 0, 128),
+    (1, 40, 72, 8, 2, True, 24, 48, 16, 128),
+    (2, 24, 48, 4, 2, True, -1, 0, 16, 128),
+    (1, 130, 257, 16, 8, True, -1, 127, 0, 128),
+    (2, 512, 512, 16, 8, True, -1, 0, 0, 128),
+    (2, 3, 40, 4, 2, True, -1, 37, 0, 128),
+    (4, 1024, 1024, 16, 8, True, -1, 0, 0, 128),
+    (2, 200, 333, 8, 4, True, -1, 0, 0, 128),
+    (16, 300, 300, 8, 4, True, -1, 0, 0, 128),
+    (2, 192, 229, 8, 2, True, -1, 37, 0, 128),
+    *[c + (hd,) for hd in (16, 32, 64, 96, 256) for c in (
+        (2, 100, 130, 8, 2, True, -1, 30, 0),
+        (2, 37, 70, 4, 4, False, -1, 0, 0),
+        (1, 40, 72, 8, 2, True, 24, 48, 16),
+        (2, 24, 48, 4, 2, True, -1, 0, 16),
+        (2, 200, 333, 8, 4, True, -1, 0, 0))],
+    (4, 1024, 1024, 32, 32, True, -1, 0, 0, 96),
+    (32, 1024, 1024, 4, 4, True, -1, 0, 0, 96),
+    (4, 1024, 1024, 4, 1, True, 512, 0, 0, 256),
+    (4, 1024, 1024, 4, 1, True, -1, 0, 0, 256),
+    (16, 1024, 1024, 1, 1, True, 512, 0, 0, 256),
+    (2, 300, 300, 4, 1, True, 64, 0, 0, 256),
 ]
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
@@ -721,8 +784,8 @@ def _flash_bwd_checks(dev) -> dict:
     gen.manual_seed(2)
     checks, ok_all = [], True
     for dtype in (torch.float32, torch.bfloat16):
-        for B, Sq, Sk, H, KV, causal, window, q0, k0 in FLASH_BWD_CASES:
-            q, k, v = _attn_inputs(gen, dtype, B, Sq, Sk, H, KV, 128, dev)
+        for B, Sq, Sk, H, KV, causal, window, q0, k0, hd in FLASH_BWD_CASES:
+            q, k, v = _attn_inputs(gen, dtype, B, Sq, Sk, H, KV, hd, dev)
             do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
             q_pos = (q0 + torch.arange(Sq, device=dev)).expand(B, -1)
             k_pos = (k0 + torch.arange(Sk, device=dev)).expand(B, -1)
@@ -758,7 +821,7 @@ def _flash_bwd_checks(dev) -> dict:
                   and all(bool(torch.isfinite(g).all()) for g in got))
             ok_all &= ok
             checks.append({"dtype": str(dtype).split(".")[-1],
-                           "shape": [B, Sq, Sk, H, KV, 128],
+                           "shape": [B, Sq, Sk, H, KV, hd],
                            "causal": causal, "window": window,
                            "offsets": [q0, k0], "rows_without_key": dead,
                            "dq_err": errs[0], "dk_err": errs[1],
@@ -2001,15 +2064,16 @@ def _summary_ok(s: dict) -> bool:
 
 
 def phase_serve_engine(dev, kept: dict) -> dict:
-    """The paged continuous-batching engine, full-width qwen3-1.7b (bf16
-    over f32 master weights, random from seed 0), B = 4 lanes, S_ctx 48,
+    """The paged continuous-batching engine, qwen3-1.7b at full width and
+    ENGINE_LAYERS of its 28 layers (bf16 over f32 master weights, random
+    from seed 0), B = 4 lanes, S_ctx 48,
     page_size 3, at 1 and 8 PEs with one topology's weights on the card at
     a time (``_engine_cell``). ``kept`` receives the kernel's inputs of the
     lockstep runs' last launch."""
     from repro_torch import configs
     from repro_torch.serving import poisson_trace
 
-    cfg = configs.get(ARCH)
+    cfg = dataclasses.replace(configs.get(ARCH), n_layers=ENGINE_LAYERS)
     trace = poisson_trace(12, rate=0.5, plen_range=(8, 32),
                           max_new_range=(8, 16), vocab=cfg.vocab_size,
                           seed=7)
@@ -2022,6 +2086,7 @@ def phase_serve_engine(dev, kept: dict) -> dict:
         gc.collect()                # the cell's weights leave the card
         torch.cuda.empty_cache()
     return {"ok": bool(ok), "arch": ARCH, "batch": BATCH,
+            "cut": f"{ENGINE_LAYERS} of {_full_depth(ARCH)} layers",
             "S_ctx": PROMPT + GEN, "page_size": ENGINE_PAGE,
             "tight_pages_per_shard": ENGINE_TIGHT, "runs": out,
             "flash_launches": launches}
@@ -2054,7 +2119,7 @@ def _engine_cell(dev, kept: dict, cfg, trace, pes: int):
     r, launches = {}, 0
     # 1. lockstep against the launcher (its prompts: seed 0)
     launcher = serve(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, pes=pes,
-                     device=dev, seed=0, params=params)
+                     device=dev, seed=0, params=params, n_layers=L)
     ref = launcher["tokens"]
     lock = [Request(rid=b, prompt=ref[b, :PROMPT].tolist(), max_new=GEN)
             for b in range(BATCH)]
@@ -2240,10 +2305,14 @@ def phase_fused_forward(dev, kept: dict) -> dict:
             "flash_launches": launches, "peak_mem_gb": peak}
 
 
-def _moe_run(dev, pes, dtype, kept=None, kept_reorder=None) -> dict:
-    """One full-width MoE serve at ``pes`` PEs, both kernels' counts set to
-    0 just before it and read just after; the routings recorded, and with
-    ``kept`` the inputs of each kernel's last launch."""
+def _moe_run(dev, pes, dtype, kept=None, kept_reorder=None, *,
+             arch=MOE_ARCH, layers=None, label="moe") -> dict:
+    """One full-width MoE serve at ``pes`` PEs (``layers`` deep, else the
+    arch's depth), both kernels' counts set to 0 just before it and read
+    just after; the routings recorded, and with ``kept`` the inputs of each
+    kernel's last launch (flash under ``<label>/decode/<pes>pe``, the
+    reorder under ``decode/<pes>pe`` for qwen2-moe, else
+    ``<label>/decode/<pes>pe``)."""
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.reorder import reorder
     from repro_torch.launch.serve import serve
@@ -2251,14 +2320,17 @@ def _moe_run(dev, pes, dtype, kept=None, kept_reorder=None) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     keep = contextlib.ExitStack()
     if kept is not None:
-        keep.enter_context(keep_kernel_inputs(kept, f"moe/decode/{pes}pe"))
-        keep.enter_context(keep_reorder_inputs(kept_reorder, f"decode/{pes}pe"))
+        keep.enter_context(keep_kernel_inputs(kept,
+                                              f"{label}/decode/{pes}pe"))
+        keep.enter_context(keep_reorder_inputs(
+            kept_reorder, f"decode/{pes}pe" if arch == MOE_ARCH
+            else f"{label}/decode/{pes}pe"))
     flash.LAUNCHES = reorder.LAUNCHES = 0       # this path's run starts here
     t0 = time.perf_counter()
     with keep, record_routes(calls):
-        run = serve(MOE_ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+        run = serve(arch, batch=BATCH, prompt_len=PROMPT, gen=GEN,
                     pes=pes, device=dev, seed=0, dtype=dtype,
-                    keep_logits=True)
+                    keep_logits=True, n_layers=layers)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     n_flash, n_reorder = flash.LAUNCHES, reorder.LAUNCHES
@@ -2354,6 +2426,192 @@ def phase_serve_moe_f32(dev) -> dict:
             "routes_identical": same_routes,
             "routing_decisions": int(a["routes"][..., 0].numel()),
             "runs": sums}
+
+
+# --------------------------------------------------------------- mixtral
+# mixtral-8x7b served through the launcher's function at full width and 4 of
+# its 32 layers: 1.45 B parameters a layer (8 experts of 3 x 4,096 x
+# 14,336), 6.07 B with the embeddings, whose f32 masters (24.3 GB) and
+# their bf16 copies fit one topology at a time; 8 layers would hold 47.6 GB
+# of masters beside 23.8 GB of copies. Its window of 4,096 never binds at 48
+# positions.
+MIXTRAL_SERVE_LAYERS = 4
+
+
+def _dropped(routes: torch.Tensor, C: int, n_experts: int) -> torch.Tensor:
+    """(..., T) bool: whether token t lost a choice to its expert's
+    capacity ``C``, from its routes (..., T, k), ranked as
+    ``blocks._expert_ffn`` ranks them (by token order within the
+    expert)."""
+    *lead, T, k = routes.shape
+    flat = routes.reshape(*lead, T * k).long()
+    oh = F.one_hot(flat, n_experts)
+    pos = (oh.cumsum(-2) - oh).gather(-1, flat[..., None])[..., 0]
+    return (pos >= C).reshape(*lead, T, k).any(-1)
+
+
+def _moe_forward(run, dtype, tokens) -> tuple:
+    """``forward_logits`` of ``tokens`` (B, S) on an MoE run's weights on the
+    forward topology of its cube, with the routings recorded: global logits
+    (B, S, V_padded), the routes (layers, B, S, k) (from PE 0 where every
+    PE routes the same replicated tokens; from each PE's positions where
+    the sequence is split over the PEs), whether each (layer, b, s) lost a
+    choice to capacity (each PE ranks its own tokens), and the flash and
+    reorder launches of the forward."""
+    from repro_torch.models.lm import Model
+    from repro_torch.models.topology import build_topology
+    topo = run["topo"]
+    cfg = dataclasses.replace(run["cfg"], ep=topo.size(topo.ep),
+                              etp=topo.size(topo.etp))
+    ftopo = build_topology(cfg, topo.cube.ndev)
+    if ftopo.cube != topo.cube:
+        raise RuntimeError("forward and serve cubes differ")
+    calls = []
+    with record_routes(calls):
+        out, nf, nr = _counted(lambda: Model(cfg, ftopo, dtype=dtype)
+                               .forward_logits(run["params"], {
+                                   "tokens": ftopo.cube.to_cube(
+                                       tokens, (ftopo.dp, None))}))
+    r = torch.stack(calls)               # (layers, PEs, tokens a PE, k)
+    (L, P, n, k), (B, S) = r.shape, tokens.shape
+    C = int(math.ceil(n * k / cfg.n_experts_padded * cfg.capacity_factor))
+    drop = _dropped(r, C, cfg.n_experts_padded)          # (L, P, n)
+    if n == B * S:       # replicated tokens: every PE routes them alike
+        if not bool((r == r[:, :1]).all()):
+            raise RuntimeError("PEs of one forward routed the same tokens "
+                               "apart")
+        routes, drop = r[:, 0].reshape(L, B, S, k), drop[:, 0].reshape(
+            L, B, S)
+    else:                # sequence-parallel: PE i holds positions i S / P ..
+        routes = (r.reshape(L, P, B, S // P, k).permute(0, 2, 1, 3, 4)
+                  .reshape(L, B, S, k))
+        drop = (drop.reshape(L, P, B, S // P).permute(0, 2, 1, 3)
+                .reshape(L, B, S))
+    return (ftopo.cube.from_cube(out, (ftopo.dp, None, ftopo.tp)), routes,
+            drop, nf, nr)
+
+
+def _agreeing(same: torch.Tensor) -> torch.Tensor:
+    """(B, steps) bool: the steps before which every step agreed (a step's
+    inputs depend on every earlier step's)."""
+    return torch.cumprod(same.int(), dim=1).bool()
+
+
+def _mixtral_run(dev, pes: int, dtype, kept, kept_reorder) -> dict:
+    """mixtral at ``pes`` PEs: the launcher's serve (exact launches: one
+    flash launch per layer and step, two reorders at 8 PEs), then
+    ``forward_logits`` of the served tokens (one flash launch and, at 8
+    PEs, two reorders a layer). Decode is held to the forward at the
+    positions whose routings agree with the forward's at every layer, at
+    and before that position (a routing that differs is another function,
+    and it feeds every later position through the cache): within SERVE_TOL
+    (bf16) or F32_TOL (f32) x max(1, max|forward|). The expert capacity
+    makes them different functions wherever a choice is dropped (decode
+    ranks the B tokens of a step, the forward a PE's tokens of the whole
+    sequence), so the positions compared also drop nothing, in either path
+    and at any layer, at and before them."""
+    run = _moe_run(dev, pes, dtype, kept, kept_reorder, arch=MIXTRAL_ARCH,
+                   layers=MIXTRAL_SERVE_LAYERS, label="mixtral")
+    cfg = run["cfg"]
+    toks = torch.from_numpy(run["tokens"]).to(dev)
+    fwd, f_routes, f_drop, nf, nr = _moe_forward(run, dtype, toks)
+    fwd = fwd[:, :-1]
+    torch.cuda.synchronize()
+    B, steps = run["dec"].shape[:2]
+    C_dec = max(int(math.ceil(B * cfg.top_k / cfg.n_experts_padded
+                              * cfg.capacity_factor)), 1)
+    d_drop = _dropped(run["routes"], C_dec, cfg.n_experts_padded)
+    # decode step t routes position t: (steps, L, B, k) vs (L, B, S, k)
+    same = (run["routes"].permute(2, 0, 1, 3)
+            == f_routes[:, :, :steps].permute(1, 2, 0, 3)).all(-1).all(-1)
+    no_drop = ~(d_drop.any(1).T | f_drop[:, :, :steps].any(0))  # (B, steps)
+    mask = _agreeing(same & no_drop)
+    tol = SERVE_TOL if dtype == torch.bfloat16 else F32_TOL
+    scale = max(1.0, float(fwd.abs().max()))
+    diff = (run["dec"] - fwd).abs().amax(-1)               # (B, steps)
+    err = float(diff[mask].max()) if bool(mask.any()) else math.inf
+    L = run["cfg"].n_layers
+    s = run["summary"]
+    s.update({
+        "layers": L, "full_depth": _full_depth(MIXTRAL_ARCH),
+        "forward_flash_launches": nf, "forward_reorder_launches": nr,
+        "expected_forward_flash_launches": L,
+        "expected_forward_reorder_launches": 2 * L if pes > 1 else 0,
+        "decode_vs_forward_err": err, "decode_vs_forward_bound": tol * scale,
+        "decode_vs_forward_err_everywhere": float(diff.max()),
+        "positions_compared": int(mask.sum()),
+        "positions": int(mask.numel()),
+        "routing_agreement_decode_forward": float(same.float().mean()),
+        "positions_dropping_a_choice": int((~no_drop).sum()),
+        "forward_finite": bool(torch.isfinite(fwd).all())})
+    s["ok"] = (_moe_ok(s) and s["forward_finite"]
+               and nf == L and nr == s["expected_forward_reorder_launches"]
+               and s["positions_compared"] > 0
+               and err <= tol * scale)
+    return run
+
+
+def phase_serve_mixtral(dev, kept: dict, kept_reorder: dict) -> dict:
+    """mixtral-8x7b (4 of 32 layers, full width, 8 experts top-2) through
+    the launcher's function at 1 and 8 PEs (ep 8, etp 1: the reorder on
+    both all_to_alls of every layer), one topology's weights on the card at
+    a time, bf16 then f32 (TF32 off). Each run: ms/step, tok/s, peak
+    memory, exact launches (flash 4 x 47 a decode run; reorder 2 x 4 x 47
+    at 8 PEs), decode against forward_logits (``_mixtral_run``). 1 PE
+    against 8 PEs: bf16 logits within SERVE_TOL x max(1, max|ref|) at the
+    steps whose tokens and routings agreed so far; f32 logits within F32_TOL
+    x max(1, max|ref|) everywhere, identical greedy tokens and identical
+    top-2 expert ids at every (step, layer, request). bf16 keeps the
+    kernels' inputs of each run's last launch and profiles three decode
+    steps."""
+    out, launches = {}, {"flash": 0, "reorder": 0}
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        runs = {}
+        for pes in PES:
+            run = _mixtral_run(dev, pes, dtype, kept if bf16 else None,
+                               kept_reorder if bf16 else None)
+            s = run["summary"]
+            launches["flash"] += (s["flash_launches"]
+                                  + s["forward_flash_launches"])
+            launches["reorder"] += (s["reorder_launches"]
+                                    + s["forward_reorder_launches"])
+            if bf16:
+                s["profile"] = profile_decode(run, dev)
+            runs[pes] = _drop(run, "routes")
+        a, b = runs[PES[0]], runs[PES[-1]]
+        same = torch.from_numpy(a["tokens"][:, :-1] == b["tokens"][:, :-1]
+                                ).to(dev)
+        same_routes = (a["routes"] == b["routes"]).all(-1).all(1).T
+        mask = _agreeing(same & same_routes)                # (B, steps)
+        scale = max(1.0, float(a["dec"].abs().max()))
+        diff = (a["dec"] - b["dec"]).abs().amax(-1)
+        err = float(diff[mask].max()) if bool(mask.any()) else math.inf
+        tol = SERVE_TOL if bf16 else F32_TOL
+        cell = {"runs": [runs[p]["summary"] for p in PES],
+                "pe1_vs_pe8_err": err, "pe1_vs_pe8_bound": tol * scale,
+                "pe1_vs_pe8_err_everywhere": float(diff.max()),
+                "compared_steps": int(mask.sum()),
+                "greedy_tokens_identical": bool(
+                    (a["tokens"] == b["tokens"]).all()),
+                "routes_identical": bool(torch.equal(a["routes"],
+                                                     b["routes"])),
+                "routing_agreement_pe1_pe8": float(
+                    (a["routes"] == b["routes"]).all(-1).float().mean()),
+                "routing_decisions": int(a["routes"][..., 0].numel())}
+        cell["ok"] = (all(r["ok"] for r in cell["runs"])
+                      and cell["compared_steps"] > 0
+                      and err <= tol * scale
+                      and (bf16 or (cell["greedy_tokens_identical"]
+                                    and cell["routes_identical"]
+                                    and float(diff.max()) <= tol * scale)))
+        out["bf16" if bf16 else "f32"] = cell
+    return {"ok": out["bf16"]["ok"] and out["f32"]["ok"],
+            "arch": MIXTRAL_ARCH, "cut": f"{MIXTRAL_SERVE_LAYERS} of "
+            f"{_full_depth(MIXTRAL_ARCH)} layers", "batch": BATCH,
+            "prompt_len": PROMPT, "gen": GEN, **out,
+            "flash_launches": launches["flash"],
+            "reorder_launches": launches["reorder"]}
 
 
 # ----------------------------------------------------------- dense archs
@@ -3801,38 +4059,64 @@ def phase_train(dev, kept: dict, kept_bwd: dict) -> dict:
 
 
 # ---------------------------------------------------------- train_moe_rwkv
-# qwen2-moe-a2.7b and rwkv6-7b training at full width through the same
-# functions, depth cut so that f32 masters and gradients, int8 moments and
-# the backward's transients fit in 80 GB. qwen3's 13.5 GB of peak per
-# billion parameters planned 6 MoE layers (4.05 B) and 16 RWKV6 ones
-# (4.03 B); at 6 MoE layers the first step ran out of memory on an H100
-# (59.7 GB allocated and 16.6 GB held free by the allocator when a 4.1 GB
-# stacked expert gradient was asked for: the backward stacks each unit's
-# gradients of a stacked leaf), so the cut is MoE 4 of 24 layers (2.90 B
-# parameters at 1 PE, 3.04 B at ep 8 with the 64 padded experts) and
-# RWKV6 12 of 32 (3.15 B, whose channel-mix leaves stack the same way).
-# The 8-PE layouts are ``launch/train.py --pes 8``'s (MoE: ep 8, etp 1,
-# the one that runs the reorder; RWKV6: tp 8).
-TRAIN_MR_ARCHS = {"moe": (MOE_ARCH, 4), "rwkv": (RWKV_ARCH, 12)}
+# The ported archs other than qwen3 trained at full width through the same
+# functions. qwen2-moe-a2.7b and rwkv6-7b have their depth cut so that f32
+# masters and gradients, int8 moments and the backward's transients fit in
+# 80 GB. qwen3's 13.5 GB of peak per billion parameters planned 6 MoE
+# layers (4.05 B) and 16 RWKV6 ones (4.03 B); at 6 MoE layers the first
+# step ran out of memory on an H100 (59.7 GB allocated and 16.6 GB held free
+# by the allocator when a 4.1 GB stacked expert gradient was asked for: the
+# backward stacks each unit's gradients of a stacked leaf), so the cut is
+# MoE 4 of 24 layers (2.90 B parameters at 1 PE, 3.04 B at ep 8 with the 64
+# padded experts) and RWKV6 12 of 32 (3.15 B, whose channel-mix leaves
+# stack the same way). phi3-mini-3.8b (hd 96) and gemma3-1b (hd 256, local
+# windows of 512) train at full depth; mixtral-8x7b at 2 of 32 layers (1.45
+# B a layer: 3.17 B with the embeddings, qwen2-moe's size). The 8-PE
+# layouts are ``launch/train.py --pes 8``'s: model parallelism min(model
+# parallel, 8), the rest data (MoE: ep 8, etp 1, the one that runs the
+# reorder; RWKV6 and phi3: tp 8; gemma3: data 2 x tp 4, its 4 query heads
+# bounding tp).
+MIXTRAL_ARCH = "mixtral-8x7b"
+TRAIN_MR_ARCHS = {"moe": (MOE_ARCH, 4), "rwkv": (RWKV_ARCH, 12),
+                  "phi3": ("phi3-mini-3.8b", 32), "gemma3": ("gemma3-1b", 26),
+                  "mixtral": (MIXTRAL_ARCH, 2)}
 TRAIN_MR_PES = {"1pe": 1, "8pe": 8}
 # the f32 witness cells, at full width and a smaller cut: one step's
 # gradients only (no optimizer state), so the run's gradients and the
-# witness's stay on the card together
-TRAIN_MR_F32 = {("rwkv", "1pe"): 4, ("rwkv", "8pe"): 4, ("moe", "8pe"): 2}
-TRAIN_MR_CONTROLS = ("rwkv6_dlogw_zero", "reorder_perm_for_inverse",
-                     "reorder_identity_backward")
+# witness's stay on the card together (the run's wait on the host); gemma3
+# at 6 layers so that its sixth, global, layer runs beside five local ones
+TRAIN_MR_F32 = {("rwkv", "1pe"): 4, ("rwkv", "8pe"): 4, ("moe", "8pe"): 2,
+                ("phi3", "1pe"): 4, ("phi3", "8pe"): 4, ("gemma3", "1pe"): 6,
+                ("gemma3", "8pe"): 6, ("mixtral", "8pe"): 2}
+# The repeated-batch check's lr where TRAIN_LR overshoots: phi3 (32 layers
+# of d_model 3,072) at 3e-4 fell for three steps, then rose past its first
+# loss, with the plain attention in the kernels' place as well
+# (tools/loss_falls_lr.py); at 1e-4 both fall at every step
+TRAIN_MR_LOSS_LR = {"phi3": 1e-4}
 RWKV6_BWD_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6_bwd.cu"
 RWKV6_BWD_REPLACES = "src/repro/models/ssm.py:21"
 
 
+def _mr_attention(name: str) -> bool:
+    """Whether the cell's arch has attention layers (all but RWKV6)."""
+    return name != "rwkv"
+
+
 def _mr_cfg(arch: str, layers: int, pes: int):
     """Full width, ``layers`` deep, laid out as ``launch/train.py --pes``
-    does: all PEs model-parallel (ep for MoE, tp otherwise)."""
+    does: min(model parallel, pes) PEs model-parallel (ep for MoE, tp
+    otherwise), the rest data-parallel."""
     from repro_torch import configs
     cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+    mp = min(cfg.model_parallel, pes)
     if cfg.n_experts:
-        return dataclasses.replace(cfg, ep=pes, etp=1)
-    return dataclasses.replace(cfg, tp=pes)
+        return dataclasses.replace(cfg, ep=mp, etp=1)
+    return dataclasses.replace(cfg, tp=mp)
+
+
+def _full_depth(arch: str) -> int:
+    from repro_torch import configs
+    return configs.get(arch).n_layers
 
 
 def _mr_setup(dev, cfg, pes: int, tc=None):
@@ -3859,16 +4143,17 @@ def _mr_kernels():
 def _mr_expected(cfg, pes: int) -> dict:
     """Launches a train step: the remat runs each layer's forward twice
     (the forward, then its recompute in the backward) and the backward
-    once. Attention: 2 L flash forwards (with row statistics) and L
-    backwards; MoE at ep > 1: two all_to_alls a layer (dispatch, combine),
+    once. Attention (every arch but RWKV6): 2 L flash forwards (with row
+    statistics) and L backwards; MoE at ep > 1: two all_to_alls a layer
+    (dispatch, combine),
     each a reorder in the forward, again in the recompute and once in the
     backward with the inverse perm: 6 L; RWKV6: 2 L forwards (saving the
     sub-chunk states) and L backwards."""
     L = cfg.n_layers
-    moe = bool(cfg.n_experts)
-    return {"flash": 2 * L if moe else 0, "flash_bwd": L if moe else 0,
-            "reorder": 6 * L if moe and pes > 1 else 0,
-            "rwkv6": 0 if moe else 2 * L, "rwkv6_bwd": 0 if moe else L}
+    rwkv = cfg.family == "ssm"
+    return {"flash": 0 if rwkv else 2 * L, "flash_bwd": 0 if rwkv else L,
+            "reorder": 6 * L if cfg.n_experts and cfg.ep > 1 else 0,
+            "rwkv6": 2 * L if rwkv else 0, "rwkv6_bwd": L if rwkv else 0}
 
 
 def keep_rwkv6_train_inputs(kept_fwd: dict, kept_bwd: dict, label: str):
@@ -3931,12 +4216,13 @@ def _mr_bf16(dev, name: str, layout: str, kept: dict) -> dict:
         batch = place_batch(stream.global_batch_at(s), cfg, topo, dev)
         n0 = {k: m.LAUNCHES for k, m in kernels.items()}
         keep = contextlib.ExitStack()
-        if cfg.n_experts:
+        if _mr_attention(name):
             keep.enter_context(keep_train_inputs(
                 kept["flash"], kept["flash_bwd"], label))
+        if cfg.n_experts:
             keep.enter_context(keep_reorder_inputs(kept["reorder"],
                                                    f"train/{label}"))
-        else:
+        if not _mr_attention(name):
             keep.enter_context(keep_rwkv6_train_inputs(
                 kept["rwkv6"], kept["rwkv6_bwd"], label))
         with keep:
@@ -3964,6 +4250,7 @@ def _mr_bf16(dev, name: str, layout: str, kept: dict) -> dict:
           and all(np.isfinite(h["loss"]) for h in hist))
     return {"ok": ok, "arch": arch, "layout": layout,
             "cube": topo.cube.describe(), "layers": layers,
+            "full_depth": layers == _full_depth(arch),
             "params": cfg.param_count(), "active_params": n_active,
             "tokens_per_step": tokens, "ms_per_step": ms,
             "step_ms": step_ms, "tok_per_s": tokens / (ms / 1e3),
@@ -3978,13 +4265,15 @@ def _mr_bf16(dev, name: str, layout: str, kept: dict) -> dict:
 
 def _mr_loss_falls(dev, name: str) -> dict:
     """One batch repeated TRAIN_LOSS_STEPS steps at 1 PE (bf16), the lr
-    warming up over the run (the first step's lr is 0): every loss after
-    the first update below the first, the last the lowest."""
+    (TRAIN_MR_LOSS_LR, else TRAIN_LR) warming up over the run (the first
+    step's lr is 0): every loss after the first update below the first,
+    the last the lowest."""
     from repro_torch.data.pipeline import DataConfig, TokenStream
     from repro_torch.runtime.trainer import Trainer, TrainConfig, place_batch
     arch, layers = TRAIN_MR_ARCHS[name]
     cfg = _mr_cfg(arch, layers, 1)
-    tc = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_LOSS_STEPS, total_steps=100)
+    lr = TRAIN_MR_LOSS_LR.get(name, TRAIN_LR)
+    tc = TrainConfig(lr=lr, warmup=TRAIN_LOSS_STEPS, total_steps=100)
     topo, masters, opt = _mr_setup(dev, cfg, 1, tc)
     batch = place_batch(TokenStream(cfg, DataConfig(
         seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
@@ -3997,7 +4286,7 @@ def _mr_loss_falls(dev, name: str) -> dict:
     return {"ok": (all(np.isfinite(losses))
                    and all(x < losses[0] for x in losses[2:])
                    and losses[-1] == min(losses)),
-            "arch": arch, "losses": losses,
+            "arch": arch, "lr": lr, "losses": losses,
             "ln_vocab": math.log(cfg.vocab_size)}
 
 
@@ -4067,7 +4356,7 @@ def _mr_grads_held(got: dict, want: dict, spread: dict | None) -> dict:
     worst, name = 0.0, ""
     for (path, w), g in zip(leaves(want), flat_leaves(got)):
         key = "/".join(path)
-        w, g = w.float(), g.float()
+        w, g = w.float(), g.to(w.device).float()
         peak = float(w.abs().max())
         err = float((g - w).abs().max())
         sp = 0.0 if spread is None else spread[key]
@@ -4087,17 +4376,28 @@ def _mr_grads_held(got: dict, want: dict, spread: dict | None) -> dict:
             "leaves": per_leaf}
 
 
+def _mr_spoiled(kind: str, perms: list):
+    """The control ``kind``: the flash backward's (``spoiled_backward``) or
+    the RWKV6 backward's or the reorder's (``spoiled_moe_rwkv``)."""
+    if kind in WITNESS_CONTROLS:
+        return spoiled_backward(kind)
+    return spoiled_moe_rwkv(kind, perms)
+
+
 def _mr_f32(dev, name: str, layout: str) -> dict:
     """f32 (TF32 off), TRAIN_F32_BATCH x TRAIN_F32_SEQ tokens, full width
     at TRAIN_MR_F32's depth, one forward and backward with the grad-sync:
     the synced gradients against the witness (``plain_moe_rwkv_training``)
     per leaf (``_mr_grads_held``; for MoE the witness runs twice and its
-    spread widens the bound), and the controls of this arch: the RWKV6
-    backward with dlogw zeroed must fail it; the reorder's backward with
-    the identity must fail it; with ``perm`` in place of its inverse it
-    must fail it unless every perm it ran is its own inverse (then it is
-    the same computation)."""
+    spread widens the bound), and the controls of this arch, each of which
+    must fail it: the flash backward's gradients zeroed and its dq scaled
+    by 0.9 (every arch with attention); the RWKV6 backward with dlogw
+    zeroed; the reorder's backward with the identity; with ``perm`` in
+    place of its inverse, unless every perm it ran is its own inverse
+    (then it is the same computation). The run's gradients wait on the
+    host while the witness runs, so that mixtral's fit."""
     from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models.params import tree_map
     from repro_torch.runtime.trainer import (
         TrainConfig, make_train_step, place_batch)
     arch, _ = TRAIN_MR_ARCHS[name]
@@ -4119,6 +4419,8 @@ def _mr_f32(dev, name: str, layout: str) -> dict:
             k: m.LAUNCHES - n0[k] for k, m in kernels.items()}
 
     got, loss, launched = grads()
+    got = tree_map(lambda t: t.cpu(), got)
+    torch.cuda.empty_cache()
     with plain_moe_rwkv_training():
         witness, w_loss, w_launched = grads()
     spread = None
@@ -4135,12 +4437,14 @@ def _mr_f32(dev, name: str, layout: str) -> dict:
         out["witness_spread"] = {k: v for k, v in spread.items() if v > 0}
     out["witness"] = _mr_grads_held(got, witness, spread)
     del got
-    kinds = (("rwkv6_dlogw_zero",) if not cfg.n_experts
-             else ("reorder_perm_for_inverse", "reorder_identity_backward"))
+    kinds = ((("rwkv6_dlogw_zero",) if cfg.family == "ssm" else ())
+             + (("reorder_perm_for_inverse", "reorder_identity_backward")
+                if cfg.n_experts else ())
+             + (WITNESS_CONTROLS if _mr_attention(name) else ()))
     controls = out["controls"] = {}
     for kind in kinds:
         perms: list = []
-        with spoiled_moe_rwkv(kind, perms):
+        with _mr_spoiled(kind, perms):
             spoiled, _, _ = grads()
         held = _mr_grads_held(spoiled, witness, spread)
         del spoiled
@@ -4165,12 +4469,12 @@ def _mr_f32(dev, name: str, layout: str) -> dict:
 
 
 def phase_train_moe_rwkv(dev, kept: dict) -> dict:
-    """qwen2-moe-a2.7b and rwkv6-7b training at full width and cut depth
-    through ``Trainer`` / ``make_train_step``: every kernel of their
-    paths (flash forward and backward, the reorder forward and backward,
-    the RWKV6 forward with saved states and its backward) counted from 0
-    just before the bf16 runs. See ``_mr_bf16``, ``_mr_loss_falls`` and
-    ``_mr_f32``."""
+    """qwen2-moe-a2.7b, rwkv6-7b, phi3-mini-3.8b, gemma3-1b and
+    mixtral-8x7b training at full width (TRAIN_MR_ARCHS' depth) through
+    ``Trainer`` / ``make_train_step``: every kernel of their paths (flash
+    forward and backward, the reorder forward and backward, the RWKV6
+    forward with saved states and its backward) counted from 0 just before
+    the bf16 runs. See ``_mr_bf16``, ``_mr_loss_falls`` and ``_mr_f32``."""
     kernels = _mr_kernels()
     for m in kernels.values():
         m.LAUNCHES = 0                   # the main path starts here
@@ -4186,8 +4490,8 @@ def phase_train_moe_rwkv(dev, kept: dict) -> dict:
     return {"ok": (all(r["ok"] for r in bf16.values())
                    and all(r["ok"] for r in falls.values())
                    and all(r["ok"] for r in f32.values())),
-            "cut": {TRAIN_MR_ARCHS[n][0]: TRAIN_MR_ARCHS[n][1]
-                    for n in TRAIN_MR_ARCHS},
+            "cut": {a: f"{n} of {_full_depth(a)} layers"
+                    for a, n in TRAIN_MR_ARCHS.values()},
             "batch": [TRAIN_BATCH, TRAIN_SEQ], "bf16": bf16,
             "loss_falls": falls, "f32": f32, "launches": launches,
             "launches_by_arch": by_arch}
@@ -4829,15 +5133,19 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
     reshard = _reorder_main_path(kept_reorder,
                                  f"prefill{PREFILL_LONG}/{PES[-1]}pe")
     train_swz = _reorder_main_path(kept_reorder, "train/moe/8pe")
+    mixtral_swz = [_reorder_main_path(kept_reorder, name) for name in (
+        f"mixtral/decode/{PES[-1]}pe", "train/mixtral/8pe")]
     rwkv = _rwkv6_main_path(kept_rwkv6)
     bwd = [_flash_bwd_main_path(name, *kept_bwd[name])
            for name in sorted(kept_bwd)]
     rwkv_bwd = [_rwkv6_bwd_main_path(name, kept_rwkv6_bwd[name])
                 for name in sorted(kept_rwkv6_bwd)]
     rwkv_states = _rwkv6_states_main_path(kept_rwkv6_train)
-    # every training layout's rows: flash at qwen3's and qwen2-moe's,
-    # RWKV6 at rwkv6's
-    flash_lays = list(TRAIN_LAYOUTS) + [f"moe/{lay}" for lay in TRAIN_MR_PES]
+    # every training layout's rows: flash at qwen3's and at each attention
+    # arch's of train_moe_rwkv, RWKV6 at rwkv6's
+    flash_lays = list(TRAIN_LAYOUTS) + [
+        f"{n}/{lay}" for n in TRAIN_MR_ARCHS if _mr_attention(n)
+        for lay in TRAIN_MR_PES]
     rwkv_lays = [f"rwkv/{lay}" for lay in TRAIN_MR_PES]
     missing = [f"train_{p}/{lay}" for p, d, lays in (
         ("forward", kept, flash_lays), ("backward", kept_bwd, flash_lays),
@@ -4846,6 +5154,7 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
         for lay in lays if f"train_{p}/{lay}" not in d]
     return {"ok": (worst_ok and reorder["exact"] and dlrm["exact"]
                    and reshard["exact"] and train_swz["exact"]
+                   and all(r["exact"] for r in mixtral_swz)
                    and len(rwkv) == 4 and all(t["ok"] for t in rwkv)
                    and f"ring_hop/{FUSED_PES}pe" in kept
                    and not missing
@@ -4858,6 +5167,7 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
             "missing_training_rows": missing,
             "main_path": timings, "reorder": reorder, "reorder_dlrm": dlrm,
             "reorder_prefill": reshard, "reorder_train": train_swz,
+            "reorder_mixtral": mixtral_swz,
             "rwkv6": rwkv, "rwkv6_train_forward": rwkv_states,
             "flash_backward": bwd, "rwkv6_backward": rwkv_bwd}
 
@@ -5115,6 +5425,8 @@ def main() -> int:
                      ("serve_rwkv", lambda: phase_serve_rwkv(dev,
                                                              kept_rwkv6)),
                      ("serve_rwkv_f32", lambda: phase_serve_rwkv_f32(dev)),
+                     ("serve_mixtral", lambda: phase_serve_mixtral(
+                         dev, kept, kept_reorder)),
                      ("serve_dense", lambda: phase_serve_dense(dev, kept)),
                      ("serve_dense_f32", lambda: phase_serve_dense_f32(dev)),
                      ("serve_prefill", lambda: phase_serve_prefill(
@@ -5132,7 +5444,8 @@ def main() -> int:
                          kept, kept_reorder, kept_rwkv6, kept_bwd,
                          kept_rwkv6_train, kept_rwkv6_bwd))):
         needs = {"main_path": ("serve", "serve_moe", "serve_rwkv",
-                               "serve_dense", "serve_prefill", "apps",
+                               "serve_mixtral", "serve_dense",
+                               "serve_prefill", "apps",
                                "fused_forward", "train", "train_moe_rwkv",
                                "checkpoint"),
                  "serve_prefill": ("build", "serve_moe"),
@@ -5170,11 +5483,14 @@ def main() -> int:
     train_res, prefill_res = results["train"], results["serve_prefill"]
     tune_res, ckpt_res = results["tune"], results["checkpoint"]
     mr = results["train_moe_rwkv"]["launches_by_arch"]
+    mixtral_res = results["serve_mixtral"]
+    mr_attn = [TRAIN_MR_ARCHS[n][0] for n in TRAIN_MR_ARCHS
+               if _mr_attention(n)]
     # the flash headline: the main-path row that fares worst against SDPA
     head = max(kern["main_path"], key=lambda t: t["ms"] / t["library_ms"])
     swz = kern["reorder"]
     reorder_rows = (swz, kern["reorder_dlrm"], kern["reorder_prefill"],
-                    kern["reorder_train"])
+                    kern["reorder_train"], *kern["reorder_mixtral"])
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
@@ -5185,7 +5501,8 @@ def main() -> int:
                      + train_res["flash_launches"]
                      + prefill_res["flash_launches"]
                      + ckpt_res["flash_launches"]
-                     + mr[MOE_ARCH]["flash"]),
+                     + mixtral_res["flash_launches"]
+                     + sum(mr[a]["flash"] for a in mr_attn)),
         "launches_by_path": {ARCH: serve_res["flash_launches"],
                              MOE_ARCH: moe_res["flash_launches"],
                              **{a: dense_res[a]["flash_launches"]
@@ -5198,7 +5515,9 @@ def main() -> int:
                              "serve_prefill": prefill_res["flash_launches"],
                              f"{ARCH}/checkpoint":
                                  ckpt_res["flash_launches"],
-                             f"{MOE_ARCH}/train": mr[MOE_ARCH]["flash"]},
+                             MIXTRAL_ARCH: mixtral_res["flash_launches"],
+                             **{f"{a}/train": mr[a]["flash"]
+                                for a in mr_attn}},
         "max_abs_err": max(t["max_abs_err"] for t in kern["main_path"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -5217,7 +5536,8 @@ def main() -> int:
                      + prefill_res["reorder_launches"]
                      + tune_res["reorder_launches"]
                      + ckpt_res["reorder_launches"]
-                     + mr[MOE_ARCH]["reorder"]),
+                     + mixtral_res["reorder_launches"]
+                     + mr[MOE_ARCH]["reorder"] + mr[MIXTRAL_ARCH]["reorder"]),
         "launches_by_path": {MOE_ARCH: moe_res["reorder_launches"],
                              "dlrm/pidcomm":
                                  apps_res["dlrm_reorder_launches"],
@@ -5225,7 +5545,10 @@ def main() -> int:
                              "tune": tune_res["reorder_launches"],
                              f"{ARCH}/checkpoint":
                                  ckpt_res["reorder_launches"],
-                             f"{MOE_ARCH}/train": mr[MOE_ARCH]["reorder"]},
+                             MIXTRAL_ARCH: mixtral_res["reorder_launches"],
+                             f"{MOE_ARCH}/train": mr[MOE_ARCH]["reorder"],
+                             f"{MIXTRAL_ARCH}/train":
+                                 mr[MIXTRAL_ARCH]["reorder"]},
         "max_abs_err": max(r["max_abs_err"] for r in reorder_rows),
         "ms": swz["ms"],
         "plain_ms": swz["plain_ms"], "bound_ms": swz["bound_ms"],
@@ -5241,7 +5564,7 @@ def main() -> int:
         _flash_bwd_entry(kern["flash_backward"], {
             f"{ARCH}/train": train_res["flash_bwd_launches"],
             f"{ARCH}/checkpoint": ckpt_res["flash_bwd_launches"],
-            f"{MOE_ARCH}/train": mr[MOE_ARCH]["flash_bwd"]}),
+            **{f"{a}/train": mr[a]["flash_bwd"] for a in mr_attn}}),
         _rwkv6_bwd_entry(kern["rwkv6_backward"], mr[RWKV_ARCH]["rwkv6_bwd"],
                          results["kernel"]["rwkv6_backward"])],
         "total_s": round(time.perf_counter() - t_all, 3)}), flush=True)

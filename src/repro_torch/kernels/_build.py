@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
@@ -65,11 +66,13 @@ def library_path(name: str) -> Path:
 def build_all(names=None) -> dict[str, str]:
     """Compile every kernel library (or ``names``) that is not built yet,
     one ``nvcc`` per source, all started together. Returns each library's
-    compiler log (``ptxas`` register / shared-memory report), or
-    ``"cached"``; raises with the log if any build fails."""
+    compiler log (``ptxas`` register / shared-memory report) ending in a
+    line ``nvcc wall seconds: <s>`` (from the start of all builds to this
+    one's end), or ``"cached"``; raises with the log if any build fails."""
     names = tuple(SOURCES) if names is None else tuple(names)
     build_dir().mkdir(parents=True, exist_ok=True)
     procs, logs = {}, {}
+    t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
         if out.exists():
@@ -81,10 +84,20 @@ def build_all(names=None) -> dict[str, str]:
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, out)
+
+    def finish(name: str) -> None:
+        log, _ = procs[name][0].communicate()
+        logs[name] = (f"{log}\nnvcc wall seconds: "
+                      f"{time.perf_counter() - t0:.2f}\n")
+
+    waits = [threading.Thread(target=finish, args=(n,)) for n in procs]
+    for w in waits:
+        w.start()
+    for w in waits:
+        w.join()
     failed = []
     for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
+        log = logs[name]
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
             continue

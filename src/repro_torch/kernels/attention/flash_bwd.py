@@ -11,8 +11,16 @@ rowsum(do * o)) and then the dk / dv pass on the current stream.
 shapes (a pure function, so the CPU tests can check it): bf16 takes the
 tensor-core passes (mma.sync, a cp.async ring of bf16 tiles), f32 the
 CUDA-core ones (f32 arithmetic throughout, which the f32 gates need). The
-source note says what bounds each and what its design does about it. Head
-dim 128 only.
+source note says what bounds each and what its design does about it.
+
+Every head dim of the forward (``flash.HEAD_DIMS``: 16 to 256). Shared
+memory is a function of it: bf16 tiles have a row pitch of hd + 8
+elements; f32 tiles hd + 1 floats, 64 rows up to hd 128 and 32 at 256. At
+hd 256 in bf16 the ring holds 32 keys or rows a stage (two stages), the
+dq pass reloads its Q and dO fragments from shared memory at every k-step
+(132 KB with 4 warps, 198 KB with 8), and the dk / dv pass splits the head
+dim between two warps that share each 16-key tile (a CTA of w warps owns
+8 w keys: 84 KB with 2 warps, two CTAs an SM; 133 KB with 8).
 """
 from __future__ import annotations
 
@@ -22,16 +30,42 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import _build, guard_grad
+from repro_torch.kernels.attention import flash
 from repro_torch.kernels.attention.flash import _DTYPES, SMS
 
-HEAD_DIMS = (128,)
+HEAD_DIMS = flash.HEAD_DIMS
 LAUNCHES = 0
 MAX_GRID_Y = 65535
-MAX_SMEM = 232448             # dynamic shared memory a CTA may have
-F32_TILE = 64                 # f32 passes: 64 rows x 64 keys, 256 threads
+MAX_SMEM = 232448             # shared memory a CTA may have (bytes)
+MMA_STATIC_SMEM = (1024 + 4) * 4   # bf16 kernels' static tile list
+F32_THREADS = 256
 MMA_WARPS = (8, 4)            # bf16 passes: warps a CTA, largest first
-STREAM_TILE = 64              # bf16: keys (dq) / rows (dk dv) a ring stage
-PITCH = 128 + 8               # bf16 row pitch in shared memory, elements
+
+
+def f32_tile(hd: int) -> int:
+    """f32 passes: rows of a query tile and keys of a key tile."""
+    return 64 if hd <= 128 else 32
+
+
+def pitch(hd: int) -> int:
+    """bf16 row pitch in shared memory, elements (ldmatrix without bank
+    conflicts)."""
+    return hd + 8
+
+
+def split(hd: int) -> int:
+    """bf16 dk / dv pass: warps that share a 16-key tile, each holding dk
+    and dv for hd / split columns."""
+    return 2 if hd > 128 else 1
+
+
+def mma_stages(hd: int, warps: int) -> int:
+    return 3 if warps == 8 and hd <= 128 else 2
+
+
+def stream_tile(hd: int) -> int:
+    """bf16: keys (dq pass) or rows (dk / dv pass) a ring stage holds."""
+    return 64 if hd <= 128 else 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,22 +98,45 @@ class Geometry:
     dkdv: Pass
 
 
-def _f32_smem(name: str) -> int:
-    ld, lds = 128 + 1, F32_TILE + 16
+def _f32_smem(name: str, hd: int) -> int:
+    """``F32Layout<hd>::DQ_SMEM`` / ``DKDV_SMEM`` of the source."""
+    t = f32_tile(hd)
+    ld, lds = hd + 1, t + 16
     scores = 1 if name == "dq" else 2
-    return ((4 * F32_TILE * ld + scores * F32_TILE * lds + 3 * F32_TILE) * 4
-            + 2 * F32_TILE * 4)
+    return (4 * t * ld + scores * t * lds + 3 * t) * 4 + 2 * t * 4
 
 
-def _mma_smem(name: str, warps: int) -> int:
-    """``MmaLayout<NW>::DQ_SMEM`` / ``DKDV_SMEM`` of the source."""
-    stages = 3 if warps == 8 else 2
-    tile = STREAM_TILE * PITCH * 2
-    owned = 2 * 16 * warps * PITCH * 2
+def _mma_own(name: str, warps: int, hd: int) -> int:
+    """Rows (dq) or keys (dk / dv) a bf16 CTA owns."""
+    return 16 * warps // (split(hd) if name == "dkdv" else 1)
+
+
+def _mma_smem(name: str, warps: int, hd: int) -> int:
+    """``MmaLayout<hd, warps>::DQ_SMEM`` / ``DKDV_SMEM`` of the source."""
+    stages, st = mma_stages(hd, warps), stream_tile(hd)
+    tile = st * pitch(hd) * 2
+    own = _mma_own(name, warps, hd)
+    owned = 2 * own * pitch(hd) * 2
     if name == "dq":      # K, V and key positions a stage
-        return owned + stages * (2 * tile + STREAM_TILE * 4)
+        return owned + stages * (2 * tile + st * 4)
     # Q, dO and the rows' m, l, D and positions a stage; key positions
-    return owned + stages * (2 * tile + 4 * STREAM_TILE * 4) + 16 * warps * 4
+    return owned + stages * (2 * tile + 4 * st * 4) + own * 4
+
+
+def mma_warps(name: str, hd: int) -> tuple[int, ...]:
+    """The CTA sizes (warps) of a bf16 pass that fit in shared memory at
+    ``hd`` beside the static tile list, largest first: 8 and 4, and 2 in a
+    dk / dv pass whose two warps share a key tile (one 16-key tile a
+    CTA)."""
+    sizes = MMA_WARPS + ((2,) if name == "dkdv" and split(hd) == 2 else ())
+    return tuple(w for w in sizes
+                 if _mma_smem(name, w, hd) + MMA_STATIC_SMEM <= MAX_SMEM)
+
+
+def _check_head_dim(hd: int) -> None:
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_backward kernel takes head_dim "
+                         f"in {HEAD_DIMS}, got {hd}")
 
 
 def launch_geometry(B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
@@ -88,24 +145,25 @@ def launch_geometry(B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
     pass owns row tiles and runs them last first (under a causal mask the
     latest rows see the most keys); the dk / dv pass owns key tiles and
     runs them first to last (the earliest keys are seen by the most rows),
-    so the heaviest CTAs start first. bf16 CTAs have 8 warps where the
-    grid still reaches the 132 SMs, else 4."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_backward kernel takes head_dim "
-                         f"in {HEAD_DIMS}, got {hd}")
+    so the heaviest CTAs start first. A bf16 pass takes the largest CTA
+    (``mma_warps``) whose grid still reaches the 132 SMs, else the
+    smallest."""
+    _check_head_dim(hd)
     R = Sq * (H // KV)
 
-    def one(name: str, own: int) -> Pass:
+    def one(name: str, n: int) -> Pass:
         if dtype == torch.float32:
-            return Pass(name, "f32", (B * KV, -(-own // F32_TILE)), 256,
-                        F32_TILE, F32_TILE, 1, _f32_smem(name),
-                        name == "dq")
-        warps = next((w for w in MMA_WARPS
-                      if -(-own // (16 * w)) * B * KV >= SMS), MMA_WARPS[-1])
-        return Pass(name, "mma", (B * KV, -(-own // (16 * warps))),
-                    32 * warps, 16 * warps, STREAM_TILE,
-                    3 if warps == 8 else 2, _mma_smem(name, warps),
-                    name == "dq")
+            t = f32_tile(hd)
+            return Pass(name, "f32", (B * KV, -(-n // t)), F32_THREADS, t, t,
+                        1, _f32_smem(name, hd), name == "dq")
+        fits = mma_warps(name, hd)
+        warps = next((w for w in fits
+                      if -(-n // _mma_own(name, w, hd)) * B * KV >= SMS),
+                     fits[-1])
+        own = _mma_own(name, warps, hd)
+        return Pass(name, "mma", (B * KV, -(-n // own)), 32 * warps, own,
+                    stream_tile(hd), mma_stages(hd, warps),
+                    _mma_smem(name, warps, hd), name == "dq")
 
     return Geometry(one("dq", R), one("dkdv", Sk))
 
@@ -144,9 +202,7 @@ def check_layout(q, k, v, o, m, l, do, q_pos, k_pos) -> Geometry:
     if k.shape[0] != B or k.shape[3] != hd or H % KV:
         raise ValueError(f"flash_attention_backward: incompatible q "
                          f"{tuple(q.shape)} and k {tuple(k.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_backward kernel takes head_dim "
-                         f"in {HEAD_DIMS}, got {hd}")
+    _check_head_dim(hd)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("flash_attention_backward: o and do must be q's "
                          "shape")
@@ -167,7 +223,8 @@ def check_layout(q, k, v, o, m, l, do, q_pos, k_pos) -> Geometry:
                 raise ValueError(f"flash_attention_backward: {name} must "
                                  f"start on a 16-byte boundary")
     for p in (geo.dq, geo.dkdv):
-        if p.grid[1] > MAX_GRID_Y or p.smem > MAX_SMEM:
+        static = MMA_STATIC_SMEM if p.form == "mma" else 0
+        if p.grid[1] > MAX_GRID_Y or p.smem + static > MAX_SMEM:
             raise ValueError(f"flash_attention_backward: the {p.name} pass "
                              f"needs grid.y {p.grid[1]} and {p.smem} bytes "
                              f"of shared memory")

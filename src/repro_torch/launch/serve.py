@@ -17,6 +17,7 @@ the one-token recurrence, launches it 0 times).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -34,10 +35,11 @@ from repro_torch.models.topology import build_serve_topology
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           smoke: bool = False, pes: int = 1, device=None, seed: int = 0,
           dtype: torch.dtype = torch.bfloat16, params=None,
-          keep_logits: bool = False) -> dict:
+          keep_logits: bool = False, n_layers: int | None = None) -> dict:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and generate
     ``gen`` tokens each. Weights are random from ``seed`` unless ``params``
-    (cube tensors on the serve topology) are given.
+    (cube tensors on the serve topology) are given. ``n_layers`` cuts the
+    model's depth (the widths stay the arch's).
 
     Returns the run's record: ``tokens`` (B, prompt_len + gen) -- the
     prompt, then the greedy tokens -- ``step_ms`` per decode step,
@@ -49,6 +51,8 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     cfg = configs.get(arch)
     if smoke:
         cfg = cfg.scaled_for_smoke()
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     topo = build_serve_topology(cfg, pes)
     S_ctx = prompt_len + gen
     plan = make_serve_plan(cfg, topo, S_ctx=S_ctx, global_batch=batch)

@@ -33,6 +33,13 @@ CASES = {
     "decode_rows": (2, 2, 20, 4, 2, 16, True, -1, 19, 0),
     "rows_without_key": (2, 8, 10, 4, 2, 16, True, -1, 0, 4),
     "window_without_key": (1, 6, 12, 2, 1, 16, True, 2, 0, 8),
+    # phi3-mini's head dim (G = 1) and gemma3's (one kv head, G = 4, a
+    # local window)
+    "hd96_causal": (2, 12, 12, 4, 4, 96, True, -1, 0, 0),
+    "hd96_window_offsets": (1, 10, 14, 4, 2, 96, True, 6, 8, 4),
+    "hd256_causal_gqa4": (1, 9, 9, 4, 1, 256, True, -1, 0, 0),
+    "hd256_window_gqa4": (2, 16, 16, 4, 1, 256, True, 5, 0, 0),
+    "hd256_rows_without_key": (1, 8, 10, 4, 1, 256, True, -1, 0, 4),
 }
 
 
@@ -181,11 +188,19 @@ def test_launchers_raise_under_grad():
 
 
 def test_backward_layout_checks():
-    arrs, q_pos, k_pos, causal, window = _inputs("causal")
-    q, k, v, do = (torch.from_numpy(a) for a in arrs)
-    o, m, l = ref.flash_attention(q, k, v, q_pos, k_pos, stats=True)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_bwd.check_layout(q, k, v, o, m, l, do, q_pos, k_pos)
+    """The kernel takes every head dim of the forward (the "causal" case's
+    16) and refuses one outside them (the "full" case's 8)."""
+    for case, ok in (("causal", True), ("full", False)):
+        arrs, q_pos, k_pos, causal, window = _inputs(case)
+        q, k, v, do = (torch.from_numpy(a) for a in arrs)
+        o, m, l = (t.contiguous() for t in ref.flash_attention(
+            q, k, v, q_pos, k_pos, stats=True))
+        if ok:
+            assert flash_bwd.check_layout(q, k, v, o, m, l, do, q_pos,
+                                          k_pos).dq.form == "f32"
+            continue
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_bwd.check_layout(q, k, v, o, m, l, do, q_pos, k_pos)
 
 
 # B, Sq, Sk, H, KV, q0: off the tiles, the 1-PE training shape (4 x 1,024
@@ -198,19 +213,20 @@ CARD_SHAPES = {"offsets": (2, 100, 130, 8, 2, 30),
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", flash_bwd.HEAD_DIMS)
 @pytest.mark.parametrize("shape", sorted(CARD_SHAPES))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_backward_kernel_matches_plain_version_on_the_card(dtype, shape):
-    """Each of dq, dk and dv within 1e-4 (f32) / 5e-2 (bf16) of its own
-    max|plain|; two launches give the same bits."""
+def test_backward_kernel_matches_plain_version_on_the_card(dtype, shape, hd):
+    """At every head dim: each of dq, dk and dv within 1e-4 (f32) / 5e-2
+    (bf16) of its own max|plain|; two launches give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, Sq, Sk, H, KV, q0 = CARD_SHAPES[shape]
-    q, do = (torch.randn(B, Sq, H, 128, generator=gen, device="cuda").to(dt)
+    q, do = (torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dt)
              for _ in range(2))
-    k, v = (torch.randn(B, Sk, KV, 128, generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn(B, Sk, KV, hd, generator=gen, device="cuda").to(dt)
             for _ in range(2))
     q_pos = (torch.arange(Sq, device="cuda") + q0).expand(B, Sq)
     k_pos = torch.arange(Sk, device="cuda").expand(B, Sk)

@@ -522,8 +522,7 @@ def test_train_step_launches_both_kernels_on_the_card():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from repro_torch.models.params import init_params
     dev = torch.device("cuda")
-    # smoke head_dim is 16; the backward kernel takes 128
-    pcfg = dataclasses.replace(_cfgs(1)[1], head_dim=128)
+    pcfg = _cfgs(1)[1]            # the smoke head_dim, 16
     topo = build_topology(pcfg, 1)
     masters = trainable(init_params(pcfg, topo, 0, device=dev),
                         param_specs(pcfg, topo), topo.cube)
@@ -552,10 +551,8 @@ def test_moe_and_rwkv6_train_on_the_card(arch, pes):
     from repro_torch.models.params import init_params
     dev = torch.device("cuda")
     pcfg = _cfgs(pes, arch)[1]
-    if pcfg.n_experts:
-        # 8 query heads for 8 PEs; the backward kernel takes head_dim 128
-        pcfg = dataclasses.replace(pcfg, n_heads=8, n_kv_heads=8,
-                                   head_dim=128)
+    if pcfg.n_experts:             # 8 query heads for 8 PEs
+        pcfg = dataclasses.replace(pcfg, n_heads=8, n_kv_heads=8)
     topo = build_topology(pcfg, pes)
     masters = trainable(init_params(pcfg, topo, 0, device=dev),
                         param_specs(pcfg, topo), topo.cube)
@@ -571,6 +568,45 @@ def test_moe_and_rwkv6_train_on_the_card(arch, pes):
     want = ([2 * L, L, 6 * L, 0, 0] if pcfg.n_experts
             else [0, 0, 0, 2 * L, L])
     assert got == want
+    assert np.isfinite(_first(m["loss"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,pes", [("phi3-mini-3.8b", 1),
+                                      ("gemma3-1b", 1),
+                                      ("mixtral-8x7b", 8)])
+def test_other_archs_train_on_the_card(arch, pes):
+    """phi3-mini at its head dim 96, gemma3 at 256 (12 layers: local
+    windows and global layers) and mixtral at ep 8 (8 experts, one a PE)
+    train a step on the card: 2 L flash forwards with row statistics and L
+    backwards, and for mixtral 6 L reorders (two all_to_alls a layer:
+    forward, recompute, backward); the loss is finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.reorder import reorder
+    from repro_torch.models.params import init_params
+    dev = torch.device("cuda")
+    pcfg = dataclasses.replace(configs.get(arch).scaled_for_smoke(),
+                               **SMOKE_CHANGES.get(arch, {}))
+    if pcfg.n_experts:             # 8 experts and 8 query heads for ep 8
+        pcfg = dataclasses.replace(pcfg, n_experts=8, n_heads=8,
+                                   n_kv_heads=8, ep=pes, etp=1)
+    else:
+        pcfg = dataclasses.replace(pcfg, head_dim=configs.get(
+            arch).head_dim, tp=pes)
+    topo = build_topology(pcfg, pes)
+    masters = trainable(init_params(pcfg, topo, 0, device=dev),
+                        param_specs(pcfg, topo), topo.cube)
+    tc = tr.TrainConfig()
+    opt = tr.init_opt_state(masters, pcfg, topo, tc)
+    kernels = (flash, flash_bwd, reorder)
+    n0 = [m.LAUNCHES for m in kernels]
+    _, _, m = tr.make_train_step(pcfg, topo, tc)(
+        masters, opt, tr.place_batch(_batch(), pcfg, topo, dev))
+    torch.cuda.synchronize()
+    L = pcfg.n_layers
+    assert [k.LAUNCHES - n for k, n in zip(kernels, n0)] == [
+        2 * L, L, 6 * L if pes > 1 else 0]
     assert np.isfinite(_first(m["loss"]))
 
 
