@@ -69,7 +69,20 @@ Phases, each printed as one JSON line:
           decay, one u per folded PE, one (batch, head) of 1,024 steps,
           two launches bit-identical; the training shape (4, 1024, 64, 64)
           bf16 timed with its plain version, its bound and each pass's
-          device ms;
+          device ms. Also internlm2's G = 6 (1,024 causal
+          tokens at 48 / 8 and 6 / 1 heads, the 6-row decode form, the
+          backward) and whisper's hd-64 non-causal shapes (the encoder's
+          Sq = Sk = 1,024, the cross-attention's Sq != Sk, the cross decode
+          with every key valid) in the flash and backward sweeps; and the
+          flash kernel's int8 decode form (the int8 KV cache: int8 codes
+          and an f32 scale a (key, kv head)) against its plain version on
+          INT8_CASES (G = 1, 2, 4, 6, 8; every head dim; windows, rolling
+          slots, sequence-sharded partials, 2- and 8-CTA clusters, the
+          cross decode, zero keys of scale 1e-6 / 127; f32 and bf16 q,
+          partial and full) within KERNEL_TOL of q's type, with qwen3's
+          1-PE decode and a 4,096-key cache timed beside the bf16 decode
+          form on the same shape, with their plain version and bound (no
+          PyTorch call takes int8 K/V: no library yardstick);
   comm    every ported stage of all_reduce / all_gather / reduce_scatter on
           virtual 8-PE cubes on the card, and every stage of all_to_all on
           the 8-PE cubes and the 16-PE shapes, bit-identical to a plain
@@ -161,6 +174,46 @@ Phases, each printed as one JSON line:
           1e-4 * max(1, max|ref|), identical greedy tokens, the same launch
           counts, and the 1,024-token forward within 1e-4 * max(1, max|ref|)
           of its witness;
+  serve_internlm2  internlm2-20b (48 / 8 heads of 128: G = 6) at full
+          width and 36 of its 48 layers through the launcher's function at
+          1 PE and at 16 PEs (its own tp: its 8 KV heads under tp 16 sit on
+          every PE with 3 query heads a PE), one topology's weights at a
+          time: exactly n_layers x 47 flash launches a decode run and
+          n_layers a forward; bf16 decode against its witness (the same
+          decode with the plain attention in the kernel's place) within
+          0.25 x max(1, max|ref|) at the steps whose inputs agree (bf16 vs
+          f32 of the same tokens reads about 0.11 of max at this width and
+          depth), decode vs forward and 1 vs 16 PEs reported beside 5e-2; a
+          decode profile per run;
+  serve_internlm2_f32  the same in f32 (TF32 off): decode within 1e-4 x
+          max(1, max|ref|) of forward_logits, 1 PE vs 16 PEs the same and
+          identical greedy tokens;
+  serve_whisper  whisper-base (6 encoder + 6 decoder layers, hd 64) at full
+          width and depth at 1 and 8 PEs, bf16 and f32, on one model (its
+          vocab's pad columns zeroed): the frames (S_ctx of them, from the
+          seed) and the prompt through ``prefill_shard`` (the encoder, the
+          self and cross caches), then 15 greedy decode steps; decode
+          within 5e-2 (bf16) / 1e-4 (f32) x max(1, max|ref|) of
+          forward_logits of the served tokens and frames, 1 vs 8 PEs the
+          same (f32: identical tokens); exact launches (a prefill n_enc +
+          2 L flash forwards, a decode step 2 L, a forward n_enc + 2 L; 2 L
+          reorders a prefill at 8 PEs);
+  serve_int8  qwen3-1.7b at full width and depth from the int8 KV cache
+          through the launcher's loop at 1 and 8 PEs beside the
+          compute-dtype cache on the same weights, in bf16 and in f32:
+          in f32 the int8 run within 5e-2 x max(1, max|ref|) of the f32
+          cache's (JAX's own bound for the int8 cache) at the steps whose
+          inputs agree, in bf16 that difference reported; exactly n_layers
+          int8 decode launches a step and no other flash launch; ms/step
+          and cache bytes of both; ``ServeEngine`` on the int8 plan at 1 PE
+          giving the int8 launcher's tokens; the int8 form's last launch
+          of each bf16 run checked and timed with its bound and the bf16
+          form on the same shape;
+  serve_resident  qwen3-1.7b at full width on a serve cube of data 2 x tp
+          4 with resident weights (``Server(resident=True)``) and with the
+          FSDP weights: logits bit-identical, tokens identical, zero data
+          all_gathers a step with resident weights (from the
+          ``CommTrace``), exact launches, ms/step of both;
   serve_prefill  ``Server.prefill_shard`` of attention layers into the
           decode cache, bf16 over f32 masters unless named: qwen3-1.7b at 1
           and 8 PEs on the serve cell (batch 4, prompt 32): the launcher's
@@ -186,7 +239,7 @@ Phases, each printed as one JSON line:
           reorder launches a forward and a decode step. The inputs of the
           kernels' last prefill launches are kept;
   serve_engine  the paged continuous-batching ``ServeEngine`` serving
-          qwen3-1.7b at full width and 14 of its 28 layers (bf16 over f32
+          qwen3-1.7b at full width and 7 of its 28 layers (bf16 over f32
           master weights, random from seed 0; B = 4 lanes, S_ctx 48,
           page_size 3) at 1 and 8 PEs, one
           topology's weights on the card at a time: the launcher's four
@@ -198,7 +251,7 @@ Phases, each printed as one JSON line:
           tokens and temperature 0.8 repeats under one seed; at 8 PEs
           lazy admission on pools of 4 pages a shard preempts and gives
           the reserve run's tokens. Every run launches the flash kernel
-          exactly 14 times a step (counted from 0 just before the run).
+          exactly 7 times a step (counted from 0 just before the run).
           Reports steps, tok/s, p50 / p99 per-token seconds, ms/step,
           page occupancy, peak memory and a profile of three steps;
   apps    the paper's five applications (six APPS entries) on their JAX
@@ -265,11 +318,13 @@ Phases, each printed as one JSON line:
           kept;
   train_moe_rwkv  qwen2-moe-a2.7b (4 of 24 layers), rwkv6-7b (12 of 32),
           phi3-mini-3.8b (all 32: hd 96), gemma3-1b (all 26: hd 256, 5:1
-          local windows of 512 and global layers) and mixtral-8x7b (2 of
-          32) training at full width through ``Trainer`` at 1 PE and at 8
-          PEs as the launcher lays them out (MoE ep 8, the reorder on every
-          all_to_all; RWKV6 and phi3 tp 8; gemma3 data 2 x tp 4), one
-          cell's weights on the card at a
+          local windows of 512 and global layers), mixtral-8x7b (2 of
+          32), internlm2-20b (10 of 48: G = 6) and whisper-base (all 6 + 6:
+          the encoder's non-causal hd-64 attention, the decoder's self- and
+          cross-attention) training at full width through ``Trainer`` at 1
+          PE and at 8 PEs as the launcher lays them out (MoE ep 8, the
+          reorder on every all_to_all; RWKV6, phi3, internlm2 and whisper
+          tp 8; gemma3 data 2 x tp 4), one cell's weights on the card at a
           time: bf16 over f32 masters, int8 moments, a warm-up and 3 timed
           steps of 4 x 1,024 tokens from TokenStream (ms/step, tok/s, mfu
           -- MoE's over active parameters --, peak memory, a profile of
@@ -279,7 +334,8 @@ Phases, each printed as one JSON line:
           steps at 1 PE: the loss falls; f32 (TF32 off) at 2 x 256 tokens
           and full width, RWKV6 at 4 layers (1 PE, tp 8), qwen2-moe at 2
           (ep 8), phi3 at 4 (1 PE, tp 8), gemma3 at 6 (1 PE, data 2 x tp
-          4: five local layers and a global one) and mixtral at 2 (ep 8):
+          4: five local layers and a global one), mixtral at 2 (ep 8),
+          internlm2 at 2 and whisper at full depth (1 PE, tp 8):
           the synced gradients against the witness (every kernel's plain
           version in its place: autograd of index_select, of the plain
           attention and of the plain recurrence) within 1e-4 x each leaf's
@@ -293,10 +349,11 @@ Phases, each printed as one JSON line:
           path are kept: the flash forward (with row statistics) and
           backward; the reorder; RWKV6's forward (saving the sub-chunk
           states) and backward;
-  checkpoint  ``repro_torch.checkpoint`` at qwen3-1.7b's full width and
-          depth (12.2 GB a checkpoint; the free bytes and host RAM where
-          it goes, in the checkout's build/, printed before the first save,
-          and two checkpoints must fit; keep_last=1; removed at the end).
+  checkpoint  ``repro_torch.checkpoint`` at qwen3-1.7b's full width and 14
+          of its 28 layers (6.2 GB a checkpoint; the free bytes
+          and host RAM where it goes, in the checkout's build/, printed
+          before the first save, and two checkpoints must fit; keep_last=1;
+          removed at the end).
           At 1 PE and at tp 8 (bf16, int8 moments, 4 x 1,024 tokens from
           TokenStream): steps 1-2 through ``Trainer`` with a topology-bound
           async manager saving at step 2, steps 3-4 behind the write (they
@@ -317,9 +374,9 @@ Phases, each printed as one JSON line:
           restore's and direct init's peak memory, and ``ServeEngine``
           lockstep on the launcher's 4 prompts (32 tokens, 16 greedy) from
           the restored and from the directly placed weights: identical
-          tokens, 28 flash launches a step; at 8 PEs one ``prefill_shard``
-          of the prompts against the loop (the serve_prefill bound, 28
-          flash and 28 reorder launches). HF: the trained masters through
+          tokens, 14 flash launches a step; at 8 PEs one ``prefill_shard``
+          of the prompts against the loop (the serve_prefill bound, 14
+          flash and 14 reorder launches). HF: the trained masters through
           ``export_state_dict`` into an F32 ``model.safetensors``, read
           back and imported onto the 8-PE serve cube by
           ``import_checkpoint`` (the ``hf-import`` program): bit for bit but
@@ -430,12 +487,12 @@ RWKV6_STATES_TOL = 1e-5
 # the serving engine: page size (S_loc = 48 / 8 = 6 at 8 PEs), the pool of
 # the preemption run (pages per shard), and a bound on any run's steps
 ENGINE_PAGE, ENGINE_TIGHT, ENGINE_MAX_STEPS = 3, 4, 400
-# The engine's cells run qwen3 at half its depth: their gates compare runs
-# on the same weights (the launcher's tokens, batching invariance,
-# preemption), and their host-bound steps take time by the layer; the
-# full-depth decode path is the serve phase's. At 28 layers the engine
-# took 133 s of the run's 1,200 s limit.
-ENGINE_LAYERS = 14
+# The engine's cells run qwen3 at a quarter of its depth: their gates
+# compare runs on the same weights (the launcher's tokens, batching
+# invariance, preemption), and their host-bound steps take time by the
+# layer; the full-depth decode path is the serve phase's. At 28 layers the
+# engine took 133 s of the run's 1,200 s limit, at 14 67 s, at 7 37.5 s.
+ENGINE_LAYERS = 7
 
 
 def emit(phase: str, **fields) -> None:
@@ -607,6 +664,20 @@ FLASH_CASES = [
     (1, 3, 300, 4, 2, 64, True, -1, 290, 0, True, False),
     (2, 1, 600, 16, 8, 128, True, -1, 599, 0, True, False),
     (1, 1, 4096, 16, 8, 128, True, 1000, 4095, 0, False, False),
+    # internlm2's G = 6 (48 / 8 heads; 6 / 1 a PE at tp 8): 1,024 causal
+    # tokens in the forward, 6 rows a kv head in the decode form (one
+    # PE's cache, and the 16-PE serve cube's 3-slot shards)
+    (1, 1024, 1024, 48, 8, 128, True, -1, 0, 0, False, False),
+    (4, 1024, 1024, 6, 1, 128, True, -1, 0, 0, False, False),
+    (4, 1, 48, 48, 8, 128, True, -1, 47, 0, True, False),
+    (64, 1, 3, 48, 8, 128, True, -1, 40, 0, True, True),
+    # whisper's encoder (hd 64, G = 1, non-causal, Sq = Sk = 1,024), its
+    # cross-attention (non-causal, Sq != Sk), and the cross decode (the
+    # decode form, non-causal, every key valid)
+    (4, 1024, 1024, 8, 8, 64, False, -1, 0, 0, False, False),
+    (4, 48, 1024, 8, 8, 64, False, -1, 0, 0, False, False),
+    (4, 1, 48, 8, 8, 64, False, -1, 20, 0, True, False),
+    (4, 1, 1500, 8, 8, 64, False, -1, 20, 0, True, False),
 ]
 # head dims 96 (phi3-mini: 12 bf16 / 24 f32 pieces a key, padded lane
 # groups) and 256 (gemma3: Q in shared memory in the bf16 forward, two
@@ -768,6 +839,13 @@ FLASH_BWD_CASES = [
     (4, 1024, 1024, 4, 1, True, -1, 0, 0, 256),
     (16, 1024, 1024, 1, 1, True, 512, 0, 0, 256),
     (2, 300, 300, 4, 1, True, 64, 0, 0, 256),
+    # internlm2's G = 6 at 1 PE (48 / 8 heads) and tp 8 (6 / 1)
+    (1, 1024, 1024, 48, 8, True, -1, 0, 0, 128),
+    (4, 1024, 1024, 6, 1, True, -1, 0, 0, 128),
+    # whisper's encoder (non-causal, Sq = Sk = 1,024, G = 1) and its
+    # cross-attention (non-causal, Sq != Sk) at hd 64
+    (4, 1024, 1024, 8, 8, False, -1, 0, 0, 64),
+    (2, 300, 1024, 8, 8, False, -1, 0, 0, 64),
 ]
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
@@ -833,8 +911,175 @@ def _flash_bwd_checks(dev) -> dict:
     return {"ok": ok_all, "checks": checks}
 
 
+# the flash kernel's int8 decode form (the int8 KV cache: int8 codes, one
+# f32 scale a (key, kv head)): B, Sq, Sk, H, KV, hd, causal, window, q0,
+# k0, shards. G = 1, 2, 4, 6 and 8; every head dim (16 codes a lane: hd
+# 128 is 8 lanes a key); windows and rolling slots (negative key
+# positions); a sequence-sharded partial decode; a 2-CTA and an 8-CTA
+# cluster; the cross decode (non-causal, every key valid). Every seventh
+# slot holds a zero key (scale 1e-6 / 127, codes 0). Each in an f32 and a
+# bf16 q, partial and full.
+INT8_CASES = [
+    (4, 1, 48, 16, 8, 128, True, -1, 47, 0, False),    # qwen3, 1 PE
+    (32, 1, 6, 16, 8, 128, True, -1, 40, 0, True),     # qwen3, 8 PEs
+    (4, 1, 48, 8, 8, 64, True, -1, 47, 0, False),      # G = 1, hd 64
+    (4, 1, 48, 48, 8, 128, True, -1, 47, 0, False),    # G = 6
+    (64, 1, 3, 48, 8, 128, True, -1, 40, 0, True),     # G = 6, 16 shards
+    (2, 1, 40, 8, 1, 256, True, -1, 39, 0, False),     # G = 8, hd 256
+    (4, 1, 48, 16, 8, 128, True, 8, 20, -4, False),    # rolling, window
+    (2, 2, 40, 8, 2, 64, True, 16, 38, 0, False),      # 8 rows, window
+    (4, 1, 48, 8, 8, 96, True, -1, 47, 0, False),      # hd 96
+    (3, 1, 37, 4, 2, 16, True, -1, 36, 0, False),      # hd 16
+    (2, 1, 70, 8, 1, 32, True, 30, 69, 0, False),      # hd 32, G = 8
+    (4, 1, 48, 8, 8, 64, False, -1, 20, 0, False),     # cross decode
+    (2, 1, 600, 16, 8, 128, True, -1, 599, 0, False),  # 2-CTA cluster
+    (1, 1, 4096, 16, 8, 128, True, 1000, 4095, 0, False),  # 8-CTA
+    (1, 1, 4096, 8, 1, 256, True, 512, 4095, 0, False),   # 8-CTA, hd 256
+]
+# timed beside the bf16 decode form on the same shape (its K/V the
+# dequantized cache): qwen3's 1-PE decode and a 4,096-key cache; B, Sq, Sk,
+# H, KV, hd
+INT8_ROWS = {"int8_qwen3_decode_1pe": (4, 1, 48, 16, 8, 128),
+             "int8_long_decode": (4, 1, 4096, 16, 8, 128)}
+
+
+def _int8_inputs(gen, dtype, B, Sq, Sk, H, KV, hd, dev):
+    """q in ``dtype`` and the int8 cache of random K/V (``quantize_kv``,
+    the model's own quantizer), every seventh slot a zero key."""
+    from repro_torch.models.blocks import quantize_kv
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dtype)
+    kf, vf = (torch.randn((B, Sk, KV, hd), generator=gen, device=dev)
+              for _ in range(2))
+    kf[:, ::7] = 0
+    (k, k_s), (v, v_s) = quantize_kv(kf), quantize_kv(vf)
+    return q, k, v, k_s, v_s
+
+
+def _int8_positions(B, Sq, Sk, q0, k0, shards, dev):
+    if shards:
+        q_pos = torch.full((B, 1), q0, device=dev)
+        k_pos = (torch.arange(B, device=dev)[:, None] * Sk
+                 + torch.arange(Sk, device=dev))
+    else:
+        q_pos = (q0 + torch.arange(Sq, device=dev)).expand(B, -1)
+        k_pos = (k0 + torch.arange(Sk, device=dev)).expand(B, -1)
+    return tuple(p.to(torch.int32).contiguous() for p in (q_pos, k_pos))
+
+
+def _int8_checks(dev) -> dict:
+    """The int8 decode form against its plain version (``ref`` on the
+    dequantized cache) on INT8_CASES, f32 and bf16 q, partial and full,
+    within KERNEL_TOL of q's type x max(1, max|plain|)."""
+    from repro_torch.kernels.attention import flash, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    checks, ok_all = [], True
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, Sq, Sk, H, KV, hd, causal, window, q0, k0,
+             shards) in INT8_CASES:
+            q, k, v, k_s, v_s = _int8_inputs(gen, dtype, B, Sq, Sk, H, KV,
+                                             hd, dev)
+            q_pos, k_pos = _int8_positions(B, Sq, Sk, q0, k0, shards, dev)
+            geo = flash.launch_geometry(B, Sq, Sk, H, KV, hd, dtype,
+                                        torch.int8)
+            for partial in (True, False):
+                kw = dict(causal=causal, window=window, partial=partial,
+                          k_scale=k_s, v_scale=v_s)
+                got = flash.flash_attention(q, k, v, q_pos, k_pos, **kw)
+                torch.cuda.synchronize()
+                want = ref.flash_attention(q, k, v, q_pos, k_pos, **kw)
+                err = _compare(got, want, partial)
+                finite = all(bool(torch.isfinite(g).all()) for g in
+                             (got if partial else (got,)))
+                ok = err <= KERNEL_TOL[dtype] and finite
+                ok_all &= ok
+                checks.append({"dtype": str(dtype).split(".")[-1],
+                               "shape": [B, Sq, Sk, H, KV, hd],
+                               "causal": causal, "window": window,
+                               "partial": partial, "grid": list(geo.grid),
+                               "key_splits": geo.key_splits,
+                               "zero_keys": int((k_s[0, :, 0] < 1e-7)
+                                                .sum()),
+                               "err": err, "ok": ok})
+    return {"ok": ok_all, "checks": checks}
+
+
+def _int8_bound(q, k, k_scale, q_pos, k_pos, causal, window,
+                partial) -> dict:
+    """``_bound`` of the int8 decode form: its cache bytes are the codes
+    (one byte an element) and the two f32 scales a (key, kv head)."""
+    b = _bound(q, k, q_pos, k_pos, causal, window, partial)
+    es = q.element_size()
+    read = (es * q.numel() + 2 * k.numel() + 8 * k_scale.numel()
+            + 4 * (q_pos.numel() + k_pos.numel()))
+    write = (4 * q.shape[0] * q.shape[2] * q.shape[1] * (q.shape[3] + 2)
+             if partial else es * q.numel())
+    t_bytes = (read + write) / HBM_BYTES_PER_S
+    t_ops = b["flops"] / PEAK_FLOPS[q.dtype]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": read + write, "flops": b["flops"]}
+
+
+def _int8_row(name, q, k, v, q_pos, k_pos, kw) -> dict:
+    """One int8 decode launch checked against its plain version, then
+    timed with the plain version, its bound and the bf16 decode form on
+    the same shape (K/V the dequantized cache in q's type); no PyTorch call
+    takes int8 K/V, so there is no library yardstick."""
+    from repro_torch.kernels.attention import flash, ref
+    got = flash.flash_attention(q, k, v, q_pos, k_pos, **kw)
+    want = ref.flash_attention(q, k, v, q_pos, k_pos, **kw)
+    torch.cuda.synchronize()
+    partial = kw.get("partial", False)
+    gots, wants = (got, want) if partial else ((got,), (want,))
+    abs_err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(gots, wants))
+    err = _compare(got, want, partial)
+    plain_kw = {a: b for a, b in kw.items() if a not in ("k_scale",
+                                                         "v_scale")}
+    kd = ref.dequantize(k, kw["k_scale"]).to(q.dtype)
+    vd = ref.dequantize(v, kw["v_scale"]).to(q.dtype)
+    b16 = _bound(q, kd, q_pos, k_pos, plain_kw.get("causal", True),
+                 plain_kw.get("window", -1), partial)
+    return {"name": name, "dtype": str(q.dtype).split(".")[-1],
+            "q": list(q.shape), "kv": list(k.shape),
+            "causal": kw.get("causal", True), "window": kw.get("window", -1),
+            "partial": partial, "max_abs_err": abs_err, "err": err,
+            "ok": err <= KERNEL_TOL[q.dtype],
+            "ms": time_ms(lambda: flash.flash_attention(q, k, v, q_pos, k_pos,
+                                                        **kw)),
+            "plain_ms": time_ms(lambda: ref.flash_attention(
+                q, k, v, q_pos, k_pos, **kw), reps=4, iters=5),
+            "bf16_cache_ms": time_ms(lambda: flash.flash_attention(
+                q, kd, vd, q_pos, k_pos, **plain_kw)),
+            "bf16_cache_bound_ms": b16["bound_ms"],
+            "library_ms": None, "library": "none (no PyTorch call takes "
+            "int8 K/V)",
+            **_int8_bound(q, k, kw["k_scale"], q_pos, k_pos,
+                          kw.get("causal", True), kw.get("window", -1),
+                          partial)}
+
+
+def _int8_rows(dev) -> list:
+    """INT8_ROWS in bf16 q, partial (the decode step's form)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    rows = []
+    for name, (B, Sq, Sk, H, KV, hd) in INT8_ROWS.items():
+        q, k, v, k_s, v_s = _int8_inputs(gen, torch.bfloat16, B, Sq, Sk, H,
+                                         KV, hd, dev)
+        q_pos, k_pos = _int8_positions(B, Sq, Sk, Sk - 1, 0, False, dev)
+        rows.append(_int8_row(name, q, k, v, q_pos, k_pos, dict(
+            causal=True, window=-1, partial=True, k_scale=k_s,
+            v_scale=v_s)))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernel(dev) -> dict:
     attn = _flash_checks(dev)
+    int8 = _int8_checks(dev)
+    int8_rows = _int8_rows(dev)
     long_rows = _flash_long_rows(dev)
     bwd = _flash_bwd_checks(dev)
     reorder = _reorder_checks(dev)
@@ -842,9 +1087,11 @@ def phase_kernel(dev) -> dict:
     rwkv = _rwkv6_checks(dev)
     rwkv_bwd = _rwkv6_bwd_checks(dev)
     return {"ok": (attn["ok"] and all(r["ok"] for r in long_rows)
+                   and int8["ok"] and all(r["ok"] for r in int8_rows)
                    and bwd["ok"] and reorder["ok"] and reorder_grad["ok"]
                    and rwkv["ok"] and rwkv_bwd["ok"]),
             "checks": attn["checks"], "flash_long_rows": long_rows,
+            "int8_decode": int8, "int8_rows": int8_rows,
             "flash_backward": bwd, "reorder": reorder,
             "reorder_backward": reorder_grad, "rwkv6": rwkv,
             "rwkv6_backward": rwkv_bwd}
@@ -1841,8 +2088,8 @@ def profile_decode(run, dev, steps: int = 3) -> dict:
     idle share is an upper bound)."""
     from repro_torch.models.serving import Server, init_cache
     cfg, topo, plan = run["cfg"], run["topo"], run["plan"]
-    server = Server(cfg, topo, plan)
-    cache = init_cache(cfg, topo, plan, device=dev)
+    server = run.get("server") or Server(cfg, topo, plan)
+    cache = init_cache(cfg, topo, plan, dtype=server.dtype, device=dev)
     cube, ba = topo.cube, plan.batch_axes or None
     toks = torch.from_numpy(run["tokens"]).to(dev)
 
@@ -2672,12 +2919,14 @@ def _dense_long_forward(run, dev, dtype, keep) -> dict:
     return out
 
 
-def _dense_run(dev, arch: str, pes: int, dtype, kept=None) -> dict:
-    """One full-width serve of a dense arch through the launcher's function,
-    then ``forward_logits`` of the served tokens; the flash kernel's
-    launches of each counted exactly (one per layer and decode step, one
-    per layer and forward). With ``kept``, the inputs of the kernel's last
-    launch on each path. gemma3 at 1 PE also runs the long forward."""
+def _dense_run(dev, arch: str, pes: int, dtype, kept=None,
+               n_layers: int | None = None) -> dict:
+    """One full-width serve of a dense arch through the launcher's function
+    (``n_layers`` deep, else at full depth), then ``forward_logits`` of the
+    served tokens; the flash kernel's launches of each counted exactly (one
+    per layer and decode step, one per layer and forward). With ``kept``,
+    the inputs of the kernel's last launch on each path. gemma3 at 1 PE
+    also runs the long forward."""
     from repro_torch.kernels.attention import flash
     from repro_torch.launch.serve import serve
 
@@ -2690,7 +2939,8 @@ def _dense_run(dev, arch: str, pes: int, dtype, kept=None) -> dict:
     t0 = time.perf_counter()
     with keep("decode"):
         run = serve(arch, batch=BATCH, prompt_len=PROMPT, gen=GEN, pes=pes,
-                    device=dev, seed=0, dtype=dtype, keep_logits=True)
+                    device=dev, seed=0, dtype=dtype, keep_logits=True,
+                    n_layers=n_layers)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     n_dec = flash.LAUNCHES - n0
@@ -2730,6 +2980,7 @@ def _dense_run(dev, arch: str, pes: int, dtype, kept=None) -> dict:
     if arch == LONG_ARCH and pes == 1:
         s["long_forward"] = _dense_long_forward(run, dev, dtype, keep)
     s["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    s["layers"] = cfg.n_layers
     run.update(dec=dec, summary=s)
     return run
 
@@ -2745,11 +2996,17 @@ def _dense_ok(s: dict, gate_decode: bool) -> bool:
 
 def _dense_pair(runs: dict, pes: tuple) -> dict:
     """1 PE against n PEs of one arch: logits over the steps whose inputs
-    agree (the prompt, then while greedy tokens agree), and the tokens."""
+    agree (the prompt, then while greedy tokens agree), and the tokens.
+    ``dec`` holds the logits of the last positions (all but the last
+    token's; after a prefill, from the prompt's last on), over the vocab
+    as each cube pads it: the columns both have are compared."""
     a, b = runs[pes[0]], runs[pes[-1]]
     same = np.cumprod(a["tokens"][:, :-1] == b["tokens"][:, :-1], axis=1)
+    same = same[:, same.shape[1] - a["dec"].shape[1]:]
     same = torch.from_numpy(same.astype(bool)).to(a["dec"].device)
-    return {"err": float((a["dec"] - b["dec"]).abs()[same].max()),
+    V = min(a["dec"].shape[-1], b["dec"].shape[-1])
+    return {"err": float((a["dec"][..., :V] - b["dec"][..., :V]).abs()[
+                same].max()),
             "scale": max(1.0, float(a["dec"].abs().max())),
             "compared_steps": int(same.sum()),
             "tokens_identical": bool((a["tokens"] == b["tokens"]).all()),
@@ -2810,6 +3067,450 @@ def phase_serve_dense_f32(dev) -> dict:
                      f"pe1_vs_pe{pes_list[-1]}": pair,
                      "bound": F32_TOL * pair["scale"]}
     return {"ok": ok, "archs": out}
+
+
+# --------------------------------------------------------- serve_internlm2
+INTERNLM2_ARCH = "internlm2-20b"
+# serving depth: 36 of 48 layers (54 GB of f32 masters at 390 M parameters
+# a layer, plus 4.5 GB of embedding and head) leaves room for the bf16
+# layer copies and the 16-PE cube's replicated KV projections
+INTERNLM2_SERVE_LAYERS = 36
+INTERNLM2_PES = (1, 16)                # its own tp 16: KV 8 < tp
+
+
+def _witness_decode(run, dev, dtype) -> dict:
+    """The run's decode again on its weights with the flash kernel's plain
+    version in its place (the witness: no launch), its logits against the
+    run's at the steps whose inputs agree, within RWKV_PATH_TOL of the
+    type x max(1, max|ref|)."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch.serve import serve
+    n0 = flash.LAUNCHES
+    with plain_flash():
+        w = serve(None, cfg=run["cfg"], batch=BATCH, prompt_len=PROMPT,
+                  gen=GEN, pes=math.prod(run["topo"].cube.dim_sizes),
+                  device=dev, seed=0, dtype=dtype, params=run["params"],
+                  keep_logits=True)
+    wdec = torch.stack(w["logits"], dim=1)
+    same = np.cumprod(run["tokens"][:, :-1] == w["tokens"][:, :-1], axis=1)
+    same = torch.from_numpy(same.astype(bool)).to(dev)
+    held = _held(run["dec"][same], wdec[same], RWKV_PATH_TOL[dtype])
+    return {**held, "compared_steps": int(same.sum()),
+            "greedy_agreement": float((run["tokens"][:, PROMPT:]
+                                       == w["tokens"][:, PROMPT:]).mean()),
+            "witness_launches": flash.LAUNCHES - n0,
+            "ok": held["ok"] and flash.LAUNCHES == n0}
+
+
+def phase_serve_internlm2(dev, kept: dict, dtype=torch.bfloat16) -> dict:
+    """internlm2-20b at full width and INTERNLM2_SERVE_LAYERS of its 48
+    layers (48 / 8 heads of 128: G = 6) at 1 PE and at 16 PEs, its own tp
+    (8 KV heads under tp 16: every PE holds every KV head and 3 query
+    heads), through the launcher's function, one topology's weights on the
+    card at a time, exactly n_layers x 47 flash launches a decode run and
+    n_layers a forward. f32 (TF32 off): decode within F32_TOL x max(1,
+    max|ref|) of forward_logits, 1 PE vs 16 PEs the same and identical
+    greedy tokens. bf16: decode against its witness, the same decode with
+    the plain attention in the kernel's place (``_witness_decode``), within
+    RWKV_PATH_TOL; decode vs forward and 1 PE vs 16 PEs are reported beside
+    SERVE_TOL, which 36 layers of width 6,144 in bf16 do not meet (bf16
+    against f32 of the same tokens reads about 0.11 of max); a decode
+    profile per bf16 run. ``kept`` (bf16) receives the kernel's inputs of
+    its last launch per path and run."""
+    from repro_torch.kernels.attention import flash
+    flash.LAUNCHES = 0          # the internlm2 paths' runs start here
+    bf16 = dtype == torch.bfloat16
+    tol = SERVE_TOL if bf16 else F32_TOL
+    runs, profiled = {}, 0
+    for pes in INTERNLM2_PES:
+        run = _dense_run(dev, INTERNLM2_ARCH, pes, dtype,
+                         kept if bf16 else None,
+                         n_layers=INTERNLM2_SERVE_LAYERS)
+        if bf16:
+            run["summary"]["witness"] = _witness_decode(run, dev, dtype)
+            n0 = flash.LAUNCHES
+            run["summary"]["profile"] = profile_decode(run, dev)
+            profiled += flash.LAUNCHES - n0
+        runs[pes] = _drop(run)
+        gc.collect()
+    pair = _dense_pair(runs, INTERNLM2_PES)
+    sums = [runs[p]["summary"] for p in INTERNLM2_PES]
+    launches = flash.LAUNCHES - profiled
+    counted = sum(s["flash_launches_decode"]
+                  + s["flash_launches_forward"] for s in sums)
+    ok = (all(_dense_ok(s, not bf16) for s in sums)
+          and (all(s["witness"]["ok"] for s in sums) if bf16 else
+               pair["err"] <= tol * pair["scale"]
+               and pair["tokens_identical"])
+          and launches == counted)
+    return {"ok": ok, "arch": INTERNLM2_ARCH, "dtype": str(dtype).split(
+        ".")[-1], "cut": f"{INTERNLM2_SERVE_LAYERS} of "
+            f"{_full_depth(INTERNLM2_ARCH)} layers",
+            "runs": sums, f"pe1_vs_pe{INTERNLM2_PES[-1]}": pair,
+            "bound": tol * pair["scale"], "flash_launches": launches,
+            "profiled_launches": profiled}
+
+
+# --------------------------------------------------------------- serve_int8
+INT8_CACHE_TOL = 5e-2       # int8-cache decode vs the bf16 cache's, x
+#                             max(1, max|ref|): tests/test_serving.py's
+
+
+def _cache_bytes(cache: dict) -> int:
+    return sum(t.numel() * t.element_size()
+               for d in cache.values() for t in d.values())
+
+
+def _int8_engine(dev, run8) -> dict:
+    """``ServeEngine`` on the int8 plan at 1 PE (the paged int8 cell), on
+    the launcher's weights: the launcher's four prompts all at step 0 must
+    give the int8 launcher's greedy tokens, with exactly n_layers int8
+    decode launches a step and no other flash launch."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.serving import Request, ServeEngine
+    cfg, topo, plan = run8["cfg"], run8["topo"], run8["plan"]
+    ref = run8["tokens"]
+    eng = ServeEngine(cfg, topo, plan, run8["params"],
+                      page_size=ENGINE_PAGE, device=dev)
+    reqs = [Request(rid=b, prompt=ref[b, :PROMPT].tolist(), max_new=GEN)
+            for b in range(BATCH)]
+    n0, i0 = flash.LAUNCHES, flash.INT8_LAUNCHES
+    m = eng.run(reqs, max_steps=ENGINE_MAX_STEPS)
+    torch.cuda.synchronize()
+    got = np.array([list(r.out_tokens) for r in sorted(
+        m["finished"], key=lambda r: r.rid)])
+    out = {"steps": m["steps"], "tok_per_s": m["tokens_per_s"],
+           "ms_per_step": eng.metrics.quantile("serve.step_seconds",
+                                               0.5) * 1e3,
+           "pool_dtype": str(eng.pcache["p0"]["k"].dtype).split(".")[-1],
+           "int8_launches": flash.INT8_LAUNCHES - i0,
+           "flash_launches": flash.LAUNCHES - n0,
+           "expected_int8_launches": cfg.n_layers * m["steps"],
+           "tokens_equal_launcher": bool(got.shape == ref[:, PROMPT:].shape
+                                         and np.array_equal(
+                                             got, ref[:, PROMPT:]))}
+    out["ok"] = (out["tokens_equal_launcher"] and out["flash_launches"] == 0
+                 and out["int8_launches"] == out["expected_int8_launches"]
+                 and out["pool_dtype"] == "int8")
+    del eng
+    return out
+
+
+def _int8_pair(dev, pes: int, dtype, params=None, keep=None) -> dict:
+    """qwen3 through the launcher's loop from the int8 cache, then from the
+    compute-dtype cache on the same weights: the two runs, their launches
+    (int8 form, bf16 / f32 form) and the int8 run's logits against the
+    other's at the steps whose inputs agree (INT8_CACHE_TOL)."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch.serve import serve
+    n0, i0 = flash.LAUNCHES, flash.INT8_LAUNCHES
+    with keep if keep is not None else contextlib.nullcontext():
+        q = serve(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, pes=pes,
+                  device=dev, seed=0, dtype=dtype, keep_logits=True,
+                  cache_dtype="int8", params=params)
+    q_launch = (flash.INT8_LAUNCHES - i0, flash.LAUNCHES - n0)
+    n1 = flash.LAUNCHES
+    b = serve(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, pes=pes,
+              device=dev, seed=0, dtype=dtype, keep_logits=True,
+              params=q["params"])
+    b_launch = flash.LAUNCHES - n1
+    d8, dc = (torch.stack(r["logits"], dim=1) for r in (q, b))
+    same = np.cumprod(q["tokens"][:, :-1] == b["tokens"][:, :-1], axis=1)
+    same = torch.from_numpy(same.astype(bool)).to(dev)
+    held = _held(d8[same], dc[same], INT8_CACHE_TOL)
+    L, steps = q["cfg"].n_layers, len(q["step_ms"])
+    s = {"dtype": str(dtype).split(".")[-1],
+         "int8_vs_cache_dtype_err": held["err"], "bound": held["bound"],
+         "compared_steps": int(same.sum()),
+         "greedy_agreement": float((q["tokens"][:, PROMPT:]
+                                    == b["tokens"][:, PROMPT:]).mean()),
+         "int8_ms_per_step": q["ms_per_step"],
+         "cache_dtype_ms_per_step": b["ms_per_step"],
+         "int8_tok_per_s": q["tok_per_s"],
+         "cache_dtype_tok_per_s": b["tok_per_s"],
+         "int8_cache_bytes": _cache_bytes(q["cache"]),
+         "cache_dtype_bytes": _cache_bytes(b["cache"]),
+         "int8_launches": q_launch[0],
+         "int8_run_flash_launches": q_launch[1],
+         "cache_dtype_launches": b_launch, "expected_launches": L * steps,
+         "finite": bool(torch.isfinite(d8).all()),
+         "launches_ok": (q_launch == (L * steps, 0)
+                         and b_launch == L * steps)}
+    s["held"] = held["ok"]
+    return q, s
+
+
+def phase_serve_int8(dev, kept_int8: dict) -> dict:
+    """qwen3-1.7b at full width and depth served from the int8 KV cache
+    (``make_serve_plan(cache_dtype="int8")``) through the launcher's loop
+    at 1 and 8 PEs, and from the compute-dtype cache on the same weights
+    (``_int8_pair``), in bf16 over f32 masters and in f32 (TF32 off).
+    Gates: in f32, where only the cache's quantization differs, the int8
+    run's logits within INT8_CACHE_TOL x max(1, max|ref|) of the f32
+    cache's at the steps whose inputs agree (JAX's own bound for the int8
+    cache, held there at smoke size in bf16); in bf16 the same difference
+    is reported beside that bound (28 layers of bf16 rounding flips add
+    to the quantization's); in both, exactly n_layers int8 decode launches
+    a step and no other flash launch (the compute-dtype run: n_layers
+    decode launches a step), finite logits; ms/step and cache bytes of
+    both caches in bf16; at 1 PE ``ServeEngine`` on the bf16 int8 plan
+    (``_int8_engine``). ``kept_int8`` receives the int8 form's inputs of
+    each bf16 run's last launch; each is checked and timed at the end with
+    its bound and the bf16 decode form on the same shape."""
+    from repro_torch.kernels.attention import flash
+    flash.LAUNCHES = flash.INT8_LAUNCHES = 0   # the int8 path starts here
+    out, ok, int8_launches, bf16_launches = {}, True, 0, 0
+    for pes in PES:
+        q, s16 = _int8_pair(dev, pes, torch.bfloat16, keep=keep_kernel_inputs(
+            kept_int8, f"int8_decode/{pes}pe"))
+        params = q["params"]
+        _, s32 = _int8_pair(dev, pes, torch.float32, params=params)
+        r = out[f"{pes}pe"] = {"cube": q["topo"].cube.describe(),
+                               "bf16": s16, "f32": s32}
+        r["ok"] = (s32["held"] and all(x["finite"] and x["launches_ok"]
+                                       for x in (s16, s32)))
+        int8_launches += s16["int8_launches"] + s32["int8_launches"]
+        bf16_launches += s16["cache_dtype_launches"] + s32[
+            "cache_dtype_launches"]
+        if pes == 1:
+            n2, i2 = flash.LAUNCHES, flash.INT8_LAUNCHES
+            r["engine"] = _int8_engine(dev, q)
+            int8_launches += flash.INT8_LAUNCHES - i2
+            r["ok"] = r["ok"] and r["engine"]["ok"] and flash.LAUNCHES == n2
+        ok &= r["ok"]
+        del q, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    counted = flash.INT8_LAUNCHES == int8_launches
+    rows = [_int8_row(name, *kept_int8[name][:5], kept_int8[name][5])
+            for name in sorted(kept_int8)]
+    ok &= counted and len(rows) == len(PES) and all(t["ok"] for t in rows)
+    return {"ok": bool(ok), "arch": ARCH, "runs": out, "main_path": rows,
+            "int8_launches": int8_launches, "bf16_launches": bf16_launches}
+
+
+# ----------------------------------------------------------- serve_resident
+RESIDENT_PES, RESIDENT_TP = 8, 4       # the serve cube: data 2 x tp 4
+
+
+def _resident_run(dev, resident: bool) -> dict:
+    """qwen3-1.7b at full width on the data 2 x tp 4 serve cube (the batch
+    of 4 over data), through the launcher's function, under a
+    ``CommTrace``: the run, and its data all_gathers a decode step."""
+    from repro_torch import configs
+    from repro_torch.core.comm import CommTrace
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch.serve import serve
+    cfg = dataclasses.replace(configs.get(ARCH), serve_tp=RESIDENT_TP)
+    n0 = flash.LAUNCHES
+    with CommTrace() as trc:
+        run = serve(ARCH, cfg=cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                    pes=RESIDENT_PES, device=dev, seed=0, keep_logits=True,
+                    resident=resident)
+    steps = len(run["step_ms"])
+    gathers = sum(e.primitive == "all_gather" and e.dims == ("data",)
+                  for e in trc.events)
+    run.update(data_gathers_per_step=gathers / steps,
+               launches=flash.LAUNCHES - n0, dec=torch.stack(run["logits"],
+                                                             dim=1))
+    return run
+
+
+def phase_serve_resident(dev) -> dict:
+    """Resident serve weights (``Server(resident=True)``: the specs with
+    the data axis dropped, so decode gathers no weight over data) against
+    the FSDP weights on the same global values, qwen3-1.7b at full width on
+    a serve cube of data 2 x tp 4: logits of every step bit-identical,
+    tokens identical, zero data all_gathers a step with resident weights
+    (counted from the ``CommTrace``; one per weight leaf a layer without),
+    exactly n_layers flash launches a step in both, ms/step of both."""
+    from repro_torch.kernels.attention import flash
+    flash.LAUNCHES = 0          # the resident path's runs start here
+    runs, out = {}, {}
+    for resident in (False, True):
+        run = _resident_run(dev, resident)
+        L, steps = run["cfg"].n_layers, len(run["step_ms"])
+        out["resident" if resident else "fsdp"] = run["summary"] = {
+            "cube": run["topo"].cube.describe(),
+            "batch_axes": list(run["plan"].batch_axes),
+            "ms_per_step": run["ms_per_step"],
+            "p75_ms_per_step": float(np.percentile(run["step_ms"][1:], 75)),
+            "tok_per_s": run["tok_per_s"],
+            "data_all_gathers_per_step": run["data_gathers_per_step"],
+            "flash_launches": run["launches"],
+            "expected_launches": L * steps}
+        runs[resident] = _drop(run)
+        gc.collect()
+    a, b = runs[False], runs[True]
+    out["bit_identical"] = bool(torch.equal(a["dec"], b["dec"]))
+    out["tokens_identical"] = bool(np.array_equal(a["tokens"], b["tokens"]))
+    fs, rs = out["fsdp"], out["resident"]
+    out["ok"] = (out["bit_identical"] and out["tokens_identical"]
+                 and rs["data_all_gathers_per_step"] == 0
+                 and fs["data_all_gathers_per_step"] > 0
+                 and all(r["flash_launches"] == r["expected_launches"]
+                         for r in (fs, rs)))
+    out["flash_launches"] = flash.LAUNCHES
+    return out
+
+
+# ------------------------------------------------------------ serve_whisper
+WHISPER_ARCH = "whisper-base"
+WHISPER_PES = (1, 8)
+
+
+def _whisper_forward(run, pes: int, dtype) -> torch.Tensor:
+    """``forward_logits`` of the served tokens and the run's frames on the
+    forward topology of the run's cube: global (B, S, V_padded)."""
+    from repro_torch.models.lm import Model
+    from repro_torch.models.topology import build_topology
+    cfg = dataclasses.replace(run["cfg"], tp=pes)
+    ftopo = build_topology(cfg, pes)
+    if ftopo.cube != run["topo"].cube:
+        raise RuntimeError("forward and serve cubes differ")
+    dev = run["params"]["embed"].device
+    toks = torch.from_numpy(run["tokens"]).to(dev)
+    out = Model(cfg, ftopo, dtype=dtype).forward_logits(run["params"], {
+        "tokens": ftopo.cube.to_cube(toks, (ftopo.dp, None)),
+        "frames": ftopo.cube.to_cube(run["frames"].to(dev),
+                                     (ftopo.dp, None, None))})
+    return ftopo.cube.from_cube(out, (ftopo.dp, None, ftopo.tp))
+
+
+def _whisper_params(dev, pes: int) -> dict:
+    """whisper-base's weights at ``pes`` PEs, one model at every PE count:
+    drawn from seed 0 on the widest serve cube (its vocab padded to 51,872
+    for 8 PEs), the pad columns of lm_head zeroed (their logits 0, below the
+    largest of 51,865 real ones, so greedy never picks one) and, on a
+    narrower cube, the pad rows and columns cut."""
+    from repro_torch import configs
+    from repro_torch.models.params import (
+        init_params, param_specs, to_global, tree_map, vocab_padded)
+    from repro_torch.models.topology import build_serve_topology
+    cfg = configs.get(WHISPER_ARCH)
+    wide = build_serve_topology(cfg, WHISPER_PES[-1])
+    glob = to_global(init_params(cfg, wide, 0, device=dev),
+                     param_specs(cfg, wide), wide.cube)
+    glob["lm_head"] = glob["lm_head"].clone()
+    glob["lm_head"][:, cfg.vocab_size:] = 0
+    topo = build_serve_topology(cfg, pes)
+    Vp = vocab_padded(cfg, topo)
+    glob["embed"] = glob["embed"][:Vp]
+    glob["lm_head"] = glob["lm_head"][:, :Vp]
+    return tree_map(lambda g, sp: topo.cube.to_cube(g.contiguous(), sp),
+                    glob, param_specs(cfg, topo))
+
+
+def _whisper_run(dev, pes: int, dtype, kept) -> dict:
+    """whisper-base at full width and depth through the launcher's
+    function: its frames and prompt through ``prefill_shard`` (the encoder,
+    then each decoder layer's self and cross caches), then 15 greedy decode
+    steps from that cache; ``forward_logits`` of the served tokens and
+    frames (weights: ``_whisper_params``, the same model at 1 and 8 PEs).
+    Exact launches: the prefill n_enc + 2 L flash forwards (the
+    encoder's layers, each decoder layer's self- and cross-attention), 2 L
+    decode launches a step (self, cross), n_enc + 2 L a forward; the
+    prefill's K/V reshards 2 L reorder launches at 8 PEs (self and cross
+    K/V, KV heads sharded over tp)."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.reorder import reorder
+    from repro_torch.launch.serve import serve
+
+    def keep(path):
+        return (keep_kernel_inputs(kept, f"{WHISPER_ARCH}/{path}/{pes}pe")
+                if kept is not None else contextlib.nullcontext())
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    n0, r0 = flash.LAUNCHES, reorder.LAUNCHES
+    params = _whisper_params(dev, pes)
+    with keep("decode"):
+        run = serve(WHISPER_ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                    pes=pes, device=dev, seed=0, dtype=dtype,
+                    keep_logits=True, params=params)
+    torch.cuda.synchronize()
+    n_serve, r_serve = flash.LAUNCHES - n0, reorder.LAUNCHES - r0
+    n1 = flash.LAUNCHES
+    with keep("forward"):
+        fwd = _whisper_forward(run, pes, dtype)
+    torch.cuda.synchronize()
+    n_fwd = flash.LAUNCHES - n1
+    cfg = run["cfg"]
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    dec = torch.stack(run["logits"], dim=1)         # positions PROMPT-1 ..
+    ref = fwd[:, PROMPT - 1:-1]
+    held = _held(dec, ref, SERVE_TOL if dtype == torch.bfloat16
+                 else F32_TOL)
+    steps = len(run["step_ms"])
+    s = {"pes": pes, "cube": run["topo"].cube.describe(),
+         "dtype": str(dtype).split(".")[-1], "prefill": run["prefill"],
+         "prefill_s": run["prefill_s"], "ms_per_step": run["ms_per_step"],
+         "steps_timed": steps - 1, "tok_per_s": run["tok_per_s"],
+         "flash_launches_serve": n_serve, "flash_launches_forward": n_fwd,
+         "expected_launches_serve": E + 2 * L + 2 * L * steps,
+         "expected_launches_forward": E + 2 * L,
+         "reorder_launches": r_serve,
+         "expected_reorder_launches": 2 * L if pes > 1 else 0,
+         "decode_vs_forward_err": held["err"],
+         "decode_vs_forward_bound": held["bound"],
+         "decode_greedy_matches_forward": float(
+             (dec.argmax(-1) == ref.argmax(-1)).float().mean()),
+         "finite": bool(torch.isfinite(dec).all()
+                        and torch.isfinite(fwd).all()),
+         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+    s["ok"] = (held["ok"] and s["finite"] and run["prefill"]
+               and n_serve == s["expected_launches_serve"]
+               and n_fwd == s["expected_launches_forward"]
+               and r_serve == s["expected_reorder_launches"])
+    if dtype == torch.bfloat16:
+        n2 = flash.LAUNCHES
+        s["profile"] = profile_decode(run, dev)
+        s["profiled_launches"] = flash.LAUNCHES - n2
+    run.update(dec=dec, summary=s)
+    return run
+
+
+def phase_serve_whisper(dev, kept: dict) -> dict:
+    """whisper-base (6 encoder + 6 decoder layers, d_model 512, 8 heads of
+    64) at full width and depth, at 1 and 8 PEs, bf16 over f32 masters and
+    f32 (TF32 off), one topology's weights at a time (``_whisper_run``):
+    decode within SERVE_TOL (bf16) / F32_TOL (f32) x max(1, max|ref|) of
+    forward_logits, 1 PE vs 8 PEs the same (f32: identical greedy tokens).
+    ``kept`` receives the kernel's bf16 inputs of its last launch per path
+    and run (the decode path's last is a cross decode)."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.reorder import reorder
+    flash.LAUNCHES = 0          # the whisper paths' runs start here
+    reorder.LAUNCHES = 0
+    out, ok = {}, True
+    launches = reorder_launches = profiled = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        runs = {}
+        for pes in WHISPER_PES:
+            run = _whisper_run(dev, pes, dtype,
+                               kept if dtype == torch.bfloat16 else None)
+            s = run["summary"]
+            launches += s["flash_launches_serve"] + s[
+                "flash_launches_forward"]
+            reorder_launches += s["reorder_launches"]
+            profiled += s.get("profiled_launches", 0)
+            runs[pes] = _drop(run)
+        pair = _dense_pair(runs, WHISPER_PES)
+        tol = SERVE_TOL if dtype == torch.bfloat16 else F32_TOL
+        name = str(dtype).split(".")[-1]
+        d_ok = (all(runs[p]["summary"]["ok"] for p in WHISPER_PES)
+                and pair["err"] <= tol * pair["scale"]
+                and (dtype == torch.bfloat16 or pair["tokens_identical"]))
+        out[name] = {"ok": d_ok, "runs": [runs[p]["summary"]
+                                          for p in WHISPER_PES],
+                     f"pe1_vs_pe{WHISPER_PES[-1]}": pair,
+                     "bound": tol * pair["scale"]}
+        ok &= d_ok
+    return {"ok": bool(ok and flash.LAUNCHES - profiled == launches
+                       and reorder.LAUNCHES == reorder_launches),
+            "arch": WHISPER_ARCH, "batch": BATCH, "prompt_len": PROMPT,
+            "gen": GEN, **out, "flash_launches": launches,
+            "reorder_launches": reorder_launches,
+            "profiled_launches": profiled}
 
 
 # ---------------------------------------------------------- serve_prefill
@@ -2874,7 +3575,8 @@ def _reshards(cfg, topo) -> int:
     return cfg.n_layers if sharded else 0
 
 
-def _prefill_vs_loop(dev, pes: int, dtype, params=None) -> dict:
+def _prefill_vs_loop(dev, pes: int, dtype, params=None,
+                     n_layers: int | None = None) -> dict:
     """qwen3's serve cell (batch 4, prompt 32, gen 16): the launcher's
     teacher-forced loop, then prefill of its prompt and 15 decode steps
     from the prefilled cache fed the loop's tokens, against the loop's
@@ -2884,7 +3586,7 @@ def _prefill_vs_loop(dev, pes: int, dtype, params=None) -> dict:
     from repro_torch.models.serving import Server
     run = serve(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, pes=pes,
                 device=dev, seed=0, dtype=dtype, params=params,
-                keep_logits=True)
+                keep_logits=True, n_layers=n_layers)
     cfg, topo = run["cfg"], run["topo"]
     server = Server(cfg, topo, run["plan"], dtype=dtype)
     toks = torch.from_numpy(run["tokens"]).to(dev)
@@ -3758,15 +4460,17 @@ def spoiled_backward(kind: str):
     return patched(ops, "_backward", wrap)
 
 
-def _train_setup(dev, layout: str, tc):
+def _train_setup(dev, layout: str, tc, n_layers: int | None = None):
     """Config, topology, compact masters (random, seed 0: the same global
-    model on every layout) and optimizer state of one layout."""
+    model on every layout) and optimizer state of one layout; ``n_layers``
+    cuts the depth."""
     from repro_torch import configs
     from repro_torch.models.params import init_params, param_specs, trainable
     from repro_torch.models.topology import build_topology
     from repro_torch.runtime.trainer import init_opt_state
     pes, tp = TRAIN_LAYOUTS[layout]
-    cfg = dataclasses.replace(configs.get(ARCH), tp=tp)
+    cfg = dataclasses.replace(configs.get(ARCH), tp=tp,
+                              n_layers=n_layers or _full_depth(ARCH))
     topo = build_topology(cfg, pes)
     masters = trainable(init_params(cfg, topo, 0, device=dev),
                         param_specs(cfg, topo), topo.cube)
@@ -4077,9 +4781,16 @@ def phase_train(dev, kept: dict, kept_bwd: dict) -> dict:
 # reorder; RWKV6 and phi3: tp 8; gemma3: data 2 x tp 4, its 4 query heads
 # bounding tp).
 MIXTRAL_ARCH = "mixtral-8x7b"
+# internlm2-20b at 10 of 48 layers: 5.04 B parameters; at 8 layers (4.26 B)
+# a step's peak read 43.3 GB at 1 PE and 50.0 GB at tp 8 (10.2 / 11.7
+# bytes a parameter), so some 51 / 59 GB; at 12 the tp-8 cell ran out of
+# the card's 80 GB; whisper-base at full depth (6 encoder + 6 decoder
+# layers)
 TRAIN_MR_ARCHS = {"moe": (MOE_ARCH, 4), "rwkv": (RWKV_ARCH, 12),
                   "phi3": ("phi3-mini-3.8b", 32), "gemma3": ("gemma3-1b", 26),
-                  "mixtral": (MIXTRAL_ARCH, 2)}
+                  "mixtral": (MIXTRAL_ARCH, 2),
+                  "internlm2": ("internlm2-20b", 10),
+                  "whisper": ("whisper-base", 6)}
 TRAIN_MR_PES = {"1pe": 1, "8pe": 8}
 # the f32 witness cells, at full width and a smaller cut: one step's
 # gradients only (no optimizer state), so the run's gradients and the
@@ -4087,12 +4798,18 @@ TRAIN_MR_PES = {"1pe": 1, "8pe": 8}
 # at 6 layers so that its sixth, global, layer runs beside five local ones
 TRAIN_MR_F32 = {("rwkv", "1pe"): 4, ("rwkv", "8pe"): 4, ("moe", "8pe"): 2,
                 ("phi3", "1pe"): 4, ("phi3", "8pe"): 4, ("gemma3", "1pe"): 6,
-                ("gemma3", "8pe"): 6, ("mixtral", "8pe"): 2}
+                ("gemma3", "8pe"): 6, ("mixtral", "8pe"): 2,
+                ("internlm2", "1pe"): 2, ("internlm2", "8pe"): 2,
+                ("whisper", "1pe"): 6, ("whisper", "8pe"): 6}
 # The repeated-batch check's lr where TRAIN_LR overshoots: phi3 (32 layers
 # of d_model 3,072) at 3e-4 fell for three steps, then rose past its first
 # loss, with the plain attention in the kernels' place as well
-# (tools/loss_falls_lr.py); at 1e-4 both fall at every step
-TRAIN_MR_LOSS_LR = {"phi3": 1e-4}
+# (tools/loss_falls_lr.py); at 1e-4 both fall at every step. internlm2 (10
+# layers of d_model 6,144) at 1e-4 took its loss from 12.66 to 0.30 in its
+# first update (lr 2e-5 in the warm-up) and to 5.5e-5 in the next, then to
+# 1.7e-4: memorized, it sits at the floor of its loss. At 1e-5 its three
+# updates' lrs (2e-6, 4e-6, 6e-6) sum to 0.6 of that first one
+TRAIN_MR_LOSS_LR = {"phi3": 1e-4, "internlm2": 1e-5}
 RWKV6_BWD_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6_bwd.cu"
 RWKV6_BWD_REPLACES = "src/repro/models/ssm.py:21"
 
@@ -4148,10 +4865,13 @@ def _mr_expected(cfg, pes: int) -> dict:
     (dispatch, combine),
     each a reorder in the forward, again in the recompute and once in the
     backward with the inverse perm: 6 L; RWKV6: 2 L forwards (saving the
-    sub-chunk states) and L backwards."""
+    sub-chunk states) and L backwards. An encoder-decoder's attention
+    layers are its encoder's and each decoder layer's self- and
+    cross-attention."""
     L = cfg.n_layers
     rwkv = cfg.family == "ssm"
-    return {"flash": 0 if rwkv else 2 * L, "flash_bwd": 0 if rwkv else L,
+    A = 2 * L + cfg.n_enc_layers if cfg.is_encoder_decoder else L
+    return {"flash": 0 if rwkv else 2 * A, "flash_bwd": 0 if rwkv else A,
             "reorder": 6 * L if cfg.n_experts and cfg.ep > 1 else 0,
             "rwkv6": 2 * L if rwkv else 0, "rwkv6_bwd": L if rwkv else 0}
 
@@ -4504,6 +5224,11 @@ def phase_train_moe_rwkv(dev, kept: dict) -> dict:
 # and 1 PEs; an HF safetensors round trip. The directory lies in the
 # checkout's build/ (ignored by git), keep_last=1, removed at the end.
 CKPT_LAYOUTS = ("1pe", "8pe")
+# the phase runs qwen3 at half its depth (6.2 GB a checkpoint): its gates
+# compare runs on the same weights (bit for bit), and a save's, a
+# restore's and the engine's seconds go by the layer; at 28 layers it took
+# 184 s of the run's 1,200 s limit
+CKPT_LAYERS = 14
 CKPT_SAVE_AT, CKPT_STEPS = 2, 4         # saves after steps 1 and 2
 CKPT_DIR = ROOT / "build" / "checkpoint_phase"
 # HF stores a norm as 1 + w: the round trip (w + 1) - 1 rounds once in f32,
@@ -4592,7 +5317,8 @@ def _ckpt_cell(dev, layout_: str, root: Path) -> tuple[dict, dict]:
     from repro_torch.runtime.trainer import (
         Trainer, TrainConfig, opt_specs, place_batch, resume_state)
     tc = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100)
-    cfg, topo, masters, opt = _train_setup(dev, layout_, tc)
+    cfg, topo, masters, opt = _train_setup(dev, layout_, tc,
+                                           n_layers=CKPT_LAYERS)
     L = cfg.n_layers
     stream = TokenStream(cfg, DataConfig(seq_len=TRAIN_SEQ,
                                          global_batch=TRAIN_BATCH,
@@ -4747,7 +5473,7 @@ def _ckpt_serve(dev, root: Path, glob: dict, pes: int) -> dict:
     from repro_torch.models.serving import make_serve_plan
     from repro_torch.models.topology import build_serve_topology
     from repro_torch.serving import Request, ServeEngine
-    cfg = configs.get(ARCH)
+    cfg = dataclasses.replace(configs.get(ARCH), n_layers=CKPT_LAYERS)
     topo = build_serve_topology(cfg, pes)
     specs = param_specs(cfg, topo)
     mgr = CheckpointManager(str(root), device=dev)
@@ -4809,7 +5535,8 @@ def _ckpt_serve(dev, root: Path, glob: dict, pes: int) -> dict:
                   for e in engines.values()))
     del held
     if pes == PES[-1]:
-        s, _ = _prefill_vs_loop(dev, pes, torch.bfloat16, params=restored)
+        s, _ = _prefill_vs_loop(dev, pes, torch.bfloat16, params=restored,
+                                n_layers=CKPT_LAYERS)
         out["prefill"] = s
         _add(launches, {"flash": s["flash_launches"]
                         + s["flash_launches_decode"],
@@ -4833,7 +5560,7 @@ def _ckpt_hf(dev, root: Path, glob: dict) -> dict:
     from repro_torch.core.comm import CommTrace
     from repro_torch.models.params import leaves, param_specs
     from repro_torch.models.topology import build_serve_topology
-    cfg = configs.get(ARCH)
+    cfg = dataclasses.replace(configs.get(ARCH), n_layers=CKPT_LAYERS)
     topo = build_serve_topology(cfg, PES[-1])
     specs = param_specs(cfg, topo)
     path = root / "model.safetensors"
@@ -4884,13 +5611,14 @@ def phase_checkpoint(dev) -> dict:
     ``_ckpt_hf``); the kernels' launches are counted from 0 just before
     each run and read just after. The checkpoint directory is removed."""
     from repro_torch import configs
-    cfg = configs.get(ARCH)
+    cfg = dataclasses.replace(configs.get(ARCH), n_layers=CKPT_LAYERS)
     n = cfg.param_count()
     disk = _ckpt_disk(CKPT_DIR, 6 * n)      # f32 masters, two int8 moments
     if not disk["two_checkpoints_fit"]:
         return {"ok": False, "disk": disk,
                 "error": "two checkpoints do not fit where they go"}
     out: dict = {"arch": ARCH, "params": n, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+                 "cut": f"{CKPT_LAYERS} of {_full_depth(ARCH)} layers",
                  "disk": disk, "cells": {}, "serve": {}}
     launches: dict = {}
     glob = None
@@ -5408,6 +6136,7 @@ def main() -> int:
     t_all = time.perf_counter()
     results, failed, kept, kept_reorder, kept_rwkv6 = {}, [], {}, {}, {}
     kept_bwd, moe_sort, kept_rwkv6_bwd, kept_rwkv6_train = {}, {}, {}, {}
+    kept_int8 = {}
     kept_train = {"flash": kept, "flash_bwd": kept_bwd,
                   "reorder": kept_reorder, "rwkv6": kept_rwkv6_train,
                   "rwkv6_bwd": kept_rwkv6_bwd}
@@ -5429,6 +6158,15 @@ def main() -> int:
                          dev, kept, kept_reorder)),
                      ("serve_dense", lambda: phase_serve_dense(dev, kept)),
                      ("serve_dense_f32", lambda: phase_serve_dense_f32(dev)),
+                     ("serve_internlm2", lambda: phase_serve_internlm2(
+                         dev, kept)),
+                     ("serve_internlm2_f32", lambda: phase_serve_internlm2(
+                         dev, None, torch.float32)),
+                     ("serve_whisper", lambda: phase_serve_whisper(dev,
+                                                                   kept)),
+                     ("serve_int8", lambda: phase_serve_int8(dev,
+                                                             kept_int8)),
+                     ("serve_resident", lambda: phase_serve_resident(dev)),
                      ("serve_prefill", lambda: phase_serve_prefill(
                          dev, kept, kept_reorder, moe_sort)),
                      ("serve_engine", lambda: phase_serve_engine(dev, kept)),
@@ -5484,8 +6222,15 @@ def main() -> int:
     tune_res, ckpt_res = results["tune"], results["checkpoint"]
     mr = results["train_moe_rwkv"]["launches_by_arch"]
     mixtral_res = results["serve_mixtral"]
+    internlm2_res, whisper_res = (results["serve_internlm2"],
+                                  results["serve_whisper"])
+    int8_res, resident_res = results["serve_int8"], results["serve_resident"]
     mr_attn = [TRAIN_MR_ARCHS[n][0] for n in TRAIN_MR_ARCHS
                if _mr_attention(n)]
+    # the int8 decode form's headline: its main-path row farthest above
+    # its bound
+    int8_head = max(int8_res["main_path"],
+                    key=lambda t: t["ms"] / t["bound_ms"])
     # the flash headline: the main-path row that fares worst against SDPA
     head = max(kern["main_path"], key=lambda t: t["ms"] / t["library_ms"])
     swz = kern["reorder"]
@@ -5502,6 +6247,10 @@ def main() -> int:
                      + prefill_res["flash_launches"]
                      + ckpt_res["flash_launches"]
                      + mixtral_res["flash_launches"]
+                     + internlm2_res["flash_launches"]
+                     + whisper_res["flash_launches"]
+                     + int8_res["bf16_launches"]
+                     + resident_res["flash_launches"]
                      + sum(mr[a]["flash"] for a in mr_attn)),
         "launches_by_path": {ARCH: serve_res["flash_launches"],
                              MOE_ARCH: moe_res["flash_launches"],
@@ -5516,6 +6265,12 @@ def main() -> int:
                              f"{ARCH}/checkpoint":
                                  ckpt_res["flash_launches"],
                              MIXTRAL_ARCH: mixtral_res["flash_launches"],
+                             INTERNLM2_ARCH: internlm2_res["flash_launches"],
+                             WHISPER_ARCH: whisper_res["flash_launches"],
+                             f"{ARCH}/serve_int8/bf16_cache":
+                                 int8_res["bf16_launches"],
+                             f"{ARCH}/serve_resident":
+                                 resident_res["flash_launches"],
                              **{f"{a}/train": mr[a]["flash"]
                                 for a in mr_attn}},
         "max_abs_err": max(t["max_abs_err"] for t in kern["main_path"]),
@@ -5537,6 +6292,7 @@ def main() -> int:
                      + tune_res["reorder_launches"]
                      + ckpt_res["reorder_launches"]
                      + mixtral_res["reorder_launches"]
+                     + whisper_res["reorder_launches"]
                      + mr[MOE_ARCH]["reorder"] + mr[MIXTRAL_ARCH]["reorder"]),
         "launches_by_path": {MOE_ARCH: moe_res["reorder_launches"],
                              "dlrm/pidcomm":
@@ -5546,6 +6302,7 @@ def main() -> int:
                              f"{ARCH}/checkpoint":
                                  ckpt_res["reorder_launches"],
                              MIXTRAL_ARCH: mixtral_res["reorder_launches"],
+                             WHISPER_ARCH: whisper_res["reorder_launches"],
                              f"{MOE_ARCH}/train": mr[MOE_ARCH]["reorder"],
                              f"{MIXTRAL_ARCH}/train":
                                  mr[MIXTRAL_ARCH]["reorder"]},
@@ -5557,6 +6314,24 @@ def main() -> int:
         "shapes": {r["name"]: {k: r[k] for k in (
             "x", "blocks", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "max_abs_err")} for r in reorder_rows},
+    }, {
+        "name": "flash_attention_int8_decode", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+        "entry": "repro_flash_decode_int8 (flash.flash_attention with "
+                 "k_scale / v_scale)",
+        "launches": int8_res["int8_launches"],
+        "launches_by_path": {f"{ARCH}/serve_int8": int8_res["int8_launches"]},
+        "max_abs_err": max(t["max_abs_err"] for t in int8_res["main_path"]),
+        "ms": int8_head["ms"], "plain_ms": int8_head["plain_ms"],
+        "bound_ms": int8_head["bound_ms"], "bound_by": int8_head["bound_by"],
+        "library_ms": None, "at": int8_head["name"],
+        "bf16_cache_ms": int8_head["bf16_cache_ms"],
+        "shapes": {t["name"]: {k: t[k] for k in (
+            "q", "kv", "ms", "plain_ms", "bf16_cache_ms", "bound_ms",
+            "bound_by", "max_abs_err")} for t in int8_res["main_path"]},
+        "off_main_path": {t["name"]: {k: t[k] for k in (
+            "q", "kv", "ms", "plain_ms", "bf16_cache_ms", "bound_ms",
+            "bound_by", "err")} for t in results["kernel"]["int8_rows"]},
     }, _rwkv6_entry(kern["rwkv6"] + kern["rwkv6_train_forward"], {
         RWKV_ARCH: rwkv_res["rwkv6_launches"],
         f"{RWKV_ARCH}/train": mr[RWKV_ARCH]["rwkv6"]},

@@ -22,7 +22,7 @@ ARCH_IDS = (
 
 # architectures whose every layer kind has a port
 PORTED = ("qwen3_1_7b", "qwen2_moe_a2_7b", "mixtral_8x7b", "rwkv6_7b",
-          "phi3_mini_3_8b", "gemma3_1b")
+          "phi3_mini_3_8b", "gemma3_1b", "internlm2_20b", "whisper_base")
 
 ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",

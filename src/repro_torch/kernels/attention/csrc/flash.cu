@@ -44,6 +44,19 @@
 //     0 merges the others' partials from distributed shared memory: no
 //     scratch in device memory, no counter, one launch. f32 takes the same
 //     layout.
+//     The int8 decode form (repro_flash_decode_int8) is the same kernel
+//     reading the int8 KV cache directly: K and V int8 codes, and beside
+//     them one f32 scale a (key, kv head) for each (the paper's §V-C 8-bit
+//     layout), with q and the output in bf16 or f32. A lane loads 16 codes
+//     (one 16-byte piece; hd 128: 8 lanes a key, 4 keys a warp step) and
+//     its key's two scales by cp.async into the same ring, and dequantizes
+//     in registers in f32: a row's score over the codes times the key's
+//     scale, then V's codes times p * its scale (K's registers are free
+//     before V's are taken). A decode step then reads (hd + 4)
+//     / (2 hd) of the bf16 cache's bytes. Each lane holds 16 elements of a
+//     key, twice bf16's 8, so at 8 rows q (scaled) is kept in shared
+//     memory instead of 128 registers a thread, read back at each key;
+//     at 1-4 rows it stays in registers as in the other instances.
 // (b) Forward form, bf16: tensor cores (mma.sync.m16n8k16, f32
 //     accumulators: HMMA in the SASS). Bound: bytes and latency at the
 //     serving forward (48 keys), operations at long sequences. Each warp
@@ -83,6 +96,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -142,6 +157,19 @@ struct Vec<float> {
     f[3] = __uint_as_float(u.w);
   }
 };
+template <>
+struct Vec<int8_t> {   // the int8 cache's codes, 16 a piece
+  static constexpr int N = 16;
+  __device__ static void unpack(const uint4& u, float* f) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f[4 * i + j] = static_cast<float>(
+            static_cast<int8_t>((w[i] >> (8 * j)) & 0xffu));
+  }
+};
 
 // merge (m2, l2, a2) into (m, l, a): the LSE combine. An empty state
 // (m = -1e30, l = 0, a = 0) is its identity.
@@ -178,7 +206,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ------------------------------------------------------------ (a) decode
-// One key row of HD elements is PIECES 16-byte pieces. A lane group of LG
+// One key row of HD elements (of the K/V type T: bf16, f32 or the int8
+// cache's codes) is PIECES 16-byte pieces. A lane group of LG
 // lanes (a power of two, at most a warp) holds one key: lane `sub` holds
 // pieces sub + j * LG, j < NP. Where PIECES is not a power of two (hd 96:
 // 12 pieces in bf16, 24 in f32) the group is padded to the next one and its
@@ -200,40 +229,56 @@ struct DecodeLayout {
                 "decode layout: every lane of a group holds NP pieces");
 };
 
-template <typename T, int HD>
+// bytes a lane's ring slot holds: NP pieces of K and of V, the key's
+// position, and for the int8 cache its two scales
+template <typename KT, int HD>
 constexpr int decode_ring_bytes() {
-  return kDecodeWarps * kRing * 32 * (2 * 16 * DecodeLayout<T, HD>::NP + 4);
+  constexpr bool scaled = std::is_same<KT, int8_t>::value;
+  return kDecodeWarps * kRing * 32
+         * (2 * 16 * DecodeLayout<KT, HD>::NP + 4 + (scaled ? 8 : 0));
 }
 
 // dynamic shared memory of the decode form: the lanes' cp.async ring, and
 // after the key loop the warps' partial accumulators (f32 [warps][RM][HD])
 // in the same bytes
-template <typename T, int HD, int RM>
+template <typename KT, int HD, int RM>
 constexpr int decode_smem_bytes() {
   constexpr int red = kDecodeWarps * RM * HD * 4;
-  return decode_ring_bytes<T, HD>() > red ? decode_ring_bytes<T, HD>() : red;
+  return decode_ring_bytes<KT, HD>() > red ? decode_ring_bytes<KT, HD>()
+                                           : red;
 }
 
-// q, out: (B, Sq, H, HD); k, v: (B, Sk, KV, HD); acc: (B, H, Sq, HD), m, l:
-// (B, H, Sq). grid = (B * KV, splits), cluster (1, splits, 1), block
-// 32 * kDecodeWarps, dynamic shared memory decode_smem_bytes<T, HD, RM>().
-// CTA (x, y) takes keys [y * chunk, (y + 1) * chunk).
-template <typename T, int HD, int RM>
+// q, out: (B, Sq, H, HD) of type T; k, v: (B, Sk, KV, HD) of type KT (T,
+// or int8 codes with f32 scales k_scale, v_scale (B, Sk, KV)); acc: (B, H,
+// Sq, HD), m, l: (B, H, Sq). grid = (B * KV, splits), cluster (1, splits,
+// 1), block 32 * kDecodeWarps, dynamic shared memory
+// decode_smem_bytes<KT, HD, RM>(). CTA (x, y) takes keys [y * chunk,
+// (y + 1) * chunk).
+template <typename T, typename KT, int HD, int RM>
 __global__ void __launch_bounds__(32 * kDecodeWarps)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ q_pos,
+flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
+                    const KT* __restrict__ v, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ q_pos,
                     const int* __restrict__ k_pos, T* __restrict__ out,
                     float* __restrict__ acc_out, float* __restrict__ m_out,
                     float* __restrict__ l_out, int Sq, int Sk, int H, int KV,
                     int causal, int window, float scale, int chunk) {
-  using L = DecodeLayout<T, HD>;
+  using L = DecodeLayout<KT, HD>;
   constexpr int VEC = L::VEC, LG = L::LG, NP = L::NP, E = L::E;
   constexpr int KPW = 32 / LG;          // keys per warp step
   constexpr int STEP = KPW * kDecodeWarps;
   constexpr int NST = kRing;            // ring stages: warp steps ahead
+  constexpr bool SCALED = std::is_same<KT, int8_t>::value;
+  constexpr int QV = Vec<T>::N;         // q elements per 16-byte load
+  static_assert(VEC % QV == 0, "decode: a piece of K holds whole q loads");
+  // q (scaled) in shared memory where registers would not hold it: the
+  // int8 cache at 8 rows (16 elements a lane and row)
+  constexpr bool Q_SHARED = RM * E > 64;
   __shared__ float red_ml[kDecodeWarps][RM][2];
   __shared__ float fin_acc[RM][HD];
   __shared__ float fin_ml[RM][2];
+  __shared__ __align__(16) float q_sh[Q_SHARED ? RM : 1][Q_SHARED ? HD : 4];
 
   const int G = H / KV;
   const int R = Sq * G;
@@ -245,27 +290,53 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = min(Sk, k_begin + chunk);
 
   // this lane's hd slice of every row's q (scaled), and each row's position
-  float qf[RM][E];
+  float qf[Q_SHARED ? 1 : RM][E];
   int qp[RM];
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
     qp[r] = 0;
+    float qr_f[E];
 #pragma unroll
-    for (int i = 0; i < E; ++i) qf[r][i] = 0.f;
+    for (int i = 0; i < E; ++i) qr_f[i] = 0.f;
     if (r < R) {
       const int qi = r / G, h = kvh * G + r % G;
       if (holds) {
         const T* qr = q + ((size_t)(b * Sq + qi) * H + h) * HD + sub * VEC;
 #pragma unroll
         for (int j = 0; j < NP; ++j)
-          Vec<T>::unpack(*reinterpret_cast<const uint4*>(qr + j * LG * VEC),
-                         qf[r] + j * VEC);
 #pragma unroll
-        for (int i = 0; i < E; ++i) qf[r][i] *= scale;
+          for (int c = 0; c < VEC / QV; ++c)
+            Vec<T>::unpack(
+                *reinterpret_cast<const uint4*>(qr + j * LG * VEC + c * QV),
+                qr_f + j * VEC + c * QV);
+#pragma unroll
+        for (int i = 0; i < E; ++i) qr_f[i] *= scale;
       }
       qp[r] = q_pos[(size_t)b * Sq + qi];
     }
+    if constexpr (Q_SHARED) {
+      // warp 0's first lane group writes it; every warp reads it after
+      // the barrier below
+      if (holds && warp == 0 && grp == 0) {
+#pragma unroll
+        for (int j = 0; j < NP; ++j)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            q_sh[r][(sub + j * LG) * VEC + i] = qr_f[j * VEC + i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < E; ++i) qf[Q_SHARED ? 0 : r][i] = qr_f[i];
+    }
   }
+  if constexpr (Q_SHARED) __syncthreads();
+  // element i of this lane's slice of row r's scaled q
+  const auto qval = [&](int r, int i) -> float {
+    if constexpr (Q_SHARED)
+      return q_sh[r][(sub + (i / VEC) * LG) * VEC + i % VEC];
+    else
+      return qf[Q_SHARED ? 0 : r][i];
+  };
   float m[RM], l[RM], acc[RM][E];
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
@@ -276,9 +347,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const size_t kv_row = (size_t)KV * HD;
-  const T* kb = k + ((size_t)b * Sk * KV + kvh) * HD + sub * VEC;
-  const T* vb = v + ((size_t)b * Sk * KV + kvh) * HD + sub * VEC;
+  const KT* kb = k + ((size_t)b * Sk * KV + kvh) * HD + sub * VEC;
+  const KT* vb = v + ((size_t)b * Sk * KV + kvh) * HD + sub * VEC;
   const int* kpb = k_pos + (size_t)b * Sk;
+  // the int8 cache's scales of this (batch, kv head): key s at s * KV
+  const float* ksb = SCALED ? k_scale + (size_t)b * Sk * KV + kvh : nullptr;
+  const float* vsb = SCALED ? v_scale + (size_t)b * Sk * KV + kvh : nullptr;
   // this lane's ring: NST warp steps of its NP 16-byte pieces of K and of V
   // and its key's position, brought by cp.async. A lane reads back only
   // what it copied itself, so its own wait_group orders it: no barrier.
@@ -288,6 +362,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int* ring_p = reinterpret_cast<int*>(reinterpret_cast<uint4*>(dsm)
                                        + 2 * kDecodeWarps * NST * 32 * NP)
                 + warp * NST * 32 + lane;
+  // the int8 cache's two scales of the key, after every position
+  float* ring_ks = reinterpret_cast<float*>(ring_p - warp * NST * 32 - lane)
+                   + kDecodeWarps * NST * 32 + warp * NST * 32 + lane;
+  float* ring_vs = ring_ks + kDecodeWarps * NST * 32;
   const int first = k_begin + warp * KPW;     // the warp's first step
   const int steps = first < k_end ? (k_end - first + STEP - 1) / STEP : 0;
   const auto fetch = [&](int n) {             // step n into slot n % NST
@@ -304,6 +382,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       cp_async4(ring_p + slot * 32, kpb + s, true);
+      if constexpr (SCALED) {
+        cp_async4(ring_ks + slot * 32, ksb + (size_t)s * KV, true);
+        cp_async4(ring_vs + slot * 32, vsb + (size_t)s * KV, true);
+      }
     }
     cp_async_commit();
   };
@@ -314,32 +396,86 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int slot = n % NST;
     const bool exists = first + grp + n * STEP < k_end;
     const int kp = ring_p[slot * 32];
-    float kf[E], vf[E];
+    if constexpr (SCALED) {
+      // the int8 cache: each row's score over the codes times the key's
+      // scale, then V's codes times p * its scale; K's registers are free
+      // before V's are taken
+      float kf[E];
 #pragma unroll
-    for (int i = 0; i < E; ++i) kf[i] = vf[i] = 0.f;
-    if (holds) {
+      for (int i = 0; i < E; ++i) kf[i] = 0.f;
+      if (holds) {
 #pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        Vec<T>::unpack(ring_k[(slot * NP + j) * 32], kf + j * VEC);
-        Vec<T>::unpack(ring_v[(slot * NP + j) * 32], vf + j * VEC);
+        for (int j = 0; j < NP; ++j)
+          Vec<KT>::unpack(ring_k[(slot * NP + j) * 32], kf + j * VEC);
       }
-    }
+      const float ks = ring_ks[slot * 32];
+      float sc[RM];
 #pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      if (r >= R) break;
-      float d = 0.f;
+      for (int r = 0; r < RM; ++r) {
+        if (r >= R) break;
+        float d = 0.f;
 #pragma unroll
-      for (int i = 0; i < E; ++i) d = fmaf(qf[r][i], kf[i], d);
+        for (int i = 0; i < E; ++i) d = fmaf(qval(r, i), kf[i], d);
 #pragma unroll
-      for (int o = LG / 2; o > 0; o >>= 1) d += __shfl_xor_sync(kFull, d, o);
-      if (!exists) continue;
-      const float sc = visible(qp[r], kp, causal, window) ? d : kNegInf;
-      const float mn = fmaxf(m[r], sc);
-      const float c = ex<T>(m[r] - mn), p = ex<T>(sc - mn);
-      l[r] = l[r] * c + p;
+        for (int o = LG / 2; o > 0; o >>= 1)
+          d += __shfl_xor_sync(kFull, d, o);
+        sc[r] = d * ks;
+      }
+      if (exists) {
+        float vf[E];
 #pragma unroll
-      for (int i = 0; i < E; ++i) acc[r][i] = fmaf(p, vf[i], acc[r][i] * c);
-      m[r] = mn;
+        for (int i = 0; i < E; ++i) vf[i] = 0.f;
+        if (holds) {
+#pragma unroll
+          for (int j = 0; j < NP; ++j)
+            Vec<KT>::unpack(ring_v[(slot * NP + j) * 32], vf + j * VEC);
+        }
+        const float vs = ring_vs[slot * 32];
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          if (r >= R) break;
+          const float s_r =
+              visible(qp[r], kp, causal, window) ? sc[r] : kNegInf;
+          const float mn = fmaxf(m[r], s_r);
+          const float c = ex<T>(m[r] - mn), p = ex<T>(s_r - mn);
+          l[r] = l[r] * c + p;
+          const float pv = p * vs;
+#pragma unroll
+          for (int i = 0; i < E; ++i)
+            acc[r][i] = fmaf(pv, vf[i], acc[r][i] * c);
+          m[r] = mn;
+        }
+      }
+    } else {
+      float kf[E], vf[E];
+#pragma unroll
+      for (int i = 0; i < E; ++i) kf[i] = vf[i] = 0.f;
+      if (holds) {
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          Vec<KT>::unpack(ring_k[(slot * NP + j) * 32], kf + j * VEC);
+          Vec<KT>::unpack(ring_v[(slot * NP + j) * 32], vf + j * VEC);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        if (r >= R) break;
+        float d = 0.f;
+#pragma unroll
+        for (int i = 0; i < E; ++i) d = fmaf(qval(r, i), kf[i], d);
+#pragma unroll
+        for (int o = LG / 2; o > 0; o >>= 1)
+          d += __shfl_xor_sync(kFull, d, o);
+        if (!exists) continue;
+        const float sc = visible(qp[r], kp, causal, window) ? d : kNegInf;
+        const float mn = fmaxf(m[r], sc);
+        const float c = ex<T>(m[r] - mn), p = ex<T>(sc - mn);
+        l[r] = l[r] * c + p;
+#pragma unroll
+        for (int i = 0; i < E; ++i)
+          acc[r][i] = fmaf(p, vf[i], acc[r][i] * c);
+        m[r] = mn;
+      }
     }
     fetch(n + NST - 1);   // into the slot of step n - 1, consumed
   }
@@ -1007,14 +1143,16 @@ struct Args {
   float *acc, *m, *l;
   int Sq, Sk, H, KV, causal, window;
   float scale;
+  const float* ks = nullptr;   // the int8 cache's scales
+  const float* vs = nullptr;
 };
 
-template <typename T, int HD, int RM>
+template <typename T, typename KT, int HD, int RM>
 cudaError_t launch_decode(const Args& a, dim3 grid, int chunk,
                           cudaStream_t stream) {
-  constexpr int bytes = decode_smem_bytes<T, HD, RM>();
+  constexpr int bytes = decode_smem_bytes<KT, HD, RM>();
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_decode_kernel<T, HD, RM>,
+      flash_decode_kernel<T, KT, HD, RM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
@@ -1030,19 +1168,19 @@ cudaError_t launch_decode(const Args& a, dim3 grid, int chunk,
   cfg.attrs = attr;
   cfg.numAttrs = grid.y > 1 ? 1 : 0;
   return cudaLaunchKernelEx(
-      &cfg, flash_decode_kernel<T, HD, RM>, static_cast<const T*>(a.q),
-      static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.qp, a.kp,
-      static_cast<T*>(a.out), a.acc, a.m, a.l, a.Sq, a.Sk, a.H, a.KV,
-      a.causal, a.window, a.scale, chunk);
+      &cfg, flash_decode_kernel<T, KT, HD, RM>, static_cast<const T*>(a.q),
+      static_cast<const KT*>(a.k), static_cast<const KT*>(a.v), a.ks, a.vs,
+      a.qp, a.kp, static_cast<T*>(a.out), a.acc, a.m, a.l, a.Sq, a.Sk, a.H,
+      a.KV, a.causal, a.window, a.scale, chunk);
 }
 
-template <typename T, int HD>
+template <typename T, typename KT, int HD>
 cudaError_t decode_rows(const Args& a, int rows, dim3 grid, int chunk,
                         cudaStream_t s) {
-  if (rows <= 1) return launch_decode<T, HD, 1>(a, grid, chunk, s);
-  if (rows <= 2) return launch_decode<T, HD, 2>(a, grid, chunk, s);
-  if (rows <= 4) return launch_decode<T, HD, 4>(a, grid, chunk, s);
-  return launch_decode<T, HD, 8>(a, grid, chunk, s);
+  if (rows <= 1) return launch_decode<T, KT, HD, 1>(a, grid, chunk, s);
+  if (rows <= 2) return launch_decode<T, KT, HD, 2>(a, grid, chunk, s);
+  if (rows <= 4) return launch_decode<T, KT, HD, 4>(a, grid, chunk, s);
+  return launch_decode<T, KT, HD, 8>(a, grid, chunk, s);
 }
 
 template <int HD>
@@ -1086,18 +1224,27 @@ cudaError_t launch_forward_f32(const Args& a, dim3 grid, cudaStream_t s) {
     default: return cudaErrorInvalidValue;            \
   }
 
-template <typename T>
+template <typename T, typename KT = T>
 cudaError_t decode_hd(int hd, const Args& a, int rows, dim3 grid, int chunk,
                       cudaStream_t s) {
   switch (hd) {
-    case 16: return decode_rows<T, 16>(a, rows, grid, chunk, s);
-    case 32: return decode_rows<T, 32>(a, rows, grid, chunk, s);
-    case 64: return decode_rows<T, 64>(a, rows, grid, chunk, s);
-    case 96: return decode_rows<T, 96>(a, rows, grid, chunk, s);
-    case 128: return decode_rows<T, 128>(a, rows, grid, chunk, s);
-    case 256: return decode_rows<T, 256>(a, rows, grid, chunk, s);
+    case 16: return decode_rows<T, KT, 16>(a, rows, grid, chunk, s);
+    case 32: return decode_rows<T, KT, 32>(a, rows, grid, chunk, s);
+    case 64: return decode_rows<T, KT, 64>(a, rows, grid, chunk, s);
+    case 96: return decode_rows<T, KT, 96>(a, rows, grid, chunk, s);
+    case 128: return decode_rows<T, KT, 128>(a, rows, grid, chunk, s);
+    case 256: return decode_rows<T, KT, 256>(a, rows, grid, chunk, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// the decode geometry's checks, shared by both entry points
+bool decode_geometry_ok(int R, int Sk, int row_tile, int splits) {
+  if (row_tile != R || R > kMaxRows || splits < 1 || splits > kMaxSplits ||
+      splits > Sk)
+    return false;
+  const int chunk = (Sk + splits - 1) / splits;
+  return (splits - 1) * chunk < Sk;
 }
 
 cudaError_t forward_bf16(int hd, const Args& a, dim3 grid, int warps,
@@ -1140,11 +1287,9 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
                static_cast<float*>(l), Sq, Sk, H, KV, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (form == 0) {
-    if (row_tile != R || R > kMaxRows || splits < 1 || splits > kMaxSplits ||
-        splits > Sk)
+    if (!decode_geometry_ok(R, Sk, row_tile, splits))
       return cudaErrorInvalidValue;
     const int chunk = (Sk + splits - 1) / splits;
-    if ((splits - 1) * chunk >= Sk) return cudaErrorInvalidValue;
     const dim3 grid(B * KV, splits);
     return dtype == 0 ? decode_hd<float>(hd, a, R, grid, chunk, s)
                       : decode_hd<__nv_bfloat16>(hd, a, R, grid, chunk, s);
@@ -1158,6 +1303,38 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
   const dim3 grid(B * KV, tiles);
   return dtype == 1 ? forward_bf16(hd, a, grid, row_tile / 16, s)
                     : forward_f32(hd, a, grid, s);
+}
+
+// The int8 decode form: q (and `out` / the partials) in `dtype` (0 =
+// float32, 1 = bfloat16); k, v int8 codes (B, Sk, KV, hd); k_scale,
+// v_scale f32 (B, Sk, KV). Key j of kv head h is k[j, h] * k_scale[j, h].
+// The decode geometry only (row_tile = Sq * G <= 8, `splits` CTAs a
+// (batch, kv head) in one cluster), as form 0 above.
+int repro_flash_decode_int8(int dtype, const void* q, const void* k,
+                            const void* v, const void* k_scale,
+                            const void* v_scale, const void* q_pos,
+                            const void* k_pos, void* out, void* acc, void* m,
+                            void* l, int B, int Sq, int Sk, int H, int KV,
+                            int hd, int causal, int window, float scale,
+                            int row_tile, int splits, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
+      (dtype != 0 && dtype != 1) || k_scale == nullptr || v_scale == nullptr)
+    return cudaErrorInvalidValue;
+  const int R = Sq * (H / KV);
+  if (!decode_geometry_ok(R, Sk, row_tile, splits))
+    return cudaErrorInvalidValue;
+  Args a{q, k, v, static_cast<const int*>(q_pos),
+         static_cast<const int*>(k_pos), out, static_cast<float*>(acc),
+         static_cast<float*>(m), static_cast<float*>(l), Sq, Sk, H, KV,
+         causal, window, scale};
+  a.ks = static_cast<const float*>(k_scale);
+  a.vs = static_cast<const float*>(v_scale);
+  const int chunk = (Sk + splits - 1) / splits;
+  const dim3 grid(B * KV, splits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0
+             ? decode_hd<float, int8_t>(hd, a, R, grid, chunk, s)
+             : decode_hd<__nv_bfloat16, int8_t>(hd, a, R, grid, chunk, s);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -18,9 +18,21 @@ def _forward(q):
 
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
-                    window: int = -1, partial: bool = False):
+                    window: int = -1, partial: bool = False,
+                    k_scale=None, v_scale=None):
+    """``k_scale`` / ``v_scale`` (B, Sk, KV) f32 with int8 k / v: the int8
+    KV cache, on the kernel's int8 decode form on CUDA."""
+    scales = {}
+    if k_scale is not None:
+        rows = q.shape[1] * (q.shape[2] // k.shape[2])
+        if rows > flash.DECODE_ROWS:
+            raise ValueError(
+                f"flash_attention over an int8 cache takes the decode form "
+                f"only (Sq * G <= {flash.DECODE_ROWS} rows a kv head), got "
+                f"{rows}: the int8 KV cache exists in decode alone")
+        scales = {"k_scale": k_scale, "v_scale": v_scale}
     return _forward(q)(q, k, v, q_pos, k_pos, causal=causal, window=window,
-                       partial=partial)
+                       partial=partial, **scales)
 
 
 def _backward(q):

@@ -29,13 +29,24 @@ def mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
     return ok
 
 
+def dequantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 K or V (B, Sk, KV, hd) with f32 scales (B, Sk, KV) -> f32."""
+    return x.float() * scale[..., None]
+
+
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                     window: int = -1, partial: bool = False,
-                    stats: bool = False):
+                    stats: bool = False, k_scale=None, v_scale=None):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); q_pos: (B, Sq), k_pos:
     (B, Sk) int. Returns (B, Sq, H, hd) in q's dtype, or with ``partial``
     the f32 ``(acc (B, H, Sq, hd), m (B, H, Sq), l (B, H, Sq))``, or with
-    ``stats`` the output and the row statistics ``(out, m, l)``."""
+    ``stats`` the output and the row statistics ``(out, m, l)``. With
+    ``k_scale`` / ``v_scale`` (B, Sk, KV) f32, k and v are int8 codes (the
+    int8 KV cache) and attention runs on ``dequantize(k, k_scale)`` and
+    ``dequantize(v, v_scale)``: the function of the kernel's int8 decode
+    form."""
+    if k_scale is not None:
+        k, v = dequantize(k, k_scale), dequantize(v, v_scale)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV

@@ -2,17 +2,29 @@
 generation, on a virtual PE cube held in one process.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
-        --batch 4 --prompt-len 32 --gen 16 --pes 8
+        --batch 4 --prompt-len 32 --gen 16 --pes 8 \
+        [--cache-dtype int8] [--resident]
 
 The port of ``repro.launch.serve``: ``--pes N`` (default 1) stands in for
 the JAX launcher's device count. ``--arch`` takes the ported archs:
-qwen3-1.7b, phi3-mini-3.8b (head_dim 96), gemma3-1b (head_dim 256, 5:1
-local:global windows), qwen2-moe-a2.7b, mixtral-8x7b and rwkv6-7b. It runs on CUDA unless ``--device cpu`` is
-given, and raises when no GPU is visible. Prints the decode ms per step,
-tokens/s and the launch counts of the flash, reorder and RWKV6 kernels (an
-MoE model's all_to_alls run on the reorder kernel; the RWKV6 kernel runs on
-the forward and prefill paths, so this loop of decode steps, which takes
-the one-token recurrence, launches it 0 times).
+qwen3-1.7b, internlm2-20b (48 / 8 heads of 128), phi3-mini-3.8b
+(head_dim 96), gemma3-1b (head_dim 256, 5:1 local:global windows),
+qwen2-moe-a2.7b, mixtral-8x7b, rwkv6-7b and whisper-base. whisper-base is
+an encoder-decoder: its audio frames (the frontend's stub: precomputed
+frame embeddings, S_ctx of them, drawn from ``--seed``) and its prompt go
+through ``Server.prefill_shard``, which runs the encoder and fills the
+self and cross caches, and the loop decodes from there; the other archs
+take the prompt through decode steps, as the JAX launcher does.
+``--cache-dtype int8`` serves from the int8 KV cache
+(``make_serve_plan(cache_dtype=)``) and ``--resident`` with resident
+weights (``Server(resident=)``), the two serving knobs of the reference's
+``Server``. It runs on CUDA unless ``--device cpu`` is given, and raises
+when no GPU is visible. Prints the decode ms per step, tokens/s and the
+launch counts of the flash kernel (its int8 decode form apart), the
+reorder and RWKV6 kernels (an MoE model's all_to_alls run on the reorder
+kernel; the RWKV6 kernel runs on the forward and prefill paths, so this
+loop of decode steps, which takes the one-token recurrence, launches it 0
+times).
 """
 from __future__ import annotations
 
@@ -35,30 +47,39 @@ from repro_torch.models.topology import build_serve_topology
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           smoke: bool = False, pes: int = 1, device=None, seed: int = 0,
           dtype: torch.dtype = torch.bfloat16, params=None,
-          keep_logits: bool = False, n_layers: int | None = None) -> dict:
+          keep_logits: bool = False, n_layers: int | None = None,
+          cache_dtype: str = "bf16", resident: bool = False,
+          cfg=None) -> dict:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and generate
     ``gen`` tokens each. Weights are random from ``seed`` unless ``params``
     (cube tensors on the serve topology) are given. ``n_layers`` cuts the
-    model's depth (the widths stay the arch's).
+    model's depth (the widths stay the arch's); ``cfg`` replaces the arch's
+    config. ``cache_dtype`` and ``resident`` are the plan's and the
+    server's knobs.
 
     Returns the run's record: ``tokens`` (B, prompt_len + gen) -- the
     prompt, then the greedy tokens -- ``step_ms`` per decode step,
     ``ms_per_step`` (median after the first step), ``tok_per_s`` (B tokens
     per step over the whole decode loop), ``flash_launches``,
-    ``reorder_launches``, ``rwkv6_launches``, and with
-    ``keep_logits`` every step's global logits (B, V_padded)."""
+    ``flash_int8_launches`` (the int8 decode form's), ``reorder_launches``,
+    ``rwkv6_launches``, ``prefill`` (whether the prompt went through
+    ``prefill_shard``: an encoder-decoder's does, with its ``frames``),
+    ``prefill_s``, and with ``keep_logits`` every step's global logits (B,
+    V_padded), from the prefill's if there is one."""
     dev = resolve_device(device)
-    cfg = configs.get(arch)
-    if smoke:
-        cfg = cfg.scaled_for_smoke()
+    if cfg is None:
+        cfg = configs.get(arch)
+        if smoke:
+            cfg = cfg.scaled_for_smoke()
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     topo = build_serve_topology(cfg, pes)
     S_ctx = prompt_len + gen
-    plan = make_serve_plan(cfg, topo, S_ctx=S_ctx, global_batch=batch)
-    server = Server(cfg, topo, plan, dtype=dtype)
+    plan = make_serve_plan(cfg, topo, S_ctx=S_ctx, global_batch=batch,
+                           cache_dtype=cache_dtype)
+    server = Server(cfg, topo, plan, dtype=dtype, resident=resident)
     if params is None:
-        params = init_params(cfg, topo, seed, device=dev)
+        params = init_params(cfg, topo, seed, device=dev, resident=resident)
     cache = init_cache(cfg, topo, plan, dtype=dtype, device=dev)
     cube = topo.cube
     ba = plan.batch_axes or None
@@ -67,18 +88,37 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     prompt = rng.randint(0, cfg.vocab_size, (batch, prompt_len))
     tokens = torch.zeros((batch, S_ctx), dtype=torch.int64, device=dev)
     tokens[:, :prompt_len] = torch.from_numpy(prompt).to(dev)
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = torch.from_numpy(rng.uniform(
+            -0.5, 0.5, (batch, S_ctx, cfg.frontend_dim)).astype(np.float32))
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    launches0 = flash.LAUNCHES, reorder.LAUNCHES, rwkv6.LAUNCHES
+    launches0 = (flash.LAUNCHES, flash.INT8_LAUNCHES, reorder.LAUNCHES,
+                 rwkv6.LAUNCHES)
     step_ms, all_logits = [], []
     sync()
     t_start = time.perf_counter()
-    # teacher-forced "prefill" via decode steps (keeps the launcher
-    # single-path), then free-running greedy generation
-    for t in range(S_ctx - 1):
+    start, prefill_s = 0, None
+    if frames is not None:
+        # the encoder and the prompt in one prefill, which fills the
+        # self and cross caches; decode goes on from the prompt's end
+        logits, cache = server.prefill_shard(params, {
+            "tokens": cube.to_cube(tokens[:, :prompt_len], (ba, None)),
+            "frames": cube.to_cube(frames.to(dev), (ba, None, None))})
+        logits = cube.from_cube(logits, (ba, topo.tp))
+        tokens[:, prompt_len] = logits.argmax(dim=-1)
+        if keep_logits:
+            all_logits.append(logits)
+        sync()
+        prefill_s = time.perf_counter() - t_start
+        start = prompt_len
+    # otherwise a teacher-forced "prefill" via decode steps (keeps the
+    # launcher single-path), then free-running greedy generation
+    for t in range(start, S_ctx - 1):
         t0 = time.perf_counter()
         pos = torch.full((batch,), t, dtype=torch.int64, device=dev)
         logits, cache = server.decode_shard(
@@ -94,13 +134,16 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     wall = time.perf_counter() - t_start
     return {
         "cfg": cfg, "topo": topo, "plan": plan, "params": params,
+        "server": server, "cache": cache, "frames": frames,
         "tokens": tokens.cpu().numpy(),
         "step_ms": step_ms,
         "ms_per_step": float(np.median(step_ms[1:] or step_ms)),
-        "tok_per_s": batch * len(step_ms) / wall,
+        "tok_per_s": batch * (len(step_ms) + (start > 0)) / wall,
         "flash_launches": flash.LAUNCHES - launches0[0],
-        "reorder_launches": reorder.LAUNCHES - launches0[1],
-        "rwkv6_launches": rwkv6.LAUNCHES - launches0[2],
+        "flash_int8_launches": flash.INT8_LAUNCHES - launches0[1],
+        "reorder_launches": reorder.LAUNCHES - launches0[2],
+        "rwkv6_launches": rwkv6.LAUNCHES - launches0[3],
+        "prefill": start > 0, "prefill_s": prefill_s,
         "logits": all_logits,
     }
 
@@ -118,18 +161,27 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cache-dtype", default="bf16", choices=("bf16", "int8"),
+                    help="the KV cache: the compute dtype, or int8 codes "
+                         "with f32 scales (make_serve_plan's cache_dtype)")
+    ap.add_argument("--resident", action="store_true",
+                    help="weights replicated over the data axis "
+                         "(Server's resident)")
     args = ap.parse_args(argv)
 
     run = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                 gen=args.gen, smoke=args.smoke, pes=args.pes,
-                device=args.device, seed=args.seed)
+                device=args.device, seed=args.seed,
+                cache_dtype=args.cache_dtype, resident=args.resident)
     gen = run["tokens"][:, args.prompt_len:]
     print(f"arch={run['cfg'].name} cube={run['topo'].cube.describe()} "
-          f"cache={run['plan'].S_cache}")
+          f"cache={run['plan'].S_cache} {run['plan'].cache_dtype}"
+          + (f" prefill {run['prefill_s']:.3f} s" if run["prefill"] else ""))
     print(f"generated {gen.shape} tokens; sample row: {gen[0][:12]}")
     print(f"decode {run['ms_per_step']:.3f} ms/step, "
           f"{run['tok_per_s']:.1f} tok/s, "
-          f"flash kernel launches={run['flash_launches']}, "
+          f"flash kernel launches={run['flash_launches']} "
+          f"(int8 decode form {run['flash_int8_launches']}), "
           f"reorder kernel launches={run['reorder_launches']}, "
           f"rwkv6 kernel launches={run['rwkv6_launches']}")
     return run

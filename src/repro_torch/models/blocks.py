@@ -18,8 +18,11 @@ Ported: attention (self, with the ``fused_comm`` routing through
 layout), the dense FFN (also fused), the MoE FFN with both dispatches
 (``"scatter"`` and ``"sort"``), and the RWKV6 time-mix (its recurrence on
 the RWKV6 kernel, ``ssm.rwkv6_chunked``) and channel-mix with their decode
-forms. The int8 KV cache, cross-attention and Mamba wait for later
-slices.
+forms; the encoder-decoder's cross-attention (``attn_block(cross_src=,
+prefix="x")``, ``attn_decode(cross=True)``) and the int8 KV cache (the
+paper's §V-C 8-bit layout: int8 codes and one f32 scale a (slot, kv
+head), read by the flash kernel's int8 decode form). Mamba waits for a
+later slice.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import ssm
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, FULL_WINDOW
 from repro_torch.models.layers import (
     rms_norm, rope, chunked_attention, finish_partial_attention,
     cube_matmul, pe_slice)
@@ -53,7 +56,8 @@ def gather_params(w: dict, specs: dict, topo: Topology,
 
 
 # ---------------------------------------------------------------- attention
-def _split_qkv(cfg: ModelConfig, topo: Topology, hn_q, hn_kv, w):
+def _split_qkv(cfg: ModelConfig, topo: Topology, hn_q, hn_kv, w,
+               prefix: str = ""):
     """Project and reshape q/k/v with GQA head bookkeeping. Returns
     q: (*cube, B, Sq, Hl, hd), k, v: (*cube, B, Sk, KVl, hd), and every KV
     head's (k, v) (*cube, B, Sk, KV, hd) where the heads are replicated
@@ -63,12 +67,12 @@ def _split_qkv(cfg: ModelConfig, topo: Topology, hn_q, hn_kv, w):
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     t = topo.tp_size
     Hl = H // t
-    q = cube_matmul(hn_q, w["wq"], cn)
+    q = cube_matmul(hn_q, w[prefix + "wq"], cn)
     B, Sq = q.shape[cn], q.shape[cn + 1]
     q = q.reshape(cube + (B, Sq, Hl, hd))
     # wkv columns are laid out (KV, 2, hd): whole kv heads stay contiguous
     # so column-sharding over tp slices whole (k, v) head pairs
-    kvp = cube_matmul(hn_kv, w["wkv"], cn)
+    kvp = cube_matmul(hn_kv, w[prefix + "wkv"], cn)
     Sk = kvp.shape[cn + 1]
     if kv_is_sharded(cfg, topo):
         kv = kvp.reshape(cube + (B, Sk, KV // t, 2, hd))
@@ -90,9 +94,17 @@ def _split_qkv(cfg: ModelConfig, topo: Topology, hn_q, hn_kv, w):
 
 
 def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
-               window: int, causal: bool = True, out_cache: bool = False,
+               window: int, causal: bool = True, cross_src=None,
+               prefix: str = "", out_cache: bool = False,
                prompt_len: int = 0, cache_len: int = 0):
     """Sequence-parallel attention block. x_sp: (*cube, B, S_sp, D).
+
+    ``cross_src``: the encoder's output (*cube, B, S_enc, D), full
+    sequence, as the K/V source of the decoder's cross-attention (leaves
+    named ``prefix + ...``): not causal, no window, no RoPE, no qk norm,
+    and never the fused route. With ``out_cache`` it returns the cross K/V
+    in the decode layout of all S_enc positions (``cache_len`` is then
+    S_enc).
 
     ``cfg.fused_comm`` reroutes the collectives through
     ``repro_torch.kernels.collective``: the tp gather fuses the
@@ -107,7 +119,8 @@ def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
     every KV head on every PE."""
     cn = topo.cube.ndim
     tpc = topo.comm(topo.tp)
-    fused = cfg.fused_comm and not out_cache
+    cross = cross_src is not None
+    fused = cfg.fused_comm and not out_cache and not cross
     if fused:
         from repro_torch.kernels.collective import (
             all_gather_matmul, matmul_reduce_scatter, ring_attention)
@@ -119,26 +132,29 @@ def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
         kv_src = hn                                           # (.., B, S_cp, D)
     else:
         h = tpc.all_gather(x_sp, axis=1)                      # (.., B, S_cp, D)
-        hn = rms_norm(h, w["ln"], cfg.norm_eps)
-        if topo.cp:
+        hn = rms_norm(h, w[prefix + "ln"], cfg.norm_eps)
+        if cross:
+            kv_src, causal, window = cross_src, False, FULL_WINDOW
+        elif topo.cp:
             full = topo.comm(topo.cp).all_gather(h, axis=1)   # (.., B, S, D)
             kv_src = rms_norm(full, w["ln"], cfg.norm_eps)
         else:
             kv_src = hn
-    q, k, v, kv_all = _split_qkv(cfg, topo, hn, kv_src, w)
+    q, k, v, kv_all = _split_qkv(cfg, topo, hn, kv_src, w, prefix)
     B, Sq = q.shape[cn], q.shape[cn + 1]
-    if cfg.qk_norm:
+    if cfg.qk_norm and not prefix:
         q = rms_norm(q, w["q_norm"], cfg.norm_eps)
         k = rms_norm(k, w["k_norm"], cfg.norm_eps)
     dev = x_sp.device
     q_off = topo.axis_index(topo.cp, dev) * Sq                # (*cube)
-    q = rope(q, q_off[..., None, None] + torch.arange(Sq, device=dev),
-             cfg.rope_theta)
-    # fused: k is this PE's chunk, so its positions carry q's offset;
-    # unfused: k is the assembled sequence from 0
-    k_off = q_off[..., None, None] if fused else 0
-    k = rope(k, k_off + torch.arange(k.shape[cn + 1], device=dev),
-             cfg.rope_theta)
+    if not cross:
+        q = rope(q, q_off[..., None, None] + torch.arange(Sq, device=dev),
+                 cfg.rope_theta)
+        # fused: k is this PE's chunk, so its positions carry q's offset;
+        # unfused: k is the assembled sequence from 0
+        k_off = q_off[..., None, None] if fused else 0
+        k = rope(k, k_off + torch.arange(k.shape[cn + 1], device=dev),
+                 cfg.rope_theta)
     if fused and topo.cp:
         o = ring_attention(topo.comm(topo.cp), q, k, v, causal=causal,
                            window=window)
@@ -149,7 +165,7 @@ def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
     if fused:
         out = matmul_reduce_scatter(tpc, o, w["wo"], axis=1)
     else:
-        out = cube_matmul(o, w["wo"], cn)                     # partial over tp
+        out = cube_matmul(o, w[prefix + "wo"], cn)            # partial over tp
         out = tpc.reduce_scatter(out, axis=1)
     y = x_sp + out
     if not out_cache:
@@ -157,10 +173,11 @@ def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
     if kv_all is not None:
         # replicated heads: every PE has computed all of them
         k, v = kv_all
-        if cfg.qk_norm:
+        if cfg.qk_norm and not prefix:
             k = rms_norm(k, w["k_norm"], cfg.norm_eps)
-        k = rope(k, torch.arange(k.shape[cn + 1], device=dev),
-                 cfg.rope_theta)
+        if not cross:
+            k = rope(k, torch.arange(k.shape[cn + 1], device=dev),
+                     cfg.rope_theta)
     return y, _decode_cache_kv(cfg, topo, k, v, prompt_len, cache_len)
 
 
@@ -200,37 +217,71 @@ def _decode_cache_kv(cfg, topo, k, v, S: int, S_cache: int):
 def _write_slots(cache: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
                  in_rng: torch.Tensor, cn: int) -> None:
     """In place: ``cache[pe, b, idx[pe, b]] = new[pe, b]`` where
-    ``in_rng[pe, b]``. cache: (*cube, B, S_loc, KV, hd); new:
-    (*cube, B, KV, hd); idx, in_rng: (*cube, B)."""
+    ``in_rng[pe, b]``. cache: (*cube, B, S_loc, *tail) (tail (KV, hd) of
+    K/V, (KV,) of an int8 cache's scales); new: (*cube, B, *tail); idx,
+    in_rng: (*cube, B)."""
     lead = tuple(cache.shape[:cn + 1])
     ix = tuple(torch.arange(s, device=cache.device).reshape(
         (1,) * a + (s,) + (1,) * (cn - a)) for a, s in enumerate(lead))
     key = ix + (idx,)
-    cache[key] = torch.where(in_rng[..., None, None],
-                             new.to(cache.dtype), cache[key])
+    ok = in_rng.reshape(tuple(in_rng.shape)
+                        + (1,) * (new.dim() - in_rng.dim()))
+    cache[key] = torch.where(ok, new.to(cache.dtype), cache[key])
+
+
+def quantize_kv(x: torch.Tensor):
+    """The int8 cache's codes and scales of new K or V rows (*lead, hd), as
+    the reference computes them (``repro.models.blocks.attn_decode``): the
+    scale ``max(absmax over hd, 1e-6) / 127`` in x's dtype, the codes
+    ``round(x / scale)`` (half to even) in x's dtype, cast to int8; the
+    scale is stored in f32. The codes are clamped to [-127, 127] before
+    the cast: a bf16 quotient can round up to 128, which int8 does not
+    hold (the reference casts it unclamped)."""
+    s = torch.clamp_min(x.abs().amax(dim=-1), 1e-6) / 127.0
+    q = torch.round(x / s[..., None]).clamp_(-127, 127).to(torch.int8)
+    return q, s.float()
 
 
 def attn_decode(cfg: ModelConfig, topo: Topology, w: dict, x, c: dict, pos,
-                *, window: int, kv_axes, rolling: bool, dtype: torch.dtype):
+                *, window: int, kv_axes, rolling: bool, dtype: torch.dtype,
+                prefix: str = "", cross: bool = False, keys=("k", "v")):
     """Flash-decode one token. x: (*cube, B, D) replicated over the model
-    axes; c["k"], c["v"]: (*cube, B, S_loc, KV, hd) cache chunks,
+    axes; c[keys[0]], c[keys[1]]: (*cube, B, S_loc, KV, hd) cache chunks,
     sequence-sharded over ``kv_axes``, written IN PLACE (the new token's
     slot); pos: (*cube, B) per-request positions. ``rolling``: cache length
-    < context (sliding window), slot = pos % S_cache. Returns the new x."""
+    < context (sliding window), slot = pos % S_cache. Scales
+    ``c[key + "_s"]`` (*cube, B, S_loc, KV) f32 mark an int8 cache: the new
+    token's K/V are quantized (``quantize_kv``) and the flash kernel reads
+    the codes and scales. ``cross``: the cross-attention over the encoder's
+    K/V (``keys`` ("xk", "xv"), leaves ``prefix`` "x"): nothing is
+    written, every slot is attended, no RoPE. Returns the new x."""
     cn = topo.cube.ndim
     cube = topo.cube.dim_sizes
-    cache_k, cache_v = c["k"], c["v"]
+    kk, vk = keys
+    cache_k, cache_v = c[kk], c[vk]
+    scales = (c[kk + "_s"], c[vk + "_s"]) if kk + "_s" in c else (None, None)
     tpc = topo.comm(topo.tp)
     kvc = topo.comm(kv_axes)
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B = x.shape[cn]
     dev = x.device
-    hn = rms_norm(x.unsqueeze(-2), w["ln"], cfg.norm_eps)    # (.., B, 1, D)
+    hn = rms_norm(x.unsqueeze(-2), w[prefix + "ln"],
+                  cfg.norm_eps)                                # (.., B, 1, D)
     t = topo.tp_size
+    n_shards = topo.size(kv_axes)
+    S_loc = cache_k.shape[cn + 1]
+    my_lo = topo.axis_index(kv_axes, dev) * S_loc              # (*cube)
+    slots = my_lo[..., None] + torch.arange(S_loc, device=dev)  # (*cube, S)
 
     # q: local columns -> gather flat then reshape (supports tp > heads)
-    q = cube_matmul(hn, w["wq"], cn)                           # (.., B, 1, cols)
+    q = cube_matmul(hn, w[prefix + "wq"], cn)              # (.., B, 1, cols)
     q = tpc.all_gather(q, axis=2).reshape(cube + (B, 1, H, hd))
+    if cross:
+        # the encoder's K/V, every slot valid
+        k_pos = slots[..., None, :].expand(cube + (B, S_loc))
+        return _attend_decode(topo, w, x, q, cache_k, cache_v, scales, pos,
+                              k_pos, kvc, causal=False, window=FULL_WINDOW,
+                              prefix=prefix, dtype=dtype)
     kvp = cube_matmul(hn, w["wkv"], cn)
     if kv_is_sharded(cfg, topo):
         kvp = tpc.all_gather(kvp, axis=2)
@@ -243,35 +294,48 @@ def attn_decode(cfg: ModelConfig, topo: Topology, w: dict, x, c: dict, pos,
     k_new = _rope_decode(k_new.unsqueeze(-3), pos, cfg.rope_theta).squeeze(-3)
 
     # write into my cache chunk
-    n_shards = topo.size(kv_axes)
-    S_loc = cache_k.shape[cn + 1]
     S_cache = S_loc * n_shards
-    my_lo = topo.axis_index(kv_axes, dev) * S_loc              # (*cube)
     slot = (pos % S_cache) if rolling else pos                 # (*cube, B)
     loc = slot - my_lo[..., None]
     in_rng = (loc >= 0) & (loc < S_loc)
     idx = loc.clamp(0, S_loc - 1)
+    if scales[0] is not None:
+        (k_new, k_s), (v_new, v_s) = quantize_kv(k_new), quantize_kv(v_new)
+        _write_slots(scales[0], k_s, idx, in_rng, cn)
+        _write_slots(scales[1], v_s, idx, in_rng, cn)
     _write_slots(cache_k, k_new, idx, in_rng, cn)
     _write_slots(cache_v, v_new, idx, in_rng, cn)
     # key positions of my slots
-    slots = my_lo[..., None] + torch.arange(S_loc, device=dev)  # (*cube, S)
     if rolling:
         k_pos = pos[..., None] - (pos[..., None] - slots[..., None, :]) \
             % S_cache
     else:
         k_pos = slots[..., None, :].expand(cube + (B, S_loc))
+    return _attend_decode(topo, w, x, q, cache_k, cache_v, scales, pos,
+                          k_pos, kvc, causal=True, window=window,
+                          prefix=prefix, dtype=dtype)
 
-    # partial attention over my chunk (all heads), LSE-combined over shards
-    acc, m, l = chunked_attention(q, cache_k, cache_v, causal=True,
+
+def _attend_decode(topo, w, x, q, cache_k, cache_v, scales, pos, k_pos, kvc,
+                   *, causal: bool, window: int, prefix: str, dtype):
+    """Partial attention of q (*cube, B, 1, H, hd) over my cache chunk (all
+    heads; an int8 chunk with its ``scales``), LSE-combined over the shards
+    of ``kvc``, then the out projection: x plus the result."""
+    cn = topo.cube.ndim
+    cube = topo.cube.dim_sizes
+    B, H, hd = q.shape[cn], q.shape[cn + 2], q.shape[cn + 3]
+    acc, m, l = chunked_attention(q, cache_k, cache_v, causal=causal,
                                   window=window, q_pos=pos[..., None],
-                                  k_pos=k_pos, partial=True)
+                                  k_pos=k_pos, partial=True,
+                                  k_scale=scales[0], v_scale=scales[1])
     o = finish_partial_attention(acc, m, l, comm=kvc, dtype=dtype)
 
     # out projection: my slice of the flattened head dim (wo row shard)
-    me = topo.axis_index(topo.tp, dev)
-    rows = (H * hd) // t
+    me = topo.axis_index(topo.tp, x.device)
+    rows = (H * hd) // topo.tp_size
     o_loc = pe_slice(o.reshape(cube + (B, H * hd)), me * rows, rows, 1, cn)
-    out = tpc.all_reduce(cube_matmul(o_loc, w["wo"], cn))
+    out = topo.comm(topo.tp).all_reduce(
+        cube_matmul(o_loc, w[prefix + "wo"], cn))
     return x + out.to(x.dtype)
 
 

@@ -77,7 +77,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = -1, q_offset=0,
                       k_offset=0, q_pos: torch.Tensor | None = None,
                       k_pos: torch.Tensor | None = None,
-                      partial: bool = False):
+                      partial: bool = False,
+                      k_scale: torch.Tensor | None = None,
+                      v_scale: torch.Tensor | None = None):
     """Flash attention with GQA, sliding window and global positions.
 
     q: (*lead, Sq, H, hd); k, v: (*lead, Sk, KV, hd), H % KV == 0. Query
@@ -91,6 +93,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l (*lead, H, Sq))`` for an LSE combine across shards (head h = kv
     head h // G, group member h % G: the JAX package's (KV, G) axes
     flattened).
+
+    ``k_scale``, ``v_scale`` (*lead, Sk, KV) f32 mark int8 k / v (the int8
+    KV cache): key j of kv head h is ``k[j, h] * k_scale[j, h]``. Only the
+    decode form reads them (Sq * G <= 8 rows a kv head), and not under
+    grad.
 
     Under grad it goes through ``FlashAttention``, whose forward also
     writes the row statistics the backward reads. Without grad (serving)
@@ -110,7 +117,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             v.reshape(n, Sk, KV, hd).contiguous(),
             q_pos.expand(lead + (Sq,)).reshape(n, Sq).to(torch.int32),
             k_pos.expand(lead + (Sk,)).reshape(n, Sk).to(torch.int32))
+    scales = {}
+    if k_scale is not None:
+        scales = {"k_scale": k_scale.reshape(n, Sk, KV).contiguous(),
+                  "v_scale": v_scale.reshape(n, Sk, KV).contiguous()}
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if scales:
+            raise NotImplementedError(
+                "chunked_attention over an int8 cache under grad: the int8 "
+                "KV cache is a decode-time layout")
         if partial:
             raise NotImplementedError(
                 "chunked_attention(partial=True) under grad: training "
@@ -119,7 +134,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = attention_ops.FlashAttention.apply(*args, causal, window)
         return out.reshape(lead + (Sq, H, hd))
     res = attention_ops.flash_attention(*args, causal=causal, window=window,
-                                        partial=partial)
+                                        partial=partial, **scales)
     if partial:
         acc, m, l = res
         return (acc.reshape(lead + (H, Sq, hd)), m.reshape(lead + (H, Sq)),

@@ -8,9 +8,11 @@ stacked units is a Python loop. The compute dtype is an explicit argument
 
 Ported: token embedding (vocab-parallel), the trunk of attention layers
 with dense or MoE FFNs and of RWKV6 layers (time-mix + channel-mix), with
-the per-position remat of the training path, the training loss
-(``loss_shard``) and ``forward_logits``. The encoder and the patch
-frontend wait for later slices.
+the per-position remat of the training path, the encoder-decoder's
+encoder (``encode``: the audio frontend's projected frames through
+non-causal attention layers) and the decoder's cross-attention, the
+training loss (``loss_shard``) and ``forward_logits``; resident serve
+weights (``resident=True``). The patch frontend waits for a later slice.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
-from repro_torch.models.config import ModelConfig, MOE, RWKV, RWKVCM
+from repro_torch.models.config import (
+    ModelConfig, FULL_WINDOW, MOE, RWKV, RWKVCM)
 from repro_torch.models.layers import rms_norm, cube_matmul, pe_slice
 from repro_torch.models.params import param_specs
 from repro_torch.models.topology import Topology
@@ -33,11 +36,15 @@ CE_CHUNK = 512
 
 class Model:
     def __init__(self, cfg: ModelConfig, topo: Topology, *,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 resident: bool = False):
+        """``resident``: serve-time weights replicated over the data axis
+        (``params.drop_axis``): place them with ``init_params(...,
+        resident=True)``, and no layer gathers them over ``data``."""
         self.cfg = cfg
         self.topo = topo
         self.dtype = dtype
-        self.specs = param_specs(cfg, topo)
+        self.specs = param_specs(cfg, topo, resident=resident)
         self.unit = cfg.unit()
         self.n_units = cfg.n_layers // self.unit
         self.mixers = cfg.mixers()[: self.unit]
@@ -48,6 +55,9 @@ class Model:
         self.unit_specs = {
             pos: {k: tuple(s)[1:] for k, s in self.specs["units"][pos].items()}
             for pos in self.specs["units"]}
+        if cfg.is_encoder_decoder:
+            self.enc_specs = {k: tuple(s)[1:] for k, s
+                              in self.specs["enc_units"]["p0"].items()}
 
     def unit_params(self, params, u: int, p: int) -> dict:
         """Unit ``u``'s stacked leaves at position ``p`` (cube views)."""
@@ -93,20 +103,77 @@ class Model:
                                  topo.cube.ndim)
         return topo.comm(topo.tp).reduce_scatter(x_partial, axis=1)
 
+    def _slice_sp(self, x_full):
+        """Replicated full-seq (*cube, B, S, D) -> my sp chunk (no
+        reduction)."""
+        topo = self.topo
+        S_sp = x_full.shape[topo.cube.ndim + 1] // topo.size(topo.sp)
+        me = topo.axis_index(topo.sp, x_full.device)
+        return pe_slice(x_full, me * S_sp, S_sp, 1, topo.cube.ndim)
+
     def embed_input(self, params, batch):
-        """-> x_sp (*cube, B, S_sp, D). batch["tokens"]: (*cube, B, S)."""
-        if self.cfg.frontend:
+        """-> x_sp (*cube, B, S_sp, D) for the decoder / self stack.
+        batch["tokens"]: (*cube, B, S). The audio frontend's frames feed
+        the encoder (``encode``), not this embedding."""
+        if self.cfg.frontend not in ("", "audio"):
             raise NotImplementedError(
                 f"{self.cfg.name}: the {self.cfg.frontend!r} frontend is not "
                 "ported to repro_torch yet")
         emb_l = self._gather_embed(params)
         return self._to_sp(self._embed_tokens(emb_l, batch["tokens"]))
 
+    def _gathered(self, params, name: str):
+        return blocks.gather_params({"w": params[name]},
+                                    {"w": self.specs[name]}, self.topo,
+                                    self.dtype)["w"]
+
+    def _enc_layer(self, x_sp, w_shards):
+        w = blocks.gather_params(w_shards, self.enc_specs, self.topo,
+                                 self.dtype)
+        x_sp = blocks.attn_block(self.cfg, self.topo, w, x_sp,
+                                 window=FULL_WINDOW, causal=False)
+        return blocks.dense_ffn(self.cfg, self.topo, w, x_sp)
+
+    def encode(self, params, frames, *, remat: bool = False):
+        """The encoder of an encoder-decoder model. frames: (*cube, B,
+        S_enc, frontend_dim), replicated over the model axes. Returns the
+        encoder output, full sequence (*cube, B, S_enc, D): the frames
+        projected by ``frontend_proj``, sliced over sp, through the
+        non-causal attention + dense FFN layers (each under a checkpoint
+        with ``remat``, as the reference's scan body), gathered over sp and
+        normed by ``enc_final_norm``."""
+        topo = self.topo
+        cn = topo.cube.ndim
+        x = cube_matmul(frames.to(self.dtype),
+                        self._gathered(params, "frontend_proj"), cn)
+        x_sp = self._slice_sp(x)
+        for w in self.unit_slices(params["enc_units"]["p0"]):
+            if remat:
+                x_sp = checkpoint(self._enc_layer, x_sp, w,
+                                  use_reentrant=False)
+            else:
+                x_sp = self._enc_layer(x_sp, w)
+        full = topo.comm(topo.sp).all_gather(x_sp, axis=1)
+        return rms_norm(full, self._gathered(params, "enc_final_norm"),
+                        self.cfg.norm_eps)
+
+    def unit_slices(self, stacked: dict) -> list:
+        """The per-unit leaves of stacked ``{name: (*cube, n, ...)}``, one
+        dict a unit: the leaves are unbound once, so each one's gradient
+        is one stack of the per-unit gradients."""
+        cn = self.topo.cube.ndim
+        parts = {k: v.unbind(cn) for k, v in stacked.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[u] for k, v in parts.items()} for u in range(n)]
+
     # ------------------------------------------------------------ the trunk
-    def _position_fn(self, x_sp, w_shards, window: int, *, p: int):
+    def _position_fn(self, x_sp, w_shards, enc_out=None, *, window: int,
+                     p: int):
         """One layer (mixer + ffn) at unit position ``p``, from sharded
-        params. Returns (x_sp, aux): aux is the MoE load-balance loss per
-        PE (*cube), zero for the other FFNs."""
+        params; an encoder-decoder's attention layer attends to
+        ``enc_out`` after itself (cross-attention). Returns (x_sp, aux):
+        aux is the MoE load-balance loss per PE (*cube), zero for the other
+        FFNs."""
         cfg, topo = self.cfg, self.topo
         w = blocks.gather_params(w_shards, self.unit_specs[f"p{p}"], topo,
                                  self.dtype)
@@ -116,6 +183,10 @@ class Model:
             x_sp = blocks.rwkv_mix(cfg, topo, w, x_sp)
         else:
             x_sp = blocks.attn_block(cfg, topo, w, x_sp, window=window)
+            if enc_out is not None:
+                x_sp = blocks.attn_block(cfg, topo, w, x_sp,
+                                         window=FULL_WINDOW,
+                                         cross_src=enc_out, prefix="x")
         if ffn == MOE:
             x_sp, aux = blocks.moe_ffn(cfg, topo, w, x_sp)
             return x_sp, aux.float()
@@ -125,7 +196,7 @@ class Model:
             x_sp = blocks.dense_ffn(cfg, topo, w, x_sp)
         return x_sp, x_sp.new_zeros(topo.cube.dim_sizes, dtype=torch.float32)
 
-    def trunk(self, params, x_sp, *, remat: bool = False):
+    def trunk(self, params, x_sp, *, enc_out=None, remat: bool = False):
         """The unit stack, as a loop over units and positions. Returns
         (x_sp, aux) with aux the summed MoE load-balance loss (*cube).
         ``remat`` runs each position under ``torch.utils.checkpoint``
@@ -134,34 +205,37 @@ class Model:
         and activations, recomputing the position's forward. The stacked
         leaves are unbound once, so each leaf's gradient is one stack of
         the per-unit gradients."""
-        cn = self.topo.cube.ndim
-        stacked = {pos: {k: v.unbind(cn) for k, v in ws.items()}
+        stacked = {pos: self.unit_slices(ws)
                    for pos, ws in params["units"].items()}
         aux = x_sp.new_zeros(self.topo.cube.dim_sizes, dtype=torch.float32)
         for u in range(self.n_units):
             for p in range(self.unit):
-                w = {k: v[u] for k, v in stacked[f"p{p}"].items()}
+                w = stacked[f"p{p}"][u]
                 fn = functools.partial(self._position_fn,
                                        window=int(self.windows[u, p]), p=p)
                 if remat:
-                    x_sp, a = checkpoint(fn, x_sp, w, use_reentrant=False)
+                    x_sp, a = checkpoint(fn, x_sp, w, enc_out,
+                                         use_reentrant=False)
                 else:
-                    x_sp, a = fn(x_sp, w)
+                    x_sp, a = fn(x_sp, w, enc_out)
                 aux = aux + a
         return x_sp, aux
 
     # ------------------------------------------------------------- the head
     def final_norm(self, params):
-        return blocks.gather_params(
-            {"n": params["final_norm"]}, {"n": self.specs["final_norm"]},
-            self.topo, self.dtype)["n"]
+        return self._gathered(params, "final_norm")
 
     def _head(self, params):
         if self.cfg.tie_embeddings:
             return self._gather_embed(params).transpose(-2, -1)  # (.., D, Vl)
-        return blocks.gather_params(
-            {"h": params["lm_head"]}, {"h": self.specs["lm_head"]},
-            self.topo, self.dtype)["h"]
+        return self._gathered(params, "lm_head")
+
+    def _encoded(self, params, batch, *, remat: bool = False):
+        """The encoder's output for ``batch["frames"]`` (None for a
+        decoder-only model)."""
+        if not self.cfg.is_encoder_decoder:
+            return None
+        return self.encode(params, batch["frames"], remat=remat)
 
     # ------------------------------------------------------------- the loss
     def loss_shard(self, params, batch):
@@ -184,8 +258,9 @@ class Model:
         if topo.cp:
             raise ValueError("context parallelism is an inference-only path")
         cn = topo.cube.ndim
+        enc_out = self._encoded(params, batch, remat=True)
         x_sp = self.embed_input(params, batch)
-        x_sp, aux = self.trunk(params, x_sp, remat=True)
+        x_sp, aux = self.trunk(params, x_sp, enc_out=enc_out, remat=True)
         full = topo.comm(topo.sp).all_gather(x_sp, axis=1)
         hn = rms_norm(full, self.final_norm(params), cfg.norm_eps)
         head = self._head(params)
@@ -229,8 +304,9 @@ class Model:
     def forward_logits(self, params, batch):
         """Full-sequence logits (*cube, B, S, Vl), f32."""
         topo = self.topo
+        enc_out = self._encoded(params, batch)
         x_sp = self.embed_input(params, batch)
-        x_sp, _ = self.trunk(params, x_sp)
+        x_sp, _ = self.trunk(params, x_sp, enc_out=enc_out)
         full = topo.comm(topo.sp).all_gather(x_sp, axis=1)
         hn = rms_norm(full, self.final_norm(params), self.cfg.norm_eps)
         return cube_matmul(hn, self._head(params), topo.cube.ndim).float()

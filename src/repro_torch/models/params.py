@@ -10,9 +10,16 @@ replicate as read-only broadcast views, so the cube holds the global bytes
 once. Master weights are f32; ``blocks.gather_params`` casts each layer to
 the compute dtype on use.
 
-Ported defs: attention, dense FFN and MoE FFN (the dense-decoder and MoE
-families), and RWKV6 time-mix and channel-mix. The other mixers and FFNs
-raise until their slice of the port.
+Ported defs: attention (self and, under the prefix ``"x"``, the
+encoder-decoder's cross-attention), dense FFN and MoE FFN (the
+dense-decoder and MoE families), RWKV6 time-mix and channel-mix, the
+encoder stack of an encoder-decoder model and the audio frontend's
+projection. Mamba and the patch frontend raise until their slice of the
+port.
+
+Resident serve weights (``resident=True``) take the specs with the
+``data`` axis dropped (``drop_axis``): each leaf is placed whole on every
+data PE, a stride-0 view over ``data`` of one compact block.
 """
 from __future__ import annotations
 
@@ -54,18 +61,20 @@ def vocab_padded(cfg: ModelConfig, topo: Topology) -> int:
 
 
 # --------------------------------------------------------------------- defs
-def _attn_defs(cfg, topo):
+def _attn_defs(cfg, topo, prefix=""):
+    """Attention leaves; ``prefix`` "x" names the cross-attention's (which
+    has no qk norm)."""
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     tp = topo.tp
     kv_spec = ("data", tp) if kv_is_sharded(cfg, topo) else ("data", None)
     kv_sum = "" if kv_is_sharded(cfg, topo) else "tp"
     d = {
-        "ln": ParamDef((D,), ("data",), "zeros", sum_axes="tp"),
-        "wq": ParamDef((D, H * hd), ("data", tp)),
-        "wkv": ParamDef((D, 2 * KV * hd), kv_spec, sum_axes=kv_sum),
-        "wo": ParamDef((H * hd, D), (tp, "data"), "out_proj"),
+        prefix + "ln": ParamDef((D,), ("data",), "zeros", sum_axes="tp"),
+        prefix + "wq": ParamDef((D, H * hd), ("data", tp)),
+        prefix + "wkv": ParamDef((D, 2 * KV * hd), kv_spec, sum_axes=kv_sum),
+        prefix + "wo": ParamDef((H * hd, D), (tp, "data"), "out_proj"),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not prefix:
         d["q_norm"] = ParamDef((hd,), (None,), "zeros", sum_axes="tp")
         d["k_norm"] = ParamDef((hd,), (None,), "zeros", sum_axes="tp")
     return d
@@ -141,7 +150,8 @@ _FFN_DEFS = {DENSE: _dense_ffn_defs, MOE: _moe_ffn_defs,
 def _not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{cfg.name}: {what} layers are not ported to repro_torch yet "
-        "(ported: attention mixers with dense or MoE FFNs, RWKV6)")
+        "(ported: attention mixers with dense or MoE FFNs, RWKV6, the "
+        "encoder-decoder with the audio frontend)")
 
 
 def _stack(defs: dict, n: int) -> dict:
@@ -158,9 +168,7 @@ def param_defs(cfg: ModelConfig, topo: Topology) -> dict:
     unit = cfg.unit()
     n_units = cfg.n_layers // unit
     mixers, ffns = cfg.mixers(), cfg.ffns()
-    if cfg.is_encoder_decoder:
-        raise _not_ported(cfg, "encoder-decoder")
-    if cfg.frontend:
+    if cfg.frontend and cfg.frontend != "audio":
         raise _not_ported(cfg, f"{cfg.frontend!r} frontend")
 
     units = {}
@@ -171,6 +179,8 @@ def param_defs(cfg: ModelConfig, topo: Topology) -> dict:
             raise _not_ported(cfg, f"{ffns[pos]!r} FFN")
         d = dict(_MIXER_DEFS[mixers[pos]](cfg, topo))
         d.update(_FFN_DEFS[ffns[pos]](cfg, topo))
+        if cfg.is_encoder_decoder and mixers[pos] == ATTN:
+            d.update(_attn_defs(cfg, topo, prefix="x"))   # cross-attention
         units[f"p{pos}"] = _stack(d, n_units)
 
     tree = {
@@ -180,7 +190,24 @@ def param_defs(cfg: ModelConfig, topo: Topology) -> dict:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = ParamDef((D, Vp), ("data", tp))
+    if cfg.frontend:
+        tree["frontend_proj"] = ParamDef((cfg.frontend_dim or D, D),
+                                         (None, "data"), sum_axes="tp")
+    if cfg.is_encoder_decoder:
+        # the encoder: uniform attention + dense FFN layers
+        d = dict(_attn_defs(cfg, topo))
+        d.update(_dense_ffn_defs(cfg, topo))
+        tree["enc_units"] = {"p0": _stack(d, cfg.n_enc_layers)}
+        tree["enc_final_norm"] = ParamDef((D,), ("data",), "zeros",
+                                          sum_axes="tp")
     return tree
+
+
+def _resident_defs(defs: dict) -> dict:
+    """``defs`` with every spec's ``data`` axis dropped (resident serve
+    weights)."""
+    specs = drop_axis(tree_map(lambda d: d.spec, defs))
+    return tree_map(lambda d, s: dataclasses.replace(d, spec=s), defs, specs)
 
 
 def leaves(tree: dict, path: tuple = ()):
@@ -209,11 +236,14 @@ def get_path(tree, path: tuple):
     return tree
 
 
-def param_specs(cfg: ModelConfig, topo: Topology) -> dict:
+def param_specs(cfg: ModelConfig, topo: Topology, *,
+                resident: bool = False) -> dict:
+    """Each leaf's spec; ``resident`` drops the ``data`` axis from them
+    (``drop_axis``)."""
     out: dict = {}
     for path, d in leaves(param_defs(cfg, topo)):
         set_path(out, path, d.spec)
-    return out
+    return drop_axis(out) if resident else out
 
 
 # --------------------------------------------------------------------- init
@@ -240,19 +270,24 @@ def _init_leaf(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
 
 
 def init_params(cfg: ModelConfig, topo: Topology, seed: int = 0, *,
-                device) -> dict:
+                device, resident: bool = False) -> dict:
     """Random master weights placed on the cube, made on ``device`` from one
     ``torch.Generator`` seeded with ``seed``: leaf by leaf, and a stacked
     leaf unit by unit straight into its cube layout, so the peak beyond the
     weights is one unit's global slice and its placed copy (an MoE model's
     three expert leaves hold most of its bytes). The global
     values depend only on (cfg, seed, padded vocab), not on the cube, so two
-    topologies with the same padded vocab hold the same model."""
+    topologies with the same padded vocab hold the same model.
+    ``resident`` places them under the resident specs (the same values,
+    one compact block a leaf over ``data``)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     cube = topo.cube
+    defs = param_defs(cfg, topo)
+    if resident:
+        defs = _resident_defs(defs)
     out: dict = {}
-    for path, d in leaves(param_defs(cfg, topo)):
+    for path, d in leaves(defs):
         if path[0] != "units":
             set_path(out, path, cube.to_cube(_init_leaf(d, cfg, gen, device),
                                          d.spec))
@@ -272,14 +307,18 @@ def init_params(cfg: ModelConfig, topo: Topology, seed: int = 0, *,
 
 
 def from_jax_params(cfg: ModelConfig, topo: Topology, tree, *,
-                    device) -> dict:
+                    device, resident: bool = False) -> dict:
     """Place the JAX package's global parameter arrays on the port's cube.
 
     ``tree`` mirrors ``repro.models.params.init_params`` with every leaf as
     a NumPy array (``np.asarray`` of the JAX leaf); each one lands under its
-    ``ParamDef.spec``, so both packages compute the same model."""
+    ``ParamDef.spec`` (the resident spec with ``resident``), so both
+    packages compute the same model."""
+    defs = param_defs(cfg, topo)
+    if resident:
+        defs = _resident_defs(defs)
     out: dict = {}
-    for path, d in leaves(param_defs(cfg, topo)):
+    for path, d in leaves(defs):
         arr = np.asarray(get_path(tree, path))
         if tuple(arr.shape) != tuple(d.shape):
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != "

@@ -7,15 +7,19 @@ sequence-sharded over them, and every layer's partial attention (the flash
 kernel's ``(acc, m, l)``) is LSE-combined with one max and two additive
 all-reduces over the cache axes.
 
-Ported: the bf16 (compute-dtype) attention cache and ``decode_shard`` for
-attention layers with dense or MoE FFNs; the RWKV6 cache (f32 state
-sharded over tp, compute-dtype token shifts) and its decode; and
-``prefill_shard`` for both, whose cache drops straight into
+Ported: the compute-dtype and the int8 (``cache_dtype="int8"``: int8
+codes with an f32 scale a (slot, kv head), the paper's §V-C 8-bit
+layout) attention caches and ``decode_shard`` for attention layers with
+dense or MoE FFNs; the encoder-decoder's cross cache (the encoder's K/V
+of S_ctx positions, compute dtype) and cross step; the RWKV6 cache (f32
+state sharded over tp, compute-dtype token shifts) and its decode; and
+``prefill_shard`` for all of them, whose cache drops straight into
 ``decode_shard``: the JAX package's prefill leaves each PE its sequence
 slice of its own KV heads, which the decode layout cannot be rebuilt from,
 so the port reshards the prompt's K/V into the decode layout inside the
-attention block (``blocks._decode_cache_kv``: one all_to_all over tp). The
-int8 cache and Mamba states wait for later slices.
+attention block (``blocks._decode_cache_kv``: one all_to_all over tp).
+Resident weights: ``Server(..., resident=True)``. Mamba states wait for a
+later slice.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import torch
 
 from repro_torch.models import blocks
 from repro_torch.models.config import (
-    ModelConfig, ATTN, DENSE, MOE, RWKV, RWKVCM)
+    ModelConfig, ATTN, DENSE, FULL_WINDOW, MOE, RWKV, RWKVCM)
 from repro_torch.models.layers import rms_norm, cube_matmul
 from repro_torch.models.lm import Model
 from repro_torch.models.topology import Topology
@@ -40,12 +44,19 @@ class ServePlan:
     global_batch: int
     batch_axes: tuple[str, ...]  # axes sharding the batch (() = replicated)
     kv_axes: tuple[str, ...]     # axes sharding the cache sequence
+    cache_dtype: str = "bf16"    # "bf16" (the compute dtype) | "int8"
 
 
 def make_serve_plan(cfg: ModelConfig, topo: Topology, *, S_ctx: int,
-                    global_batch: int) -> ServePlan:
-    """The decode geometry; the cache is the compute-dtype one (the int8
-    cache waits for its slice)."""
+                    global_batch: int, cache_dtype: str = "bf16"
+                    ) -> ServePlan:
+    """The decode geometry. ``cache_dtype`` "bf16" stores the attention
+    cache in the compute dtype, "int8" as int8 codes with f32 scales."""
+    if cache_dtype not in ("bf16", "int8"):
+        raise ValueError(
+            f"cache_dtype must be 'bf16' or 'int8', got {cache_dtype!r} "
+            "(the KV cache is either compute-dtype or the §V-C 8-bit "
+            "cross-domain-modulated layout; nothing else has a decode path)")
     pods = topo.size(("pod",)) if "pod" in topo.cube.dim_names else 1
     batch_axes: tuple[str, ...] = ()
     b = global_batch
@@ -65,7 +76,8 @@ def make_serve_plan(cfg: ModelConfig, topo: Topology, *, S_ctx: int,
     n = topo.size(kv_axes)
     S_cache = int(math.ceil(S_cache / n) * n)   # shard evenly
     return ServePlan(S_ctx=S_ctx, S_cache=S_cache, global_batch=global_batch,
-                     batch_axes=batch_axes, kv_axes=kv_axes)
+                     batch_axes=batch_axes, kv_axes=kv_axes,
+                     cache_dtype=cache_dtype)
 
 
 # ------------------------------------------------------------- cache layout
@@ -73,12 +85,20 @@ def cache_defs(cfg: ModelConfig, topo: Topology, plan: ServePlan,
                dtype: torch.dtype = torch.bfloat16):
     """(global shape, spec, dtype) tree for the decode cache; the
     compute-dtype cache is stored in ``dtype``, the RWKV state in f32
-    whatever ``dtype`` is."""
+    whatever ``dtype`` is. An int8 plan stores K / V as int8 with f32
+    scales ``k_s`` / ``v_s`` (n_units, B, S_cache, KV); an encoder-decoder
+    model adds the cross cache ``xk`` / ``xv`` (n_units, B, S_ctx, KV, hd)
+    in ``dtype``, S_ctx sequence-sharded over the kv axes."""
     unit = cfg.unit()
     n_units = cfg.n_layers // unit
     B = plan.global_batch
     ba = plan.batch_axes or None
     KV, hd = cfg.n_kv_heads, cfg.head_dim
+    n = topo.size(plan.kv_axes)
+    if cfg.is_encoder_decoder and plan.S_ctx % n:
+        raise ValueError(
+            f"{cfg.name}: the cross cache's S_ctx {plan.S_ctx} encoder "
+            f"positions do not split over the {n} kv shards")
     tree = {}
     for p, (mixer, ffn) in enumerate(zip(cfg.mixers()[:unit],
                                          cfg.ffns()[:unit])):
@@ -90,7 +110,15 @@ def cache_defs(cfg: ModelConfig, topo: Topology, plan: ServePlan,
         if mixer == ATTN:
             shp = (n_units, B, plan.S_cache, KV, hd)
             spec = (None, ba, plan.kv_axes, None, None)
-            d["k"] = d["v"] = (shp, spec, dtype)
+            int8 = plan.cache_dtype == "int8"
+            d["k"] = d["v"] = (shp, spec, torch.int8 if int8 else dtype)
+            if int8:
+                d["k_s"] = d["v_s"] = ((n_units, B, plan.S_cache, KV),
+                                       (None, ba, plan.kv_axes, None),
+                                       torch.float32)
+            if cfg.is_encoder_decoder:
+                d["xk"] = d["xv"] = ((n_units, B, plan.S_ctx, KV, hd), spec,
+                                     dtype)
         else:
             rhd = cfg.rwkv_head_dim
             d["state"] = ((n_units, B, cfg.d_model // rhd, rhd, rhd),
@@ -117,10 +145,14 @@ def init_cache(cfg, topo, plan, *, dtype: torch.dtype = torch.bfloat16,
 # ------------------------------------------------------------------ decode
 class Server:
     def __init__(self, cfg: ModelConfig, topo: Topology, plan: ServePlan, *,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 resident: bool = False):
+        """``resident``: weights replicated over the data axis (place them
+        with ``init_params(..., resident=True)``); decode then gathers no
+        weight over ``data``."""
         self.cfg, self.topo, self.plan = cfg, topo, plan
         self.dtype = dtype
-        self.model = Model(cfg, topo, dtype=dtype)
+        self.model = Model(cfg, topo, dtype=dtype, resident=resident)
 
     def decode_shard(self, params, cache, tokens, pos):
         """One decode step. tokens, pos: (*cube, B_l) int. Writes the new
@@ -151,6 +183,12 @@ class Server:
                         cfg, topo, w, x, c, pos, window=int(m.windows[u, p]),
                         kv_axes=plan.kv_axes, rolling=rolling,
                         dtype=self.dtype)
+                    if cfg.is_encoder_decoder:
+                        x = blocks.attn_decode(
+                            cfg, topo, w, x, c, pos, window=FULL_WINDOW,
+                            kv_axes=plan.kv_axes, rolling=False,
+                            dtype=self.dtype, prefix="x", cross=True,
+                            keys=("xk", "xv"))
                 if m.ffns[p] == MOE:
                     x = blocks.moe_ffn_decode(cfg, topo, w, x)
                 elif m.ffns[p] == RWKVCM:
@@ -181,13 +219,35 @@ class Server:
         of every prompt position, the cache leaves it out, and an MoE layer
         routes it like any token (an RWKV6 prompt must split: its state
         would take the pad in). RWKV6 layers keep the recurrence's final
-        state (one kernel launch per layer) and the token shifts."""
+        state (one kernel launch per layer) and the token shifts. An
+        encoder-decoder model encodes batch["frames"] (*cube, B_l, S_ctx,
+        frontend_dim) first, and each decoder layer's cross-attention
+        leaves the encoder's K/V of all S_ctx positions in the cross cache
+        ``xk`` / ``xv``.
+
+        Like the reference's prefill, this one computes the K/V in the
+        compute dtype; an int8 plan's cache is filled by decode steps
+        alone, so prefill raises on one."""
         cfg, topo, plan = self.cfg, self.topo, self.plan
         m = self.model
         cn = topo.cube.ndim
         tokens = batch["tokens"]
         S = tokens.shape[cn + 1]
         rolling = plan.S_cache < plan.S_ctx
+        if plan.cache_dtype != "bf16" and ATTN in m.mixers:
+            raise ValueError(
+                f"{cfg.name}: prefill computes the K/V in the compute dtype "
+                f"({self.dtype}), which does not install into a "
+                f"{plan.cache_dtype} cache; fill an int8 cache by decode "
+                "steps")
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            S_enc = batch["frames"].shape[cn + 1]
+            if S_enc != plan.S_ctx:
+                raise ValueError(
+                    f"{cfg.name}: {S_enc} encoder frames do not fill the "
+                    f"cross cache's S_ctx {plan.S_ctx} positions")
+            enc_out = m.encode(params, batch["frames"])
         if ATTN in m.mixers and S > plan.S_cache and not rolling:
             raise ValueError(
                 f"{cfg.name}: a prompt of {S} tokens does not fit the "
@@ -220,6 +280,11 @@ class Server:
                         cfg, topo, w, x_sp, window=int(m.windows[u, p]),
                         out_cache=True, prompt_len=S,
                         cache_len=plan.S_cache)
+                    if enc_out is not None:
+                        x_sp, (c["xk"], c["xv"]) = blocks.attn_block(
+                            cfg, topo, w, x_sp, window=FULL_WINDOW,
+                            cross_src=enc_out, prefix="x", out_cache=True,
+                            prompt_len=plan.S_ctx, cache_len=plan.S_ctx)
                 if m.ffns[p] == MOE:
                     x_sp, _ = blocks.moe_ffn(cfg, topo, w, x_sp)
                 elif m.ffns[p] == RWKVCM:

@@ -1,5 +1,5 @@
-"""The port's phi3-mini-3.8b and gemma3-1b held against the JAX package on
-the CPU: ``forward_logits`` and the launcher's decode loop, in f32 in both
+"""The port's phi3-mini-3.8b, gemma3-1b and internlm2-20b held against the
+JAX package on the CPU: ``forward_logits`` and the launcher's decode loop, in f32 in both
 packages, within 1e-4 * max(1, max|ref|) and with identical greedy tokens,
 at 1, 2 and 4 PEs.
 
@@ -8,7 +8,10 @@ dim (phi3-mini 96 with G = 1, gemma3 256 with G = 4), the head dims whose
 flash kernel instances are new. gemma3's stock smoke config has 2 layers,
 both local (its unit is one layer), so it never runs a global layer: here
 it has 12, so layers 5 and 11 are global, and the sequences are longer than
-the smoke window of 8, so the local windows mask keys. Weights are the JAX
+the smoke window of 8, so the local windows mask keys. internlm2's own
+head layout, G = 6 (48 / 8 heads), runs as 12 / 2 heads: at 4 PEs the KV
+heads are replicated over tp (KV < tp) with 3 query heads a PE, as at its
+own tp 16. Weights are the JAX
 package's ``init_params`` carried across with ``from_jax_params``; tokens
 come from a NumPy seed.
 """
@@ -49,6 +52,8 @@ VARIANTS = {
     "phi3_hd96": ("phi3-mini-3.8b", {"head_dim": 96, "n_kv_heads": 4}),
     "gemma3_smoke": ("gemma3-1b", {"n_layers": 12}),
     "gemma3_hd256": ("gemma3-1b", {"n_layers": 12, "head_dim": 256}),
+    "internlm2_smoke": ("internlm2-20b", {}),
+    "internlm2_g6": ("internlm2-20b", {"n_heads": 12, "n_kv_heads": 2}),
 }
 
 
@@ -84,6 +89,8 @@ def test_variants_run_what_they_claim():
             assert pcfg.head_dim == 96 and pcfg.n_heads == pcfg.n_kv_heads
         if variant.endswith("hd256"):
             assert pcfg.head_dim == 256 and pcfg.n_heads == 4 * pcfg.n_kv_heads
+        if variant.endswith("g6"):
+            assert pcfg.n_heads == 6 * pcfg.n_kv_heads
         if variant.startswith("gemma3"):
             w = pcfg.windows()
             assert sorted(set(w.tolist())) == [-1, 8]

@@ -164,8 +164,9 @@ def test_cpu_tensors_take_the_plain_version():
 
 # (B, Sq, Sk, H, KV, hd): every main-path row of chip_smoke.py (qwen3 and
 # MoE decode and forward at 1 and 8 PEs; phi3-mini at 1 and 8, gemma3 at 1
-# and 4 PEs, and gemma3's 1,024-token forward), its two long rows, ragged
-# edges
+# and 4 PEs, and gemma3's 1,024-token forward; internlm2 (G = 6) at 1 and 16
+# PEs; whisper-base's decode, cross decode and forward at 1 and 8 PEs), its
+# two long rows, ragged edges
 GEOMETRY_SHAPES = [
     (4, 1, 48, 16, 8, 128), (32, 1, 6, 16, 8, 128), (4, 1, 48, 16, 16, 128),
     (32, 1, 6, 16, 16, 128), (4, 48, 48, 16, 8, 128), (32, 48, 48, 2, 1, 128),
@@ -178,6 +179,9 @@ GEOMETRY_SHAPES = [
     (4, 48, 48, 4, 1, 256), (16, 48, 48, 1, 1, 256),
     (1, 1024, 1024, 4, 1, 256), (2, 2, 600, 8, 2, 256), (1, 8, 70, 2, 2, 96),
     (2, 37, 70, 4, 4, 96), (1, 1, 4096, 4, 1, 256),
+    (4, 1, 48, 48, 8, 128), (64, 1, 3, 48, 8, 128), (4, 48, 48, 48, 8, 128),
+    (64, 48, 48, 3, 1, 128), (4, 1, 48, 8, 8, 64), (32, 1, 6, 8, 8, 64),
+    (4, 48, 48, 8, 8, 64), (32, 48, 48, 1, 1, 64),
 ]
 
 

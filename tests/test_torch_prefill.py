@@ -66,6 +66,8 @@ CELLS = {
     "phi3": ("phi3-mini-3.8b", {}),
     "gemma3": ("gemma3-1b", {"n_layers": 12}),
     "mixtral": ("mixtral-8x7b", {"capacity_factor": NO_DROP}),
+    # internlm2's G = 6: at 4 PEs KV < tp, 3 query heads a PE
+    "internlm2": ("internlm2-20b", {"n_heads": 12, "n_kv_heads": 2}),
 }
 
 
@@ -130,7 +132,8 @@ def _jax_heads(cfg, t, i):
 
 # ------------------------------------------------------------ vs the JAX prefill
 @pytest.mark.parametrize("pes", [1, 2, 4])
-@pytest.mark.parametrize("cell", ["qwen3", "qwen2_moe", "phi3", "gemma3"])
+@pytest.mark.parametrize("cell", ["qwen3", "qwen2_moe", "phi3", "gemma3",
+                                  "internlm2"])
 def test_prefill_matches_jax(f32_reference, cell, pes):
     jcfg, pcfg = _configs(cell, pes)
     B, S = 2, 16
@@ -238,7 +241,7 @@ def _prefill_vs_loop(cell, pes, prompt_len, gen=5, B=2):
 
 @pytest.mark.parametrize("cell,pes", [
     (c, p) for c in ("qwen3", "qwen2_moe", "phi3", "gemma3")
-    for p in (1, 2, 4, 8)])
+    for p in (1, 2, 4, 8)] + [("internlm2", p) for p in (1, 2, 4)])
 def test_prefill_then_decode_equals_teacher_forced_loop(cell, pes):
     plan = _prefill_vs_loop(cell, pes, prompt_len=12 if cell == "gemma3"
                             else 8)

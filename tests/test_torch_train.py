@@ -11,9 +11,9 @@ come from the JAX ``TokenStream``. Both packages compute in f32 (the JAX
 compute dtype is set with ``monkeypatch``). Multi-PE gradients are held to
 the 1-PE ones with the grad-sync program's all-reduces counted.
 
-The loss and the 1-PE gradients are held to JAX for each of the six
-ported archs (smoke configs; gemma3 with ``n_layers=12``, so that a global
-layer runs). MoE's loss depends on the layout (capacity is per shard), so
+The loss and the 1-PE gradients are held to JAX for each of the seven
+ported decoder-only archs (smoke configs; gemma3 with ``n_layers=12``, so
+that a global layer runs; internlm2 with 12 / 2 heads, its G = 6). MoE's loss depends on the layout (capacity is per shard), so
 its multi-PE gradients are held to autograd through the broadcast masters
 instead of to 1 PE's.
 """
@@ -55,9 +55,11 @@ from repro_torch.telemetry import metrics as telemetry
 ARCH = "qwen3-1.7b"
 MOE = "qwen2-moe-a2.7b"
 OTHER_ARCHS = (MOE, "mixtral-8x7b", "rwkv6-7b", "phi3-mini-3.8b",
-               "gemma3-1b")
-# gemma3's stock smoke config has 2 local layers and no global one
-SMOKE_CHANGES = {"gemma3-1b": {"n_layers": 12}}
+               "gemma3-1b", "internlm2-20b")
+# gemma3's stock smoke config has 2 local layers and no global one;
+# internlm2 keeps its own G = 6 (48 / 8 heads) as 12 / 2
+SMOKE_CHANGES = {"gemma3-1b": {"n_layers": 12},
+                 "internlm2-20b": {"n_heads": 12, "n_kv_heads": 2}}
 CPU = torch.device("cpu")
 LOSS_TOL = 1e-5     # relative, f32 in both packages
 GRAD_TOL = 1e-4     # x max(1, max|ref|) per leaf
