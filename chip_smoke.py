@@ -159,9 +159,10 @@ Phases, each printed as one JSON line:
           top-2 expert ids at every (step, layer, request); ms/step,
           tok/s, peak memory and a decode profile in bf16. The inputs of
           each kernel's last bf16 launch are kept;
-  serve_dense  full-width phi3-mini-3.8b (hd 96, 32 heads, G = 1) at 1 and
-          8 PEs and gemma3-1b (hd 256, G = 4, 5:1 local:global windows of
-          512) at 1 and 4 PEs, bf16, through the launcher's function: decode
+  serve_dense  full-width phi3-mini-3.8b (hd 96, 32 heads, G = 1; 8 of its
+          32 layers) at 1 and 8 PEs and gemma3-1b (hd 256, G = 4, 5:1
+          local:global windows of 512; 13 of its 26 layers, two global) at
+          1 and 4 PEs, bf16, through the launcher's function: decode
           within 5e-2 * max(1, max|ref|) of forward_logits, 1 PE vs n PEs
           the same, exactly n_layers x 47 flash launches per decode run and
           n_layers per forward, a decode profile per cell, bf16's distance
@@ -175,15 +176,16 @@ Phases, each printed as one JSON line:
           counts, and the 1,024-token forward within 1e-4 * max(1, max|ref|)
           of its witness;
   serve_internlm2  internlm2-20b (48 / 8 heads of 128: G = 6) at full
-          width and 36 of its 48 layers through the launcher's function at
+          width and 12 of its 48 layers through the launcher's function at
           1 PE and at 16 PEs (its own tp: its 8 KV heads under tp 16 sit on
           every PE with 3 query heads a PE), one topology's weights at a
           time: exactly n_layers x 47 flash launches a decode run and
           n_layers a forward; bf16 decode against its witness (the same
           decode with the plain attention in the kernel's place) within
           0.25 x max(1, max|ref|) at the steps whose inputs agree (bf16 vs
-          f32 of the same tokens reads about 0.11 of max at this width and
-          depth), decode vs forward and 1 vs 16 PEs reported beside 5e-2; a
+          f32 of the same tokens read about 0.11 of max at 36 layers of
+          this width), decode vs forward and 1 vs 16 PEs reported beside
+          5e-2; a
           decode profile per run;
   serve_internlm2_f32  the same in f32 (TF32 off): decode within 1e-4 x
           max(1, max|ref|) of forward_logits, 1 PE vs 16 PEs the same and
@@ -239,7 +241,7 @@ Phases, each printed as one JSON line:
           reorder launches a forward and a decode step. The inputs of the
           kernels' last prefill launches are kept;
   serve_engine  the paged continuous-batching ``ServeEngine`` serving
-          qwen3-1.7b at full width and 7 of its 28 layers (bf16 over f32
+          qwen3-1.7b at full width and 3 of its 28 layers (bf16 over f32
           master weights, random from seed 0; B = 4 lanes, S_ctx 48,
           page_size 3) at 1 and 8 PEs, one
           topology's weights on the card at a time: the launcher's four
@@ -319,7 +321,7 @@ Phases, each printed as one JSON line:
   train_moe_rwkv  qwen2-moe-a2.7b (4 of 24 layers), rwkv6-7b (12 of 32),
           phi3-mini-3.8b (all 32: hd 96), gemma3-1b (all 26: hd 256, 5:1
           local windows of 512 and global layers), mixtral-8x7b (2 of
-          32), internlm2-20b (10 of 48: G = 6) and whisper-base (all 6 + 6:
+          32), internlm2-20b (8 of 48: G = 6) and whisper-base (all 6 + 6:
           the encoder's non-causal hd-64 attention, the decoder's self- and
           cross-attention) training at full width through ``Trainer`` at 1
           PE and at 8 PEs as the launcher lays them out (MoE ep 8, the
@@ -349,8 +351,8 @@ Phases, each printed as one JSON line:
           path are kept: the flash forward (with row statistics) and
           backward; the reorder; RWKV6's forward (saving the sub-chunk
           states) and backward;
-  checkpoint  ``repro_torch.checkpoint`` at qwen3-1.7b's full width and 14
-          of its 28 layers (6.2 GB a checkpoint; the free bytes
+  checkpoint  ``repro_torch.checkpoint`` at qwen3-1.7b's full width and 4
+          of its 28 layers (the checkpoint's bytes, the free bytes
           and host RAM where it goes, in the checkout's build/, printed
           before the first save, and two checkpoints must fit; keep_last=1;
           removed at the end).
@@ -458,6 +460,11 @@ RWKV_ARCH = "rwkv6-7b"
 # the dense archs with head dims 96 and 256, and the PE counts each serves
 # at (gemma3's 4 query heads bound its head parallelism at 4)
 DENSE_ARCHS = {"phi3-mini-3.8b": (1, 8), "gemma3-1b": (1, 4)}
+# their serving depth: a quarter of phi3's 32 layers and half of gemma3's
+# 26 (two global layers; the last, as at 26, a local one), to keep the run
+# under its limit: the host-bound steps take time by the layer, and the
+# gates compare runs on the same weights (decode vs forward, 1 vs n PEs)
+DENSE_SERVE_LAYERS = {"phi3-mini-3.8b": 8, "gemma3-1b": 13}
 LONG_ARCH, LONG_SEQ = "gemma3-1b", 1024   # a forward past the 512 window
 # RWKV6 kernel vs its plain version, x max(1, max|plain|), on o and state
 RWKV6_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
@@ -487,12 +494,12 @@ RWKV6_STATES_TOL = 1e-5
 # the serving engine: page size (S_loc = 48 / 8 = 6 at 8 PEs), the pool of
 # the preemption run (pages per shard), and a bound on any run's steps
 ENGINE_PAGE, ENGINE_TIGHT, ENGINE_MAX_STEPS = 3, 4, 400
-# The engine's cells run qwen3 at a quarter of its depth: their gates
+# The engine's cells run qwen3 at 3 of its 28 layers: their gates
 # compare runs on the same weights (the launcher's tokens, batching
 # invariance, preemption), and their host-bound steps take time by the
 # layer; the full-depth decode path is the serve phase's. At 28 layers the
 # engine took 133 s of the run's 1,200 s limit, at 14 67 s, at 7 37.5 s.
-ENGINE_LAYERS = 7
+ENGINE_LAYERS = 3
 
 
 def emit(phase: str, **fields) -> None:
@@ -3027,7 +3034,8 @@ def phase_serve_dense(dev, kept: dict) -> dict:
     for arch, pes_list in DENSE_ARCHS.items():
         runs = {}
         for pes in pes_list:
-            run = _dense_run(dev, arch, pes, torch.bfloat16, kept)
+            run = _dense_run(dev, arch, pes, torch.bfloat16, kept,
+                             n_layers=DENSE_SERVE_LAYERS[arch])
             n0 = flash.LAUNCHES     # the profiled steps are not the path's
             run["summary"]["profile"] = profile_decode(run, dev)
             profiled += flash.LAUNCHES - n0
@@ -3055,8 +3063,9 @@ def phase_serve_dense_f32(dev) -> dict:
     1,024-token forward within 1e-4 x max(1, max|ref|) of its witness."""
     out, ok = {}, True
     for arch, pes_list in DENSE_ARCHS.items():
-        runs = {pes: _drop(_dense_run(dev, arch, pes, torch.float32))
-                for pes in pes_list}
+        runs = {pes: _drop(_dense_run(
+            dev, arch, pes, torch.float32,
+            n_layers=DENSE_SERVE_LAYERS[arch])) for pes in pes_list}
         pair = _dense_pair(runs, pes_list)
         sums = [runs[p]["summary"] for p in pes_list]
         arch_ok = (all(_dense_ok(s, False) for s in sums)
@@ -3071,10 +3080,11 @@ def phase_serve_dense_f32(dev) -> dict:
 
 # --------------------------------------------------------- serve_internlm2
 INTERNLM2_ARCH = "internlm2-20b"
-# serving depth: 36 of 48 layers (54 GB of f32 masters at 390 M parameters
-# a layer, plus 4.5 GB of embedding and head) leaves room for the bf16
-# layer copies and the 16-PE cube's replicated KV projections
-INTERNLM2_SERVE_LAYERS = 36
+# serving depth: 12 of 48 layers (390 M parameters a layer). 36 fit the
+# card (58.5 GB of f32 weights) but took 54 s of the run's 1,200 s limit
+# at 1 and 16 PEs, bf16 and f32: the host-bound steps take time by the
+# layer
+INTERNLM2_SERVE_LAYERS = 12
 INTERNLM2_PES = (1, 16)                # its own tp 16: KV 8 < tp
 
 
@@ -3087,8 +3097,9 @@ def _witness_decode(run, dev, dtype) -> dict:
     from repro_torch.launch.serve import serve
     n0 = flash.LAUNCHES
     with plain_flash():
-        w = serve(None, cfg=run["cfg"], batch=BATCH, prompt_len=PROMPT,
-                  gen=GEN, pes=math.prod(run["topo"].cube.dim_sizes),
+        w = serve(run["cfg"].name, n_layers=run["cfg"].n_layers,
+                  batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                  pes=math.prod(run["topo"].cube.dim_sizes),
                   device=dev, seed=0, dtype=dtype, params=run["params"],
                   keep_logits=True)
     wdec = torch.stack(w["logits"], dim=1)
@@ -3113,8 +3124,8 @@ def phase_serve_internlm2(dev, kept: dict, dtype=torch.bfloat16) -> dict:
     greedy tokens. bf16: decode against its witness, the same decode with
     the plain attention in the kernel's place (``_witness_decode``), within
     RWKV_PATH_TOL; decode vs forward and 1 PE vs 16 PEs are reported beside
-    SERVE_TOL, which 36 layers of width 6,144 in bf16 do not meet (bf16
-    against f32 of the same tokens reads about 0.11 of max); a decode
+    SERVE_TOL, which 36 layers of width 6,144 in bf16 did not meet (bf16
+    against f32 of the same tokens read about 0.11 of max); a decode
     profile per bf16 run. ``kept`` (bf16) receives the kernel's inputs of
     its last launch per path and run."""
     from repro_torch.kernels.attention import flash
@@ -3153,7 +3164,8 @@ def phase_serve_internlm2(dev, kept: dict, dtype=torch.bfloat16) -> dict:
 
 # --------------------------------------------------------------- serve_int8
 INT8_CACHE_TOL = 5e-2       # int8-cache decode vs the bf16 cache's, x
-#                             max(1, max|ref|): tests/test_serving.py's
+#                             max(1, max|ref|): tests/test_serving.py's,
+#                             held there with JAX's compute in f32
 
 
 def _cache_bytes(cache: dict) -> int:
@@ -3237,7 +3249,45 @@ def _int8_pair(dev, pes: int, dtype, params=None, keep=None) -> dict:
          "launches_ok": (q_launch == (L * steps, 0)
                          and b_launch == L * steps)}
     s["held"] = held["ok"]
+    if dtype == torch.bfloat16 and pes == 1:
+        s["plain_witness"] = _int8_witness(q, b, d8, dc, dev)
     return q, s
+
+
+def _int8_witness(q, b, d8, dc, dev) -> dict:
+    """The int8 run again with the plain int8 form in the kernel's place
+    (no launch): its logits against the int8 run's within RWKV_PATH_TOL
+    of the type x max(1, max|ref|), and its own gap to the compute-dtype
+    cache's run (``b``) over max(1, max|logits|), beside the kernel run's:
+    where the two gaps agree the kernel adds nothing to the quantization's
+    drift. Both at the steps whose inputs agree."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.launch.serve import serve
+    n0, i0 = flash.LAUNCHES, flash.INT8_LAUNCHES
+    with plain_flash():
+        w = serve(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                  pes=math.prod(q["topo"].cube.dim_sizes), device=dev,
+                  seed=0, dtype=torch.bfloat16,
+                  keep_logits=True, cache_dtype="int8", params=q["params"])
+    dw = torch.stack(w["logits"], dim=1)
+
+    def agree(x, y):
+        same = np.cumprod(x["tokens"][:, :-1] == y["tokens"][:, :-1], axis=1)
+        return torch.from_numpy(same.astype(bool)).to(dev)
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()) / max(
+            1.0, float(want.float().abs().max()))
+
+    qw, wb, qb = agree(q, w), agree(w, b), agree(q, b)
+    held = _held(d8[qw], dw[qw], RWKV_PATH_TOL[torch.bfloat16])
+    return {**held, "compared_steps": int(qw.sum()),
+            "plain_int8_vs_cache_dtype": rel(dw[wb], dc[wb]),
+            "int8_vs_cache_dtype": rel(d8[qb], dc[qb]),
+            "witness_launches": (flash.LAUNCHES - n0
+                                 + flash.INT8_LAUNCHES - i0),
+            "ok": (held["ok"] and flash.LAUNCHES == n0
+                   and flash.INT8_LAUNCHES == i0)}
 
 
 def phase_serve_int8(dev, kept_int8: dict) -> dict:
@@ -3248,9 +3298,14 @@ def phase_serve_int8(dev, kept_int8: dict) -> dict:
     Gates: in f32, where only the cache's quantization differs, the int8
     run's logits within INT8_CACHE_TOL x max(1, max|ref|) of the f32
     cache's at the steps whose inputs agree (JAX's own bound for the int8
-    cache, held there at smoke size in bf16); in bf16 the same difference
-    is reported beside that bound (28 layers of bf16 rounding flips add
-    to the quantization's); in both, exactly n_layers int8 decode launches
+    cache, held there at smoke size with JAX's params, blocks and lm in
+    f32, which ``tests/test_serving.py`` sets on import); in bf16 the same
+    difference is reported beside that bound (28 layers of bf16 rounding
+    flips add to the quantization's: ``tests/test_torch_int8_cache.py``
+    shows JAX's own bf16 gap at 28 layers growing with the width as the
+    port's does), and
+    the 1-PE bf16 int8 run is gated against its plain witness
+    (``_int8_witness``); in both, exactly n_layers int8 decode launches
     a step and no other flash launch (the compute-dtype run: n_layers
     decode launches a step), finite logits; ms/step and cache bytes of
     both caches in bf16; at 1 PE ``ServeEngine`` on the bf16 int8 plan
@@ -3267,8 +3322,10 @@ def phase_serve_int8(dev, kept_int8: dict) -> dict:
         _, s32 = _int8_pair(dev, pes, torch.float32, params=params)
         r = out[f"{pes}pe"] = {"cube": q["topo"].cube.describe(),
                                "bf16": s16, "f32": s32}
-        r["ok"] = (s32["held"] and all(x["finite"] and x["launches_ok"]
-                                       for x in (s16, s32)))
+        r["ok"] = (s32["held"]
+                   and (pes != 1 or s16["plain_witness"]["ok"])
+                   and all(x["finite"] and x["launches_ok"]
+                           for x in (s16, s32)))
         int8_launches += s16["int8_launches"] + s32["int8_launches"]
         bf16_launches += s16["cache_dtype_launches"] + s32[
             "cache_dtype_launches"]
@@ -3297,16 +3354,14 @@ def _resident_run(dev, resident: bool) -> dict:
     """qwen3-1.7b at full width on the data 2 x tp 4 serve cube (the batch
     of 4 over data), through the launcher's function, under a
     ``CommTrace``: the run, and its data all_gathers a decode step."""
-    from repro_torch import configs
     from repro_torch.core.comm import CommTrace
     from repro_torch.kernels.attention import flash
     from repro_torch.launch.serve import serve
-    cfg = dataclasses.replace(configs.get(ARCH), serve_tp=RESIDENT_TP)
     n0 = flash.LAUNCHES
     with CommTrace() as trc:
-        run = serve(ARCH, cfg=cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+        run = serve(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
                     pes=RESIDENT_PES, device=dev, seed=0, keep_logits=True,
-                    resident=resident)
+                    resident=resident, serve_tp=RESIDENT_TP)
     steps = len(run["step_ms"])
     gathers = sum(e.primitive == "all_gather" and e.dims == ("data",)
                   for e in trc.events)
@@ -3401,7 +3456,7 @@ def _whisper_params(dev, pes: int) -> dict:
                     glob, param_specs(cfg, topo))
 
 
-def _whisper_run(dev, pes: int, dtype, kept) -> dict:
+def _whisper_run(dev, pes: int, dtype, kept, kept_reorder=None) -> dict:
     """whisper-base at full width and depth through the launcher's
     function: its frames and prompt through ``prefill_shard`` (the encoder,
     then each decoder layer's self and cross caches), then 15 greedy decode
@@ -3411,7 +3466,9 @@ def _whisper_run(dev, pes: int, dtype, kept) -> dict:
     encoder's layers, each decoder layer's self- and cross-attention), 2 L
     decode launches a step (self, cross), n_enc + 2 L a forward; the
     prefill's K/V reshards 2 L reorder launches at 8 PEs (self and cross
-    K/V, KV heads sharded over tp)."""
+    K/V, KV heads sharded over tp). ``kept_reorder`` receives the inputs
+    of the prefill's last two reorder launches, the last layer's self and
+    cross K/V."""
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.reorder import reorder
     from repro_torch.launch.serve import serve
@@ -3423,12 +3480,17 @@ def _whisper_run(dev, pes: int, dtype, kept) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     n0, r0 = flash.LAUNCHES, reorder.LAUNCHES
     params = _whisper_params(dev, pes)
-    with keep("decode"):
+    swz = []
+    with keep("decode"), record_reorder(swz):
         run = serve(WHISPER_ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
                     pes=pes, device=dev, seed=0, dtype=dtype,
                     keep_logits=True, params=params)
     torch.cuda.synchronize()
     n_serve, r_serve = flash.LAUNCHES - n0, reorder.LAUNCHES - r0
+    if kept_reorder is not None and len(swz) >= 2:
+        for part, inputs in zip(("self", "cross"), swz[-2:]):
+            kept_reorder[f"{WHISPER_ARCH}/prefill/{pes}pe/{part}"] = inputs
+    del swz
     n1 = flash.LAUNCHES
     with keep("forward"):
         fwd = _whisper_forward(run, pes, dtype)
@@ -3469,14 +3531,15 @@ def _whisper_run(dev, pes: int, dtype, kept) -> dict:
     return run
 
 
-def phase_serve_whisper(dev, kept: dict) -> dict:
+def phase_serve_whisper(dev, kept: dict, kept_reorder: dict) -> dict:
     """whisper-base (6 encoder + 6 decoder layers, d_model 512, 8 heads of
     64) at full width and depth, at 1 and 8 PEs, bf16 over f32 masters and
     f32 (TF32 off), one topology's weights at a time (``_whisper_run``):
     decode within SERVE_TOL (bf16) / F32_TOL (f32) x max(1, max|ref|) of
     forward_logits, 1 PE vs 8 PEs the same (f32: identical greedy tokens).
     ``kept`` receives the kernel's bf16 inputs of its last launch per path
-    and run (the decode path's last is a cross decode)."""
+    and run (the decode path's last is a cross decode), ``kept_reorder``
+    the bf16 prefill's last self and cross K/V reshards at 8 PEs."""
     from repro_torch.kernels.attention import flash
     from repro_torch.kernels.reorder import reorder
     flash.LAUNCHES = 0          # the whisper paths' runs start here
@@ -3486,8 +3549,9 @@ def phase_serve_whisper(dev, kept: dict) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         runs = {}
         for pes in WHISPER_PES:
-            run = _whisper_run(dev, pes, dtype,
-                               kept if dtype == torch.bfloat16 else None)
+            bf16 = dtype == torch.bfloat16
+            run = _whisper_run(dev, pes, dtype, kept if bf16 else None,
+                               kept_reorder if bf16 else None)
             s = run["summary"]
             launches += s["flash_launches_serve"] + s[
                 "flash_launches_forward"]
@@ -4781,15 +4845,15 @@ def phase_train(dev, kept: dict, kept_bwd: dict) -> dict:
 # reorder; RWKV6 and phi3: tp 8; gemma3: data 2 x tp 4, its 4 query heads
 # bounding tp).
 MIXTRAL_ARCH = "mixtral-8x7b"
-# internlm2-20b at 10 of 48 layers: 5.04 B parameters; at 8 layers (4.26 B)
-# a step's peak read 43.3 GB at 1 PE and 50.0 GB at tp 8 (10.2 / 11.7
-# bytes a parameter), so some 51 / 59 GB; at 12 the tp-8 cell ran out of
-# the card's 80 GB; whisper-base at full depth (6 encoder + 6 decoder
-# layers)
+# internlm2-20b at 8 of 48 layers: 4.26 B parameters, a step's peak 43.3
+# GB at 1 PE and 50.0 GB at tp 8 (10.2 / 11.7 bytes a parameter); at 12
+# the tp-8 cell ran out of the card's 80 GB, and at 10 (peak 62.2 GB) it
+# did once too, with 17 GB of the allocator's cache free but fragmented;
+# whisper-base at full depth (6 encoder + 6 decoder layers)
 TRAIN_MR_ARCHS = {"moe": (MOE_ARCH, 4), "rwkv": (RWKV_ARCH, 12),
                   "phi3": ("phi3-mini-3.8b", 32), "gemma3": ("gemma3-1b", 26),
                   "mixtral": (MIXTRAL_ARCH, 2),
-                  "internlm2": ("internlm2-20b", 10),
+                  "internlm2": ("internlm2-20b", 8),
                   "whisper": ("whisper-base", 6)}
 TRAIN_MR_PES = {"1pe": 1, "8pe": 8}
 # the f32 witness cells, at full width and a smaller cut: one step's
@@ -5224,11 +5288,11 @@ def phase_train_moe_rwkv(dev, kept: dict) -> dict:
 # and 1 PEs; an HF safetensors round trip. The directory lies in the
 # checkout's build/ (ignored by git), keep_last=1, removed at the end.
 CKPT_LAYOUTS = ("1pe", "8pe")
-# the phase runs qwen3 at half its depth (6.2 GB a checkpoint): its gates
-# compare runs on the same weights (bit for bit), and a save's, a
-# restore's and the engine's seconds go by the layer; at 28 layers it took
-# 184 s of the run's 1,200 s limit
-CKPT_LAYERS = 14
+# the phase runs qwen3 at 4 of its 28 layers: its gates compare runs on
+# the same weights (bit for bit), and a save's, a restore's and the
+# engine's seconds go by the bytes; at 28 layers it took 184 s of the
+# run's 1,200 s limit, at 14 (6.2 GB a checkpoint) 118 s
+CKPT_LAYERS = 4
 CKPT_SAVE_AT, CKPT_STEPS = 2, 4         # saves after steps 1 and 2
 CKPT_DIR = ROOT / "build" / "checkpoint_phase"
 # HF stores a norm as 1 + w: the round trip (w + 1) - 1 rounds once in f32,
@@ -5819,7 +5883,8 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
     """Each kernel on the inputs of its last launch in each form and run of
     the serve, serve_moe, serve_rwkv, serve_dense, fused_forward, train
     and train_moe_rwkv phases (and the reorder's first launch of a DLRM
-    pidcomm call): held against the plain version, then timed; every
+    pidcomm call, and the last self and cross K/V reshards of whisper's
+    8-PE prefill): held against the plain version, then timed; every
     training layout's rows must be there. For the fused forward's ring
     hop, a partial launch, SDPA is timed on the same mask computing the
     output only (``library_output_only``)."""
@@ -5863,6 +5928,9 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
     train_swz = _reorder_main_path(kept_reorder, "train/moe/8pe")
     mixtral_swz = [_reorder_main_path(kept_reorder, name) for name in (
         f"mixtral/decode/{PES[-1]}pe", "train/mixtral/8pe")]
+    whisper_swz = [_reorder_main_path(
+        kept_reorder, f"{WHISPER_ARCH}/prefill/{WHISPER_PES[-1]}pe/{part}")
+        for part in ("self", "cross")]
     rwkv = _rwkv6_main_path(kept_rwkv6)
     bwd = [_flash_bwd_main_path(name, *kept_bwd[name])
            for name in sorted(kept_bwd)]
@@ -5883,6 +5951,7 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
     return {"ok": (worst_ok and reorder["exact"] and dlrm["exact"]
                    and reshard["exact"] and train_swz["exact"]
                    and all(r["exact"] for r in mixtral_swz)
+                   and all(r["exact"] for r in whisper_swz)
                    and len(rwkv) == 4 and all(t["ok"] for t in rwkv)
                    and f"ring_hop/{FUSED_PES}pe" in kept
                    and not missing
@@ -5895,7 +5964,7 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
             "missing_training_rows": missing,
             "main_path": timings, "reorder": reorder, "reorder_dlrm": dlrm,
             "reorder_prefill": reshard, "reorder_train": train_swz,
-            "reorder_mixtral": mixtral_swz,
+            "reorder_mixtral": mixtral_swz, "reorder_whisper": whisper_swz,
             "rwkv6": rwkv, "rwkv6_train_forward": rwkv_states,
             "flash_backward": bwd, "rwkv6_backward": rwkv_bwd}
 
@@ -6162,8 +6231,8 @@ def main() -> int:
                          dev, kept)),
                      ("serve_internlm2_f32", lambda: phase_serve_internlm2(
                          dev, None, torch.float32)),
-                     ("serve_whisper", lambda: phase_serve_whisper(dev,
-                                                                   kept)),
+                     ("serve_whisper", lambda: phase_serve_whisper(
+                         dev, kept, kept_reorder)),
                      ("serve_int8", lambda: phase_serve_int8(dev,
                                                              kept_int8)),
                      ("serve_resident", lambda: phase_serve_resident(dev)),
@@ -6183,7 +6252,7 @@ def main() -> int:
                          kept_rwkv6_train, kept_rwkv6_bwd))):
         needs = {"main_path": ("serve", "serve_moe", "serve_rwkv",
                                "serve_mixtral", "serve_dense",
-                               "serve_prefill", "apps",
+                               "serve_whisper", "serve_prefill", "apps",
                                "fused_forward", "train", "train_moe_rwkv",
                                "checkpoint"),
                  "serve_prefill": ("build", "serve_moe"),
@@ -6235,7 +6304,8 @@ def main() -> int:
     head = max(kern["main_path"], key=lambda t: t["ms"] / t["library_ms"])
     swz = kern["reorder"]
     reorder_rows = (swz, kern["reorder_dlrm"], kern["reorder_prefill"],
-                    kern["reorder_train"], *kern["reorder_mixtral"])
+                    kern["reorder_train"], *kern["reorder_mixtral"],
+                    *kern["reorder_whisper"])
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,

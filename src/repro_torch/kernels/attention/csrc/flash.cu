@@ -52,7 +52,8 @@
 //     its key's two scales by cp.async into the same ring, and dequantizes
 //     in registers in f32: a row's score over the codes times the key's
 //     scale, then V's codes times p * its scale (K's registers are free
-//     before V's are taken). A decode step then reads (hd + 4)
+//     before V's are taken; bf16 and f32 K/V run the same loop with scales
+//     of 1, which fold away). A decode step then reads (hd + 4)
 //     / (2 hd) of the bf16 cache's bytes. Each lane holds 16 elements of a
 //     key, twice bf16's 8, so at 8 rows q (scaled) is kept in shared
 //     memory instead of 128 registers a thread, read back at each key;
@@ -396,84 +397,53 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
     const int slot = n % NST;
     const bool exists = first + grp + n * STEP < k_end;
     const int kp = ring_p[slot * 32];
-    if constexpr (SCALED) {
-      // the int8 cache: each row's score over the codes times the key's
-      // scale, then V's codes times p * its scale; K's registers are free
-      // before V's are taken
-      float kf[E];
+    // each row's score over K (the int8 cache: over its codes, times the
+    // key's scale), then V (the int8 cache: its codes times p * its scale);
+    // K's registers are free before V's are taken. The scales are 1 for
+    // bf16 and f32 K/V, and the products by them fold away.
+    float kf[E];
 #pragma unroll
-      for (int i = 0; i < E; ++i) kf[i] = 0.f;
+    for (int i = 0; i < E; ++i) kf[i] = 0.f;
+    if (holds) {
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        Vec<KT>::unpack(ring_k[(slot * NP + j) * 32], kf + j * VEC);
+    }
+    float ks = 1.f;
+    if constexpr (SCALED) ks = ring_ks[slot * 32];
+    float sc[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (r >= R) break;
+      float d = 0.f;
+#pragma unroll
+      for (int i = 0; i < E; ++i) d = fmaf(qval(r, i), kf[i], d);
+#pragma unroll
+      for (int o = LG / 2; o > 0; o >>= 1)
+        d += __shfl_xor_sync(kFull, d, o);
+      sc[r] = visible(qp[r], kp, causal, window) ? d * ks : kNegInf;
+    }
+    if (exists) {
+      float vf[E];
+#pragma unroll
+      for (int i = 0; i < E; ++i) vf[i] = 0.f;
       if (holds) {
 #pragma unroll
         for (int j = 0; j < NP; ++j)
-          Vec<KT>::unpack(ring_k[(slot * NP + j) * 32], kf + j * VEC);
-      }
-      const float ks = ring_ks[slot * 32];
-      float sc[RM];
-#pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        if (r >= R) break;
-        float d = 0.f;
-#pragma unroll
-        for (int i = 0; i < E; ++i) d = fmaf(qval(r, i), kf[i], d);
-#pragma unroll
-        for (int o = LG / 2; o > 0; o >>= 1)
-          d += __shfl_xor_sync(kFull, d, o);
-        sc[r] = d * ks;
-      }
-      if (exists) {
-        float vf[E];
-#pragma unroll
-        for (int i = 0; i < E; ++i) vf[i] = 0.f;
-        if (holds) {
-#pragma unroll
-          for (int j = 0; j < NP; ++j)
-            Vec<KT>::unpack(ring_v[(slot * NP + j) * 32], vf + j * VEC);
-        }
-        const float vs = ring_vs[slot * 32];
-#pragma unroll
-        for (int r = 0; r < RM; ++r) {
-          if (r >= R) break;
-          const float s_r =
-              visible(qp[r], kp, causal, window) ? sc[r] : kNegInf;
-          const float mn = fmaxf(m[r], s_r);
-          const float c = ex<T>(m[r] - mn), p = ex<T>(s_r - mn);
-          l[r] = l[r] * c + p;
-          const float pv = p * vs;
-#pragma unroll
-          for (int i = 0; i < E; ++i)
-            acc[r][i] = fmaf(pv, vf[i], acc[r][i] * c);
-          m[r] = mn;
-        }
-      }
-    } else {
-      float kf[E], vf[E];
-#pragma unroll
-      for (int i = 0; i < E; ++i) kf[i] = vf[i] = 0.f;
-      if (holds) {
-#pragma unroll
-        for (int j = 0; j < NP; ++j) {
-          Vec<KT>::unpack(ring_k[(slot * NP + j) * 32], kf + j * VEC);
           Vec<KT>::unpack(ring_v[(slot * NP + j) * 32], vf + j * VEC);
-        }
       }
+      float vs = 1.f;
+      if constexpr (SCALED) vs = ring_vs[slot * 32];
 #pragma unroll
       for (int r = 0; r < RM; ++r) {
         if (r >= R) break;
-        float d = 0.f;
-#pragma unroll
-        for (int i = 0; i < E; ++i) d = fmaf(qval(r, i), kf[i], d);
-#pragma unroll
-        for (int o = LG / 2; o > 0; o >>= 1)
-          d += __shfl_xor_sync(kFull, d, o);
-        if (!exists) continue;
-        const float sc = visible(qp[r], kp, causal, window) ? d : kNegInf;
-        const float mn = fmaxf(m[r], sc);
-        const float c = ex<T>(m[r] - mn), p = ex<T>(sc - mn);
+        const float mn = fmaxf(m[r], sc[r]);
+        const float c = ex<T>(m[r] - mn), p = ex<T>(sc[r] - mn);
         l[r] = l[r] * c + p;
+        const float pv = p * vs;
 #pragma unroll
         for (int i = 0; i < E; ++i)
-          acc[r][i] = fmaf(p, vf[i], acc[r][i] * c);
+          acc[r][i] = fmaf(pv, vf[i], acc[r][i] * c);
         m[r] = mn;
       }
     }

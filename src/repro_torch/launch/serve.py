@@ -49,12 +49,13 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           dtype: torch.dtype = torch.bfloat16, params=None,
           keep_logits: bool = False, n_layers: int | None = None,
           cache_dtype: str = "bf16", resident: bool = False,
-          cfg=None) -> dict:
+          serve_tp: int | None = None) -> dict:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and generate
     ``gen`` tokens each. Weights are random from ``seed`` unless ``params``
     (cube tensors on the serve topology) are given. ``n_layers`` cuts the
-    model's depth (the widths stay the arch's); ``cfg`` replaces the arch's
-    config. ``cache_dtype`` and ``resident`` are the plan's and the
+    model's depth (the widths stay the arch's); ``serve_tp`` caps the
+    serve cube's tp (the config's ``serve_tp``: the rest of the PEs go to
+    data). ``cache_dtype`` and ``resident`` are the plan's and the
     server's knobs.
 
     Returns the run's record: ``tokens`` (B, prompt_len + gen) -- the
@@ -67,12 +68,13 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     ``prefill_s``, and with ``keep_logits`` every step's global logits (B,
     V_padded), from the prefill's if there is one."""
     dev = resolve_device(device)
-    if cfg is None:
-        cfg = configs.get(arch)
-        if smoke:
-            cfg = cfg.scaled_for_smoke()
+    cfg = configs.get(arch)
+    if smoke:
+        cfg = cfg.scaled_for_smoke()
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if serve_tp is not None:
+        cfg = dataclasses.replace(cfg, serve_tp=serve_tp)
     topo = build_serve_topology(cfg, pes)
     S_ctx = prompt_len + gen
     plan = make_serve_plan(cfg, topo, S_ctx=S_ctx, global_batch=batch,

@@ -12,6 +12,11 @@ within an ulp of a half rounds either way), the scales within 1e-6
 relative. The worst logits difference seen (printed under ``-s``) was
 1.49e-7 at 1 PE and 1.79e-7 at 2 and 4 PEs, with max|logits| about 0.6.
 
+In bf16 at qwen3's full depth (28 layers, narrower widths), the int8
+cache's logits lie as far from the bf16 cache's in the port as in JAX
+(within 1.5x): 0.023 / 0.030 of max(1, max|logits|) in the port, 0.020 /
+0.034 in JAX, at d_model 512 / 1024.
+
 The paged int8 cell against the contiguous one within 1e-5, as
 ``tests/test_paging.py`` holds JAX's; the plain int8 decode form against
 ``ref.flash_attention`` on the dequantized cache; the kernel itself on the
@@ -58,6 +63,14 @@ def f32_reference(monkeypatch):
     """The JAX package's compute (and compute-dtype cache) in f32."""
     for mod in (jax_params, jax_blocks, jax_lm, jax_serving):
         monkeypatch.setattr(mod, "COMPUTE_DTYPE", jnp.float32)
+
+
+@pytest.fixture
+def bf16_reference(monkeypatch):
+    """The JAX package's compute in bf16, its default: pinned, because
+    ``tests/test_serving.py`` sets it to f32 in three modules on import."""
+    for mod in (jax_params, jax_blocks, jax_lm, jax_serving):
+        monkeypatch.setattr(mod, "COMPUTE_DTYPE", jnp.bfloat16)
 
 
 def _configs(pes):
@@ -174,6 +187,75 @@ def test_int8_decode_matches_jax(f32_reference, pes, capsys):
         assert np.abs(s_got - s_want).max() <= SCALE_TOL * np.abs(
             s_want).max()
         assert (s_want[:, :, :S_ctx - 1] > 0).all()   # every slot written
+
+
+def _teacher_forced(jcfg, pcfg, tokens, cache_dtype):
+    """Both packages' decode of ``tokens`` (B, S), every step teacher-forced,
+    at 1 PE in bf16 (``bf16_reference``) from the
+    ``cache_dtype`` cache, on JAX's weights from seed 3: each package's
+    logits (B, S - 1, V) in f32."""
+    B, S = tokens.shape
+    jtopo = jax_serve_topology(jcfg, make_mesh((1, 1), ("data", "model")))
+    jparams = jax_params.init_params(jcfg, jtopo, seed=3)
+    jplan = jax_serving.make_serve_plan(jcfg, jtopo, S_ctx=S, global_batch=B,
+                                        cache_dtype=cache_dtype)
+    cspecs = jax_serving.cache_specs(jcfg, jtopo, jplan)
+    jstep = jax.jit(shard_map(
+        jax_serving.Server(jcfg, jtopo, jplan).decode_shard,
+        mesh=jtopo.cube.mesh,
+        in_specs=(jax_params.param_specs(jcfg, jtopo), cspecs, P(None),
+                  P(None)),
+        out_specs=(P(None, jtopo.tp), cspecs), check_vma=False))
+    jcache = jax_serving.init_cache(jcfg, jtopo, jplan)
+    topo = build_serve_topology(pcfg, 1)
+    plan = make_serve_plan(pcfg, topo, S_ctx=S, global_batch=B,
+                           cache_dtype=cache_dtype)
+    server = Server(pcfg, topo, plan, dtype=torch.bfloat16)
+    params = from_jax_params(pcfg, topo, jax.tree.map(np.asarray, jparams),
+                             device=CPU)
+    cache = init_cache(pcfg, topo, plan, dtype=torch.bfloat16, device=CPU)
+    cube = topo.cube
+    jout, pout = [], []
+    for t in range(S - 1):
+        lg, jcache = jstep(jparams, jcache,
+                           jnp.asarray(tokens[:, t], jnp.int32),
+                           jnp.full((B,), t, jnp.int32))
+        jout.append(np.asarray(lg.astype(jnp.float32)))
+        lg, cache = server.decode_shard(
+            params, cache, cube.to_cube(torch.from_numpy(tokens[:, t]),
+                                        (None,)),
+            cube.to_cube(torch.full((B,), t), (None,)))
+        pout.append(cube.from_cube(lg, (None, topo.tp)).float().numpy())
+    return np.stack(jout, 1), np.stack(pout, 1)
+
+
+@pytest.mark.parametrize("d_model", [512, 1024])
+def test_int8_gap_in_bf16_matches_jax_at_depth(bf16_reference, d_model,
+                                               capsys):
+    """qwen3 at its full depth (28 layers), head_dim 128 and G = 2, at
+    ``d_model`` (d_model / 128 heads), in bf16 over 47 teacher-forced steps
+    of 4 requests: the int8 cache's logits lie as far from the bf16
+    cache's in the port as in the JAX package (within a factor of 1.5
+    either way). Printed under ``-s``: both packages' gap over max(1,
+    max|logits|), which grows with the width in both (the full width is
+    not run on the CPU)."""
+    H = d_model // 128
+    kw = dict(n_layers=28, d_model=d_model, n_heads=H, n_kv_heads=H // 2,
+              head_dim=128, d_ff=3 * d_model, vocab_size=4096, tp=1)
+    jcfg = dataclasses.replace(jax_get(ARCH).scaled_for_smoke(), **kw)
+    pcfg = dataclasses.replace(configs.get(ARCH).scaled_for_smoke(), **kw)
+    tokens = np.random.RandomState(5).randint(0, jcfg.vocab_size, (4, 48))
+    jb, pb = _teacher_forced(jcfg, pcfg, tokens, "bf16")
+    j8, p8 = _teacher_forced(jcfg, pcfg, tokens, "int8")
+    assert np.isfinite(p8).all() and np.isfinite(pb).all()
+    jax_gap = float(np.abs(j8 - jb).max()) / max(1.0, float(np.abs(jb).max()))
+    port_gap = float(np.abs(p8 - pb).max()) / max(1.0,
+                                                  float(np.abs(pb).max()))
+    with capsys.disabled():
+        print(f"\nint8 vs bf16 cache in bf16, 28 layers, d_model {d_model}: "
+              f"JAX {jax_gap:.6g}, port {port_gap:.6g} x max(1, max|logits|)"
+              f" (max|logits| {float(np.abs(jb).max()):.6g})")
+    assert jax_gap / 1.5 <= port_gap <= 1.5 * jax_gap
 
 
 def test_quantize_kv_as_the_reference():
