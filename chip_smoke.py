@@ -6,8 +6,9 @@
 Phases, each printed as one JSON line:
 
   build   builds every hand-written kernel from the sources in this checkout
-          (one nvcc per source, all started together) and prints ptxas's
-          register / shared-memory / spill report;
+          (one nvcc per source, and per part of flash.cu, whose three
+          parts link into one library; all started together) and prints
+          ptxas's register / shared-memory / spill report;
   no_spills  fails if ptxas reports a spill in any kernel instance;
   kernel  holds the flash-attention kernel against its plain PyTorch
           version on the card -- f32 within 2e-5, bf16 within 2e-2 of
@@ -103,25 +104,26 @@ Phases, each printed as one JSON line:
           the kernel's last launch in each form (forward, decode) are kept;
   serve_f32  the same serve at 1 and 8 PEs in f32: logits agree within
           1e-4 * max(1, max|ref|) and the greedy tokens are identical;
-  serve_moe  full-width qwen2-moe-a2.7b (bf16, 24 layers, 64 padded experts
+  serve_moe  full-width qwen2-moe-a2.7b (bf16, MOE_SERVE_LAYERS = 12 of its
+          24 layers, 64 padded experts
           top-4) through the launcher's function at 1 and 8 PEs, one
           topology's weights on the card at a time: ms/step, tok/s, peak
           memory, both kernels' launches (each run must launch the flash
-          kernel 24 x 47 times, one per layer and decode step, and the 8-PE
-          run the reorder kernel 2 x 24 x 47 times: two all_to_alls per
+          kernel 12 x 47 times, one per layer and decode step, and the 8-PE
+          run the reorder kernel 2 x 12 x 47 times: two all_to_alls per
           layer and decode step), a decode profile, the 1-PE vs 8-PE logits error and
           the share of routing decisions that agree. The inputs of each
           kernel's last launch in each run are kept;
   serve_moe_f32  the same in f32 (TF32 off): 1-PE and 8-PE logits within
           1e-4 * max(1, max|ref|), identical greedy tokens, and identical
           top-k expert ids at every (step, layer, request);
-  serve_rwkv  full-width rwkv6-7b (bf16, 32 layers, 64 heads of 64) at 1
-          and 8 PEs, one topology's weights on the card at a time: the
+  serve_rwkv  full-width rwkv6-7b (bf16, RWKV_SERVE_LAYERS = 16 of its 32
+          layers, 64 heads of 64) at 1 and 8 PEs, one topology's weights on the card at a time: the
           launcher's loop (which decodes with the one-token recurrence and
           launches the RWKV6 kernel 0 times), forward_logits on the served
           tokens, and prefill_shard of the prompt followed by decode from
-          its cache. The kernel must launch 32 times per forward and 32 per
-          prefill, and each launch is held against the plain version on its
+          its cache. The kernel must launch once per layer per forward and
+          per prefill, and each launch is held against the plain version on its
           inputs (5e-2). The witness: the same forward and prefill with the
           plain version in the kernel's place (only the recurrence
           differs); the kernel's paths -- forward logits, prefill's
@@ -200,7 +202,8 @@ Phases, each printed as one JSON line:
           same (f32: identical tokens); exact launches (a prefill n_enc +
           2 L flash forwards, a decode step 2 L, a forward n_enc + 2 L; 2 L
           reorders a prefill at 8 PEs);
-  serve_int8  qwen3-1.7b at full width and depth from the int8 KV cache
+  serve_int8  qwen3-1.7b at full width and INT8_LAYERS = 14 of its 28
+          layers from the int8 KV cache
           through the launcher's loop at 1 and 8 PEs beside the
           compute-dtype cache on the same weights, in bf16 and in f32:
           in f32 the int8 run within 5e-2 x max(1, max|ref|) of the f32
@@ -295,13 +298,14 @@ Phases, each printed as one JSON line:
           off: bf16 within 5e-2 and f32 within 1e-4 x max(1, max|ref|),
           exactly n_layers x cp partial flash launches a fused forward (ring
           attention's hops) and n_layers unfused;
-  train   full-width qwen3-1.7b training through ``Trainer`` at 1 PE, at
+  train   full-width qwen3-1.7b (TRAIN_LAYERS = 14 of its 28 layers)
+          training through ``Trainer`` at 1 PE, at
           8 PEs as the launcher lays them out (tp 8) and at 8 PEs as data
           2 x tp 4, one layout's weights on the card at a time: bf16 over
           f32 masters, int8 moments, a warm-up and 3 timed steps of 4 x
           1,024 tokens from TokenStream (ms/step, tok/s, mfu = 6 N tokens /
-          s / 989e12, peak memory, a profile of one step), exactly 2 x 28
-          forward-form and 28 backward launches a step, the grad-sync
+          s / 989e12, peak memory, a profile of one step), exactly 2 L
+          forward-form and L backward launches a step, the grad-sync
           programs lowered on the first step and served from the lower
           cache after; one batch repeated 5 steps at 1 PE: the loss falls;
           f32 (TF32 off, fp32 moments, 2 x 256 tokens): the loss of 1 PE
@@ -318,10 +322,10 @@ Phases, each printed as one JSON line:
           the backward's bucket hooks (bit for bit on the synced leaves).
           The inputs of each layout's last forward and backward launch are
           kept;
-  train_moe_rwkv  qwen2-moe-a2.7b (4 of 24 layers), rwkv6-7b (12 of 32),
-          phi3-mini-3.8b (all 32: hd 96), gemma3-1b (all 26: hd 256, 5:1
-          local windows of 512 and global layers), mixtral-8x7b (2 of
-          32), internlm2-20b (8 of 48: G = 6) and whisper-base (all 6 + 6:
+  train_moe_rwkv  qwen2-moe-a2.7b (2 of 24 layers), rwkv6-7b (6 of 32),
+          phi3-mini-3.8b (8 of 32: hd 96), gemma3-1b (12 of 26: hd 256,
+          5:1 local windows of 512 and two global layers), mixtral-8x7b (2
+          of 32), internlm2-20b (4 of 48: G = 6) and whisper-base (all 6 + 6:
           the encoder's non-causal hd-64 attention, the decoder's self- and
           cross-attention) training at full width through ``Trainer`` at 1
           PE and at 8 PEs as the launcher lays them out (MoE ep 8, the
@@ -351,6 +355,34 @@ Phases, each printed as one JSON line:
           path are kept: the flash forward (with row statistics) and
           backward; the reorder; RWKV6's forward (saving the sub-chunk
           states) and backward;
+  serve_llava  llava-next-34b at full width (d_model 7,168, 56 / 8 heads
+          of 128: G = 7) and LLAVA_SERVE_LAYERS = 12 of its 60 layers at 1
+          and 8 PEs (tp 8), bf16: 4 prompts of its 2,880 patches (from the
+          seed) and 128 text tokens through one ``prefill_shard``, then 15
+          greedy decode steps; ``forward_logits`` of the served tokens and
+          patches; the witness, the same serve with the flash kernel's
+          plain version in its place, within RWKV_PATH_TOL x max(1,
+          max|ref|) of the run at the steps whose inputs agree; decode vs
+          forward and 1 vs 8 PEs reported beside SERVE_TOL; exact launches
+          (flash: L a prefill, L a decode step, L a forward; reorder: L a
+          prefill at 8 PEs, the K/V reshard); a decode profile;
+  serve_jamba  jamba-1.5-large as one unit of 8 layers (7 Mamba, one
+          attention with 64 / 8 heads of 128: G = 8; 4 MoE layers of 16
+          experts top-2) at a cut width (JAMBA_SERVE: d_model 4,096, FFN
+          12,288, expert capacity n_experts / top_k so that no choice
+          drops) at 1 and 8 PEs (ep 8), bf16 and f32, through the
+          launcher's loop: f32 decode within F32_TOL of forward_logits and
+          1 vs 8 PEs within F32_TOL with identical greedy tokens; bf16
+          against its witness within RWKV_PATH_TOL, decode vs forward
+          reported; exact launches (flash one a step and forward; the
+          reorder 2 x 4 a step and forward at 8 PEs); a decode profile;
+  train_llava, train_jamba  llava at 6 of 60 layers (full width; batches
+          of 2 x 4,096: 2,880 patches, then text) at 1 PE and tp 8, and
+          jamba as one unit at d_model 2,048 / FFN 6,144 at 1 PE and ep 8,
+          through ``Trainer`` as train_moe_rwkv's cells (``_train_cells``):
+          exact launches a step, a falling loss on a repeated batch, the
+          f32 witness cells with their controls (llava at 2 layers on 1 x
+          3,072 tokens);
   checkpoint  ``repro_torch.checkpoint`` at qwen3-1.7b's full width and 4
           of its 28 layers (the checkpoint's bytes, the free bytes
           and host RAM where it goes, in the checkout's build/, printed
@@ -385,8 +417,10 @@ Phases, each printed as one JSON line:
           the norms (1 + w in the file), within 2^-24; export, write, read
           and import seconds;
   main_path  each kernel on the inputs the serve, serve_mixtral,
-          serve_prefill, fused_forward, train, train_moe_rwkv and apps
-          phases kept (the
+          serve_prefill, serve_llava, serve_jamba, fused_forward, train,
+          train_moe_rwkv, train_llava, train_jamba and apps phases kept
+          (the G = 7 and G = 8 rows, llava's and jamba's, also listed
+          apart in the kernels line's ``group_rows``; the
           shapes and positions the path gives it; for
           DLRM's AA(xyz), whose blocks repeat across the PEs, a random
           tensor of that shape): checked
@@ -457,6 +491,15 @@ KERNEL_SOURCE = "src/repro_torch/kernels/attention/csrc/flash.cu"
 REORDER_TPU_KERNEL = "src/repro/kernels/reorder/reorder.py:46"
 REORDER_SOURCE = "src/repro_torch/kernels/reorder/csrc/reorder.cu"
 RWKV_ARCH = "rwkv6-7b"
+# Depth cuts of earlier paths for the run's 1,200 s limit, made when the
+# llava and jamba phases came in: rwkv6 serves at 16 of its 32 layers,
+# qwen2-moe at 12 of 24, qwen3's int8-cache and training phases at 14 of
+# 28; each phase's gates compare runs on the same weights and count
+# launches by the layer, and their steps take time by the layer
+RWKV_SERVE_LAYERS = 16
+MOE_SERVE_LAYERS = 12
+INT8_LAYERS = 14
+TRAIN_LAYERS = 14
 # the dense archs with head dims 96 and 256, and the PE counts each serves
 # at (gemma3's 4 query heads bound its head parallelism at 4)
 DENSE_ARCHS = {"phi3-mini-3.8b": (1, 8), "gemma3-1b": (1, 4)}
@@ -2634,7 +2677,8 @@ def phase_serve_moe(dev, kept: dict, kept_reorder: dict,
     (reported by serve_prefill)."""
     runs = {}
     for pes in PES:
-        run = _moe_run(dev, pes, torch.bfloat16, kept, kept_reorder)
+        run = _moe_run(dev, pes, torch.bfloat16, kept, kept_reorder,
+                       layers=MOE_SERVE_LAYERS)
         run["summary"]["profile"] = profile_decode(run, dev)
         if pes == PES[-1]:
             moe_sort.update(_moe_sort_vs_scatter(run, dev))
@@ -2665,7 +2709,8 @@ def phase_serve_moe_f32(dev) -> dict:
     """1 PE against 8 PEs in f32 (TF32 off): logits within 1e-4 x
     max(1, max|ref|), identical greedy tokens, identical top-k expert ids
     at every (step, layer, request)."""
-    runs = {pes: _drop(_moe_run(dev, pes, torch.float32), "routes")
+    runs = {pes: _drop(_moe_run(dev, pes, torch.float32,
+                                layers=MOE_SERVE_LAYERS), "routes")
             for pes in PES}
     a, b = runs[PES[0]], runs[PES[-1]]
     scale = max(1.0, float(a["dec"].abs().max()))
@@ -3219,12 +3264,12 @@ def _int8_pair(dev, pes: int, dtype, params=None, keep=None) -> dict:
     with keep if keep is not None else contextlib.nullcontext():
         q = serve(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, pes=pes,
                   device=dev, seed=0, dtype=dtype, keep_logits=True,
-                  cache_dtype="int8", params=params)
+                  cache_dtype="int8", params=params, n_layers=INT8_LAYERS)
     q_launch = (flash.INT8_LAUNCHES - i0, flash.LAUNCHES - n0)
     n1 = flash.LAUNCHES
     b = serve(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, pes=pes,
               device=dev, seed=0, dtype=dtype, keep_logits=True,
-              params=q["params"])
+              params=q["params"], n_layers=INT8_LAYERS)
     b_launch = flash.LAUNCHES - n1
     d8, dc = (torch.stack(r["logits"], dim=1) for r in (q, b))
     same = np.cumprod(q["tokens"][:, :-1] == b["tokens"][:, :-1], axis=1)
@@ -3267,7 +3312,7 @@ def _int8_witness(q, b, d8, dc, dev) -> dict:
     with plain_flash():
         w = serve(ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN,
                   pes=math.prod(q["topo"].cube.dim_sizes), device=dev,
-                  seed=0, dtype=torch.bfloat16,
+                  seed=0, dtype=torch.bfloat16, n_layers=q["cfg"].n_layers,
                   keep_logits=True, cache_dtype="int8", params=q["params"])
     dw = torch.stack(w["logits"], dim=1)
 
@@ -3575,6 +3620,254 @@ def phase_serve_whisper(dev, kept: dict, kept_reorder: dict) -> dict:
             "gen": GEN, **out, "flash_launches": launches,
             "reorder_launches": reorder_launches,
             "profiled_launches": profiled}
+
+
+# ------------------------------------------------- serve_llava, serve_jamba
+LLAVA_ARCH = "llava-next-34b"
+# serving depth: 12 of 60 layers (557 M parameters a layer, 30.5 GB of f32
+# weights with the embedding and head); a prompt of its 2,880 patches and
+# LLAVA_TEXT text tokens goes through one prefill, then GEN - 1 decode steps
+LLAVA_SERVE_LAYERS = 12
+LLAVA_TEXT = 128
+LLAVA_PES = (1, 8)                     # its own tp 8: 7 query heads a PE
+JAMBA_ARCH = "jamba-1.5-large"
+# one unit of 8 layers (attention at index 4, MoE on the odd ones) at a cut
+# width: 64 / 8 heads of 128, 16 experts top-2, d_state 16, expand 2, conv
+# 4 and the vocab as published; d_model and the FFN widths cut together,
+# since one MoE layer at d_model 8,192 holds 38.6 GB of f32 weights. The
+# expert capacity is n_experts / top_k (8.0), so that no choice is dropped
+# and decode and forward are one function (the reference's default 1.25
+# drops choices at a decode batch of 4: C = 1)
+JAMBA_SERVE = {"n_layers": 8, "d_model": 4096, "d_ff": 12288,
+               "d_ff_expert": 12288, "capacity_factor": 8.0}
+JAMBA_PES = (1, 8)                     # ep 8: 2 experts a PE
+
+
+def keep_by_form(kept: dict, label: str):
+    """While open, every launch of the flash wrapper stores its inputs
+    under ``label/prefill`` (more than one query a row) or
+    ``label/decode`` (the last launch of each form wins)."""
+    from repro_torch.kernels.attention import flash
+
+    def wrap(launch):
+        def keeping(q, k, v, q_pos, k_pos, **kw):
+            form = "prefill" if q.shape[1] > 1 else "decode"
+            kept[f"{label}/{form}"] = (q, k, v, q_pos, k_pos, kw)
+            return launch(q, k, v, q_pos, k_pos, **kw)
+        return keeping
+
+    return patched(flash, "flash_attention", wrap)
+
+
+def _served_forward(run, dtype) -> torch.Tensor:
+    """``forward_logits`` of the served tokens (and the run's patches) on
+    the forward topology of the run's cube: global (B, S, V_padded)."""
+    from repro_torch.models.lm import Model
+    from repro_torch.models.topology import build_topology
+    topo, cfg = run["topo"], run["cfg"]
+    cfg = (dataclasses.replace(cfg, ep=topo.size(topo.ep),
+                               etp=topo.size(topo.etp)) if cfg.n_experts
+           else dataclasses.replace(cfg, tp=topo.tp_size))
+    ftopo = build_topology(cfg, topo.cube.ndev)
+    if ftopo.cube != topo.cube:
+        raise RuntimeError("forward and serve cubes differ")
+    dev = run["params"]["embed"].device
+    batch = {"tokens": ftopo.cube.to_cube(
+        torch.from_numpy(run["tokens"]).to(dev), (ftopo.dp, None))}
+    if run["patches"] is not None:
+        batch["patches"] = ftopo.cube.to_cube(run["patches"].to(dev),
+                                              (ftopo.dp, None, None))
+    out = Model(cfg, ftopo, dtype=dtype).forward_logits(run["params"], batch)
+    return ftopo.cube.from_cube(out, (ftopo.dp, None, ftopo.tp))
+
+
+def _new_serve(dev, arch: str, pes: int, dtype, kept, kept_reorder,
+               **serve_kw) -> dict:
+    """One serve of llava or jamba through the launcher's function (llava:
+    its patches and text through ``prefill_shard``, then greedy decode
+    steps; jamba: the teacher-forced prompt, then greedy decode steps),
+    ``forward_logits`` of the served tokens, and in bf16 the witness: the
+    same serve on the same weights with the flash kernel's plain version
+    in its place (no flash launch; its reorders launch as the run's).
+    Exact launches: the flash kernel once per
+    attention layer and prefill, decode step and forward; the reorder, at
+    more than one PE, once per attention layer and prefill where the KV
+    heads are sharded (the K/V reshard) and twice per MoE layer and
+    prefill, decode step and forward (dispatch, combine). bf16 decode is
+    gated against its witness within RWKV_PATH_TOL, f32 decode against the
+    forward within F32_TOL, x max(1, max|ref|); decode vs forward is
+    reported beside SERVE_TOL in bf16."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.reorder import reorder
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.config import ATTN, MOE
+    bf16 = dtype == torch.bfloat16
+    label = f"{arch}/{pes}pe"
+    torch.cuda.reset_peak_memory_stats(dev)
+    keep = contextlib.ExitStack()
+    if kept is not None:
+        keep.enter_context(keep_by_form(kept, label))
+    if kept_reorder is not None and pes > 1:
+        keep.enter_context(keep_reorder_inputs(kept_reorder,
+                                               f"{label}/serve"))
+    n0, r0 = flash.LAUNCHES, reorder.LAUNCHES
+    t0 = time.perf_counter()
+    with keep:
+        run = serve(arch, batch=BATCH, gen=GEN, pes=pes, device=dev, seed=0,
+                    dtype=dtype, keep_logits=True, **serve_kw)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    n_serve, r_serve = flash.LAUNCHES - n0, reorder.LAUNCHES - r0
+    n1, r1 = flash.LAUNCHES, reorder.LAUNCHES
+    fwd = _served_forward(run, dtype)
+    torch.cuda.synchronize()
+    n_fwd, r_fwd = flash.LAUNCHES - n1, reorder.LAUNCHES - r1
+    cfg, topo = run["cfg"], run["topo"]
+    n_attn = sum(m == ATTN for m in cfg.mixers())
+    n_moe = sum(f == MOE for f in cfg.ffns())
+    steps = len(run["step_ms"])
+    prompt = run["tokens"].shape[1] - GEN
+    # two all_to_alls a MoE layer past one PE; a prefill's K/V reshard
+    a2a = 2 * n_moe if pes > 1 else 0
+    reshard = n_attn if run["prefill"] and _reshards(cfg, topo) else 0
+    dec = torch.stack(run["logits"], dim=1)
+    ref = fwd[:, -dec.shape[1] - 1:-1]
+    held = _held(dec, ref, SERVE_TOL if bf16 else F32_TOL)
+    s = {"arch": arch, "pes": pes, "cube": topo.cube.describe(),
+         "dtype": str(dtype).split(".")[-1], "layers": cfg.n_layers,
+         "d_model": cfg.d_model, "prompt": prompt,
+         "prefill": run["prefill"], "prefill_s": run["prefill_s"],
+         "prefill_tok_per_s": (BATCH * prompt / run["prefill_s"]
+                               if run["prefill"] else None),
+         "ms_per_step": run["ms_per_step"],
+         "p75_ms_per_step": float(np.percentile(run["step_ms"][1:], 75)),
+         "steps_timed": steps - 1, "tok_per_s": run["tok_per_s"],
+         "serve_s": serve_s,
+         "flash_launches_serve": n_serve, "flash_launches_forward": n_fwd,
+         "expected_launches_serve": n_attn * (steps + run["prefill"]),
+         "expected_launches_forward": n_attn,
+         "reorder_launches_serve": r_serve, "reorder_launches_forward": r_fwd,
+         "expected_reorder_serve": a2a * (steps + run["prefill"]) + reshard,
+         "expected_reorder_forward": a2a,
+         "decode_vs_forward_err": held["err"],
+         "decode_vs_forward_bound": held["bound"],
+         "decode_greedy_matches_forward": float(
+             (dec.argmax(-1) == ref.argmax(-1)).float().mean()),
+         "finite": bool(torch.isfinite(dec).all()
+                        and torch.isfinite(fwd).all())}
+    del fwd, ref
+    ok = (s["finite"] and n_serve == s["expected_launches_serve"]
+          and n_fwd == s["expected_launches_forward"]
+          and r_serve == s["expected_reorder_serve"]
+          and r_fwd == s["expected_reorder_forward"]
+          and (run["prefill"] == (cfg.frontend == "patch")))
+    if bf16:
+        n2, r2 = flash.LAUNCHES, reorder.LAUNCHES
+        with plain_flash():
+            w = serve(arch, batch=BATCH, gen=GEN, pes=pes, device=dev,
+                      seed=0, dtype=dtype, keep_logits=True,
+                      params=run["params"], **serve_kw)
+        torch.cuda.synchronize()
+        wdec = torch.stack(w["logits"], dim=1)
+        first = run["tokens"].shape[1] - 1 - dec.shape[1]
+        same = np.cumprod(run["tokens"][:, first:-1]
+                          == w["tokens"][:, first:-1], axis=1)
+        same = torch.from_numpy(same.astype(bool)).to(dev)
+        wheld = _held(dec[same], wdec[same], RWKV_PATH_TOL[dtype])
+        s["witness"] = {**wheld, "compared_steps": int(same.sum()),
+                        "greedy_agreement": float(
+                            (run["tokens"][:, prompt:]
+                             == w["tokens"][:, prompt:]).mean()),
+                        "witness_launches": flash.LAUNCHES - n2,
+                        "witness_reorder_launches": reorder.LAUNCHES - r2}
+        ok &= (wheld["ok"] and flash.LAUNCHES == n2
+               and reorder.LAUNCHES - r2 == r_serve)
+        del w, wdec
+        n3, r3 = flash.LAUNCHES, reorder.LAUNCHES
+        s["profile"] = profile_decode(run, dev)
+        s["profiled_launches"] = flash.LAUNCHES - n3
+        s["profiled_reorder_launches"] = reorder.LAUNCHES - r3
+    else:
+        ok &= held["ok"]
+    s["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    s["ok"] = bool(ok)
+    run.update(dec=dec, summary=s)
+    return run
+
+
+def _new_serve_phase(dev, arch: str, pes_list: tuple, dtypes: tuple, kept,
+                     kept_reorder, **serve_kw) -> dict:
+    """``_new_serve`` at each PE count and type, one topology's weights on
+    the card at a time; 1 PE vs n PEs over the steps whose inputs agree,
+    within SERVE_TOL (bf16, reported) / F32_TOL (f32, gated, with identical
+    greedy tokens). Every launch counted from 0 here (the bf16 witness's
+    reorders among them); the profiled decode steps are not the path's."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.kernels.reorder import reorder
+    flash.LAUNCHES = reorder.LAUNCHES = 0
+    layers = serve_kw.get("n_layers") or serve_kw["changes"]["n_layers"]
+    out, ok, launches, reorders, profiled, profiled_r = {}, True, 0, 0, 0, 0
+    for dtype in dtypes:
+        bf16 = dtype == torch.bfloat16
+        runs = {}
+        for pes in pes_list:
+            run = _new_serve(dev, arch, pes, dtype, kept if bf16 else None,
+                             kept_reorder if bf16 else None, **serve_kw)
+            s = run["summary"]
+            launches += s["flash_launches_serve"] + s[
+                "flash_launches_forward"]
+            reorders += (s["reorder_launches_serve"]
+                         + s["reorder_launches_forward"]
+                         + s.get("witness", {}).get(
+                             "witness_reorder_launches", 0))
+            profiled += s.get("profiled_launches", 0)
+            profiled_r += s.get("profiled_reorder_launches", 0)
+            runs[pes] = _drop(run)
+            gc.collect()
+        pair = _dense_pair(runs, pes_list)
+        tol = SERVE_TOL if bf16 else F32_TOL
+        d_ok = (all(runs[p]["summary"]["ok"] for p in pes_list)
+                and (bf16 or (pair["err"] <= tol * pair["scale"]
+                              and pair["tokens_identical"])))
+        out[str(dtype).split(".")[-1]] = {
+            "ok": d_ok, "runs": [runs[p]["summary"] for p in pes_list],
+            f"pe1_vs_pe{pes_list[-1]}": pair, "bound": tol * pair["scale"]}
+        ok &= d_ok
+    return {"ok": bool(ok and flash.LAUNCHES - profiled == launches
+                       and reorder.LAUNCHES - profiled_r == reorders),
+            "arch": arch, "batch": BATCH, "gen": GEN, "config": serve_kw,
+            "cut": f"{layers} of {_full_depth(arch)} layers",
+            **out, "flash_launches": launches, "reorder_launches": reorders,
+            "profiled_launches": profiled,
+            "profiled_reorder_launches": profiled_r}
+
+
+def phase_serve_llava(dev, kept: dict, kept_reorder: dict) -> dict:
+    """llava-next-34b at full width (d_model 7,168, 56 / 8 heads of 128:
+    G = 7) and LLAVA_SERVE_LAYERS of its 60 layers, at 1 PE and 8 PEs (tp
+    8: 7 query heads and one KV head a PE), bf16 over f32 masters: 4
+    prompts of its 2,880 patches (drawn from the seed) and LLAVA_TEXT text
+    tokens through one ``prefill_shard``, then GEN - 1 greedy decode steps
+    (``_new_serve``). ``kept`` receives the kernel's inputs of its last
+    prefill and decode launch per run, ``kept_reorder`` the 8-PE run's
+    last reorder (a K/V reshard)."""
+    return _new_serve_phase(dev, LLAVA_ARCH, LLAVA_PES, (torch.bfloat16,),
+                            kept, kept_reorder, prompt_len=LLAVA_TEXT,
+                            n_layers=LLAVA_SERVE_LAYERS)
+
+
+def phase_serve_jamba(dev, kept: dict, kept_reorder: dict) -> dict:
+    """jamba-1.5-large at JAMBA_SERVE's cut (one unit of 8 layers: 7
+    Mamba, 1 attention with 64 / 8 heads of 128: G = 8; 4 MoE layers of 16
+    experts top-2) at 1 PE and 8 PEs (ep 8), bf16 and f32 (TF32 off),
+    through the launcher's usual loop (the prompt teacher-forced through
+    decode steps, then greedy), ``_new_serve``. ``kept`` receives the
+    kernel's inputs of its last decode launch per bf16 run, ``kept_reorder``
+    the 8-PE bf16 run's last reorder (an MoE all_to_all)."""
+    return _new_serve_phase(dev, JAMBA_ARCH, JAMBA_PES,
+                            (torch.bfloat16, torch.float32), kept,
+                            kept_reorder, prompt_len=PROMPT,
+                            changes=JAMBA_SERVE)
 
 
 # ---------------------------------------------------------- serve_prefill
@@ -4195,7 +4488,8 @@ def _rwkv_run(dev, pes, dtype) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     run = serve(RWKV_ARCH, batch=BATCH, prompt_len=PROMPT, gen=GEN, pes=pes,
-                device=dev, seed=0, dtype=dtype, keep_logits=True)
+                device=dev, seed=0, dtype=dtype, keep_logits=True,
+                n_layers=RWKV_SERVE_LAYERS)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     cfg = dataclasses.replace(run["cfg"], tp=pes)
@@ -4534,7 +4828,7 @@ def _train_setup(dev, layout: str, tc, n_layers: int | None = None):
     from repro_torch.runtime.trainer import init_opt_state
     pes, tp = TRAIN_LAYOUTS[layout]
     cfg = dataclasses.replace(configs.get(ARCH), tp=tp,
-                              n_layers=n_layers or _full_depth(ARCH))
+                              n_layers=n_layers or TRAIN_LAYERS)
     topo = build_topology(cfg, pes)
     masters = trainable(init_params(cfg, topo, 0, device=dev),
                         param_specs(cfg, topo), topo.cube)
@@ -4850,11 +5144,26 @@ MIXTRAL_ARCH = "mixtral-8x7b"
 # the tp-8 cell ran out of the card's 80 GB, and at 10 (peak 62.2 GB) it
 # did once too, with 17 GB of the allocator's cache free but fragmented;
 # whisper-base at full depth (6 encoder + 6 decoder layers)
-TRAIN_MR_ARCHS = {"moe": (MOE_ARCH, 4), "rwkv": (RWKV_ARCH, 12),
-                  "phi3": ("phi3-mini-3.8b", 32), "gemma3": ("gemma3-1b", 26),
+TRAIN_MR_ARCHS = {"moe": (MOE_ARCH, 2), "rwkv": (RWKV_ARCH, 6),
+                  "phi3": ("phi3-mini-3.8b", 8), "gemma3": ("gemma3-1b", 12),
                   "mixtral": (MIXTRAL_ARCH, 2),
-                  "internlm2": ("internlm2-20b", 8),
-                  "whisper": ("whisper-base", 6)}
+                  "internlm2": ("internlm2-20b", 4),
+                  "whisper": ("whisper-base", 6),
+                  "llava": (LLAVA_ARCH, 6), "jamba": (JAMBA_ARCH, 8)}
+# the cells that train in phases of their own (train_llava, train_jamba)
+TRAIN_OWN_PHASE = ("llava", "jamba")
+# llava-next-34b at 6 of 60 layers (4.27 B parameters with its embedding
+# and head, as many as internlm2's 8-layer cell, whose tp-8 step peaked at
+# 52 GB); jamba-1.5-large one unit (8 layers) at d_model 2,048 and FFN
+# widths 6,144 (3.05 B parameters, 12.2 GB of f32 masters), its heads,
+# experts, state and vocab as published
+TRAIN_MR_CHANGES = {"jamba": {"d_model": 2048, "d_ff": 6144,
+                              "d_ff_expert": 6144}}
+# (batch, sequence) where TRAIN_BATCH x TRAIN_SEQ does not fit the arch:
+# llava's 2,880 patches come first, so its sequence holds them and 1,216
+# text tokens (bf16) / 192 (the f32 witness)
+TRAIN_MR_SHAPE = {"llava": (2, 4096)}
+TRAIN_MR_F32_SHAPE = {"llava": (1, 3072)}
 TRAIN_MR_PES = {"1pe": 1, "8pe": 8}
 # the f32 witness cells, at full width and a smaller cut: one step's
 # gradients only (no optimizer state), so the run's gradients and the
@@ -4864,7 +5173,9 @@ TRAIN_MR_F32 = {("rwkv", "1pe"): 4, ("rwkv", "8pe"): 4, ("moe", "8pe"): 2,
                 ("phi3", "1pe"): 4, ("phi3", "8pe"): 4, ("gemma3", "1pe"): 6,
                 ("gemma3", "8pe"): 6, ("mixtral", "8pe"): 2,
                 ("internlm2", "1pe"): 2, ("internlm2", "8pe"): 2,
-                ("whisper", "1pe"): 6, ("whisper", "8pe"): 6}
+                ("whisper", "1pe"): 6, ("whisper", "8pe"): 6,
+                ("llava", "1pe"): 2, ("llava", "8pe"): 2,
+                ("jamba", "1pe"): 8, ("jamba", "8pe"): 8}
 # The repeated-batch check's lr where TRAIN_LR overshoots: phi3 (32 layers
 # of d_model 3,072) at 3e-4 fell for three steps, then rose past its first
 # loss, with the plain attention in the kernels' place as well
@@ -4873,7 +5184,8 @@ TRAIN_MR_F32 = {("rwkv", "1pe"): 4, ("rwkv", "8pe"): 4, ("moe", "8pe"): 2,
 # first update (lr 2e-5 in the warm-up) and to 5.5e-5 in the next, then to
 # 1.7e-4: memorized, it sits at the floor of its loss. At 1e-5 its three
 # updates' lrs (2e-6, 4e-6, 6e-6) sum to 0.6 of that first one
-TRAIN_MR_LOSS_LR = {"phi3": 1e-4, "internlm2": 1e-5}
+TRAIN_MR_LOSS_LR = {"phi3": 1e-4, "internlm2": 1e-5, "llava": 1e-5,
+                    "jamba": 1e-4}
 RWKV6_BWD_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/rwkv6_bwd.cu"
 RWKV6_BWD_REPLACES = "src/repro/models/ssm.py:21"
 
@@ -4883,12 +5195,15 @@ def _mr_attention(name: str) -> bool:
     return name != "rwkv"
 
 
-def _mr_cfg(arch: str, layers: int, pes: int):
-    """Full width, ``layers`` deep, laid out as ``launch/train.py --pes``
-    does: min(model parallel, pes) PEs model-parallel (ep for MoE, tp
-    otherwise), the rest data-parallel."""
+def _mr_cfg(name: str, pes: int, layers: int | None = None):
+    """The cell's arch at full width (TRAIN_MR_CHANGES' cut where it has
+    one), ``layers`` deep (else TRAIN_MR_ARCHS' depth), laid out as
+    ``launch/train.py --pes`` does: min(model parallel, pes) PEs
+    model-parallel (ep for MoE, tp otherwise), the rest data-parallel."""
     from repro_torch import configs
-    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+    arch, depth = TRAIN_MR_ARCHS[name]
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers or depth,
+                              **TRAIN_MR_CHANGES.get(name, {}))
     mp = min(cfg.model_parallel, pes)
     if cfg.n_experts:
         return dataclasses.replace(cfg, ep=mp, etp=1)
@@ -4932,12 +5247,14 @@ def _mr_expected(cfg, pes: int) -> dict:
     sub-chunk states) and L backwards. An encoder-decoder's attention
     layers are its encoder's and each decoder layer's self- and
     cross-attention."""
-    L = cfg.n_layers
-    rwkv = cfg.family == "ssm"
+    from repro_torch.models.config import ATTN, MOE, RWKV
+    L = sum(m == ATTN for m in cfg.mixers())
+    R = sum(m == RWKV for m in cfg.mixers())
+    M = sum(f == MOE for f in cfg.ffns())
     A = 2 * L + cfg.n_enc_layers if cfg.is_encoder_decoder else L
-    return {"flash": 0 if rwkv else 2 * A, "flash_bwd": 0 if rwkv else A,
-            "reorder": 6 * L if cfg.n_experts and cfg.ep > 1 else 0,
-            "rwkv6": 2 * L if rwkv else 0, "rwkv6_bwd": L if rwkv else 0}
+    return {"flash": 2 * A, "flash_bwd": A,
+            "reorder": 6 * M if cfg.ep > 1 else 0,
+            "rwkv6": 2 * R, "rwkv6_bwd": R}
 
 
 def keep_rwkv6_train_inputs(kept_fwd: dict, kept_bwd: dict, label: str):
@@ -4985,12 +5302,13 @@ def _mr_bf16(dev, name: str, layout: str, kept: dict) -> dict:
     arch, layers = TRAIN_MR_ARCHS[name]
     pes = TRAIN_MR_PES[layout]
     label = f"{name}/{layout}"
-    cfg = _mr_cfg(arch, layers, pes)
+    cfg = _mr_cfg(name, pes)
+    batch_size, seq = TRAIN_MR_SHAPE.get(name, (TRAIN_BATCH, TRAIN_SEQ))
     tc = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100)
     torch.cuda.reset_peak_memory_stats(dev)
     topo, masters, opt = _mr_setup(dev, cfg, pes, tc)
-    stream = TokenStream(cfg, DataConfig(seq_len=TRAIN_SEQ,
-                                         global_batch=TRAIN_BATCH,
+    stream = TokenStream(cfg, DataConfig(seq_len=seq,
+                                         global_batch=batch_size,
                                          vocab_size=cfg.vocab_size))
     trainer = Trainer(cfg, topo, tc)
     kernels = _mr_kernels()
@@ -5017,7 +5335,7 @@ def _mr_bf16(dev, name: str, layout: str, kept: dict) -> dict:
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     step_ms = [t * 1e3 for t in trainer.step_seconds]
     ms = float(np.median(step_ms[1:]))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch_size * seq
     n_active = cfg.active_param_count()
     step_fn = trainer.step_fn
     state = {"m": masters, "o": opt}
@@ -5034,6 +5352,7 @@ def _mr_bf16(dev, name: str, layout: str, kept: dict) -> dict:
           and all(np.isfinite(h["loss"]) for h in hist))
     return {"ok": ok, "arch": arch, "layout": layout,
             "cube": topo.cube.describe(), "layers": layers,
+            "d_model": cfg.d_model, "batch": [batch_size, seq],
             "full_depth": layers == _full_depth(arch),
             "params": cfg.param_count(), "active_params": n_active,
             "tokens_per_step": tokens, "ms_per_step": ms,
@@ -5054,13 +5373,14 @@ def _mr_loss_falls(dev, name: str) -> dict:
     the last the lowest."""
     from repro_torch.data.pipeline import DataConfig, TokenStream
     from repro_torch.runtime.trainer import Trainer, TrainConfig, place_batch
-    arch, layers = TRAIN_MR_ARCHS[name]
-    cfg = _mr_cfg(arch, layers, 1)
+    arch, _ = TRAIN_MR_ARCHS[name]
+    cfg = _mr_cfg(name, 1)
+    batch_size, seq = TRAIN_MR_SHAPE.get(name, (TRAIN_BATCH, TRAIN_SEQ))
     lr = TRAIN_MR_LOSS_LR.get(name, TRAIN_LR)
     tc = TrainConfig(lr=lr, warmup=TRAIN_LOSS_STEPS, total_steps=100)
     topo, masters, opt = _mr_setup(dev, cfg, 1, tc)
     batch = place_batch(TokenStream(cfg, DataConfig(
-        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seq_len=seq, global_batch=batch_size,
         vocab_size=cfg.vocab_size)).global_batch_at(0), cfg, topo, dev)
     _, _, hist = Trainer(cfg, topo, tc).run(
         masters, opt, [batch] * TRAIN_LOSS_STEPS, log_every=0)
@@ -5186,11 +5506,13 @@ def _mr_f32(dev, name: str, layout: str) -> dict:
         TrainConfig, make_train_step, place_batch)
     arch, _ = TRAIN_MR_ARCHS[name]
     pes = TRAIN_MR_PES[layout]
-    cfg = _mr_cfg(arch, TRAIN_MR_F32[(name, layout)], pes)
+    cfg = _mr_cfg(name, pes, TRAIN_MR_F32[(name, layout)])
+    batch_size, seq = TRAIN_MR_F32_SHAPE.get(name, (TRAIN_F32_BATCH,
+                                                    TRAIN_F32_SEQ))
     topo, masters, _ = _mr_setup(dev, cfg, pes)
     step = make_train_step(cfg, topo, TrainConfig(), dtype=torch.float32)
     b0 = place_batch(TokenStream(cfg, DataConfig(
-        seq_len=TRAIN_F32_SEQ, global_batch=TRAIN_F32_BATCH,
+        seq_len=seq, global_batch=batch_size,
         vocab_size=cfg.vocab_size)).global_batch_at(0), cfg, topo, dev)
     kernels = _mr_kernels()
 
@@ -5223,7 +5545,7 @@ def _mr_f32(dev, name: str, layout: str) -> dict:
     del got
     kinds = ((("rwkv6_dlogw_zero",) if cfg.family == "ssm" else ())
              + (("reorder_perm_for_inverse", "reorder_identity_backward")
-                if cfg.n_experts else ())
+                if cfg.n_experts and cfg.ep > 1 else ())
              + (WITNESS_CONTROLS if _mr_attention(name) else ()))
     controls = out["controls"] = {}
     for kind in kinds:
@@ -5259,26 +5581,58 @@ def phase_train_moe_rwkv(dev, kept: dict) -> dict:
     forward and backward, the reorder forward and backward, the RWKV6
     forward with saved states and its backward) counted from 0 just before
     the bf16 runs. See ``_mr_bf16``, ``_mr_loss_falls`` and ``_mr_f32``."""
+    return _train_cells(dev, kept, [n for n in TRAIN_MR_ARCHS
+                                    if n not in TRAIN_OWN_PHASE])
+
+
+def _train_cells(dev, kept: dict, names: list) -> dict:
+    """The bf16 cells, the repeated-batch checks and the f32 witness cells
+    of the archs ``names`` (``_mr_bf16``, ``_mr_loss_falls``,
+    ``_mr_f32``), every kernel of their paths counted from 0 just before
+    the bf16 runs."""
     kernels = _mr_kernels()
     for m in kernels.values():
         m.LAUNCHES = 0                   # the main path starts here
     bf16 = {f"{n}/{lay}": _mr_bf16(dev, n, lay, kept)
-            for n in TRAIN_MR_ARCHS for lay in TRAIN_MR_PES}
+            for n in names for lay in TRAIN_MR_PES}
     launches = {k: sum(r["launches"][k] for r in bf16.values())
                 for k in kernels}
     by_arch = {TRAIN_MR_ARCHS[n][0]: {k: sum(
-        r["launches"][k] for c, r in bf16.items() if c.startswith(n))
-        for k in kernels} for n in TRAIN_MR_ARCHS}
-    falls = {n: _mr_loss_falls(dev, n) for n in TRAIN_MR_ARCHS}
-    f32 = {f"{n}/{lay}": _mr_f32(dev, n, lay) for n, lay in TRAIN_MR_F32}
+        r["launches"][k] for c, r in bf16.items() if c.startswith(n + "/"))
+        for k in kernels} for n in names}
+    falls = {n: _mr_loss_falls(dev, n) for n in names}
+    f32 = {f"{n}/{lay}": _mr_f32(dev, n, lay) for n, lay in TRAIN_MR_F32
+           if n in names}
     return {"ok": (all(r["ok"] for r in bf16.values())
                    and all(r["ok"] for r in falls.values())
                    and all(r["ok"] for r in f32.values())),
-            "cut": {a: f"{n} of {_full_depth(a)} layers"
-                    for a, n in TRAIN_MR_ARCHS.values()},
+            "cut": {TRAIN_MR_ARCHS[n][0]: f"{TRAIN_MR_ARCHS[n][1]} of "
+                    f"{_full_depth(TRAIN_MR_ARCHS[n][0])} layers"
+                    + (f", {TRAIN_MR_CHANGES[n]}" if n in TRAIN_MR_CHANGES
+                       else "") for n in names},
             "batch": [TRAIN_BATCH, TRAIN_SEQ], "bf16": bf16,
             "loss_falls": falls, "f32": f32, "launches": launches,
             "launches_by_arch": by_arch}
+
+
+def phase_train_llava(dev, kept: dict) -> dict:
+    """llava-next-34b training at full width and TRAIN_MR_ARCHS' depth
+    through ``Trainer`` at 1 PE and tp 8: batches of TRAIN_MR_SHAPE (each
+    row its 2,880 patches, then text; the patch positions carry no loss),
+    exact launches of the flash forward (2 L a step) and backward (L), a
+    falling loss on a repeated batch, and the f32 witness cells (see
+    ``_train_cells``)."""
+    return _train_cells(dev, kept, ["llava"])
+
+
+def phase_train_jamba(dev, kept: dict) -> dict:
+    """jamba-1.5-large training at TRAIN_MR_CHANGES' cut (one unit of 8
+    layers) through ``Trainer`` at 1 PE and ep 8: exact launches of the
+    flash forward and backward (its one attention layer) and of the
+    reorder (6 a MoE layer and step at ep 8), a falling loss on a repeated
+    batch, and the f32 witness cells with the flash and reorder controls
+    (see ``_train_cells``)."""
+    return _train_cells(dev, kept, ["jamba"])
 
 
 # -------------------------------------------------------------- checkpoint
@@ -5877,6 +6231,13 @@ def _rwkv6_bwd_main_path(name: str, args: tuple) -> dict:
             "library_ms": None, **_rwkv6_bwd_bound(*args)}
 
 
+PLAIN_BIG = 5e8     # (batch x query x head x key) scores of a plain call
+# the plain version's timing: a yardstick, not a gate; fewer calls than the
+# kernel's 20 x 10 keep main_path's time down
+PLAIN_REPS = {"reps": 5, "iters": 4}
+PLAIN_REPS_BIG = {"reps": 2, "iters": 5}
+
+
 def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
                     kept_bwd: dict, kept_rwkv6_train: dict,
                     kept_rwkv6_bwd: dict) -> dict:
@@ -5906,8 +6267,12 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
         rel_err = _compare(got, want, partial)
         ms = time_ms(lambda: flash.flash_attention(q, k, v, q_pos, k_pos,
                                                    **kw))
+        # the plain version's scores of llava's 3,008-token prefill take
+        # 8 GB and tens of ms a call: fewer calls where they pass PLAIN_BIG
+        big = q.shape[0] * q.shape[1] * q.shape[2] * k.shape[1] > PLAIN_BIG
         plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, q_pos, k_pos,
-                                                       **kw))
+                                                       **kw),
+                           **(PLAIN_REPS_BIG if big else PLAIN_REPS))
         lib_ms, lib_form = _library_ms(
             time_ms, lambda f: _sdpa(q, k, v, f), q_pos, k_pos,
             kw["causal"], kw["window"])
@@ -5931,6 +6296,11 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
     whisper_swz = [_reorder_main_path(
         kept_reorder, f"{WHISPER_ARCH}/prefill/{WHISPER_PES[-1]}pe/{part}")
         for part in ("self", "cross")]
+    # llava's 8-PE prefill K/V reshard, jamba's 8-PE MoE decode all_to_all
+    # and its ep-8 train step's last reorder
+    new_swz = [_reorder_main_path(kept_reorder, name) for name in (
+        f"{LLAVA_ARCH}/{LLAVA_PES[-1]}pe/serve",
+        f"{JAMBA_ARCH}/{JAMBA_PES[-1]}pe/serve", "train/jamba/8pe")]
     rwkv = _rwkv6_main_path(kept_rwkv6)
     bwd = [_flash_bwd_main_path(name, *kept_bwd[name])
            for name in sorted(kept_bwd)]
@@ -5952,6 +6322,12 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
                    and reshard["exact"] and train_swz["exact"]
                    and all(r["exact"] for r in mixtral_swz)
                    and all(r["exact"] for r in whisper_swz)
+                   and all(r["exact"] for r in new_swz)
+                   and all(f"{a}/{p}pe/{form}" in kept
+                           for a, ps, forms in (
+                               (LLAVA_ARCH, LLAVA_PES, ("prefill", "decode")),
+                               (JAMBA_ARCH, JAMBA_PES, ("decode",)))
+                           for p in ps for form in forms)
                    and len(rwkv) == 4 and all(t["ok"] for t in rwkv)
                    and f"ring_hop/{FUSED_PES}pe" in kept
                    and not missing
@@ -5965,6 +6341,7 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
             "main_path": timings, "reorder": reorder, "reorder_dlrm": dlrm,
             "reorder_prefill": reshard, "reorder_train": train_swz,
             "reorder_mixtral": mixtral_swz, "reorder_whisper": whisper_swz,
+            "reorder_llava_jamba": new_swz,
             "rwkv6": rwkv, "rwkv6_train_forward": rwkv_states,
             "flash_backward": bwd, "rwkv6_backward": rwkv_bwd}
 
@@ -6095,6 +6472,22 @@ def _flash_bwd_main_path(name: str, args: tuple, kw: dict) -> dict:
 
 
 # -------------------------------------------------------------------- main
+def _group_rows(kern: dict) -> dict:
+    """The main path's flash rows of llava (G = 7: 56 / 8 heads) and
+    jamba (G = 8: 64 / 8), forward (prefill, training forward), decode
+    and backward, with their times, bound and library yardstick."""
+    keys = ("q", "kv", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")
+    out = {}
+    for g, arch, name in ((7, LLAVA_ARCH, "llava"), (8, JAMBA_ARCH, "jamba")):
+        rows = [t for t in kern["main_path"] + kern["flash_backward"]
+                if t["name"].startswith((f"{arch}/",
+                                         f"train_forward/{name}/",
+                                         f"train_backward/{name}/"))]
+        out[f"G{g}"] = {t["name"]: {k: t[k] for k in keys} for t in rows}
+    return out
+
+
 def _rwkv6_entry(timings: list, by_path: dict, kernel: dict) -> dict:
     """The RWKV6 kernel's entry of the kernels line: its numbers at the
     1-PE forward; its launches on each path; each kept path input under
@@ -6233,6 +6626,10 @@ def main() -> int:
                          dev, None, torch.float32)),
                      ("serve_whisper", lambda: phase_serve_whisper(
                          dev, kept, kept_reorder)),
+                     ("serve_llava", lambda: phase_serve_llava(
+                         dev, kept, kept_reorder)),
+                     ("serve_jamba", lambda: phase_serve_jamba(
+                         dev, kept, kept_reorder)),
                      ("serve_int8", lambda: phase_serve_int8(dev,
                                                              kept_int8)),
                      ("serve_resident", lambda: phase_serve_resident(dev)),
@@ -6246,15 +6643,20 @@ def main() -> int:
                      ("train", lambda: phase_train(dev, kept, kept_bwd)),
                      ("train_moe_rwkv", lambda: phase_train_moe_rwkv(
                          dev, kept_train)),
+                     ("train_llava", lambda: phase_train_llava(
+                         dev, kept_train)),
+                     ("train_jamba", lambda: phase_train_jamba(
+                         dev, kept_train)),
                      ("checkpoint", lambda: phase_checkpoint(dev)),
                      ("main_path", lambda: phase_main_path(
                          kept, kept_reorder, kept_rwkv6, kept_bwd,
                          kept_rwkv6_train, kept_rwkv6_bwd))):
         needs = {"main_path": ("serve", "serve_moe", "serve_rwkv",
                                "serve_mixtral", "serve_dense",
-                               "serve_whisper", "serve_prefill", "apps",
+                               "serve_whisper", "serve_llava",
+                               "serve_jamba", "serve_prefill", "apps",
                                "fused_forward", "train", "train_moe_rwkv",
-                               "checkpoint"),
+                               "train_llava", "train_jamba", "checkpoint"),
                  "serve_prefill": ("build", "serve_moe"),
                  "checkpoint": ("build", "train")}.get(name, ("build",))
         missing = [n for n in needs if n in failed]
@@ -6289,7 +6691,10 @@ def main() -> int:
     fused_res, apps_res = results["fused_forward"], results["apps"]
     train_res, prefill_res = results["train"], results["serve_prefill"]
     tune_res, ckpt_res = results["tune"], results["checkpoint"]
-    mr = results["train_moe_rwkv"]["launches_by_arch"]
+    mr = {a: launches for p in ("train_moe_rwkv", "train_llava",
+                                "train_jamba")
+          for a, launches in results[p]["launches_by_arch"].items()}
+    llava_res, jamba_res = results["serve_llava"], results["serve_jamba"]
     mixtral_res = results["serve_mixtral"]
     internlm2_res, whisper_res = (results["serve_internlm2"],
                                   results["serve_whisper"])
@@ -6305,7 +6710,7 @@ def main() -> int:
     swz = kern["reorder"]
     reorder_rows = (swz, kern["reorder_dlrm"], kern["reorder_prefill"],
                     kern["reorder_train"], *kern["reorder_mixtral"],
-                    *kern["reorder_whisper"])
+                    *kern["reorder_whisper"], *kern["reorder_llava_jamba"])
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
@@ -6321,6 +6726,8 @@ def main() -> int:
                      + whisper_res["flash_launches"]
                      + int8_res["bf16_launches"]
                      + resident_res["flash_launches"]
+                     + llava_res["flash_launches"]
+                     + jamba_res["flash_launches"]
                      + sum(mr[a]["flash"] for a in mr_attn)),
         "launches_by_path": {ARCH: serve_res["flash_launches"],
                              MOE_ARCH: moe_res["flash_launches"],
@@ -6341,6 +6748,8 @@ def main() -> int:
                                  int8_res["bf16_launches"],
                              f"{ARCH}/serve_resident":
                                  resident_res["flash_launches"],
+                             LLAVA_ARCH: llava_res["flash_launches"],
+                             JAMBA_ARCH: jamba_res["flash_launches"],
                              **{f"{a}/train": mr[a]["flash"]
                                 for a in mr_attn}},
         "max_abs_err": max(t["max_abs_err"] for t in kern["main_path"]),
@@ -6353,6 +6762,7 @@ def main() -> int:
         "off_main_path": {t["name"]: {k: t[k] for k in (
             "q", "kv", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "err")} for t in results["kernel"]["flash_long_rows"]},
+        "group_rows": _group_rows(kern),
     }, {
         "name": "tile_swizzle", "route": "cuda", "source": REORDER_SOURCE,
         "replaces": REORDER_TPU_KERNEL,
@@ -6363,7 +6773,10 @@ def main() -> int:
                      + ckpt_res["reorder_launches"]
                      + mixtral_res["reorder_launches"]
                      + whisper_res["reorder_launches"]
-                     + mr[MOE_ARCH]["reorder"] + mr[MIXTRAL_ARCH]["reorder"]),
+                     + jamba_res["reorder_launches"]
+                     + llava_res["reorder_launches"]
+                     + mr[MOE_ARCH]["reorder"] + mr[MIXTRAL_ARCH]["reorder"]
+                     + mr[JAMBA_ARCH]["reorder"]),
         "launches_by_path": {MOE_ARCH: moe_res["reorder_launches"],
                              "dlrm/pidcomm":
                                  apps_res["dlrm_reorder_launches"],
@@ -6373,6 +6786,9 @@ def main() -> int:
                                  ckpt_res["reorder_launches"],
                              MIXTRAL_ARCH: mixtral_res["reorder_launches"],
                              WHISPER_ARCH: whisper_res["reorder_launches"],
+                             LLAVA_ARCH: llava_res["reorder_launches"],
+                             JAMBA_ARCH: jamba_res["reorder_launches"],
+                             f"{JAMBA_ARCH}/train": mr[JAMBA_ARCH]["reorder"],
                              f"{MOE_ARCH}/train": mr[MOE_ARCH]["reorder"],
                              f"{MIXTRAL_ARCH}/train":
                                  mr[MIXTRAL_ARCH]["reorder"]},

@@ -1,7 +1,6 @@
 """Architecture registry of the port, keyed like ``repro.configs``.
 
-Only the families whose layers are ported resolve; the others raise a
-"not ported yet" error naming the family.
+Every architecture of the reference resolves (``PORTED``).
 """
 from __future__ import annotations
 
@@ -22,7 +21,8 @@ ARCH_IDS = (
 
 # architectures whose every layer kind has a port
 PORTED = ("qwen3_1_7b", "qwen2_moe_a2_7b", "mixtral_8x7b", "rwkv6_7b",
-          "phi3_mini_3_8b", "gemma3_1b", "internlm2_20b", "whisper_base")
+          "phi3_mini_3_8b", "gemma3_1b", "internlm2_20b", "whisper_base",
+          "llava_next_34b", "jamba_1_5_large")
 
 ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",

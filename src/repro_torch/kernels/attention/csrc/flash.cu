@@ -100,6 +100,15 @@
 
 #include <type_traits>
 
+// The library is one object (REPRO_PART 0), or three compiled from this
+// source in parallel and linked together (repro_torch/kernels/_build.py):
+// REPRO_PART 1 holds the compute-dtype decode form and the entry point
+// repro_flash_attention, 2 the int8 decode form, 3 the forward forms.
+#ifndef REPRO_PART
+#define REPRO_PART 0
+#endif
+#define REPRO_HAS_PART(k) (REPRO_PART == 0 || REPRO_PART == (k))
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -1217,6 +1226,7 @@ bool decode_geometry_ok(int R, int Sk, int row_tile, int splits) {
   return (splits - 1) * chunk < Sk;
 }
 
+#if REPRO_HAS_PART(3)
 cudaError_t forward_bf16(int hd, const Args& a, dim3 grid, int warps,
                          cudaStream_t s) {
   REPRO_FLASH_HD(launch_forward_bf16, a, grid, warps, s)
@@ -1225,12 +1235,45 @@ cudaError_t forward_bf16(int hd, const Args& a, dim3 grid, int warps,
 cudaError_t forward_f32(int hd, const Args& a, dim3 grid, cudaStream_t s) {
   REPRO_FLASH_HD(launch_forward_f32, a, grid, s)
 }
+#endif
 #undef REPRO_FLASH_HD
 
 }  // namespace
 
 extern "C" {
 
+// The forward form of repro_flash_attention (form 1), its arguments
+// checked there but for the row tile; defined in part 3.
+int repro_flash_forward(int dtype, const void* q, const void* k,
+                        const void* v, const void* q_pos, const void* k_pos,
+                        void* out, void* acc, void* m, void* l, int B, int Sq,
+                        int Sk, int H, int KV, int hd, int causal, int window,
+                        float scale, int row_tile, void* stream);
+
+#if REPRO_HAS_PART(3)
+int repro_flash_forward(int dtype, const void* q, const void* k,
+                        const void* v, const void* q_pos, const void* k_pos,
+                        void* out, void* acc, void* m, void* l, int B, int Sq,
+                        int Sk, int H, int KV, int hd, int causal, int window,
+                        float scale, int row_tile, void* stream) {
+  if (dtype == 1 ? (row_tile != 16 && row_tile != 32 && row_tile != 64)
+                 : row_tile != kF32Warps * kF32RowsPerWarp)
+    return cudaErrorInvalidValue;
+  const int R = Sq * (H / KV);
+  const int tiles = (R + row_tile - 1) / row_tile;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  const Args a{q, k, v, static_cast<const int*>(q_pos),
+               static_cast<const int*>(k_pos), out,
+               static_cast<float*>(acc), static_cast<float*>(m),
+               static_cast<float*>(l), Sq, Sk, H, KV, causal, window, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(B * KV, tiles);
+  return dtype == 1 ? forward_bf16(hd, a, grid, row_tile / 16, s)
+                    : forward_f32(hd, a, grid, s);
+}
+#endif
+
+#if REPRO_HAS_PART(1)
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). `out` (the
 // normalized output), `acc` and the pair `m`, `l` (the row statistics) may
 // each be null: the partials are all three; the training forward asks for
@@ -1265,16 +1308,17 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
                       : decode_hd<__nv_bfloat16>(hd, a, R, grid, chunk, s);
   }
   if (form != 1 || splits != 1) return cudaErrorInvalidValue;
-  if (dtype == 1 ? (row_tile != 16 && row_tile != 32 && row_tile != 64)
-                 : row_tile != kF32Warps * kF32RowsPerWarp)
-    return cudaErrorInvalidValue;
-  const int tiles = (R + row_tile - 1) / row_tile;
-  if (tiles > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(B * KV, tiles);
-  return dtype == 1 ? forward_bf16(hd, a, grid, row_tile / 16, s)
-                    : forward_f32(hd, a, grid, s);
+  return repro_flash_forward(dtype, q, k, v, q_pos, k_pos, out, acc, m, l, B,
+                             Sq, Sk, H, KV, hd, causal, window, scale,
+                             row_tile, stream);
 }
 
+const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+#endif
+
+#if REPRO_HAS_PART(2)
 // The int8 decode form: q (and `out` / the partials) in `dtype` (0 =
 // float32, 1 = bfloat16); k, v int8 codes (B, Sk, KV, hd); k_scale,
 // v_scale f32 (B, Sk, KV). Key j of kv head h is k[j, h] * k_scale[j, h].
@@ -1306,9 +1350,6 @@ int repro_flash_decode_int8(int dtype, const void* q, const void* k,
              ? decode_hd<float, int8_t>(hd, a, R, grid, chunk, s)
              : decode_hd<__nv_bfloat16, int8_t>(hd, a, R, grid, chunk, s);
 }
-
-const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+#endif
 
 }  // extern "C"

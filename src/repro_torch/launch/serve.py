@@ -9,12 +9,17 @@ The port of ``repro.launch.serve``: ``--pes N`` (default 1) stands in for
 the JAX launcher's device count. ``--arch`` takes the ported archs:
 qwen3-1.7b, internlm2-20b (48 / 8 heads of 128), phi3-mini-3.8b
 (head_dim 96), gemma3-1b (head_dim 256, 5:1 local:global windows),
-qwen2-moe-a2.7b, mixtral-8x7b, rwkv6-7b and whisper-base. whisper-base is
-an encoder-decoder: its audio frames (the frontend's stub: precomputed
-frame embeddings, S_ctx of them, drawn from ``--seed``) and its prompt go
-through ``Server.prefill_shard``, which runs the encoder and fills the
-self and cross caches, and the loop decodes from there; the other archs
-take the prompt through decode steps, as the JAX launcher does.
+qwen2-moe-a2.7b, mixtral-8x7b, rwkv6-7b, jamba-1.5-large (Mamba layers
+7:1 with attention, MoE on every second layer), llava-next-34b and
+whisper-base. whisper-base is an encoder-decoder: its audio frames (the
+frontend's stub: precomputed frame embeddings, S_ctx of them, drawn from
+``--seed``) and its prompt go through ``Server.prefill_shard``, which runs
+the encoder and fills the self and cross caches, and the loop decodes
+from there. llava-next-34b's prompt is its patches (the frontend's stub:
+``frontend_tokens`` precomputed patch embeddings drawn from ``--seed``) in
+front of ``--prompt-len`` text tokens, also through ``prefill_shard``. The
+other archs take the prompt through decode steps, as the JAX launcher
+does.
 ``--cache-dtype int8`` serves from the int8 KV cache
 (``make_serve_plan(cache_dtype=)``) and ``--resident`` with resident
 weights (``Server(resident=)``), the two serving knobs of the reference's
@@ -49,11 +54,13 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           dtype: torch.dtype = torch.bfloat16, params=None,
           keep_logits: bool = False, n_layers: int | None = None,
           cache_dtype: str = "bf16", resident: bool = False,
-          serve_tp: int | None = None) -> dict:
+          serve_tp: int | None = None, changes: dict | None = None) -> dict:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and generate
     ``gen`` tokens each. Weights are random from ``seed`` unless ``params``
     (cube tensors on the serve topology) are given. ``n_layers`` cuts the
-    model's depth (the widths stay the arch's); ``serve_tp`` caps the
+    model's depth (the widths stay the arch's), and ``changes`` replaces
+    any config fields (a cut of width: jamba-1.5-large's d_model / d_ff,
+    which one card cannot hold at full width); ``serve_tp`` caps the
     serve cube's tp (the config's ``serve_tp``: the rest of the PEs go to
     data). ``cache_dtype`` and ``resident`` are the plan's and the
     server's knobs.
@@ -64,7 +71,9 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     per step over the whole decode loop), ``flash_launches``,
     ``flash_int8_launches`` (the int8 decode form's), ``reorder_launches``,
     ``rwkv6_launches``, ``prefill`` (whether the prompt went through
-    ``prefill_shard``: an encoder-decoder's does, with its ``frames``),
+    ``prefill_shard``: an encoder-decoder's does, with its ``frames``, and
+    a patch frontend's, with its ``patches`` in front of the text, so
+    ``tokens`` then holds frontend_tokens + prompt_len + gen positions),
     ``prefill_s``, and with ``keep_logits`` every step's global logits (B,
     V_padded), from the prefill's if there is one."""
     dev = resolve_device(device)
@@ -75,7 +84,11 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if serve_tp is not None:
         cfg = dataclasses.replace(cfg, serve_tp=serve_tp)
+    if changes:
+        cfg = dataclasses.replace(cfg, **changes)
     topo = build_serve_topology(cfg, pes)
+    n_patch = cfg.frontend_tokens if cfg.frontend == "patch" else 0
+    prompt_len += n_patch           # the patches come first
     S_ctx = prompt_len + gen
     plan = make_serve_plan(cfg, topo, S_ctx=S_ctx, global_batch=batch,
                            cache_dtype=cache_dtype)
@@ -89,11 +102,15 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     rng = np.random.RandomState(seed)
     prompt = rng.randint(0, cfg.vocab_size, (batch, prompt_len))
     tokens = torch.zeros((batch, S_ctx), dtype=torch.int64, device=dev)
-    tokens[:, :prompt_len] = torch.from_numpy(prompt).to(dev)
-    frames = None
+    tokens[:, n_patch:prompt_len] = torch.from_numpy(
+        prompt[:, n_patch:]).to(dev)
+    frames = patches = None
     if cfg.is_encoder_decoder:
         frames = torch.from_numpy(rng.uniform(
             -0.5, 0.5, (batch, S_ctx, cfg.frontend_dim)).astype(np.float32))
+    if n_patch:
+        patches = torch.from_numpy(rng.uniform(
+            -0.5, 0.5, (batch, n_patch, cfg.frontend_dim)).astype(np.float32))
 
     def sync():
         if dev.type == "cuda":
@@ -105,12 +122,15 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     sync()
     t_start = time.perf_counter()
     start, prefill_s = 0, None
-    if frames is not None:
-        # the encoder and the prompt in one prefill, which fills the
-        # self and cross caches; decode goes on from the prompt's end
+    if frames is not None or patches is not None:
+        # the encoder (or the patches) and the prompt in one prefill,
+        # which fills the caches; decode goes on from the prompt's end
+        extra = {k: cube.to_cube(v.to(dev), (ba, None, None))
+                 for k, v in (("frames", frames), ("patches", patches))
+                 if v is not None}
         logits, cache = server.prefill_shard(params, {
             "tokens": cube.to_cube(tokens[:, :prompt_len], (ba, None)),
-            "frames": cube.to_cube(frames.to(dev), (ba, None, None))})
+            **extra})
         logits = cube.from_cube(logits, (ba, topo.tp))
         tokens[:, prompt_len] = logits.argmax(dim=-1)
         if keep_logits:
@@ -137,6 +157,7 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     return {
         "cfg": cfg, "topo": topo, "plan": plan, "params": params,
         "server": server, "cache": cache, "frames": frames,
+        "patches": patches,
         "tokens": tokens.cpu().numpy(),
         "step_ms": step_ms,
         "ms_per_step": float(np.median(step_ms[1:] or step_ms)),
@@ -175,7 +196,7 @@ def main(argv=None):
                 gen=args.gen, smoke=args.smoke, pes=args.pes,
                 device=args.device, seed=args.seed,
                 cache_dtype=args.cache_dtype, resident=args.resident)
-    gen = run["tokens"][:, args.prompt_len:]
+    gen = run["tokens"][:, run["tokens"].shape[1] - args.gen:]
     print(f"arch={run['cfg'].name} cube={run['topo'].cube.describe()} "
           f"cache={run['plan'].S_cache} {run['plan'].cache_dtype}"
           + (f" prefill {run['prefill_s']:.3f} s" if run["prefill"] else ""))

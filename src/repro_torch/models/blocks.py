@@ -21,8 +21,8 @@ the RWKV6 kernel, ``ssm.rwkv6_chunked``) and channel-mix with their decode
 forms; the encoder-decoder's cross-attention (``attn_block(cross_src=,
 prefix="x")``, ``attn_decode(cross=True)``) and the int8 KV cache (the
 paper's §V-C 8-bit layout: int8 codes and one f32 scale a (slot, kv
-head), read by the flash kernel's int8 decode form). Mamba waits for a
-later slice.
+head), read by the flash kernel's int8 decode form); the Mamba mixer
+(``mamba_mix``, ``mamba_mix_decode``) of the hybrid family.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ from repro_torch.models.config import ModelConfig, FULL_WINDOW
 from repro_torch.models.layers import (
     rms_norm, rope, chunked_attention, finish_partial_attention,
     cube_matmul, pe_slice)
-from repro_torch.models.params import kv_is_sharded
+from repro_torch.models.params import dt_rank, kv_is_sharded
 from repro_torch.models.topology import Topology
 
 
@@ -634,3 +634,67 @@ def rwkv_mix_decode(cfg, topo, w, x, state, prev):
     out = cube_matmul(o.reshape(cube + (B, Dl)) * g, w["wo"], cn)
     out = topo.comm(topo.tp).all_reduce(out)
     return x + out.to(x.dtype), state, hn
+
+
+# -------------------------------------------------------------------- Mamba
+def _mamba_inner(cfg, cn, w, xc, dbc):
+    """The selective-SSM inputs from the conv's output ``xc`` and the
+    tp-summed ``dbc`` (.., R + 2 N): dt (softplus of the low-rank dt
+    projection plus its bias), B, C and A = -exp(a_log)."""
+    R, n = dt_rank(cfg), cfg.d_state
+    dt = F.softplus(cube_matmul(dbc[..., :R], w["dt_proj"], cn)
+                    + _per_pe(w["dt_bias"], xc, cn))
+    return dt, dbc[..., R:R + n], dbc[..., R + n:], -torch.exp(w["a_log"])
+
+
+def _mamba_out(cn, w, y, xc, z):
+    """(y * silu(z) + xc * D) @ out_proj: the per-PE partial over tp."""
+    return cube_matmul(y * F.silu(z) + xc * _per_pe(w["d_skip"], xc, cn),
+                       w["out_proj"], cn)
+
+
+def mamba_mix(cfg, topo, w, x_sp, out_cache: bool = False):
+    """Mamba mixer over the sequence-parallel activations (*cube, B, S_sp,
+    D): gathered over sp, normed, in_proj (columns laid out (din, 2), so
+    sharding them over tp slices whole (x, z) channel pairs), the causal
+    conv, the selective scan over the whole sequence in f32
+    (``ssm.mamba_scan_chunked``) and the out-projection, reduce-scattered
+    back over sp. ``x_proj``'s output is a partial over tp, all-reduced
+    before the dt / B / C split. With ``out_cache`` also returns (the final
+    SSM state (*cube, B, din_l, N) f32, the conv's tail (*cube, B, K-1,
+    din_l)): decode's ``ssm`` and ``conv``."""
+    cn = topo.cube.ndim
+    spc = topo.comm(topo.sp)
+    h = spc.all_gather(x_sp, axis=1)                          # (.., B, S, D)
+    hn = rms_norm(h, w["ln"], cfg.norm_eps)
+    xz = cube_matmul(hn, w["in_proj"], cn)                    # (.., 2 din_l)
+    xz = xz.reshape(tuple(xz.shape[:-1]) + (xz.shape[-1] // 2, 2))
+    xc, conv_tail = ssm.causal_conv1d(xz[..., 0], w["conv_w"], w["conv_b"])
+    xc, z = F.silu(xc), xz[..., 1]
+    dbc = topo.comm(topo.tp).all_reduce(cube_matmul(xc, w["x_proj"], cn))
+    dt, Bm, Cm, A = _mamba_inner(cfg, cn, w, xc, dbc)
+    y, state = ssm.mamba_scan_chunked(xc, dt, A, Bm, Cm)
+    out = spc.reduce_scatter(_mamba_out(cn, w, y, xc, z), axis=1)
+    y_sp = x_sp + out
+    if out_cache:
+        return y_sp, (state, conv_tail)
+    return y_sp
+
+
+def mamba_mix_decode(cfg, topo, w, x, ssm_state, conv_tail):
+    """x: (*cube, B, D), replicated over the model axes; ssm_state:
+    (*cube, B, din_l, N) f32; conv_tail: (*cube, B, K-1, din_l). Returns
+    (new x, new ssm state, new conv tail)."""
+    cn = topo.cube.ndim
+    tpc = topo.comm(topo.tp)
+    hn = rms_norm(x, w["ln"], cfg.norm_eps)
+    xz = cube_matmul(hn[..., None, :], w["in_proj"], cn)      # (.., B, 1, 2dl)
+    xz = xz.reshape(tuple(xz.shape[:-1]) + (xz.shape[-1] // 2, 2))
+    xc, conv_tail = ssm.causal_conv1d(xz[..., 0], w["conv_w"], w["conv_b"],
+                                      conv_tail)
+    xc, z = F.silu(xc)[..., 0, :], xz[..., 0, :, 1]
+    dbc = tpc.all_reduce(cube_matmul(xc, w["x_proj"], cn))
+    dt, Bm, Cm, A = _mamba_inner(cfg, cn, w, xc, dbc)
+    y, ssm_state = ssm.mamba_step(xc, dt, A, Bm, Cm, ssm_state)
+    out = tpc.all_reduce(_mamba_out(cn, w, y, xc, z))
+    return x + out.to(x.dtype), ssm_state, conv_tail

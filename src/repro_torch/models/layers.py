@@ -128,9 +128,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 "KV cache is a decode-time layout")
         if partial:
             raise NotImplementedError(
-                "chunked_attention(partial=True) under grad: training "
-                "through the partial form (fused_comm's ring attention) "
-                "waits for ROADMAP item A6, fused_comm training")
+                "chunked_attention(partial=True) under grad: the partial "
+                "form is fused_comm's ring attention over cp, and no "
+                "training path reaches it, since loss_shard refuses "
+                "context parallelism as the reference's does (fused_comm "
+                "training at cp 1 runs the full form)")
         out = attention_ops.FlashAttention.apply(*args, causal, window)
         return out.reshape(lead + (Sq, H, hd))
     res = attention_ops.flash_attention(*args, causal=causal, window=window,

@@ -6,13 +6,15 @@ tensors (``(*cube.dim_sizes, ...)``); the JAX package's ``pscan`` over the
 stacked units is a Python loop. The compute dtype is an explicit argument
 (default bf16).
 
-Ported: token embedding (vocab-parallel), the trunk of attention layers
-with dense or MoE FFNs and of RWKV6 layers (time-mix + channel-mix), with
-the per-position remat of the training path, the encoder-decoder's
-encoder (``encode``: the audio frontend's projected frames through
-non-causal attention layers) and the decoder's cross-attention, the
-training loss (``loss_shard``) and ``forward_logits``; resident serve
-weights (``resident=True``). The patch frontend waits for a later slice.
+Every path of the reference: token embedding (vocab-parallel) with the
+patch frontend's projected patches in the first ``frontend_tokens``
+positions, the trunk of attention, Mamba and RWKV6 mixers with dense, MoE
+or channel-mix FFNs (the hybrid family's layer plan included), with the
+per-position remat of the training path, the encoder-decoder's encoder
+(``encode``: the audio frontend's projected frames through non-causal
+attention layers) and the decoder's cross-attention, the training loss
+(``loss_shard``, patch positions masked) and ``forward_logits``; resident
+serve weights (``resident=True``).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
 from repro_torch.models.config import (
-    ModelConfig, FULL_WINDOW, MOE, RWKV, RWKVCM)
+    ModelConfig, FULL_WINDOW, MAMBA, MOE, RWKV, RWKVCM)
 from repro_torch.models.layers import rms_norm, cube_matmul, pe_slice
 from repro_torch.models.params import param_specs
 from repro_torch.models.topology import Topology
@@ -113,14 +115,46 @@ class Model:
 
     def embed_input(self, params, batch):
         """-> x_sp (*cube, B, S_sp, D) for the decoder / self stack.
-        batch["tokens"]: (*cube, B, S). The audio frontend's frames feed
-        the encoder (``encode``), not this embedding."""
-        if self.cfg.frontend not in ("", "audio"):
-            raise NotImplementedError(
-                f"{self.cfg.name}: the {self.cfg.frontend!r} frontend is not "
-                "ported to repro_torch yet")
-        emb_l = self._gather_embed(params)
-        return self._to_sp(self._embed_tokens(emb_l, batch["tokens"]))
+        batch["tokens"]: (*cube, B, S). The patch frontend's
+        batch["patches"] (*cube, B, F, frontend_dim), replicated over the
+        model axes, are projected by ``frontend_proj`` and take the place of
+        the first F positions' embeddings: the projection runs on tp rank 0
+        alone (the other ranks' partials hold zeros there), so the
+        reduce-scatter into the sequence shards adds it once. The audio
+        frontend's frames feed the encoder (``encode``), not this
+        embedding."""
+        x = self._embed_tokens(self._gather_embed(params), batch["tokens"])
+        if self.cfg.frontend == "patch":
+            x = self._with_patches(params, x, batch["patches"])
+        return self._to_sp(x)
+
+    def _with_patches(self, params, x, patches):
+        """The partial embeddings ``x`` (*cube, B, S, D) with their first
+        F positions replaced by ``patches @ frontend_proj`` on the PEs of
+        tp rank 0 and by zeros on the others."""
+        topo = self.topo
+        cube, cn = topo.cube, topo.cube.ndim
+        F_, S = patches.shape[cn + 1], x.shape[cn + 1]
+        if F_ > S:
+            raise ValueError(f"{self.cfg.name}: {F_} patches do not fit a "
+                             f"sequence of {S} positions")
+        rank0 = [a for a, d in enumerate(cube.dim_names) if d in topo.tp]
+
+        def tp_rank0(t):
+            for a in rank0:
+                t = t.narrow(a, 0, 1)
+            return t
+
+        wf = self._gathered(params, "frontend_proj")
+        part = cube_matmul(tp_rank0(patches).to(self.dtype), tp_rank0(wf),
+                           cn).to(x.dtype)                  # (.., B, F, D)
+        for a in rank0:             # zeros at tp ranks 1 .. n - 1
+            n = cube.dim_sizes[a]
+            if n > 1:
+                pad = list(part.shape)
+                pad[a] = n - 1
+                part = torch.cat((part, part.new_zeros(pad)), dim=a)
+        return torch.cat((part, x.narrow(cn + 1, F_, S - F_)), dim=cn + 1)
 
     def _gathered(self, params, name: str):
         return blocks.gather_params({"w": params[name]},
@@ -177,10 +211,11 @@ class Model:
         cfg, topo = self.cfg, self.topo
         w = blocks.gather_params(w_shards, self.unit_specs[f"p{p}"], topo,
                                  self.dtype)
-        # param_defs raised at construction for unported layer kinds
         mixer, ffn = self.mixers[p], self.ffns[p]
         if mixer == RWKV:
             x_sp = blocks.rwkv_mix(cfg, topo, w, x_sp)
+        elif mixer == MAMBA:
+            x_sp = blocks.mamba_mix(cfg, topo, w, x_sp)
         else:
             x_sp = blocks.attn_block(cfg, topo, w, x_sp, window=window)
             if enc_out is not None:
@@ -243,7 +278,8 @@ class Model:
         ``CE_CHUNK``-token chunks, each chunk's logits recomputed in the
         backward (a checkpoint), as ``repro.models.lm.Model.loss_shard``.
         batch["tokens"], batch["labels"]: (*cube, B_l, S); labels < 0 are
-        masked out. Returns ``(loss, metrics)``, each a (*cube) tensor
+        masked out, and so are the patch frontend's first
+        ``frontend_tokens`` positions. Returns ``(loss, metrics)``, each a (*cube) tensor
         holding the same value on every PE: ``loss + AUX_COEF * aux`` and
         {"ce_loss", "aux_loss", "tokens"}.
 
@@ -265,6 +301,10 @@ class Model:
         hn = rms_norm(full, self.final_norm(params), cfg.norm_eps)
         head = self._head(params)
         labels = batch["labels"]
+        if cfg.frontend == "patch":
+            pos = torch.arange(labels.shape[-1], device=labels.device)
+            labels = torch.where(pos < cfg.frontend_tokens,
+                                 torch.full_like(labels, -1), labels)
         tpc = topo.comm(topo.tp)
         Vl = head.shape[-1]
         lo = topo.axis_index(topo.tp, labels.device) * Vl

@@ -10,12 +10,10 @@ replicate as read-only broadcast views, so the cube holds the global bytes
 once. Master weights are f32; ``blocks.gather_params`` casts each layer to
 the compute dtype on use.
 
-Ported defs: attention (self and, under the prefix ``"x"``, the
-encoder-decoder's cross-attention), dense FFN and MoE FFN (the
-dense-decoder and MoE families), RWKV6 time-mix and channel-mix, the
-encoder stack of an encoder-decoder model and the audio frontend's
-projection. Mamba and the patch frontend raise until their slice of the
-port.
+Every def of the reference: attention (self and, under the prefix
+``"x"``, the encoder-decoder's cross-attention), Mamba, RWKV6 time-mix and
+channel-mix, dense FFN and MoE FFN, the encoder stack of an
+encoder-decoder model and the frontends' projection (patch and audio).
 
 Resident serve weights (``resident=True``) take the specs with the
 ``data`` axis dropped (``drop_axis``): each leaf is placed whole on every
@@ -31,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import (
-    ModelConfig, ATTN, DENSE, MOE, RWKV, RWKVCM)
+    ModelConfig, ATTN, DENSE, MAMBA, MOE, RWKV, RWKVCM)
 from repro_torch.models.topology import Topology
 
 MASTER_DTYPE = torch.float32
@@ -42,7 +40,7 @@ class ParamDef:
     shape: tuple
     spec: tuple
     init: str = "normal"       # normal | zeros | ones | out_proj | embed
-                               # | decay
+                               # | decay | a_log | dt
     dtype: Any = MASTER_DTYPE
     sum_axes: str = ""         # "" | "tp" | "ep" -- grad psum group
 
@@ -58,6 +56,11 @@ def kv_is_sharded(cfg: ModelConfig, topo: Topology) -> bool:
 
 def vocab_padded(cfg: ModelConfig, topo: Topology) -> int:
     return _round_up(cfg.vocab_size, topo.tp_size)
+
+
+def dt_rank(cfg: ModelConfig) -> int:
+    """Mamba's low-rank dt projection width."""
+    return _round_up(cfg.d_model // 16, 8)
 
 
 # --------------------------------------------------------------------- defs
@@ -78,6 +81,29 @@ def _attn_defs(cfg, topo, prefix=""):
         d["q_norm"] = ParamDef((hd,), (None,), "zeros", sum_axes="tp")
         d["k_norm"] = ParamDef((hd,), (None,), "zeros", sum_axes="tp")
     return d
+
+
+def _mamba_defs(cfg, topo):
+    """Mamba leaves. ``in_proj``'s columns are laid out (din, 2): each
+    channel's (x, z) pair stays adjacent, so sharding the columns over tp
+    slices whole channels."""
+    D = cfg.d_model
+    din = cfg.mamba_expand * D
+    n = cfg.d_state
+    R = dt_rank(cfg)
+    tp = topo.tp
+    return {
+        "ln": ParamDef((D,), ("data",), "zeros", sum_axes="tp"),
+        "in_proj": ParamDef((D, 2 * din), ("data", tp)),
+        "conv_w": ParamDef((cfg.conv_kernel, din), (None, tp)),
+        "conv_b": ParamDef((din,), (tp,), "zeros"),
+        "x_proj": ParamDef((din, R + 2 * n), (tp, None)),
+        "dt_proj": ParamDef((R, din), (None, tp)),
+        "dt_bias": ParamDef((din,), (tp,), "dt"),
+        "a_log": ParamDef((din, n), (tp, None), "a_log"),
+        "d_skip": ParamDef((din,), (tp,), "ones"),
+        "out_proj": ParamDef((din, D), (tp, "data"), "out_proj"),
+    }
 
 
 def _dense_ffn_defs(cfg, topo):
@@ -142,16 +168,9 @@ def _rwkvcm_defs(cfg, topo):
     }
 
 
-_MIXER_DEFS = {ATTN: _attn_defs, RWKV: _rwkv_defs}
+_MIXER_DEFS = {ATTN: _attn_defs, MAMBA: _mamba_defs, RWKV: _rwkv_defs}
 _FFN_DEFS = {DENSE: _dense_ffn_defs, MOE: _moe_ffn_defs,
              RWKVCM: _rwkvcm_defs}
-
-
-def _not_ported(cfg: ModelConfig, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: {what} layers are not ported to repro_torch yet "
-        "(ported: attention mixers with dense or MoE FFNs, RWKV6, the "
-        "encoder-decoder with the audio frontend)")
 
 
 def _stack(defs: dict, n: int) -> dict:
@@ -168,15 +187,9 @@ def param_defs(cfg: ModelConfig, topo: Topology) -> dict:
     unit = cfg.unit()
     n_units = cfg.n_layers // unit
     mixers, ffns = cfg.mixers(), cfg.ffns()
-    if cfg.frontend and cfg.frontend != "audio":
-        raise _not_ported(cfg, f"{cfg.frontend!r} frontend")
 
     units = {}
     for pos in range(unit):
-        if mixers[pos] not in _MIXER_DEFS:
-            raise _not_ported(cfg, f"{mixers[pos]!r} mixer")
-        if ffns[pos] not in _FFN_DEFS:
-            raise _not_ported(cfg, f"{ffns[pos]!r} FFN")
         d = dict(_MIXER_DEFS[mixers[pos]](cfg, topo))
         d.update(_FFN_DEFS[ffns[pos]](cfg, topo))
         if cfg.is_encoder_decoder and mixers[pos] == ATTN:
@@ -258,6 +271,17 @@ def _init_leaf(d: ParamDef, cfg: ModelConfig, gen: torch.Generator,
         ramp = torch.linspace(-6.0, -1.0, d.shape[-1], dtype=d.dtype,
                               device=device)
         return ramp.expand(d.shape).clone()
+    if d.init == "a_log":
+        # Mamba's S4D-real A: log(1 .. N) along the state axis
+        a = torch.arange(1, d.shape[-1] + 1, dtype=d.dtype, device=device)
+        return torch.log(a).expand(d.shape).clone()
+    if d.init == "dt":
+        # Mamba's dt bias: the inverse softplus of dt, log-uniform in
+        # [1e-3, 1e-1]
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        u = torch.rand(d.shape, generator=gen, dtype=d.dtype, device=device)
+        dt = torch.exp(lo + u * (hi - lo))
+        return dt + torch.log(-torch.expm1(-dt))
     scale = 0.02
     if d.init == "out_proj":
         scale = 0.02 / math.sqrt(2 * cfg.n_layers)

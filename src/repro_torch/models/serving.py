@@ -11,15 +11,17 @@ Ported: the compute-dtype and the int8 (``cache_dtype="int8"``: int8
 codes with an f32 scale a (slot, kv head), the paper's §V-C 8-bit
 layout) attention caches and ``decode_shard`` for attention layers with
 dense or MoE FFNs; the encoder-decoder's cross cache (the encoder's K/V
-of S_ctx positions, compute dtype) and cross step; the RWKV6 cache (f32
-state sharded over tp, compute-dtype token shifts) and its decode; and
-``prefill_shard`` for all of them, whose cache drops straight into
+of S_ctx positions, compute dtype) and cross step; the Mamba cache (the
+f32 SSM state and the compute-dtype conv tail, both sharded over tp by
+channel) and the RWKV6 cache (f32 state sharded over tp, compute-dtype
+token shifts) and their decode; and ``prefill_shard`` for all of them
+(the patch frontend's patches in the prompt's first positions), whose
+cache drops straight into
 ``decode_shard``: the JAX package's prefill leaves each PE its sequence
 slice of its own KV heads, which the decode layout cannot be rebuilt from,
 so the port reshards the prompt's K/V into the decode layout inside the
 attention block (``blocks._decode_cache_kv``: one all_to_all over tp).
-Resident weights: ``Server(..., resident=True)``. Mamba states wait for a
-later slice.
+Resident weights: ``Server(..., resident=True)``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import torch
 
 from repro_torch.models import blocks
 from repro_torch.models.config import (
-    ModelConfig, ATTN, DENSE, FULL_WINDOW, MOE, RWKV, RWKVCM)
+    ModelConfig, ATTN, FULL_WINDOW, MAMBA, MOE, RWKV, RWKVCM)
 from repro_torch.models.layers import rms_norm, cube_matmul
 from repro_torch.models.lm import Model
 from repro_torch.models.topology import Topology
@@ -84,8 +86,8 @@ def make_serve_plan(cfg: ModelConfig, topo: Topology, *, S_ctx: int,
 def cache_defs(cfg: ModelConfig, topo: Topology, plan: ServePlan,
                dtype: torch.dtype = torch.bfloat16):
     """(global shape, spec, dtype) tree for the decode cache; the
-    compute-dtype cache is stored in ``dtype``, the RWKV state in f32
-    whatever ``dtype`` is. An int8 plan stores K / V as int8 with f32
+    compute-dtype cache is stored in ``dtype``, the Mamba and RWKV states
+    in f32 whatever ``dtype`` is. An int8 plan stores K / V as int8 with f32
     scales ``k_s`` / ``v_s`` (n_units, B, S_cache, KV); an encoder-decoder
     model adds the cross cache ``xk`` / ``xv`` (n_units, B, S_ctx, KV, hd)
     in ``dtype``, S_ctx sequence-sharded over the kv axes."""
@@ -99,13 +101,10 @@ def cache_defs(cfg: ModelConfig, topo: Topology, plan: ServePlan,
         raise ValueError(
             f"{cfg.name}: the cross cache's S_ctx {plan.S_ctx} encoder "
             f"positions do not split over the {n} kv shards")
+    din = cfg.mamba_expand * cfg.d_model
     tree = {}
     for p, (mixer, ffn) in enumerate(zip(cfg.mixers()[:unit],
                                          cfg.ffns()[:unit])):
-        if mixer not in (ATTN, RWKV) or ffn not in (DENSE, MOE, RWKVCM):
-            raise NotImplementedError(
-                f"{cfg.name}: {mixer}/{ffn} decode caches are not ported to "
-                "repro_torch yet")
         d = {}
         if mixer == ATTN:
             shp = (n_units, B, plan.S_cache, KV, hd)
@@ -119,6 +118,11 @@ def cache_defs(cfg: ModelConfig, topo: Topology, plan: ServePlan,
             if cfg.is_encoder_decoder:
                 d["xk"] = d["xv"] = ((n_units, B, plan.S_ctx, KV, hd), spec,
                                      dtype)
+        elif mixer == MAMBA:
+            d["ssm"] = ((n_units, B, din, cfg.d_state),
+                        (None, ba, topo.tp, None), torch.float32)
+            d["conv"] = ((n_units, B, cfg.conv_kernel - 1, din),
+                         (None, ba, None, topo.tp), dtype)
         else:
             rhd = cfg.rwkv_head_dim
             d["state"] = ((n_units, B, cfg.d_model // rhd, rhd, rhd),
@@ -178,6 +182,11 @@ class Server:
                         cfg, topo, w, x, c["state"], c["shift"])
                     c["state"].copy_(state)
                     c["shift"].copy_(shift)
+                elif m.mixers[p] == MAMBA:
+                    x, state, tail = blocks.mamba_mix_decode(
+                        cfg, topo, w, x, c["ssm"], c["conv"])
+                    c["ssm"].copy_(state)
+                    c["conv"].copy_(tail)
                 else:
                     x = blocks.attn_decode(
                         cfg, topo, w, x, c, pos, window=int(m.windows[u, p]),
@@ -217,9 +226,13 @@ class Server:
         A prompt that does not split over the sequence-parallel PEs is
         padded at its end with token 0: the causal mask keeps the pad out
         of every prompt position, the cache leaves it out, and an MoE layer
-        routes it like any token (an RWKV6 prompt must split: its state
-        would take the pad in). RWKV6 layers keep the recurrence's final
-        state (one kernel launch per layer) and the token shifts. An
+        routes it like any token (an RWKV6 or Mamba prompt must split:
+        its state would take the pad in). RWKV6 layers keep the
+        recurrence's final state (one kernel launch per layer) and the
+        token shifts, Mamba layers the scan's final state and the conv's
+        tail. The patch frontend's batch["patches"] (*cube, B_l, F,
+        frontend_dim) fill the prompt's first F positions
+        (``Model.embed_input``). An
         encoder-decoder model encodes batch["frames"] (*cube, B_l, S_ctx,
         frontend_dim) first, and each decoder layer's cross-attention
         leaves the encoder's K/V of all S_ctx positions in the cross cache
@@ -256,15 +269,16 @@ class Server:
                 "prompt and the tokens to generate")
         sp = topo.size(topo.sp)
         pad = -S % sp
-        if pad and RWKV in m.mixers:
+        if pad and (RWKV in m.mixers or MAMBA in m.mixers):
+            kind = "RWKV6 recurrence" if RWKV in m.mixers else "Mamba scan"
             raise ValueError(
                 f"{cfg.name}: a prompt of {S} tokens does not split over the "
                 f"{sp} sequence-parallel PEs, and a pad would run through "
-                "the RWKV6 recurrence into its final state")
+                f"the {kind} into its final state")
         if pad:
             tokens = torch.cat((tokens, tokens.new_zeros(
                 tokens.shape[:cn + 1] + (pad,))), dim=cn + 1)
-        x_sp = m.embed_input(params, {"tokens": tokens})
+        x_sp = m.embed_input(params, {**batch, "tokens": tokens})
         parts = {f"p{p}": {} for p in range(m.unit)}
         for u in range(m.n_units):
             for p in range(m.unit):
@@ -274,6 +288,9 @@ class Server:
                 c = {}
                 if m.mixers[p] == RWKV:
                     x_sp, (c["state"], c["shift"]) = blocks.rwkv_mix(
+                        cfg, topo, w, x_sp, out_cache=True)
+                elif m.mixers[p] == MAMBA:
+                    x_sp, (c["ssm"], c["conv"]) = blocks.mamba_mix(
                         cfg, topo, w, x_sp, out_cache=True)
                 else:
                     x_sp, (c["k"], c["v"]) = blocks.attn_block(

@@ -190,7 +190,12 @@ def test_launcher_raises_without_cuda_unless_cpu(capsys):
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        configs.get("jamba-1.5-large-398b")
+    """Every family of the reference is ported: each arch id and alias
+    resolves to its config; an unknown arch still raises."""
+    for arch in configs.ARCH_IDS:
+        assert configs.get(arch).name
+    assert configs.get("jamba-1.5-large-398b").family == "hybrid"
+    assert configs.get("jamba-1.5-large").mixer_pattern == "mmmmAmmm"
+    assert configs.get("llava-next-34b").frontend == "patch"
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
