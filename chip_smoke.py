@@ -27,7 +27,16 @@ Phases, each printed as one JSON line:
           the reorder kernel (tile_swizzle) against its plain
           version bit for bit: f32 / bf16 / int32, G in {4, 8, 16}, b in
           {1, 8, 16}, D in {64, 128, 2048}, random perms, block_transpose,
-          unaligned base pointers and an out-of-range perm entry; and the
+          unaligned base pointers and an out-of-range perm entry; 128-,
+          256- and 832-byte blocks at G = 132,096 and 16,384, 4-KiB,
+          4,112-byte and 160-KiB blocks, 1.25-MiB blocks at 2-byte
+          alignment, payloads just under and just over 2^31 words (32- and
+          64-bit indices, 4.3 GB) with zero blocks (each launch's plan,
+          index width and word, checked too); then the reorder sweep:
+          blocks of 16 B to 1.25 MiB (REORDER_SWEEP) at about 64 MiB of
+          payload each, timed beside index_select and the bytes bound,
+          every launch bit for bit, and the launch floor (one 16-byte
+          block); and the
           RWKV6 kernel against its plain version on o and the final state
           (f32 within 5e-4, bf16 within 5e-2 of max(1, max|plain|); in
           both types the final state also within RWKV6_STATE_TOL of the
@@ -1133,16 +1142,18 @@ def phase_kernel(dev) -> dict:
     long_rows = _flash_long_rows(dev)
     bwd = _flash_bwd_checks(dev)
     reorder = _reorder_checks(dev)
+    sweep = _reorder_sweep(dev)
     reorder_grad = _reorder_grad_checks(dev)
     rwkv = _rwkv6_checks(dev)
     rwkv_bwd = _rwkv6_bwd_checks(dev)
     return {"ok": (attn["ok"] and all(r["ok"] for r in long_rows)
                    and int8["ok"] and all(r["ok"] for r in int8_rows)
-                   and bwd["ok"] and reorder["ok"] and reorder_grad["ok"]
-                   and rwkv["ok"] and rwkv_bwd["ok"]),
+                   and bwd["ok"] and reorder["ok"] and sweep["ok"]
+                   and reorder_grad["ok"] and rwkv["ok"] and rwkv_bwd["ok"]),
             "checks": attn["checks"], "flash_long_rows": long_rows,
             "int8_decode": int8, "int8_rows": int8_rows,
             "flash_backward": bwd, "reorder": reorder,
+            "reorder_sweep": sweep,
             "reorder_backward": reorder_grad, "rwkv6": rwkv,
             "rwkv6_backward": rwkv_bwd}
 
@@ -1608,8 +1619,110 @@ def _reorder_checks(dev) -> dict:
     if not (torch.equal(got[4:8], torch.zeros_like(got[4:8]))
             and torch.equal(got[:4], x[4:8])):
         failed.append(["out_of_range"])
+
+    def check(name, x, perm, bits=32, width=16, zero=()):
+        """One launch bit for bit against the plain version on perm with
+        the ``zero`` entries (indices into perm) put out of range, whose
+        blocks must come out zero; and the launch's plan (its index width
+        and word) as expected."""
+        nonlocal cases
+        G = perm.numel()
+        want = ref.tile_swizzle(x, perm).view(G, -1)
+        bad = perm.clone()
+        for j, k in enumerate(zero):
+            bad[k] = -1 - j if j % 2 == 0 else G + j      # below and above
+            want[k] = 0
+        got = reorder.tile_swizzle(x, bad)
+        g = reorder.LAST_PLAN
+        cases += 1
+        if not (g.index_bits == bits and g.width == width and torch.equal(
+                _bits(got.view(G, -1)), _bits(want))):
+            failed.append([name, str(x.dtype), G, list(x.shape),
+                           g.index_bits, g.width])
+
+    def randperm(G):
+        return torch.randperm(G, generator=gen, device=dev).to(torch.int32)
+
+    # the prefill K/V reshards' (128 B, 256 B) and DLRM's (832 B) one-row
+    # blocks at the reshard's and DLRM's block counts
+    for G in (132096, 16384):
+        for dtype, D in ((torch.bfloat16, 64), (torch.bfloat16, 128),
+                         (torch.float32, 208)):
+            check("rows", payload(G, D, dtype), randperm(G))
+    # the MoE decode's 4-KiB blocks, 4,112-byte and 160-KiB ones
+    for G, D in ((1024, 1024), (1024, 1028), (16, 40960)):
+        check("blocks", payload(G, D, torch.int32), randperm(G))
+    # 1.25-MiB blocks at 2-byte alignment: the 2-byte word
+    G, D = 8, 655360
+    buf = payload(1, G * D + 1, torch.bfloat16).reshape(-1)
+    check("unaligned_large", buf[1:].view(G, D), randperm(G), 32, 2)
+    del buf
+    # 2,050-byte blocks in 2-byte words, just under 2^31 words (32-bit
+    # indices) and just over (64-bit; 4.3 GB); random bits (NaNs included,
+    # compared by their bits); a zero block from an entry below and one
+    # above [0, G) on each side
+    top = reorder.MAX_WORDS_32 + 1
+    for G, bits in ((top // 1025, 32), (top // 1025 + 1, 64)):
+        x = torch.randint(-2 ** 15, 2 ** 15, (G, 1025), generator=gen,
+                          device=dev, dtype=torch.int16).view(torch.bfloat16)
+        check("index_width", x, randperm(G), bits, 2, zero=(5, G - 7))
+        del x
+    check("zero_rows", payload(4096, 128, torch.bfloat16), randperm(4096),
+          zero=(5, 4000))
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return {"ok": not failed, "cases": cases, "failed": failed[:10]}
+
+
+# block bytes of the reorder sweep: the launch floor's word, the prefill
+# reshards' rows (whisper 128 B, qwen3 / llava 256 B), DLRM's 832 B, the
+# MoE decode's 4 KiB, jamba's 32 KiB, the training steps' 160 KiB and
+# 1.25 MiB; each row about REORDER_SWEEP_BYTES of payload
+REORDER_SWEEP = (16, 128, 256, 832, 4096, 32768, 163840, 1310720)
+REORDER_SWEEP_BYTES = 64 * 2 ** 20
+
+
+def _reorder_row(x, perm) -> dict:
+    """The reorder on x (G blocks) and perm, timed beside index_select and
+    the bytes bound, its launch bit for bit against the plain version, with
+    the launch's plan."""
+    from repro_torch.kernels.reorder import ref, reorder
+    G = perm.numel()
+    exact = bool(torch.equal(_bits(reorder.tile_swizzle(x, perm)),
+                             _bits(ref.tile_swizzle(x, perm))))
+    g = reorder.LAST_PLAN
+    ms = time_ms(lambda: reorder.tile_swizzle(x, perm))
+    nbytes = 2 * x.numel() * x.element_size() + G * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"block_bytes": x.numel() * x.element_size() // G, "blocks": G,
+            "dtype": str(x.dtype).split(".")[-1], "x": list(x.shape),
+            "width": g.width, "grid": g.grid, "exact": exact, "ms": ms,
+            "library_ms": time_ms(
+                lambda: torch.index_select(x.view(G, -1), 0, perm)),
+            "bound_ms": bound, "bound_by": "bytes", "share_of_bound":
+            bound / ms, "bytes": nbytes, "fits_l2": nbytes <= L2_BYTES}
+
+
+def _reorder_sweep(dev) -> dict:
+    """The reorder at each REORDER_SWEEP block size on bf16 one-row blocks
+    and a random perm, about REORDER_SWEEP_BYTES of payload a row; and the
+    launch floor, one 16-byte block (G = 1) timed the same way."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rows = []
+    for nbytes in REORDER_SWEEP:
+        G = REORDER_SWEEP_BYTES // nbytes
+        x = torch.randn(G, nbytes // 2, generator=gen, device=dev).to(
+            torch.bfloat16)
+        perm = torch.randperm(G, generator=gen, device=dev).to(torch.int32)
+        rows.append(_reorder_row(x, perm))
+        del x
+    floor = _reorder_row(
+        torch.randn(1, 8, generator=gen, device=dev).to(torch.bfloat16),
+        torch.zeros(1, dtype=torch.int32, device=dev))
+    torch.cuda.empty_cache()
+    return {"ok": all(r["exact"] for r in rows) and floor["exact"],
+            "rows": rows, "launch_floor": floor}
 
 
 # -------------------------------------------------------------------- comm
@@ -6172,22 +6285,26 @@ def _reorder_main_path(kept: dict, name: str, redraw: bool = False) -> dict:
         gen = torch.Generator(device=x.device).manual_seed(0)
         x = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
     got = reorder.tile_swizzle(x, perm)
+    g = reorder.LAST_PLAN
     want = ref.tile_swizzle(x, perm)
     torch.cuda.synchronize()
     G = perm.numel()
     nbytes = 2 * x.numel() * x.element_size() + perm.numel() * 4
+    block_bytes = x.numel() * x.element_size() // G
+    ms = time_ms(lambda: reorder.tile_swizzle(x, perm))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
     return {"name": name,
             "dtype": str(x.dtype).split(".")[-1],
-            "x": list(x.shape), "blocks": G,
-            "block_bytes": x.numel() * x.element_size() // G,
+            "x": list(x.shape), "blocks": G, "block_bytes": block_bytes,
+            "width": g.width, "grid": g.grid,
             "exact": bool(torch.equal(_bits(got), _bits(want))),
             "max_abs_err": float((got.float() - want.float()).abs().max()),
-            "ms": time_ms(lambda: reorder.tile_swizzle(x, perm)),
+            "ms": ms,
             "plain_ms": time_ms(lambda: ref.tile_swizzle(x, perm)),
             "library_ms": time_ms(
                 lambda: torch.index_select(x.view(G, -1), 0, perm)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bytes": nbytes}
+            "bound_ms": bound, "bound_by": "bytes", "share_of_bound":
+            bound / ms, "bytes": nbytes, "fits_l2": nbytes <= L2_BYTES}
 
 
 def _rwkv6_bwd_main_path(name: str, args: tuple) -> dict:
@@ -6798,8 +6915,15 @@ def main() -> int:
         "bound_by": swz["bound_by"], "library_ms": swz["library_ms"],
         "at": swz["name"], "x": swz["x"], "blocks": swz["blocks"],
         "shapes": {r["name"]: {k: r[k] for k in (
-            "x", "blocks", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "max_abs_err")} for r in reorder_rows},
+            "x", "blocks", "grid", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "share_of_bound", "fits_l2",
+            "max_abs_err")} for r in reorder_rows},
+        "sweep": {str(r["block_bytes"]): {k: r[k] for k in (
+            "x", "grid", "ms", "library_ms", "bound_ms",
+            "share_of_bound", "fits_l2")}
+            for r in results["kernel"]["reorder_sweep"]["rows"]},
+        "launch_floor_ms": results["kernel"]["reorder_sweep"][
+            "launch_floor"]["ms"],
     }, {
         "name": "flash_attention_int8_decode", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,

@@ -98,3 +98,41 @@ def test_kernel_matches_plain_version_on_the_card(dtype):
         xo = xs[1:].view(G * b, D)
         assert torch.equal(ops.tile_swizzle(xo, perm),
                            ref.tile_swizzle(xo, perm))
+
+
+@pytest.mark.cuda
+def test_kernel_index_widths_on_the_card():
+    """The kernel (``reorder.plan``) against the plain version on 32-bit
+    indices (65,536 blocks of 256 B; 832-B, 4-KiB and 160-KiB blocks) and
+    on 64-bit ones (2^31 + 2 words of 2 bytes, a 4.3 GB payload), with a
+    zero block from an out-of-range entry below and above [0, G) in each;
+    each launch's plan (``LAST_PLAN``) checked too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for G, D, dtype, width, bits in (
+            (65536, 128, torch.bfloat16, 16, 32),
+            (4096, 208, torch.float32, 16, 32),
+            (1024, 1024, torch.int32, 16, 32),
+            (16, 81920, torch.bfloat16, 16, 32),
+            (2 ** 31 // 1025 + 1, 1025, torch.bfloat16, 2, 64)):
+        x = torch.randint(-2 ** 15, 2 ** 15, (G, D), generator=gen,
+                          device="cuda", dtype=torch.int16)
+        x = x.view(dtype) if dtype == torch.bfloat16 else x.to(dtype)
+        perm = torch.randperm(G, generator=gen, device="cuda").to(
+            torch.int32)
+        bits16 = (lambda t: t.view(torch.int16)) if dtype == torch.bfloat16 \
+            else (lambda t: t)        # random bf16 bits hold NaNs
+        assert torch.equal(bits16(ops.tile_swizzle(x, perm)),
+                           bits16(ref.tile_swizzle(x, perm)))
+        g = reorder.LAST_PLAN
+        assert (g.width, g.index_bits) == (width, bits)
+        bad = perm.clone()
+        bad[1], bad[G // 2] = -1, G
+        got = ops.tile_swizzle(x, bad)
+        want = ref.tile_swizzle(x, perm)
+        want[[1, G // 2]] = 0
+        torch.cuda.synchronize()
+        assert torch.equal(bits16(got), bits16(want))
+        del x, perm, bad, got, want
+    torch.cuda.empty_cache()
