@@ -425,6 +425,33 @@ Phases, each printed as one JSON line:
           ``import_checkpoint`` (the ``hf-import`` program): bit for bit but
           the norms (1 + w in the file), within 2^-24; export, write, read
           and import seconds;
+  lowp    the reference's low-precision modes (LOWP) on qwen3-1.7b at full
+          width, the train cell's 14 layers, 1 PE: four train steps at
+          mode 1 and four at mode 2 (finite losses; per step 2L forward
+          launches, every one in the mode, and L backward launches), then
+          a 512-token forward and prefill at mode 2 held to the same paths
+          on the plain attention in mode 2 (SERVE_TOL); the mode is reset
+          after. The kernel phase holds the bf16 forms in modes 1 and 2
+          (decode and forward, full, partial and row statistics) to their
+          plain versions on every FLASH_CASES row within 2e-2 of max(1,
+          max|plain|); since that limit cannot tell the modes apart, it
+          also holds the row statistics m and l per form within
+          LOWP_STAT_TOL of the plain version in the same mode while the
+          plain version in the mode below (the control) must fall outside
+          it, and mode 2's rounded p in the forward form by acc = l on
+          v = 1 (LOWP_P_TOL, mode 1 the control); mode 0 asked for by name
+          bit for bit against the launch with no mode; and it times mode 2
+          (and mode 1) at qwen3's
+          training shape and the 2,048-token prefill beside mode 0, SDPA
+          and the bound (LOWP_ROWS);
+  dryrun  ``launch.dryrun`` on the meta device: qwen3-1.7b's train_4k,
+          prefill_32k and decode_32k on the 256-PE cube and train_4k on
+          512 PEs (per-PE argument and temp bytes, TFLOPs, collective
+          bytes, trace seconds; no planner drift), and the dry run of the
+          train cell's and the 1-PE serve cell's topology and batch, whose
+          per-PE argument bytes must equal the bytes those cells hold on
+          the card, exactly (the meta peak printed beside the card's
+          max_memory_allocated of one step, ungated);
   main_path  each kernel on the inputs the serve, serve_mixtral,
           serve_prefill, serve_llava, serve_jamba, fused_forward, train,
           train_moe_rwkv, train_llava, train_jamba and apps phases kept
@@ -772,6 +799,33 @@ FLASH_LONG_ROWS = {"long_decode": (4, 1, 4096, 16, 8, True),
                    "long_forward": (4, 2048, 2048, 16, 8, False)}
 
 
+def _case_positions(B, Sq, Sk, q0, k0, shards, dev) -> tuple:
+    """A FLASH_CASES row's int32 positions: aligned runs from q0 / k0, or
+    (``shards``) one query at q0 against batch row r's key shard r."""
+    if shards:
+        q_pos = torch.full((B, 1), q0, device=dev)
+        k_pos = (torch.arange(B, device=dev)[:, None] * Sk
+                 + torch.arange(Sk, device=dev))
+    else:
+        q_pos = (q0 + torch.arange(Sq, device=dev)).expand(B, -1)
+        k_pos = (k0 + torch.arange(Sk, device=dev)).expand(B, -1)
+    return tuple(p.to(torch.int32).contiguous() for p in (q_pos, k_pos))
+
+
+def _dead_rows_ok(got, v, dead, partial: bool, tol: float) -> bool:
+    """Rows that see no key (``dead``, (B, Sq)) hold m = -1e30 and l = Sk
+    (partial), or the mean of v over all Sk keys within ``tol`` (full)."""
+    if partial:
+        m, l = (t.transpose(1, 2)[dead] for t in got[1:])
+        return bool((m == -1e30).all() and (l == v.shape[1]).all())
+    if not bool(dead.any()):
+        return True
+    B, Sq, H, hd = got.shape
+    mean_v = v.float().mean(1).repeat_interleave(H // v.shape[2], dim=1)
+    mean_v = mean_v[:, None].expand(B, Sq, H, hd)[dead]
+    return float((got.float()[dead] - mean_v).abs().max()) <= tol
+
+
 def _flash_checks(dev) -> dict:
     """The flash kernel against its plain version on FLASH_CASES, f32 and
     bf16. Rows that see no key must give m = -1e30 and l = Sk (partial)
@@ -784,31 +838,16 @@ def _flash_checks(dev) -> dict:
         for (B, Sq, Sk, H, KV, hd, causal, window, q0, k0, partial,
              shards) in FLASH_CASES:
             q, k, v = _attn_inputs(gen, dtype, B, Sq, Sk, H, KV, hd, dev)
-            if shards:
-                q_pos = torch.full((B, 1), q0, device=dev)
-                k_pos = (torch.arange(B, device=dev)[:, None] * Sk
-                         + torch.arange(Sk, device=dev))
-            else:
-                q_pos = (q0 + torch.arange(Sq, device=dev)).expand(B, -1)
-                k_pos = (k0 + torch.arange(Sk, device=dev)).expand(B, -1)
-            q_pos, k_pos = (p.to(torch.int32).contiguous()
-                            for p in (q_pos, k_pos))
+            q_pos, k_pos = _case_positions(B, Sq, Sk, q0, k0, shards, dev)
             kw = dict(causal=causal, window=window, partial=partial)
             got = flash.flash_attention(q, k, v, q_pos, k_pos, **kw)
             torch.cuda.synchronize()
             want = ref.flash_attention(q, k, v, q_pos, k_pos, **kw)
             err = _compare(got, want, partial)
-            ok = err <= KERNEL_TOL[dtype]
             dead = ~ref.mask(q_pos, k_pos, causal, window).expand(
                 B, Sq, Sk).any(-1)                     # rows seeing no key
-            if partial:
-                m, l = (t.transpose(1, 2)[dead] for t in got[1:])
-                ok = ok and bool((m == -1e30).all() and (l == Sk).all())
-            elif bool(dead.any()):
-                mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)
-                mean_v = mean_v[:, None].expand(B, Sq, H, hd)[dead]
-                ok = ok and float((got.float()[dead] - mean_v).abs().max()
-                                  ) <= KERNEL_TOL[dtype]
+            ok = (err <= KERNEL_TOL[dtype]
+                  and _dead_rows_ok(got, v, dead, partial, KERNEL_TOL[dtype]))
             ok_all &= ok
             geo = flash.launch_geometry(B, Sq, Sk, H, KV, hd, dtype)
             checks.append({"dtype": str(dtype).split(".")[-1],
@@ -852,6 +891,237 @@ def _flash_long_rows(dev) -> list:
                 -1)[0],
             **_bound(q, k, q_pos, k_pos, True, -1, partial)})
         torch.cuda.empty_cache()
+    return rows
+
+
+def _stats_err(got, want) -> float:
+    """(out, m, l) of a row-statistics launch against the plain version's:
+    out and l over max(1, max|plain|), m on the rows that see a key (the
+    others must hold -1e30 exactly: each such row adds 1)."""
+    live = want[1] > -1e29
+    m_err = (_compare(got[1][live], want[1][live], False)
+             if bool(live.any()) else 0.0)
+    m_err += float((got[1][~live] != -1e30).sum())
+    return max(_compare(got[0], want[0], False), m_err,
+               _compare(got[2], want[2], False))
+
+
+# The row statistics of a mode-1 / 2 launch on the rows that see a key,
+# as means over every FLASH_CASES row of one form (and over each LOWP_ROWS
+# shape): m's |m - m_plain| / max(1, |m_plain|) and l's |l - l_plain| /
+# l_plain. Against the plain version in the same mode they must lie within
+# LOWP_STAT_TOL; against the plain version in LOWP_CONTROL's mode (the mode
+# below, whose m and l lack the roundings this mode adds: 1 scales q in
+# bf16, 2 rounds the scores and p to bf16) the same comparison must fail,
+# which shows the tolerance tells the modes apart. The output alone does
+# not: at bf16's 2e-2 a kernel that ignored the mode would pass. At hd 16,
+# 64 and 256 the scale is a power of two, mode 1's q rounding is exact and
+# its m and l are mode 0's, so mode 1's control pools hd 32, 96 and 128.
+LOWP_STAT_TOL = {1: {"m": 1e-5, "l": 1e-4}, 2: {"m": 1e-5, "l": 1e-3}}
+LOWP_CONTROL = {1: 0, 2: 1}
+# Mode 2's p in the tensor-core forward: with v = 1 a partial launch's
+# acc[..., 0] sums the p that l sums, rounded to bf16 for the mma. Mode 2
+# rounds p before both sums, so the two agree to f32 order; modes 0 and 1
+# round it for the mma alone, so they do not. Held as the mean over the
+# rows that see a key of |acc[..., 0] - l| / l: mode 2 within LOWP_P_TOL,
+# mode 1 (the control) beyond it. The decode form sums p unrounded in
+# modes 0 and 2 alike, so this tells nothing there.
+LOWP_P_TOL = 1e-5
+
+
+def _stat_sums(got, want, control: bool = False) -> dict:
+    """The rows that see a key and m's and l's deviations summed over them,
+    of a partial or row-statistics launch ``got`` from ``want``: keys rows,
+    m, l, or with ``control`` control_rows, m_control, l_control."""
+    live = want[1] > -1e29
+    m, l, mw, lw = got[1][live], got[2][live], want[1][live], want[2][live]
+    tag = "_control" if control else ""
+    return {"control_rows" if control else "rows": int(live.sum()),
+            f"m{tag}": float(((m - mw).abs() / mw.abs().clamp_min(1)).sum()),
+            f"l{tag}": float(((l - lw).abs() / lw).sum())}
+
+
+def _p_sum_dev(got) -> tuple:
+    """(rows that see a key, |acc[..., 0] - l| / l summed over them) of a
+    partial launch on v = 1."""
+    acc, m, l = got
+    live = m > -1e29
+    return int(live.sum()), float(((acc[..., 0] - l).abs() / l)[live].sum())
+
+
+def _control_pooled(mode: int, hd: int) -> bool:
+    """Whether the plain version in LOWP_CONTROL[mode] differs from mode
+    ``mode``'s in m and l at head dim ``hd``: always at mode 2; at mode 1
+    where hd ** -0.5 is not a power of two."""
+    return mode == 2 or math.log2(hd) % 2 != 0
+
+
+def _stat_verdict(mode: int, sums: dict) -> dict:
+    """The means of ``sums`` (keys rows, m, l and control_rows, m_control,
+    l_control) held to LOWP_STAT_TOL[mode]: the same mode within it, the
+    control beyond it."""
+    tol = LOWP_STAT_TOL[mode]
+    dev = {s: sums[s] / max(1, sums["rows"]) for s in ("m", "l")}
+    ctrl = {s: sums[f"{s}_control"] / max(1, sums["control_rows"])
+            for s in ("m", "l")}
+    ok = (sums["rows"] > 0 and sums["control_rows"] > 0
+          and all(dev[s] <= tol[s] < ctrl[s] for s in ("m", "l")))
+    return {"rows": sums["rows"], "dev": dev,
+            "control_mode": LOWP_CONTROL[mode],
+            "control_rows": sums["control_rows"], "control_dev": ctrl,
+            "tol": tol, "ok": ok}
+
+
+def _lowp_checks(dev) -> dict:
+    """The bf16 forms in the low-precision modes (lowp 1 and 2, the
+    reference's LOWP) against the plain version in the same mode on every
+    FLASH_CASES row -- the decode and the tensor-core forward, full and
+    partial, and each full row again with the row statistics the training
+    forward writes (a partial launch in the decode form) -- within
+    KERNEL_TOL (bf16) of max(1, max|plain|), and their row statistics per
+    form within LOWP_STAT_TOL, beyond it against the control mode; mode
+    2's p in the forward form by LOWP_P_TOL. Rows
+    that see no key give m = -1e30 and l = Sk (partial) or the mean of v
+    (full), as in mode 0. Mode 0 asked for by name is the launch with no
+    mode, bit for bit."""
+    from repro_torch.kernels.attention import flash, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    tol = KERNEL_TOL[torch.bfloat16]
+    checks, ok_all, pools, p_sums = [], True, {}, {1: [0, 0.0], 2: [0, 0.0]}
+    for (B, Sq, Sk, H, KV, hd, causal, window, q0, k0, partial,
+         shards) in FLASH_CASES:
+        q, k, v = _attn_inputs(gen, torch.bfloat16, B, Sq, Sk, H, KV, hd,
+                               dev)
+        q_pos, k_pos = _case_positions(B, Sq, Sk, q0, k0, shards, dev)
+        kw = dict(causal=causal, window=window, partial=partial)
+        base = flash.flash_attention(q, k, v, q_pos, k_pos, **kw)
+        zero = flash.flash_attention(q, k, v, q_pos, k_pos, lowp=0, **kw)
+        pairs = zip(base, zero) if partial else [(base, zero)]
+        same0 = all(torch.equal(_bits(a), _bits(b)) for a, b in pairs)
+        dead = ~ref.mask(q_pos, k_pos, causal, window).expand(
+            B, Sq, Sk).any(-1)
+        row = {"shape": [B, Sq, Sk, H, KV, hd], "causal": causal,
+               "window": window, "partial": partial,
+               "form": flash.launch_geometry(B, Sq, Sk, H, KV, hd,
+                                             torch.bfloat16).form,
+               "rows_without_key": int(dead.sum()),
+               "mode0_bit_identical": same0}
+        # the launch that gives the row statistics: the check's own when
+        # partial, else one with the statistics (forward) or partial
+        kind = ({} if partial else {"stats": True}
+                if row["form"] == "forward" else {"partial": True})
+        ok = same0
+        for mode in (1, 2):
+            got = flash.flash_attention(q, k, v, q_pos, k_pos, lowp=mode,
+                                        **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention(q, k, v, q_pos, k_pos, lowp=mode,
+                                       **kw)
+            err = _compare(got, want, partial)
+            good = err <= tol and _dead_rows_ok(got, v, dead, partial, tol)
+            row[f"lowp{mode}_err"] = err
+            st, st_want = got, want
+            if kind:
+                kw_st = dict(causal=causal, window=window, **kind)
+                st = flash.flash_attention(q, k, v, q_pos, k_pos, lowp=mode,
+                                           **kw_st)
+                st_want = ref.flash_attention(q, k, v, q_pos, k_pos,
+                                              lowp=mode, **kw_st)
+            if "stats" in kind:
+                row[f"lowp{mode}_stats_err"] = _stats_err(st, st_want)
+                good = (good and row[f"lowp{mode}_stats_err"] <= tol
+                        and torch.equal(st[0], got))
+            pool = pools.setdefault((mode, row["form"]), dict.fromkeys(
+                ("rows", "m", "l", "control_rows", "m_control",
+                 "l_control"), 0))
+            sums = _stat_sums(st, st_want)
+            if _control_pooled(mode, hd):
+                control = ref.flash_attention(
+                    q, k, v, q_pos, k_pos, lowp=LOWP_CONTROL[mode],
+                    causal=causal, window=window,
+                    **(kind or {"partial": True}))
+                sums.update(_stat_sums(st, control, control=True))
+            for key, x in sums.items():
+                pool[key] += x
+            ok = ok and good
+        if row["form"] == "forward":
+            ones = torch.ones_like(v)
+            for mode in (1, 2):
+                n, dev_sum = _p_sum_dev(flash.flash_attention(
+                    q, k, ones, q_pos, k_pos, causal=causal, window=window,
+                    partial=True, lowp=mode))
+                p_sums[mode][0] += n
+                p_sums[mode][1] += dev_sum
+        row["ok"] = ok
+        ok_all &= ok
+        checks.append(row)
+    stats = {f"lowp{mode}/{form}": _stat_verdict(mode, sums)
+             for (mode, form), sums in sorted(pools.items())}
+    p_dev = {mode: x / max(1, n) for mode, (n, x) in p_sums.items()}
+    p_check = {"rows": p_sums[2][0], "dev": p_dev[2],
+               "control_mode": 1, "control_dev": p_dev[1],
+               "tol": LOWP_P_TOL,
+               "ok": p_sums[2][0] > 0 and p_dev[2] <= LOWP_P_TOL < p_dev[1]}
+    ok_all &= all(s["ok"] for s in stats.values()) and p_check["ok"]
+    return {"ok": ok_all, "tol": tol, "cases": len(checks),
+            "row_stats": stats, "p_rounding": p_check, "checks": checks}
+
+
+# the LOWP 2 forward timed beside mode 0, SDPA and the bound: qwen3's
+# 1-PE training shape (with the row statistics the backward reads; mode 1
+# too) and the 2,048-token prefill; B, Sq, H, KV, stats, modes
+LOWP_ROWS = {"train_forward": (4, 1024, 16, 8, True, (0, 1, 2)),
+             "prefill_2048": (4, 2048, 16, 8, False, (0, 2))}
+
+
+def _lowp_rows(dev) -> list:
+    """Each LOWP_ROWS shape at hd 128, causal: per mode, the kernel's ms,
+    the plain version's in the same mode, SDPA (one call, bf16; it takes
+    no mode) and the bound (the same bytes and operations in every
+    mode); the error of a row-statistics launch against the plain version
+    in the same mode, and in modes 1 / 2 its row statistics within
+    LOWP_STAT_TOL, beyond it against the control mode."""
+    from repro_torch.kernels.attention import flash, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    rows = []
+    for name, (B, S, H, KV, stats, modes) in LOWP_ROWS.items():
+        q, k, v = _attn_inputs(gen, torch.bfloat16, B, S, S, H, KV, 128, dev)
+        pos = torch.arange(S, device=dev, dtype=torch.int32).expand(
+            B, -1).contiguous()
+        kw = dict(causal=True, window=-1, stats=stats)
+        library_ms = _library_ms(time_ms, lambda f: _sdpa(q, k, v, f), pos,
+                                 pos, True, -1)[0]
+        bound = _bound(q, k, pos, pos, True, -1, False, stats=stats)
+        for mode in modes:
+            kw_st = dict(causal=True, window=-1, stats=True)
+            got = flash.flash_attention(q, k, v, pos, pos, lowp=mode,
+                                        **kw_st)
+            want = ref.flash_attention(q, k, v, pos, pos, lowp=mode, **kw_st)
+            torch.cuda.synchronize()
+            err = _stats_err(got, want)
+            ok = err <= KERNEL_TOL[torch.bfloat16]
+            row_stats = None
+            if mode:
+                control = ref.flash_attention(
+                    q, k, v, pos, pos, lowp=LOWP_CONTROL[mode], **kw_st)
+                row_stats = _stat_verdict(mode, {
+                    **_stat_sums(got, want),
+                    **_stat_sums(got, control, control=True)})
+                ok = ok and row_stats["ok"]
+                del control
+            del got, want
+            rows.append({
+                "name": f"{name}/lowp{mode}", "mode": mode,
+                "q": [B, S, H, 128], "kv": [B, S, KV, 128], "stats": stats,
+                "err": err, "row_stats": row_stats, "ok": ok,
+                "ms": time_ms(lambda: flash.flash_attention(
+                    q, k, v, pos, pos, lowp=mode, **kw)),
+                "plain_ms": time_ms(lambda: ref.flash_attention(
+                    q, k, v, pos, pos, lowp=mode, **kw), reps=2, iters=5),
+                "library_ms": library_ms, **bound})
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1140,6 +1410,8 @@ def phase_kernel(dev) -> dict:
     int8 = _int8_checks(dev)
     int8_rows = _int8_rows(dev)
     long_rows = _flash_long_rows(dev)
+    lowp = _lowp_checks(dev)
+    lowp_rows = _lowp_rows(dev)
     bwd = _flash_bwd_checks(dev)
     reorder = _reorder_checks(dev)
     sweep = _reorder_sweep(dev)
@@ -1147,10 +1419,12 @@ def phase_kernel(dev) -> dict:
     rwkv = _rwkv6_checks(dev)
     rwkv_bwd = _rwkv6_bwd_checks(dev)
     return {"ok": (attn["ok"] and all(r["ok"] for r in long_rows)
+                   and lowp["ok"] and all(r["ok"] for r in lowp_rows)
                    and int8["ok"] and all(r["ok"] for r in int8_rows)
                    and bwd["ok"] and reorder["ok"] and sweep["ok"]
                    and reorder_grad["ok"] and rwkv["ok"] and rwkv_bwd["ok"]),
             "checks": attn["checks"], "flash_long_rows": long_rows,
+            "lowp": lowp, "lowp_rows": lowp_rows,
             "int8_decode": int8, "int8_rows": int8_rows,
             "flash_backward": bwd, "reorder": reorder,
             "reorder_sweep": sweep,
@@ -6355,6 +6629,250 @@ PLAIN_REPS = {"reps": 5, "iters": 4}
 PLAIN_REPS_BIG = {"reps": 2, "iters": 5}
 
 
+# ------------------------------------------------------------------- lowp
+# qwen3-1.7b at full width and the train cell's depth on 1 PE under the
+# low-precision modes: train steps per mode, and the serving forward and
+# prefill of a LOWP_PROMPT-token prompt at mode 2
+LOWP_STEPS, LOWP_PROMPT = 4, 512
+
+
+def _lowp_train(dev, mode: int, cfg, topo, masters, opt, stream) -> dict:
+    """LOWP_STEPS train steps at ``mode``: finite losses, and per step 2L
+    forward launches (the forward and the remat's recompute), every one
+    in the mode, and L backward launches."""
+    from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.models import layers
+    from repro_torch.runtime.trainer import Trainer, TrainConfig, place_batch
+    tc = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100)
+    trainer = Trainer(cfg, topo, tc)
+    L = cfg.n_layers
+    steps, hist = [], []
+    layers.LOWP = mode
+    try:
+        for s in range(LOWP_STEPS):
+            batch = place_batch(stream.global_batch_at(s), cfg, topo, dev)
+            f0, b0 = flash.LAUNCHES, flash_bwd.LAUNCHES
+            m0 = flash.LOWP_LAUNCHES[mode]
+            masters, opt, h = trainer.run(masters, opt, [batch],
+                                          log_every=0)
+            hist += h
+            steps.append({"forward": flash.LAUNCHES - f0,
+                          "in_mode": flash.LOWP_LAUNCHES[mode] - m0,
+                          "backward": flash_bwd.LAUNCHES - b0})
+    finally:
+        layers.LOWP = 0
+    ok = (all(st["forward"] == st["in_mode"] == 2 * L
+              and st["backward"] == L for st in steps)
+          and all(np.isfinite(h["loss"]) for h in hist))
+    return {"ok": ok, "mode": mode, "losses": [h["loss"] for h in hist],
+            "per_step": steps,
+            "ms_per_step": float(np.median([t * 1e3 for t in
+                                            trainer.step_seconds[1:]])),
+            "launches": sum(st["in_mode"] for st in steps),
+            "masters": masters, "opt": opt}
+
+
+def _lowp_serve(dev, cfg) -> dict:
+    """At mode 2 on 1 PE: ``forward_logits`` of a LOWP_PROMPT-token prompt
+    and ``prefill_shard`` of it (last logits, the cache's K and V), each on
+    the kernel and on its plain version in the same mode (``plain_flash``,
+    the witness), within SERVE_TOL of max(1, max|witness|); each launches
+    the kernel once a layer, in the mode."""
+    from repro_torch.kernels.attention import flash
+    from repro_torch.models import layers
+    from repro_torch.models.lm import Model
+    from repro_torch.models.params import init_params
+    from repro_torch.models.serving import Server, make_serve_plan
+    from repro_torch.models.topology import build_serve_topology
+    topo = build_serve_topology(cfg, 1)
+    cube = topo.cube
+    params = init_params(cfg, topo, 1, device=dev)
+    plan = make_serve_plan(cfg, topo, S_ctx=LOWP_PROMPT + GEN,
+                           global_batch=BATCH)
+    server = Server(cfg, topo, plan)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    tokens = cube.to_cube(torch.randint(0, cfg.vocab_size,
+                                        (BATCH, LOWP_PROMPT), generator=gen,
+                                        device=dev), (None, None))
+
+    def run():
+        f0, m0 = flash.LAUNCHES, flash.LOWP_LAUNCHES[2]
+        with torch.no_grad():
+            fwd = Model(cfg, topo).forward_logits(params, {"tokens": tokens})
+            last, cache = server.prefill_shard(params, {"tokens": tokens})
+        torch.cuda.synchronize(dev)
+        return (fwd, last, cache["p0"]["k"], cache["p0"]["v"],
+                flash.LAUNCHES - f0, flash.LOWP_LAUNCHES[2] - m0)
+
+    layers.LOWP = 2
+    try:
+        got = run()
+        with plain_flash():
+            want = run()
+    finally:
+        layers.LOWP = 0
+    errs = {name: float((g.float() - w.float()).abs().max())
+            / max(1.0, float(w.float().abs().max()))
+            for name, g, w in zip(("forward", "prefill_last", "cache_k",
+                                   "cache_v"), got[:4], want[:4])}
+    L = cfg.n_layers
+    ok = (max(errs.values()) <= SERVE_TOL and got[4] == got[5] == 2 * L
+          and want[4] == 0
+          and all(bool(torch.isfinite(t).all()) for t in got[:2]))
+    return {"ok": ok, "prompt": [BATCH, LOWP_PROMPT], "errs": errs,
+            "tol": SERVE_TOL, "launches": got[4], "in_mode": got[5],
+            "witness_launches": want[4]}
+
+
+def phase_lowp(dev) -> dict:
+    """qwen3-1.7b at full width and the train cell's 14 layers on 1 PE
+    under the low-precision modes (``layers.LOWP``, the reference's
+    ``LOWP``): LOWP_STEPS train steps at mode 1 and again at mode 2 (finite
+    losses; 2L forward launches a step, all in the mode, and L backward
+    launches: the backward keeps its f32 recompute), then the serving
+    forward and prefill at mode 2 held to the plain-flash witness in the
+    same mode. The mode is back at 0 after the phase, whatever fails."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import layers
+    from repro_torch.runtime.trainer import TrainConfig
+    torch.cuda.reset_peak_memory_stats(dev)
+    tc = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=100)
+    cfg, topo, masters, opt = _train_setup(dev, "1pe", tc)
+    stream = TokenStream(cfg, DataConfig(seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH,
+                                         vocab_size=cfg.vocab_size))
+    train = {}
+    for mode in (1, 2):
+        res = _lowp_train(dev, mode, cfg, topo, masters, opt, stream)
+        masters, opt = res.pop("masters"), res.pop("opt")
+        train[f"lowp{mode}"] = res
+    del masters, opt
+    torch.cuda.empty_cache()
+    serve = _lowp_serve(dev, cfg)
+    torch.cuda.empty_cache()
+    return {"ok": (all(r["ok"] for r in train.values()) and serve["ok"]
+                   and layers.LOWP == 0),
+            "layers": cfg.n_layers, "train": train, "serve": serve,
+            "launches": {1: train["lowp1"]["launches"],
+                         2: train["lowp2"]["launches"] + serve["launches"]},
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+# ----------------------------------------------------------------- dryrun
+# the production cells the dryrun phase traces: (shape, multi_pod)
+DRYRUN_CELLS = (("train_4k", False), ("prefill_32k", False),
+                ("decode_32k", False), ("train_4k", True))
+
+
+def _dryrun_row(rec: dict) -> dict:
+    mem = rec["memory"]
+    return {"cube": rec["cube"],
+            "argument_gb": mem["argument_size_in_bytes"] / 1e9,
+            "temp_gb": mem["temp_size_in_bytes"] / 1e9,
+            "tflops": rec["cost"]["flops"] / 1e12,
+            "bytes_accessed_gb": rec["cost"]["bytes accessed"] / 1e9,
+            "comm_gb": sum(d["result_bytes"]
+                           for d in rec["collectives"].values()) / 1e9,
+            "trace_s": rec["lower_s"],
+            "drift": rec["planner_drift"]["drift"]}
+
+
+def _held_bytes(tree) -> int:
+    from repro_torch.launch.dryrun import _tensors
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def _dryrun_vs_card(dev) -> dict:
+    """The dry run of the train cell's topology and batch (qwen3 at 14
+    layers, 1 PE, TRAIN_BATCH x TRAIN_SEQ) and of the 1-PE qwen3 serve
+    cell (BATCH rows, PROMPT + GEN positions): their per-PE argument
+    bytes equal the bytes those cells hold on the card (masters, moments
+    and step, batch; weights, cache, tokens and positions), exactly. The
+    meta peak (arguments and temporaries) is printed beside the card's
+    peak of one step above what was allocated before the cell's tensors
+    were made (earlier phases keep launch inputs for main_path), ungated:
+    on meta the plain attention's score chunks are counted, which the
+    kernels never allocate; on the card the libraries' workspaces are."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch import dryrun
+    from repro_torch.models.params import init_params
+    from repro_torch.models.serving import (
+        Server, init_cache, make_serve_plan)
+    from repro_torch.models.topology import build_serve_topology
+    from repro_torch.runtime.trainer import (
+        TrainConfig, make_train_step, place_batch)
+    out = {}
+    tc = TrainConfig()
+    base = torch.cuda.memory_allocated(dev)
+    cfg, topo, masters, opt = _train_setup(dev, "1pe", tc)
+    stream = TokenStream(cfg, DataConfig(seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH,
+                                         vocab_size=cfg.vocab_size))
+    batch = place_batch(stream.global_batch_at(0), cfg, topo, dev)
+    rec = dryrun._cell(cfg, dict(kind="train", seq=TRAIN_SEQ,
+                                 batch=TRAIN_BATCH), 1)
+    held = _held_bytes((masters, opt, batch))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    make_train_step(cfg, topo, tc)(masters, opt, batch)
+    torch.cuda.synchronize(dev)
+    out["train"] = {
+        "argument_bytes": rec["memory"]["argument_size_in_bytes"],
+        "card_bytes": held,
+        "meta_peak_gb": (rec["memory"]["argument_size_in_bytes"]
+                         + rec["memory"]["temp_size_in_bytes"]) / 1e9,
+        "card_peak_gb": (torch.cuda.max_memory_allocated(dev) - base) / 1e9}
+    del masters, opt, batch
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    cfg = configs.get(ARCH)
+    topo = build_serve_topology(cfg, 1)
+    plan = make_serve_plan(cfg, topo, S_ctx=PROMPT + GEN, global_batch=BATCH)
+    params = init_params(cfg, topo, 0, device=dev)
+    cache = init_cache(cfg, topo, plan, device=dev)
+    tok, pos = (topo.cube.to_cube(torch.zeros((BATCH,), dtype=torch.int64,
+                                              device=dev), (None,))
+                for _ in range(2))
+    rec = dryrun._cell(cfg, dict(kind="decode", seq=PROMPT + GEN,
+                                 batch=BATCH), 1)
+    held = _held_bytes((params, cache, tok, pos))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        Server(cfg, topo, plan).decode_shard(params, cache, tok, pos)
+    torch.cuda.synchronize(dev)
+    out["serve"] = {
+        "argument_bytes": rec["memory"]["argument_size_in_bytes"],
+        "card_bytes": held,
+        "meta_peak_gb": (rec["memory"]["argument_size_in_bytes"]
+                         + rec["memory"]["temp_size_in_bytes"]) / 1e9,
+        "card_peak_gb": (torch.cuda.max_memory_allocated(dev) - base) / 1e9}
+    del params, cache
+    torch.cuda.empty_cache()
+    out["ok"] = all(r["argument_bytes"] == r["card_bytes"]
+                    for r in (out["train"], out["serve"]))
+    return out
+
+
+def phase_dryrun(dev) -> dict:
+    """The dry run (``launch.dryrun``, on the meta device: no card needed,
+    no byte allocated) of qwen3-1.7b's train_4k, prefill_32k and
+    decode_32k cells on the 256-PE cube and train_4k on 512 PEs (per-PE
+    argument and temp bytes, flops, collective bytes, trace seconds; no
+    drift between the planned and the executed collectives), and the
+    train and 1-PE serve cells' argument bytes against the card's."""
+    from repro_torch.launch import dryrun
+    cells = {}
+    for shape, mp in DRYRUN_CELLS:
+        rec = dryrun.run_cell(ARCH, shape, multi_pod=mp)
+        cells[f"{shape}/{rec['mesh']}"] = _dryrun_row(rec)
+    card = _dryrun_vs_card(dev)
+    return {"ok": card["ok"] and not any(c["drift"] for c in cells.values()),
+            "cells": cells, "vs_card": card}
+
+
 def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
                     kept_bwd: dict, kept_rwkv6_train: dict,
                     kept_rwkv6_bwd: dict) -> dict:
@@ -6689,6 +7207,40 @@ def _why(res, path: str = "") -> list:
     return out
 
 
+def _lowp_entry(mode: int, kernel: dict, lowp: dict) -> dict:
+    """The kernels line's entry of the flash kernel's bf16 forms in
+    low-precision mode ``mode``: launches from the lowp phase's train steps
+    (and at mode 2 its forward and prefill), the error over the kernel
+    phase's mode-``mode`` checks and its row-statistics means beside their
+    controls, the times of the LOWP_ROWS row in the mode that fares worst
+    against SDPA."""
+    rows = [r for r in kernel["lowp_rows"] if r["mode"] == mode]
+    head = max(rows, key=lambda r: r["ms"] / r["library_ms"])
+    return {
+        "name": f"flash_attention_lowp{mode}", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+        "entry": f"flash.flash_attention(..., lowp={mode}) (bf16 forms)",
+        "launches": lowp["launches"][mode],
+        "launches_by_path": {f"{ARCH}/lowp/train": lowp["train"][
+            f"lowp{mode}"]["launches"],
+            **({f"{ARCH}/lowp/serve": lowp["serve"]["launches"]}
+               if mode == 2 else {})},
+        "max_abs_err": max(c[f"lowp{mode}_err"]
+                           for c in kernel["lowp"]["checks"]),
+        "row_stats": {form: {k: st[k] for k in ("dev", "control_dev")}
+                      for form, st in kernel["lowp"]["row_stats"].items()
+                      if form.startswith(f"lowp{mode}/")},
+        **({"p_rounding": {k: kernel["lowp"]["p_rounding"][k] for k in (
+            "dev", "control_dev")}} if mode == 2 else {}),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "at": head["name"],
+        "shapes": {r["name"]: {k: r[k] for k in (
+            "q", "kv", "stats", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "err")} for r in kernel["lowp_rows"]},
+    }
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6765,6 +7317,8 @@ def main() -> int:
                      ("train_jamba", lambda: phase_train_jamba(
                          dev, kept_train)),
                      ("checkpoint", lambda: phase_checkpoint(dev)),
+                     ("lowp", lambda: phase_lowp(dev)),
+                     ("dryrun", lambda: phase_dryrun(dev)),
                      ("main_path", lambda: phase_main_path(
                          kept, kept_reorder, kept_rwkv6, kept_bwd,
                          kept_rwkv6_train, kept_rwkv6_bwd))):
@@ -6942,7 +7496,9 @@ def main() -> int:
         "off_main_path": {t["name"]: {k: t[k] for k in (
             "q", "kv", "ms", "plain_ms", "bf16_cache_ms", "bound_ms",
             "bound_by", "err")} for t in results["kernel"]["int8_rows"]},
-    }, _rwkv6_entry(kern["rwkv6"] + kern["rwkv6_train_forward"], {
+    }, *(_lowp_entry(mode, results["kernel"], results["lowp"])
+         for mode in (1, 2)),
+        _rwkv6_entry(kern["rwkv6"] + kern["rwkv6_train_forward"], {
         RWKV_ARCH: rwkv_res["rwkv6_launches"],
         f"{RWKV_ARCH}/train": mr[RWKV_ARCH]["rwkv6"]},
         results["kernel"]["rwkv6"]),

@@ -34,7 +34,9 @@ installed measured profile, ``repro_torch.tuning``, where there is one);
 the pick is cached per (primitive, request, payload bytes, op, installed
 profile) on the communicator, so eager decode loops do not re-plan every
 step and a newly installed profile re-plans. Every dispatch appends a :class:`CommEvent`
-to any active :class:`CommTrace`.
+to any active :class:`CommTrace`, and every registered body that runs
+(after a program's fusions; the hops a flow is built from included) to
+any active :class:`BodyTrace`.
 
 The rooted four (scatter / gather / reduce / broadcast) move data between
 the host and the cube (§IV-B3, the host is the root). A cube tensor carries
@@ -64,6 +66,7 @@ group view along its member axis: member r receives what member r - 1
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
@@ -113,6 +116,88 @@ class AlgorithmSpec:
 _REGISTRY: dict[str, dict[str, AlgorithmSpec]] = {p: {} for p in PRIMITIVES}
 
 
+# the collective op kind a PE <-> PE body's data movement is (the names of
+# the reference's compiled collectives); the rooted four move data between
+# the host and the cube and are not recorded
+BODY_KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+              "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all"}
+
+_BODY_TRACES: list["BodyTrace"] = []
+# one counter per running recorded body: the records made inside it
+_BODY_DEPTH: list[int] = []
+
+
+class BodyTrace:
+    """Context manager recording the data movements that ran: each
+    registered PE <-> PE body that executes while it is open and runs no
+    other registered body (a flow built from hops -- ``hierarchical``,
+    ``compressed`` -- records its hops), by collective kind and group
+    size, with the per-PE bytes of its result. The record is taken where
+    the body runs, independent of the planner's :class:`CommEvent` s:
+    ``summary()`` has the layout of the reference dry run's parse of the
+    compiled module's collectives."""
+
+    def __init__(self):
+        self.records: list[tuple[str, int, int]] = []
+
+    def __enter__(self) -> "BodyTrace":
+        _BODY_TRACES.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _BODY_TRACES.remove(self)
+        return False
+
+    def summary(self) -> dict:
+        """{kind: {"count", "result_bytes", "by_group": {str(g): {"count",
+        "bytes"}}}}."""
+        out: dict[str, dict] = {}
+        for kind, group, nbytes in self.records:
+            d = out.setdefault(kind, {"count": 0, "result_bytes": 0,
+                                      "by_group": {}})
+            d["count"] += 1
+            d["result_bytes"] += nbytes
+            g = d["by_group"].setdefault(str(group), {"count": 0, "bytes": 0})
+            g["count"] += 1
+            g["bytes"] += nbytes
+        return out
+
+
+def _per_pe_bytes(cube, out) -> int:
+    """Bytes of one PE's share of a body's result (cube tensors, or a
+    tuple of them)."""
+    leaves = out if isinstance(out, (tuple, list)) else (out,)
+    return sum(math.prod(t.shape[cube.ndim:]) * t.element_size()
+               for t in leaves if isinstance(t, torch.Tensor))
+
+
+def _recorded(primitive: str, fn: Callable) -> Callable:
+    """``fn`` recording into the active :class:`BodyTrace` s when it runs
+    no other recorded body."""
+    kind = BODY_KINDS.get(primitive)
+    if kind is None:
+        return fn
+
+    @functools.wraps(fn)
+    def body(comm, x, **kwargs):
+        if not _BODY_TRACES:
+            return fn(comm, x, **kwargs)
+        _BODY_DEPTH.append(0)
+        try:
+            out = fn(comm, x, **kwargs)
+        finally:
+            inner = _BODY_DEPTH.pop()
+        if not inner:
+            record = (kind, comm.group_size, _per_pe_bytes(comm.cube, out))
+            for t in _BODY_TRACES:
+                t.records.append(record)
+        if _BODY_DEPTH:
+            _BODY_DEPTH[-1] += 1
+        return out
+
+    return body
+
+
 def register_algorithm(primitive: str, name: str, *, stage: str | None = None,
                        table_ii: bool | None = None):
     """Decorator registering a collective algorithm body.
@@ -135,6 +220,7 @@ def register_algorithm(primitive: str, name: str, *, stage: str | None = None,
         if name in _REGISTRY[primitive]:
             raise ValueError(
                 f"algorithm {name!r} already registered for {primitive!r}")
+        fn = _recorded(primitive, fn)
         _REGISTRY[primitive][name] = AlgorithmSpec(primitive, name, stage,
                                                    table_ii, fn)
         return fn
@@ -1033,7 +1119,8 @@ del _stage_name
 
 
 __all__ = [
-    "AlgorithmSpec", "CommEvent", "CommTrace", "Communicator",
+    "AlgorithmSpec", "BODY_KINDS", "BodyTrace", "CommEvent", "CommTrace",
+    "Communicator",
     "PRIMITIVES", "STAGE_ORDER", "applicability", "get_algorithm",
     "register_algorithm", "registered_algorithms", "resolve_stage",
 ]

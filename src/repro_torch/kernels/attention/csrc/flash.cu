@@ -91,6 +91,19 @@
 //     shared memory, K padded by a column); lane j scores key j for its
 //     warp's 4 rows.
 //
+// Low-precision modes (`lowp`, the reference's LOWP of
+// src/repro/models/layers.py): a run-time argument, uniform across the CTA,
+// taken by the bf16 forms (decode and forward). 1: q is scaled and rounded
+// to bf16 as the reference does, bf16(q * bf16(scale)), before the dot
+// (accumulated in f32), and no scale follows it; the decode form rounds p
+// to bf16 for p v (the forward always does). 2: besides, each score is
+// rounded to bf16 before the mask (masked keys score bf16(-1e30)) and the
+// row max, and p = bf16(exp(bf16(s - bf16(m)))); l and the output
+// accumulate in f32. The f32 forms and the int8 decode form take mode 0
+// only (the entry points refuse any other): on f32 q the reference
+// computes the mode-0 function under every mode, and the int8 cache exists
+// in decode alone, which runs mode 0. Mode 0 is the code as it was.
+//
 // Registers (ptxas, printed by chip_smoke.py's build phase): see PERF.md.
 
 #include <cooperative_groups.h>
@@ -130,6 +143,11 @@ template <typename T>
 __device__ __forceinline__ float ex(float x) { return __expf(x); }
 template <>
 __device__ __forceinline__ float ex<float>(float x) { return expf(x); }
+
+// x rounded to bf16 (nearest even), back in f32: the low-precision modes
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
@@ -273,7 +291,8 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
                     const int* __restrict__ k_pos, T* __restrict__ out,
                     float* __restrict__ acc_out, float* __restrict__ m_out,
                     float* __restrict__ l_out, int Sq, int Sk, int H, int KV,
-                    int causal, int window, float scale, int chunk) {
+                    int causal, int window, float scale, int chunk,
+                    int lowp) {
   using L = DecodeLayout<KT, HD>;
   constexpr int VEC = L::VEC, LG = L::LG, NP = L::NP, E = L::E;
   constexpr int KPW = 32 / LG;          // keys per warp step
@@ -298,6 +317,10 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
   const bool holds = sub < L::ACT;      // this lane holds pieces of the key
   const int k_begin = blockIdx.y * chunk;
   const int k_end = min(Sk, k_begin + chunk);
+  // lowp: q as the reference scales it, bf16(q * bf16(scale)); lowp 2:
+  // masked scores at bf16(-1e30)
+  const float qscale = lowp ? bf16r(scale) : scale;
+  const float masked = lowp >= 2 ? bf16r(kNegInf) : kNegInf;
 
   // this lane's hd slice of every row's q (scaled), and each row's position
   float qf[Q_SHARED ? 1 : RM][E];
@@ -320,7 +343,8 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
                 *reinterpret_cast<const uint4*>(qr + j * LG * VEC + c * QV),
                 qr_f + j * VEC + c * QV);
 #pragma unroll
-        for (int i = 0; i < E; ++i) qr_f[i] *= scale;
+        for (int i = 0; i < E; ++i)
+          qr_f[i] = lowp ? bf16r(qr_f[i] * qscale) : qr_f[i] * qscale;
       }
       qp[r] = q_pos[(size_t)b * Sq + qi];
     }
@@ -430,7 +454,9 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
 #pragma unroll
       for (int o = LG / 2; o > 0; o >>= 1)
         d += __shfl_xor_sync(kFull, d, o);
-      sc[r] = visible(qp[r], kp, causal, window) ? d * ks : kNegInf;
+      float x = d * ks;
+      if (lowp >= 2) x = bf16r(x);
+      sc[r] = visible(qp[r], kp, causal, window) ? x : masked;
     }
     if (exists) {
       float vf[E];
@@ -447,9 +473,11 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
       for (int r = 0; r < RM; ++r) {
         if (r >= R) break;
         const float mn = fmaxf(m[r], sc[r]);
-        const float c = ex<T>(m[r] - mn), p = ex<T>(sc[r] - mn);
+        const float c = ex<T>(m[r] - mn);
+        const float p = lowp >= 2 ? bf16r(ex<T>(bf16r(sc[r] - bf16r(mn))))
+                                  : ex<T>(sc[r] - mn);
         l[r] = l[r] * c + p;
-        const float pv = p * vs;
+        const float pv = (lowp == 1 ? bf16r(p) : p) * vs;
 #pragma unroll
         for (int i = 0; i < E; ++i)
           acc[r][i] = fmaf(pv, vf[i], acc[r][i] * c);
@@ -625,7 +653,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      __nv_bfloat16* __restrict__ out,
                      float* __restrict__ acc_out, float* __restrict__ m_out,
                      float* __restrict__ l_out, int Sq, int Sk, int H,
-                     int KV, int causal, int window, float scale) {
+                     int KV, int causal, int window, float scale, int lowp) {
   using bf16 = __nv_bfloat16;
   using F = FwdLayout<HD>;
   constexpr int LD = F::LD;
@@ -767,6 +795,35 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
           ok1 ? *reinterpret_cast<const uint32_t*>(q + qo1 + c + 8) : 0u;
     }
   }
+  // lowp: q as the reference scales it, bf16(q * bf16(scale)), in the
+  // fragments (or in the warp's rows of shared memory), and the scores
+  // take no scale after the dot
+  const float qscale = bf16r(scale);
+  if (lowp) {
+    if constexpr (F::Q_SHARED) {
+      cp_async_wait<kStages - 2>();   // Q came with tile 0's group
+      __syncwarp();
+      bf16* qw = qsm + warp * 16 * LD;
+      for (int e = lane; e < 16 * HD / 2; e += 32) {
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(
+            qw + (e / (HD / 2)) * LD + 2 * (e % (HD / 2)));
+        const float2 f = __bfloat1622float2(*h);
+        *h = __floats2bfloat162_rn(f.x * qscale, f.y * qscale);
+      }
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(
+              &qa[kk][c]);
+          const float2 f = __bfloat1622float2(h);
+          qa[kk][c] = pack_bf16(f.x * qscale, f.y * qscale);
+        }
+    }
+  }
+  const float masked = lowp >= 2 ? bf16r(kNegInf) : kNegInf;
   const int qp0 = ok0 ? q_pos[(size_t)b * Sq + r0 / G] : 0;
   const int qp1 = ok1 ? q_pos[(size_t)b * Sq + r1 / G] : 0;
 
@@ -838,11 +895,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
+        float x = lowp ? s[j][e] : s[j][e] * scale;
+        if (lowp >= 2) x = bf16r(x);
         if (!full) {   // CTA-uniform
           const int jj = 8 * j + 2 * qlane + (e & 1);
           const int qp = e < 2 ? qp0 : qp1;
-          x = visible(qp, kpt[jj], causal, window) ? x : kNegInf;
+          x = visible(qp, kpt[jj], causal, window) ? x : masked;
           x = t * kTileKeys + jj < Sk ? x : kAbsent;
         }
         s[j][e] = x;
@@ -858,13 +916,20 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const float c0 = __expf(m0 - mn0), c1 = __expf(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
+    // lowp 2: p = bf16(exp(bf16(s - bf16(m))))
+    const float mb0 = lowp >= 2 ? bf16r(mn0) : mn0;
+    const float mb1 = lowp >= 2 ? bf16r(mn1) : mn1;
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float x = s[j][e];
-        const float p = x != kAbsent ? __expf(x - (e < 2 ? mn0 : mn1)) : 0.f;
+        float p = 0.f;
+        if (x != kAbsent) {
+          p = lowp >= 2 ? bf16r(__expf(bf16r(x - (e < 2 ? mb0 : mb1))))
+                        : __expf(x - (e < 2 ? mn0 : mn1));
+        }
         s[j][e] = p;
         if (e < 2) ps0 += p; else ps1 += p;
       }
@@ -1124,6 +1189,7 @@ struct Args {
   float scale;
   const float* ks = nullptr;   // the int8 cache's scales
   const float* vs = nullptr;
+  int lowp = 0;                // the low-precision mode (bf16 forms)
 };
 
 template <typename T, typename KT, int HD, int RM>
@@ -1150,7 +1216,7 @@ cudaError_t launch_decode(const Args& a, dim3 grid, int chunk,
       &cfg, flash_decode_kernel<T, KT, HD, RM>, static_cast<const T*>(a.q),
       static_cast<const KT*>(a.k), static_cast<const KT*>(a.v), a.ks, a.vs,
       a.qp, a.kp, static_cast<T*>(a.out), a.acc, a.m, a.l, a.Sq, a.Sk, a.H,
-      a.KV, a.causal, a.window, a.scale, chunk);
+      a.KV, a.causal, a.window, a.scale, chunk, a.lowp);
 }
 
 template <typename T, typename KT, int HD>
@@ -1174,7 +1240,8 @@ cudaError_t launch_forward_bf16(const Args& a, dim3 grid, int warps,
   flash_fwd_mma_kernel<HD><<<grid, 32 * warps, bytes, s>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.qp, a.kp, static_cast<bf16*>(a.out),
-      a.acc, a.m, a.l, a.Sq, a.Sk, a.H, a.KV, a.causal, a.window, a.scale);
+      a.acc, a.m, a.l, a.Sq, a.Sk, a.H, a.KV, a.causal, a.window, a.scale,
+      a.lowp);
   return cudaGetLastError();
 }
 
@@ -1248,24 +1315,25 @@ int repro_flash_forward(int dtype, const void* q, const void* k,
                         const void* v, const void* q_pos, const void* k_pos,
                         void* out, void* acc, void* m, void* l, int B, int Sq,
                         int Sk, int H, int KV, int hd, int causal, int window,
-                        float scale, int row_tile, void* stream);
+                        float scale, int row_tile, int lowp, void* stream);
 
 #if REPRO_HAS_PART(3)
 int repro_flash_forward(int dtype, const void* q, const void* k,
                         const void* v, const void* q_pos, const void* k_pos,
                         void* out, void* acc, void* m, void* l, int B, int Sq,
                         int Sk, int H, int KV, int hd, int causal, int window,
-                        float scale, int row_tile, void* stream) {
+                        float scale, int row_tile, int lowp, void* stream) {
   if (dtype == 1 ? (row_tile != 16 && row_tile != 32 && row_tile != 64)
                  : row_tile != kF32Warps * kF32RowsPerWarp)
     return cudaErrorInvalidValue;
   const int R = Sq * (H / KV);
   const int tiles = (R + row_tile - 1) / row_tile;
   if (tiles > 65535) return cudaErrorInvalidValue;
-  const Args a{q, k, v, static_cast<const int*>(q_pos),
+  Args a{q, k, v, static_cast<const int*>(q_pos),
                static_cast<const int*>(k_pos), out,
                static_cast<float*>(acc), static_cast<float*>(m),
                static_cast<float*>(l), Sq, Sk, H, KV, causal, window, scale};
+  a.lowp = lowp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(B * KV, tiles);
   return dtype == 1 ? forward_bf16(hd, a, grid, row_tile / 16, s)
@@ -1281,6 +1349,7 @@ int repro_flash_forward(int dtype, const void* q, const void* k,
 // form 0 = decode (row_tile = Sq * G <= 8, `splits` CTAs per (batch, kv
 // head) in one cluster), form 1 = forward (row_tile query rows per CTA: 16,
 // 32 or 64 in bf16, 32 in f32; splits = 1) -- flash.launch_geometry.
+// `lowp`: the low-precision mode, 0, 1 or 2 in bf16 and 0 in f32.
 // Returns the cudaError_t of the launch, or of setting the forward's
 // dynamic shared-memory size (0 on success); nothing is synchronized and
 // nothing is allocated.
@@ -1289,15 +1358,17 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
                           void* out, void* acc, void* m, void* l, int B,
                           int Sq, int Sk, int H, int KV, int hd, int causal,
                           int window, float scale, int form, int row_tile,
-                          int splits, void* stream) {
+                          int splits, int lowp, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || lowp < 0 || lowp > 2 ||
+      (dtype == 0 && lowp != 0))
     return cudaErrorInvalidValue;
   const int R = Sq * (H / KV);
-  const Args a{q, k, v, static_cast<const int*>(q_pos),
+  Args a{q, k, v, static_cast<const int*>(q_pos),
                static_cast<const int*>(k_pos), out,
                static_cast<float*>(acc), static_cast<float*>(m),
                static_cast<float*>(l), Sq, Sk, H, KV, causal, window, scale};
+  a.lowp = lowp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (form == 0) {
     if (!decode_geometry_ok(R, Sk, row_tile, splits))
@@ -1310,7 +1381,7 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
   if (form != 1 || splits != 1) return cudaErrorInvalidValue;
   return repro_flash_forward(dtype, q, k, v, q_pos, k_pos, out, acc, m, l, B,
                              Sq, Sk, H, KV, hd, causal, window, scale,
-                             row_tile, stream);
+                             row_tile, lowp, stream);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -14,6 +14,12 @@ The int8 KV cache goes through the same entry point: ``flash_attention(
 instances (``repro_flash_decode_int8``), which read the codes and the f32
 scales directly; those launches count in ``INT8_LAUNCHES``, not in
 ``LAUNCHES``.
+
+The low-precision modes (``lowp`` 1 / 2, the reference's ``LOWP``) are a
+run-time argument of the bf16 forms, decode and forward: a launch under a
+mode counts in ``LAUNCHES`` and in ``LOWP_LAUNCHES[mode]``. f32 q runs mode
+0 whatever is asked (the reference's function on f32 q), and the int8
+cache refuses a mode.
 """
 from __future__ import annotations
 
@@ -103,6 +109,7 @@ def launch_geometry(B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
 
 LAUNCHES = 0
 INT8_LAUNCHES = 0
+LOWP_LAUNCHES = {1: 0, 2: 0}
 
 
 def _lib() -> ctypes.CDLL:
@@ -111,7 +118,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, p, p, p, p, p, p, p, p, p,
-                       i, i, i, i, i, i, i, i, ctypes.c_float, i, i, i, p]
+                       i, i, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, p]
         fn.restype = i
         lib.repro_flash_decode_int8.argtypes = [
             i, p, p, p, p, p, p, p, p, p, p, p,
@@ -195,7 +202,8 @@ def _check_layout(q, k, v, q_pos, k_pos, k_scale=None,
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                     window: int = -1, partial: bool = False,
-                    stats: bool = False, k_scale=None, v_scale=None):
+                    stats: bool = False, k_scale=None, v_scale=None,
+                    lowp: int = 0):
     """Launch the kernel on CUDA tensors (see ``ref.flash_attention`` for
     the function): q (B, Sq, H, hd), k/v (B, Sk, KV, hd), int32 positions
     (B, Sq)/(B, Sk). With ``stats`` (and not ``partial``) it returns
@@ -204,12 +212,21 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     launch without them). With ``k_scale`` / ``v_scale`` (B, Sk, KV) f32,
     k and v are the int8 cache's codes and the decode form's int8
     instances read them (Sq * G <= 8 rows a kv head; no ``stats``).
+    ``lowp`` 1 / 2 runs the bf16 forms in the reference's low-precision
+    mode (``ref.flash_attention``); on f32 q the mode is 0.
     Raises on anything the kernel does not take, and under grad
     (``guard_grad``)."""
     global LAUNCHES, INT8_LAUNCHES
     guard_grad("flash_attention", q, k, v)
     geo = _check(q, k, v, q_pos, k_pos, k_scale, v_scale)
     int8 = k_scale is not None
+    if lowp not in (0, 1, 2):
+        raise ValueError(f"flash_attention: lowp must be 0, 1 or 2, got "
+                         f"{lowp}")
+    if int8 and lowp:
+        raise ValueError("flash_attention: the int8 KV cache takes no "
+                         f"low-precision mode, got lowp={lowp}")
+    mode = lowp if q.dtype == torch.bfloat16 else 0
     if int8 and stats:
         raise ValueError("flash_attention: the int8 cache has no training "
                          "forward (stats=True)")
@@ -244,7 +261,7 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                 q_pos.data_ptr(), k_pos.data_ptr(), ptr(out), ptr(acc),
                 ptr(m), ptr(l), B, Sq, Sk, H, KV, hd, int(causal),
                 int(window), hd ** -0.5, 0 if geo.form == "decode" else 1,
-                geo.row_tile, geo.key_splits, stream)
+                geo.row_tile, geo.key_splits, mode, stream)
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
@@ -253,6 +270,8 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
         INT8_LAUNCHES += 1
     else:
         LAUNCHES += 1
+        if mode:
+            LOWP_LAUNCHES[mode] += 1
     if partial:
         return acc, m, l
     return (out, m, l) if stats else out

@@ -7,6 +7,14 @@ mask (a fully masked row averages v), output / max(l, 1e-30). The CPU path
 of ``ops.flash_attention`` and the kernel's yardstick on the card; beside
 it the plain backward (``flash_attention_backward``), the yardstick of
 ``csrc/flash_bwd.cu``.
+
+Under a low-precision mode (``lowp``, the reference's ``LOWP``) on bf16 q
+it computes the reference's forms instead: 1 scales q in bf16 (``bf16(q *
+bf16(scale))``) and dots it with bf16 k in f32, and rounds p to bf16 for
+p v; 2 also rounds the scores to bf16 (masked ones to ``bf16(-1e30)``) and
+takes p = ``bf16(exp(bf16(s - bf16(m))))``, m the f32 running max (at
+least -1e30), l and p v summed in f32. f32 q ignores the mode, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -29,6 +37,16 @@ def mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
     return ok
 
 
+def bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (nearest even), back in f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def bf16_scalar(x: float) -> float:
+    """``x`` rounded to bf16, as a Python float."""
+    return float(torch.tensor(x).bfloat16())
+
+
 def dequantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """int8 K or V (B, Sk, KV, hd) with f32 scales (B, Sk, KV) -> f32."""
     return x.float() * scale[..., None]
@@ -36,7 +54,8 @@ def dequantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                     window: int = -1, partial: bool = False,
-                    stats: bool = False, k_scale=None, v_scale=None):
+                    stats: bool = False, k_scale=None, v_scale=None,
+                    lowp: int = 0):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); q_pos: (B, Sq), k_pos:
     (B, Sk) int. Returns (B, Sq, H, hd) in q's dtype, or with ``partial``
     the f32 ``(acc (B, H, Sq, hd), m (B, H, Sq), l (B, H, Sq))``, or with
@@ -44,20 +63,35 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     ``k_scale`` / ``v_scale`` (B, Sk, KV) f32, k and v are int8 codes (the
     int8 KV cache) and attention runs on ``dequantize(k, k_scale)`` and
     ``dequantize(v, v_scale)``: the function of the kernel's int8 decode
-    form."""
+    form. ``lowp`` 1 / 2: the low-precision forms on bf16 q (module
+    docstring); the int8 cache takes none."""
     if k_scale is not None:
+        if lowp:
+            raise ValueError("flash_attention: the int8 KV cache takes no "
+                             f"low-precision mode, got lowp={lowp}")
         k, v = dequantize(k, k_scale), dequantize(v, v_scale)
+    lowp = lowp if q.dtype == torch.bfloat16 else 0
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qf = q.float().reshape(B, Sq, KV, G, hd) * hd ** -0.5
+    if lowp:
+        qf = bf16(q.float() * bf16_scalar(hd ** -0.5))
+    else:
+        qf = q.float() * hd ** -0.5
+    qf = qf.reshape(B, Sq, KV, G, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float())    # (B,KV,G,Sq,Sk)
-    ok = mask(q_pos, k_pos, causal, window)
-    s = torch.where(ok[:, None, None], s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1)                                       # (B,KV,G,Sq)
-    p = torch.exp(s - m[..., None])
+    ok = mask(q_pos, k_pos, causal, window)[:, None, None]
+    if lowp >= 2:
+        s = torch.where(ok, bf16(s), bf16_scalar(NEG_INF))
+        m = torch.clamp_min(s.amax(dim=-1), NEG_INF)         # (B,KV,G,Sq)
+        p = bf16(torch.exp(bf16(s - bf16(m)[..., None])))
+    else:
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1)                                   # (B,KV,G,Sq)
+        p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
-    acc = torch.einsum("bkgqs,bskh->bkgqh", p, v.float())
+    acc = torch.einsum("bkgqs,bskh->bkgqh", bf16(p) if lowp == 1 else p,
+                       v.float())
     acc, m, l = (acc.reshape(B, H, Sq, hd), m.reshape(B, H, Sq),
                  l.reshape(B, H, Sq))
     if partial:

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.collective.ring import dispatch_fused
+from repro_torch.models import layers
 from repro_torch.models.layers import NEG_INF, chunked_attention
 
 __all__ = ["RING_ATTN_TOL", "ring_attention"]
@@ -41,7 +42,8 @@ def ring_attention(comm, q, k, v, *, causal: bool = True, window: int = -1):
     full-sequence attention, within ``RING_ATTN_TOL[dtype]`` of it."""
     S_loc = q.shape[-3]
     if comm.group_size == 1:
-        return chunked_attention(q, k, v, causal=causal, window=window)
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 lowp=layers.LOWP)
     q_off = (comm.axis_index(q.device) * S_loc)[..., None]   # (*cube, 1)
 
     def consume(state, src, kv_block):
@@ -49,7 +51,8 @@ def ring_attention(comm, q, k, v, *, causal: bool = True, window: int = -1):
         acc, m, l = state
         acc_h, m_h, l_h = chunked_attention(
             q, kb, vb, causal=causal, window=window, q_offset=q_off,
-            k_offset=(src * S_loc)[..., None], partial=True)
+            k_offset=(src * S_loc)[..., None], partial=True,
+            lowp=layers.LOWP)
         m_new = torch.maximum(m, m_h)
         c = torch.exp(m - m_new)
         c_h = torch.exp(m_h - m_new)

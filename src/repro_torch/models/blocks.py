@@ -31,7 +31,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import ssm
+from repro_torch.models import layers, ssm
 from repro_torch.models.config import ModelConfig, FULL_WINDOW
 from repro_torch.models.layers import (
     rms_norm, rope, chunked_attention, finish_partial_attention,
@@ -160,7 +160,7 @@ def attn_block(cfg: ModelConfig, topo: Topology, w: dict, x_sp, *,
                            window=window)
     else:
         o = chunked_attention(q, k, v, causal=causal, window=window,
-                              q_offset=q_off[..., None])
+                              q_offset=q_off[..., None], lowp=layers.LOWP)
     o = o.reshape(topo.cube.dim_sizes + (B, Sq, -1))
     if fused:
         out = matmul_reduce_scatter(tpc, o, w["wo"], axis=1)
@@ -320,14 +320,17 @@ def _attend_decode(topo, w, x, q, cache_k, cache_v, scales, pos, k_pos, kvc,
                    *, causal: bool, window: int, prefix: str, dtype):
     """Partial attention of q (*cube, B, 1, H, hd) over my cache chunk (all
     heads; an int8 chunk with its ``scales``), LSE-combined over the shards
-    of ``kvc``, then the out projection: x plus the result."""
+    of ``kvc``, then the out projection: x plus the result. The attention
+    takes no low-precision mode (``lowp=0``): the reference's decode
+    computes its f32 scores itself, whatever ``layers.LOWP`` is."""
     cn = topo.cube.ndim
     cube = topo.cube.dim_sizes
     B, H, hd = q.shape[cn], q.shape[cn + 2], q.shape[cn + 3]
     acc, m, l = chunked_attention(q, cache_k, cache_v, causal=causal,
                                   window=window, q_pos=pos[..., None],
                                   k_pos=k_pos, partial=True,
-                                  k_scale=scales[0], v_scale=scales[1])
+                                  k_scale=scales[0], v_scale=scales[1],
+                                  lowp=0)
     o = finish_partial_attention(acc, m, l, comm=kvc, dtype=dtype)
 
     # out projection: my slice of the flattened head dim (wo row shard)

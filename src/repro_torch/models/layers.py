@@ -7,6 +7,15 @@ is the JAX package's per-shard math broadcast over those axes.
 hand-written Hopper kernel for CUDA tensors and on its plain PyTorch version
 for CPU tensors (``repro_torch.kernels.attention.ops``); under grad it goes
 through ``ops.FlashAttention``, whose backward is the backward kernel.
+
+``LOWP`` is the reference's low-precision mode (``repro.models.layers.
+LOWP``), read at call time: 0 = off; 1 = bf16 operands with f32
+accumulation (``rms_norm`` keeps the (.., D) tensor in bf16, attention
+scales q in bf16); 2 = besides, attention's scores and probabilities stay
+bf16, with f32 only for the running max, the denominator and the output
+accumulator. It acts on bf16 inputs only. The attention block and ring
+attention pass it to ``chunked_attention``; decode passes 0, as the
+reference's decode attention computes its f32 scores itself.
 """
 from __future__ import annotations
 
@@ -17,6 +26,9 @@ import torch
 from repro_torch.kernels.attention import ops as attention_ops
 
 NEG_INF = -1e30
+
+# low-precision mode: 0 = off, 1 = "lowp", 2 = "lowp2" (module docstring)
+LOWP = 0
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -29,6 +41,11 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
         scale = scale.reshape(tuple(scale.shape[:-1])
                               + (1,) * (x.dim() - scale.dim())
                               + (scale.shape[-1],))
+    if LOWP >= 1 and dt == torch.bfloat16:
+        # f32 only in the reduction; the (.., D) tensor stays bf16
+        var = x.square().float().mean(dim=-1, keepdim=True)
+        r = torch.rsqrt(var + eps) * (1.0 + scale.float())
+        return x * r.to(dt)
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(dt)
@@ -79,7 +96,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       k_pos: torch.Tensor | None = None,
                       partial: bool = False,
                       k_scale: torch.Tensor | None = None,
-                      v_scale: torch.Tensor | None = None):
+                      v_scale: torch.Tensor | None = None, lowp: int = 0):
     """Flash attention with GQA, sliding window and global positions.
 
     q: (*lead, Sq, H, hd); k, v: (*lead, Sk, KV, hd), H % KV == 0. Query
@@ -98,6 +115,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV cache): key j of kv head h is ``k[j, h] * k_scale[j, h]``. Only the
     decode form reads them (Sq * G <= 8 rows a kv head), and not under
     grad.
+
+    ``lowp`` is the low-precision mode (``LOWP``) this call computes
+    under; it changes bf16 q only (``ref.flash_attention``).
 
     Under grad it goes through ``FlashAttention``, whose forward also
     writes the row statistics the backward reads. Without grad (serving)
@@ -133,10 +153,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 "training path reaches it, since loss_shard refuses "
                 "context parallelism as the reference's does (fused_comm "
                 "training at cp 1 runs the full form)")
-        out = attention_ops.FlashAttention.apply(*args, causal, window)
+        out = attention_ops.FlashAttention.apply(*args, causal, window,
+                                                 lowp)
         return out.reshape(lead + (Sq, H, hd))
     res = attention_ops.flash_attention(*args, causal=causal, window=window,
-                                        partial=partial, **scales)
+                                        partial=partial, lowp=lowp, **scales)
     if partial:
         acc, m, l = res
         return (acc.reshape(lead + (H, Sq, hd)), m.reshape(lead + (H, Sq)),

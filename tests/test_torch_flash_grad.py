@@ -135,7 +135,7 @@ def test_flash_attention_function_carries_gradients(monkeypatch, case):
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in arrs[:3])
     out = ops.FlashAttention.apply(q, k, v, q_pos, k_pos, causal, window)
     assert out.grad_fn is not None and calls == [
-        {"causal": causal, "window": window, "stats": True}]
+        {"causal": causal, "window": window, "stats": True, "lowp": 0}]
     got = torch.autograd.grad(out, (q, k, v), torch.from_numpy(arrs[3]))
     want = _autograd_of_ref(arrs, q_pos, k_pos, causal, window)
     for g, w in zip(got, want):
