@@ -211,7 +211,7 @@ Phases, each printed as one JSON line:
           same (f32: identical tokens); exact launches (a prefill n_enc +
           2 L flash forwards, a decode step 2 L, a forward n_enc + 2 L; 2 L
           reorders a prefill at 8 PEs);
-  serve_int8  qwen3-1.7b at full width and INT8_LAYERS = 14 of its 28
+  serve_int8  qwen3-1.7b at full width and INT8_LAYERS = 10 of its 28
           layers from the int8 KV cache
           through the launcher's loop at 1 and 8 PEs beside the
           compute-dtype cache on the same weights, in bf16 and in f32:
@@ -307,7 +307,7 @@ Phases, each printed as one JSON line:
           off: bf16 within 5e-2 and f32 within 1e-4 x max(1, max|ref|),
           exactly n_layers x cp partial flash launches a fused forward (ring
           attention's hops) and n_layers unfused;
-  train   full-width qwen3-1.7b (TRAIN_LAYERS = 14 of its 28 layers)
+  train   full-width qwen3-1.7b (TRAIN_LAYERS = 10 of its 28 layers)
           training through ``Trainer`` at 1 PE, at
           8 PEs as the launcher lays them out (tp 8) and at 8 PEs as data
           2 x tp 4, one layout's weights on the card at a time: bf16 over
@@ -331,9 +331,9 @@ Phases, each printed as one JSON line:
           the backward's bucket hooks (bit for bit on the synced leaves).
           The inputs of each layout's last forward and backward launch are
           kept;
-  train_moe_rwkv  qwen2-moe-a2.7b (2 of 24 layers), rwkv6-7b (6 of 32),
-          phi3-mini-3.8b (8 of 32: hd 96), gemma3-1b (12 of 26: hd 256,
-          5:1 local windows of 512 and two global layers), mixtral-8x7b (2
+  train_moe_rwkv  qwen2-moe-a2.7b (2 of 24 layers), rwkv6-7b (4 of 32),
+          phi3-mini-3.8b (4 of 32: hd 96), gemma3-1b (6 of 26: hd 256,
+          5:1 local windows of 512, the sixth layer global), mixtral-8x7b (2
           of 32), internlm2-20b (4 of 48: G = 6) and whisper-base (all 6 + 6:
           the encoder's non-causal hd-64 attention, the decoder's self- and
           cross-attention) training at full width through ``Trainer`` at 1
@@ -385,7 +385,7 @@ Phases, each printed as one JSON line:
           against its witness within RWKV_PATH_TOL, decode vs forward
           reported; exact launches (flash one a step and forward; the
           reorder 2 x 4 a step and forward at 8 PEs); a decode profile;
-  train_llava, train_jamba  llava at 6 of 60 layers (full width; batches
+  train_llava, train_jamba  llava at 4 of 60 layers (full width; batches
           of 2 x 4,096: 2,880 patches, then text) at 1 PE and tp 8, and
           jamba as one unit at d_model 2,048 / FFN 6,144 at 1 PE and ep 8,
           through ``Trainer`` as train_moe_rwkv's cells (``_train_cells``):
@@ -426,7 +426,7 @@ Phases, each printed as one JSON line:
           the norms (1 + w in the file), within 2^-24; export, write, read
           and import seconds;
   lowp    the reference's low-precision modes (LOWP) on qwen3-1.7b at full
-          width, the train cell's 14 layers, 1 PE: four train steps at
+          width, the train cell's 10 layers, 1 PE: four train steps at
           mode 1 and four at mode 2 (finite losses; per step 2L forward
           launches, every one in the mode, and L backward launches), then
           a 512-token forward and prefill at mode 2 held to the same paths
@@ -443,7 +443,18 @@ Phases, each printed as one JSON line:
           bit for bit against the launch with no mode; and it times mode 2
           (and mode 1) at qwen3's
           training shape and the 2,048-token prefill beside mode 0, SDPA
-          and the bound (LOWP_ROWS);
+          and the bound (LOWP_ROWS). Mode 2's p in the decode form, rounded
+          against the row's max, is read one key at a time through one-hot
+          v and held to the plain version's within LOWP_DECODE_P_TOL on
+          rows of up to 1,024 keys (a cluster split among them), with the
+          lane-group rounding the form had before as the control that must
+          fail; mode 2's decode time beside mode 0's (LOWP_DECODE_ROWS).
+          The kernel phase also holds decode's strided launch: qwen3's
+          decode shape on one unit's view of a (1, 8) cube cache (not
+          contiguous; the launch must get it so) and of a 1-PE one (dense,
+          the control), bf16, f32 and int8, against the plain version on a
+          contiguous copy, the launch timed on the view, on the copy and
+          beside the copy it no longer makes;
   dryrun  ``launch.dryrun`` on the meta device: qwen3-1.7b's train_4k,
           prefill_32k and decode_32k on the 256-PE cube and train_4k on
           512 PEs (per-PE argument and temp bytes, TFLOPs, collective
@@ -452,6 +463,14 @@ Phases, each printed as one JSON line:
           per-PE argument bytes must equal the bytes those cells hold on
           the card, exactly (the meta peak printed beside the card's
           max_memory_allocated of one step, ungated);
+  examples  the six scripts of examples_torch/ through their main() on
+          the card at their own sizes (train_100m at its defaults but 40
+          steps: the ~100M model): each one's own asserts, its returned
+          quantities held again (train_100m's last logged loss below its
+          first), its wall seconds, and its launches of each kernel by
+          form (flash decode, forward, the forward form's partial, the
+          backward, the reorder), each kernel its script reaches launched
+          at least once (EXAMPLE_KERNELS);
   main_path  each kernel on the inputs the serve, serve_mixtral,
           serve_prefill, serve_llava, serve_jamba, fused_forward, train,
           train_moe_rwkv, train_llava, train_jamba and apps phases kept
@@ -530,12 +549,13 @@ RWKV_ARCH = "rwkv6-7b"
 # Depth cuts of earlier paths for the run's 1,200 s limit, made when the
 # llava and jamba phases came in: rwkv6 serves at 16 of its 32 layers,
 # qwen2-moe at 12 of 24, qwen3's int8-cache and training phases at 14 of
-# 28; each phase's gates compare runs on the same weights and count
-# launches by the layer, and their steps take time by the layer
+# 28, and at 10 since the examples phase came in; each phase's gates
+# compare runs on the same weights and count launches by the layer, and
+# their steps take time by the layer
 RWKV_SERVE_LAYERS = 16
 MOE_SERVE_LAYERS = 12
-INT8_LAYERS = 14
-TRAIN_LAYERS = 14
+INT8_LAYERS = 10
+TRAIN_LAYERS = 10
 # the dense archs with head dims 96 and 256, and the PE counts each serves
 # at (gemma3's 4 query heads bound its head parallelism at 4)
 DENSE_ARCHS = {"phi3-mini-3.8b": (1, 8), "gemma3-1b": (1, 4)}
@@ -668,7 +688,6 @@ def _bound(q, k, q_pos, k_pos, causal, window, partial,
     f32 row statistics (m, l) are written."""
     from repro_torch.kernels.attention import ref
     B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
     es = q.element_size()
     read = es * (q.numel() + 2 * k.numel()) + 4 * (q_pos.numel()
                                                     + k_pos.numel())
@@ -1125,6 +1144,228 @@ def _lowp_rows(dev) -> list:
     return rows
 
 
+# The decode form reads one unit's slice of a cube cache through a strided
+# lead (no copy): qwen3's decode shape on the cube, (*cube, units, B,
+# S_loc, KV, hd) with the units axis behind the cube's axes, unit u taken
+# by select as Server.decode_shard takes it. At 8 PEs the view is not
+# contiguous and the launch must get it as it lies; at 1 PE it is dense
+# (the control). bf16, f32 and the int8 cache with its scales.
+STRIDED_CUBES = {"1pe": (1, 1), "8pe": (1, 8)}
+STRIDED_SHAPE = dict(units=4, unit=2, B=4, S_loc=256, H=16, KV=8, hd=128)
+
+
+def _strided_decode_checks(dev) -> dict:
+    """``layers.chunked_attention`` (partial, as decode calls it) on a
+    unit's view of a cube cache against the plain version on a contiguous
+    copy of the same slice, within KERNEL_TOL (int8: q's); records whether
+    the launch got a non-contiguous k (required at 8 PEs, dense at 1 PE)
+    and, at 8 PEs, times the launch on the view, on a contiguous copy and
+    the copy itself (what decode no longer does: K and V, each layer)."""
+    from repro_torch.kernels.attention import flash, ref
+    from repro_torch.models import layers
+    from repro_torch.models.blocks import quantize_kv
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    sh = STRIDED_SHAPE
+    rows, ok_all = [], True
+    for name, cube in STRIDED_CUBES.items():
+        for kind in ("bfloat16", "float32", "int8"):
+            qdt = torch.float32 if kind == "float32" else torch.bfloat16
+            full = cube + (sh["units"], sh["B"], sh["S_loc"], sh["KV"],
+                           sh["hd"])
+            kf, vf = (torch.randn(full, generator=gen, device=dev)
+                      for _ in range(2))
+            scales = {}
+            if kind == "int8":
+                (kc, ks), (vc, vs) = quantize_kv(kf), quantize_kv(vf)
+                scales = {"k_scale": ks.select(len(cube), sh["unit"]),
+                          "v_scale": vs.select(len(cube), sh["unit"])}
+            else:
+                kc, vc = kf.to(qdt), vf.to(qdt)
+            del kf, vf
+            k, v = (t.select(len(cube), sh["unit"]) for t in (kc, vc))
+            q = torch.randn(cube + (sh["B"], 1, sh["H"], sh["hd"]),
+                            generator=gen, device=dev).to(qdt)
+            lead = cube + (sh["B"],)
+            q_pos = torch.full(lead + (1,), sh["S_loc"] + 7, device=dev)
+            k_pos = torch.arange(sh["S_loc"], device=dev).expand(
+                lead + (sh["S_loc"],))
+            seen = []
+
+            def watch(fn):
+                def wrapped(q_, k_, *a, **kw):
+                    seen.append((k_.is_contiguous(), tuple(k_.shape)))
+                    return fn(q_, k_, *a, **kw)
+                return wrapped
+            kw = dict(q_pos=q_pos, k_pos=k_pos, partial=True, **scales)
+            with patched(flash, "flash_attention", watch):
+                got = layers.chunked_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            n = math.prod(lead)
+            flat = {key: t.reshape((n,) + tuple(t.shape[len(lead):]))
+                    for key, t in (("k", k), ("v", v), *scales.items())}
+            want = ref.flash_attention(
+                q.reshape(n, 1, sh["H"], sh["hd"]), flat["k"], flat["v"],
+                q_pos.reshape(n, 1).to(torch.int32),
+                k_pos.reshape(n, -1).to(torch.int32), partial=True,
+                **{key: flat[key] for key in scales})
+            err = _compare([t.reshape(w.shape) for t, w in zip(got, want)],
+                           want, True)
+            strided = bool(seen) and not seen[0][0]
+            row = {"cube": list(cube), "kv": kind, "launches": len(seen),
+                   "k_shape": list(seen[0][1]) if seen else None,
+                   "non_contiguous_k": strided, "err": err,
+                   "tol": KERNEL_TOL[qdt]}
+            row["ok"] = (len(seen) == 1 and err <= KERNEL_TOL[qdt]
+                         and strided == (name == "8pe"))
+            if name == "8pe":
+                view = layers._decode_lead(k, lead)
+                vview = layers._decode_lead(v, lead)
+                sview = {key: layers._decode_lead(t, lead)
+                         for key, t in scales.items()}
+                sflat = {key: t.contiguous() for key, t in sview.items()}
+                qf = q.reshape(n, 1, sh["H"], sh["hd"])
+                qp, kp = (t.reshape(n, -1).to(torch.int32).contiguous()
+                          for t in (q_pos, k_pos))
+                kc_, vc_ = view.contiguous(), vview.contiguous()
+                row["ms_strided"] = time_ms(lambda: flash.flash_attention(
+                    qf, view, vview, qp, kp, partial=True, **sview))
+                row["ms_contiguous"] = time_ms(
+                    lambda: flash.flash_attention(qf, kc_, vc_, qp, kp,
+                                                  partial=True, **sflat))
+                row["copy_ms"] = time_ms(lambda: (
+                    view.contiguous(), vview.contiguous(),
+                    *(t.contiguous() for t in sview.values())))
+            ok_all &= row["ok"]
+            rows.append(row)
+            del kc, vc, k, v, got, want, flat
+            torch.cuda.empty_cache()
+    return {"ok": ok_all, "shape": sh, "rows": rows}
+
+
+# Mode 2's p in the decode form, rounded against the row's max as the
+# reference rounds it: p = bf16(exp(bf16(s - bf16(m)))) with m the max over
+# the row's keys. One-hot v reads p itself: a partial launch on v whose key
+# w * hd + d holds 1 at column d gives acc[..., d] = p of that key, for each
+# block w of hd keys. Held as sum |p - p_plain| / sum p_plain over the
+# visible keys within LOWP_DECODE_P_TOL; the control, the plain p rounded
+# against the running max of each lane group of the form (the keys a group
+# takes, in its order) and rescaled to the row max in f32 as its merges do
+# (the form's rounding before this was repaired), must lie beyond it. Rows
+# of up to 1,024 keys (the reference's one chunk), a cluster split among
+# them; B, Sq, Sk, H, KV, hd, causal, window, q0.
+LOWP_DECODE_P_CASES = [(2, 1, 37, 8, 2, 128, True, -1, 40),
+                       (2, 1, 600, 16, 8, 128, True, -1, 700),
+                       (1, 1, 1024, 8, 1, 64, True, 300, 1100),
+                       (2, 2, 300, 8, 2, 256, True, -1, 310),
+                       (2, 1, 200, 4, 4, 96, False, -1, 0)]
+LOWP_DECODE_P_TOL = 1e-4
+# mode 2 in the decode form timed beside mode 0 (it reads K twice): B, Sq,
+# Sk, H, KV at hd 128
+LOWP_DECODE_ROWS = {"decode_512": (4, 1, 512, 16, 8),
+                    "decode_4096": (4, 1, 4096, 16, 8)}
+
+
+def _mode2_scores(q, k, q_pos, k_pos, causal, window):
+    """The plain version's mode-2 scores (B, H, Sq, Sk): bf16(q *
+    bf16(scale)) dotted with k in f32, rounded to bf16, masked at
+    bf16(-1e30)."""
+    from repro_torch.kernels.attention import ref
+    B, Sq, H, hd = q.shape
+    G = H // k.shape[2]
+    qf = ref.bf16(q.float() * ref.bf16_scalar(hd ** -0.5))
+    kf = k.float().repeat_interleave(G, dim=2)
+    s = ref.bf16(torch.einsum("bqhd,bshd->bhqs", qf, kf))
+    ok = ref.mask(q_pos, k_pos, causal, window)[:, None]
+    return torch.where(ok, s, ref.bf16_scalar(ref.NEG_INF))
+
+
+def _p_lane_groups(s, geo):
+    """p of each key rounded against the running max of the decode form's
+    lane group that takes it (split y's keys [y chunk, (y + 1) chunk), key
+    j of a split in group j % key_tile, in order), times exp(running max -
+    row max): the p the merges add, rounded as before the repair."""
+    from repro_torch.kernels.attention import ref
+    Sk = s.shape[-1]
+    chunk, step = geo.keys_per_split, geo.key_tile
+    run = torch.empty_like(s)
+    for c0 in range(0, Sk, chunk):
+        part = s[..., c0:c0 + chunk]
+        n = part.shape[-1]
+        x = torch.nn.functional.pad(part, (0, -n % step), value=-3e38)
+        x = x.reshape(part.shape[:-1] + (-1, step)).cummax(dim=-2).values
+        run[..., c0:c0 + n] = x.reshape(part.shape[:-1] + (-1,))[..., :n]
+    run = run.clamp_min(ref.NEG_INF)
+    m = s.amax(-1, keepdim=True).clamp_min(ref.NEG_INF)
+    return ref.bf16(torch.exp(ref.bf16(s - ref.bf16(run)))) \
+        * torch.exp(run - m)
+
+
+def _onehot_p(fn, q, k, q_pos, k_pos, causal, window):
+    """p (B, H, Sq, Sk) of a partial launch ``fn`` read through one-hot v,
+    one block of hd keys a launch."""
+    B, Sk, KV, hd = k.shape
+    ps = []
+    for w in range(0, Sk, hd):
+        n = min(hd, Sk - w)
+        v = torch.zeros_like(k)
+        idx = torch.arange(n, device=k.device)
+        v[:, w + idx, :, idx] = 1
+        acc = fn(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                 partial=True, lowp=2)[0]
+        ps.append(acc[..., :n])
+    return torch.cat(ps, dim=-1)
+
+
+def _lowp_decode_p(dev) -> dict:
+    """Mode 2's p in the decode form against the plain version's on
+    LOWP_DECODE_P_CASES (bf16), with the lane-group control, and mode 2's
+    decode time against mode 0's at LOWP_DECODE_ROWS."""
+    from repro_torch.kernels.attention import flash, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    cases, sums = [], [0.0, 0.0, 0.0]
+    for (B, Sq, Sk, H, KV, hd, causal, window, q0) in LOWP_DECODE_P_CASES:
+        q, k, _ = _attn_inputs(gen, torch.bfloat16, B, Sq, Sk, H, KV, hd,
+                               dev)
+        q_pos, k_pos = _case_positions(B, Sq, Sk, q0, 0, False, dev)
+        geo = flash.launch_geometry(B, Sq, Sk, H, KV, hd, torch.bfloat16)
+        got = _onehot_p(flash.flash_attention, q, k, q_pos, k_pos, causal,
+                        window)
+        torch.cuda.synchronize()
+        want = _onehot_p(ref.flash_attention, q, k, q_pos, k_pos, causal,
+                         window)
+        ctrl = _p_lane_groups(_mode2_scores(q, k, q_pos, k_pos, causal,
+                                            window), geo)
+        vis = ref.mask(q_pos, k_pos, causal, window)[:, None].expand(
+            want.shape)
+        mass = float(want[vis].sum())
+        dev_k = float((got - want).abs()[vis].sum())
+        dev_c = float((ctrl - want).abs()[vis].sum())
+        sums[0] += mass
+        sums[1] += dev_k
+        sums[2] += dev_c
+        cases.append({"shape": [B, Sq, Sk, H, KV, hd], "window": window,
+                      "form": geo.form, "key_splits": geo.key_splits,
+                      "dev": dev_k / mass, "control_dev": dev_c / mass})
+    dev_all, ctrl_all = sums[1] / sums[0], sums[2] / sums[0]
+    rows = []
+    for name, (B, Sq, Sk, H, KV) in LOWP_DECODE_ROWS.items():
+        q, k, v = _attn_inputs(gen, torch.bfloat16, B, Sq, Sk, H, KV, 128,
+                               dev)
+        q_pos, k_pos = _case_positions(B, Sq, Sk, Sk, 0, False, dev)
+        ms = {mode: time_ms(lambda: flash.flash_attention(
+            q, k, v, q_pos, k_pos, partial=True, lowp=mode))
+            for mode in (0, 2)}
+        rows.append({"name": name, "q": [B, Sq, H, 128],
+                     "kv": [B, Sk, KV, 128], "ms_mode0": ms[0],
+                     "ms_mode2": ms[2], "ratio": ms[2] / ms[0]})
+    return {"ok": (all(c["form"] == "decode" for c in cases)
+                   and dev_all <= LOWP_DECODE_P_TOL < ctrl_all),
+            "dev": dev_all, "control_dev": ctrl_all,
+            "tol": LOWP_DECODE_P_TOL, "cases": cases, "timing": rows}
+
+
 # flash backward sweep: B, Sq, Sk, H, KV, causal, window, q0, k0, hd.
 # At hd 128: G = 1, 2 and 8; causal and not; windows; offsets; Sq and Sk off
 # the 64-row / 64-key tiles; rows that see no key (q0 < k0); a 512-token
@@ -1412,6 +1653,8 @@ def phase_kernel(dev) -> dict:
     long_rows = _flash_long_rows(dev)
     lowp = _lowp_checks(dev)
     lowp_rows = _lowp_rows(dev)
+    lowp_decode_p = _lowp_decode_p(dev)
+    strided = _strided_decode_checks(dev)
     bwd = _flash_bwd_checks(dev)
     reorder = _reorder_checks(dev)
     sweep = _reorder_sweep(dev)
@@ -1420,11 +1663,13 @@ def phase_kernel(dev) -> dict:
     rwkv_bwd = _rwkv6_bwd_checks(dev)
     return {"ok": (attn["ok"] and all(r["ok"] for r in long_rows)
                    and lowp["ok"] and all(r["ok"] for r in lowp_rows)
+                   and lowp_decode_p["ok"] and strided["ok"]
                    and int8["ok"] and all(r["ok"] for r in int8_rows)
                    and bwd["ok"] and reorder["ok"] and sweep["ok"]
                    and reorder_grad["ok"] and rwkv["ok"] and rwkv_bwd["ok"]),
             "checks": attn["checks"], "flash_long_rows": long_rows,
             "lowp": lowp, "lowp_rows": lowp_rows,
+            "lowp_decode_p": lowp_decode_p, "strided_decode": strided,
             "int8_decode": int8, "int8_rows": int8_rows,
             "flash_backward": bwd, "reorder": reorder,
             "reorder_sweep": sweep,
@@ -5531,17 +5776,21 @@ MIXTRAL_ARCH = "mixtral-8x7b"
 # the tp-8 cell ran out of the card's 80 GB, and at 10 (peak 62.2 GB) it
 # did once too, with 17 GB of the allocator's cache free but fragmented;
 # whisper-base at full depth (6 encoder + 6 decoder layers)
-TRAIN_MR_ARCHS = {"moe": (MOE_ARCH, 2), "rwkv": (RWKV_ARCH, 6),
-                  "phi3": ("phi3-mini-3.8b", 8), "gemma3": ("gemma3-1b", 12),
+# (rwkv6 4, phi3 4, gemma3 6 -- its sixth layer the first global one --
+# and llava 4 since the examples phase came in: rwkv6 6, phi3 8, gemma3 12,
+# llava 6 before)
+TRAIN_MR_ARCHS = {"moe": (MOE_ARCH, 2), "rwkv": (RWKV_ARCH, 4),
+                  "phi3": ("phi3-mini-3.8b", 4), "gemma3": ("gemma3-1b", 6),
                   "mixtral": (MIXTRAL_ARCH, 2),
                   "internlm2": ("internlm2-20b", 4),
                   "whisper": ("whisper-base", 6),
-                  "llava": (LLAVA_ARCH, 6), "jamba": (JAMBA_ARCH, 8)}
+                  "llava": (LLAVA_ARCH, 4), "jamba": (JAMBA_ARCH, 8)}
 # the cells that train in phases of their own (train_llava, train_jamba)
 TRAIN_OWN_PHASE = ("llava", "jamba")
-# llava-next-34b at 6 of 60 layers (4.27 B parameters with its embedding
-# and head, as many as internlm2's 8-layer cell, whose tp-8 step peaked at
-# 52 GB); jamba-1.5-large one unit (8 layers) at d_model 2,048 and FFN
+# llava-next-34b at 4 of 60 layers (6 of 60 before: 4.27 B parameters with
+# its embedding and head, as many as internlm2's 8-layer cell, whose tp-8
+# step peaked at 52 GB); jamba-1.5-large one unit (8 layers) at d_model
+# 2,048 and FFN
 # widths 6,144 (3.05 B parameters, 12.2 GB of f32 masters), its heads,
 # experts, state and vocab as published
 TRAIN_MR_CHANGES = {"jamba": {"d_model": 2048, "d_ff": 6144,
@@ -6726,7 +6975,7 @@ def _lowp_serve(dev, cfg) -> dict:
 
 
 def phase_lowp(dev) -> dict:
-    """qwen3-1.7b at full width and the train cell's 14 layers on 1 PE
+    """qwen3-1.7b at full width and the train cell's 10 layers on 1 PE
     under the low-precision modes (``layers.LOWP``, the reference's
     ``LOWP``): LOWP_STEPS train steps at mode 1 and again at mode 2 (finite
     losses; 2L forward launches a step, all in the mode, and L backward
@@ -6873,6 +7122,128 @@ def phase_dryrun(dev) -> dict:
             "cells": cells, "vs_card": card}
 
 
+# ---------------------------------------------------------------- examples
+# The six example scripts of examples_torch/ at their own sizes (train_100m
+# at its defaults but --steps 40: the ~100M model, whose 200 steps took 39
+# s of the run's 1,200), each through its main(argv)
+# on the card, and the kernels each must launch there: the flash forms
+# (decode, partial as decode always is; forward, the training forward
+# with its row statistics; partial, the forward form's partial launch, a
+# ring hop), the flash backward and the reorder.
+EXAMPLES = (("serve_decode", ()), ("dlrm_pipeline", ()),
+            ("fused_kernels", ()), ("train_100m", ("--steps", "40")),
+            ("elastic_restore", ()), ("quickstart", ()))
+EXAMPLE_KERNELS = {"serve_decode": ("decode",),
+                   "dlrm_pipeline": ("reorder",),
+                   "fused_kernels": ("partial",),
+                   "train_100m": ("forward", "backward"),
+                   "elastic_restore": (),
+                   "quickstart": ("decode", "reorder")}
+
+
+def _example_main(name: str):
+    """``main`` of ``examples_torch/<name>.py`` (a script, not a
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+def _example_held(name: str, r: dict) -> dict:
+    """The quantities each script asserts, held again from what it
+    returned (train_100m: the last logged loss below the first)."""
+    if name == "serve_decode":
+        return {"one_lowering": r["lowered"] == 1,
+                "cache_hits": r["hits"] >= r["steps"] - 1,
+                "all_finished": r["finished"] == r["requests"]}
+    if name == "dlrm_pipeline":
+        return {"finite": all(math.isfinite(v["value"]) for v in r.values())}
+    if name == "fused_kernels":
+        return {"ring_within_tol": r["ring_err"] <= r["ring_tol"],
+                "ag_prologue_identical": r["ag_prologue_identical"],
+                "rs_epilogue_identical": r["rs_epilogue_identical"],
+                "flipped": r["flows_measured"] == ["ring_fused",
+                                                   "rs_epilogue"],
+                "flip_identical": r["flip_identical"]}
+    if name == "train_100m":
+        return {"finite": all(math.isfinite(x) for x in r["losses"]),
+                "loss_falls": r["last_loss"] < r["first_loss"]}
+    if name == "elastic_restore":
+        return {"save_hit": r["save_hits"] >= 1,
+                "restore_identical": r["restore_identical"],
+                "hf_identical": r["hf_identical"]}
+    return {"fused": r["program"]["fused_events"] == 1,
+            "measured": r["tuned"]["est_sources"] == {"measured": 1},
+            "bucket_order": r["backward_overlap"]["bucket_order"]
+            == ["grad-sync-b0", "grad-sync-b1"],
+            "ring_fused": r["fused_kernels"]["flow"] == "ring_fused",
+            "one_program_a_step": r["serving"]["programs_recorded"]
+            == r["serving"]["steps"],
+            "one_stale_key": len(r["telemetry"]["stale"]) == 1}
+
+
+def phase_examples(dev) -> dict:
+    """Each EXAMPLES script on the card (CUDA is its default device): its
+    wall seconds, its own asserts (a failed one fails the phase) and its
+    returned quantities held again, and the launches of each kernel in its
+    run, counted by form; a kernel of EXAMPLE_KERNELS[name] launched no
+    time fails it. Each script starts from a cold lower cache, as a fresh
+    process does."""
+    from repro_torch.core import program
+    from repro_torch.kernels.attention import flash, flash_bwd
+    from repro_torch.kernels.reorder import reorder
+    rows, totals, ok_all = {}, {}, True
+    for name, argv in EXAMPLES:
+        program.clear_lower_cache()
+        forms = {"decode": 0, "forward": 0, "partial": 0}
+
+        def watch(launch):
+            def watching(q, k, v, q_pos, k_pos, **kw):
+                geo = flash.launch_geometry(
+                    q.shape[0], q.shape[1], k.shape[-3], q.shape[2],
+                    k.shape[-2], q.shape[3], q.dtype,
+                    torch.int8 if kw.get("k_scale") is not None else None)
+                # a decode launch is partial (the shards' LSE combine);
+                # "partial" is the forward form's partial, a ring hop
+                forms["partial" if geo.form == "forward" and kw.get(
+                    "partial") else geo.form] += 1
+                return launch(q, k, v, q_pos, k_pos, **kw)
+            return watching
+        n0 = (flash.LAUNCHES, flash_bwd.LAUNCHES, reorder.LAUNCHES)
+        row = {"argv": list(argv)}
+        t0 = time.perf_counter()
+        try:
+            with patched(flash, "flash_attention", watch):
+                res = _example_main(name)(list(argv))
+            torch.cuda.synchronize()
+            row["held"] = _example_held(name, res)
+            row["returned"] = {k: v for k, v in res.items()
+                               if k not in ("out_tokens", "step_s")}
+        except Exception as e:  # noqa: BLE001 -- report, then fail
+            row["error"] = f"{type(e).__name__}: {e}"
+            row["traceback"] = traceback.format_exc(limit=6)
+            row["held"] = {}
+        row["s"] = round(time.perf_counter() - t0, 3)
+        row["launches"] = {**forms,
+                           "flash": flash.LAUNCHES - n0[0],
+                           "backward": flash_bwd.LAUNCHES - n0[1],
+                           "reorder": reorder.LAUNCHES - n0[2]}
+        row["kernels_launched"] = {
+            k: row["launches"][k] > 0 for k in EXAMPLE_KERNELS[name]}
+        row["ok"] = ("error" not in row and all(row["held"].values())
+                     and all(row["kernels_launched"].values()))
+        for k, n in row["launches"].items():
+            totals[k] = totals.get(k, 0) + n
+        ok_all &= row["ok"]
+        rows[name] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"ok": ok_all, "launches": totals, "scripts": rows}
+
+
 def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
                     kept_bwd: dict, kept_rwkv6_train: dict,
                     kept_rwkv6_bwd: dict) -> dict:
@@ -6889,6 +7260,11 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
     worst_ok = bool(kept)
     for name in sorted(kept):
         q, k, v, q_pos, k_pos, kw = kept[name]
+        # a decode launch keeps the cache unit's view (C, B_l, S, KV, hd),
+        # strided: the kernel and its plain version take it as it was
+        # launched; the yardsticks take the (B, S, KV, hd) it flattens to
+        k4, v4 = (t.reshape((q.shape[0],) + tuple(t.shape[-3:]))
+                  for t in (k, v))
         got = flash.flash_attention(q, k, v, q_pos, k_pos, **kw)
         want = ref.flash_attention(q, k, v, q_pos, k_pos, **kw)
         torch.cuda.synchronize()
@@ -6904,19 +7280,21 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
                                                    **kw))
         # the plain version's scores of llava's 3,008-token prefill take
         # 8 GB and tens of ms a call: fewer calls where they pass PLAIN_BIG
-        big = q.shape[0] * q.shape[1] * q.shape[2] * k.shape[1] > PLAIN_BIG
+        big = q.shape[0] * q.shape[1] * q.shape[2] * k4.shape[1] > PLAIN_BIG
         plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, q_pos, k_pos,
                                                        **kw),
                            **(PLAIN_REPS_BIG if big else PLAIN_REPS))
         lib_ms, lib_form = _library_ms(
-            time_ms, lambda f: _sdpa(q, k, v, f), q_pos, k_pos,
+            time_ms, lambda f: _sdpa(q, k4, v4, f), q_pos, k_pos,
             kw["causal"], kw["window"])
-        b = _bound(q, k, q_pos, k_pos, kw["causal"], kw["window"],
+        b = _bound(q, k4, q_pos, k_pos, kw["causal"], kw["window"],
                    kw["partial"], kw["stats"])
         ok = rel_err <= KERNEL_TOL[q.dtype]
         worst_ok &= ok
         timings.append({"name": name, "dtype": str(q.dtype).split(".")[-1],
-                        "q": list(q.shape), "kv": list(k.shape), **kw,
+                        "q": list(q.shape), "kv": list(k4.shape),
+                        "kv_strided_lead": (list(k.shape) if k.dim() == 5
+                                            else None), **kw,
                         "max_abs_err": abs_err, "err": rel_err, "ok": ok,
                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         "library_form": lib_form,
@@ -7319,6 +7697,7 @@ def main() -> int:
                      ("checkpoint", lambda: phase_checkpoint(dev)),
                      ("lowp", lambda: phase_lowp(dev)),
                      ("dryrun", lambda: phase_dryrun(dev)),
+                     ("examples", lambda: phase_examples(dev)),
                      ("main_path", lambda: phase_main_path(
                          kept, kept_reorder, kept_rwkv6, kept_bwd,
                          kept_rwkv6_train, kept_rwkv6_bwd))):
@@ -7370,6 +7749,8 @@ def main() -> int:
     internlm2_res, whisper_res = (results["serve_internlm2"],
                                   results["serve_whisper"])
     int8_res, resident_res = results["serve_int8"], results["serve_resident"]
+    ex = {f"examples/{n}": r["launches"]
+          for n, r in results["examples"]["scripts"].items()}
     mr_attn = [TRAIN_MR_ARCHS[n][0] for n in TRAIN_MR_ARCHS
                if _mr_attention(n)]
     # the int8 decode form's headline: its main-path row farthest above
@@ -7399,7 +7780,8 @@ def main() -> int:
                      + resident_res["flash_launches"]
                      + llava_res["flash_launches"]
                      + jamba_res["flash_launches"]
-                     + sum(mr[a]["flash"] for a in mr_attn)),
+                     + sum(mr[a]["flash"] for a in mr_attn)
+                     + sum(n["flash"] for n in ex.values())),
         "launches_by_path": {ARCH: serve_res["flash_launches"],
                              MOE_ARCH: moe_res["flash_launches"],
                              **{a: dense_res[a]["flash_launches"]
@@ -7422,7 +7804,9 @@ def main() -> int:
                              LLAVA_ARCH: llava_res["flash_launches"],
                              JAMBA_ARCH: jamba_res["flash_launches"],
                              **{f"{a}/train": mr[a]["flash"]
-                                for a in mr_attn}},
+                                for a in mr_attn},
+                             **{p: n["flash"] for p, n in ex.items()
+                                if n["flash"]}},
         "max_abs_err": max(t["max_abs_err"] for t in kern["main_path"]),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -7447,7 +7831,8 @@ def main() -> int:
                      + jamba_res["reorder_launches"]
                      + llava_res["reorder_launches"]
                      + mr[MOE_ARCH]["reorder"] + mr[MIXTRAL_ARCH]["reorder"]
-                     + mr[JAMBA_ARCH]["reorder"]),
+                     + mr[JAMBA_ARCH]["reorder"]
+                     + sum(n["reorder"] for n in ex.values())),
         "launches_by_path": {MOE_ARCH: moe_res["reorder_launches"],
                              "dlrm/pidcomm":
                                  apps_res["dlrm_reorder_launches"],
@@ -7462,7 +7847,9 @@ def main() -> int:
                              f"{JAMBA_ARCH}/train": mr[JAMBA_ARCH]["reorder"],
                              f"{MOE_ARCH}/train": mr[MOE_ARCH]["reorder"],
                              f"{MIXTRAL_ARCH}/train":
-                                 mr[MIXTRAL_ARCH]["reorder"]},
+                                 mr[MIXTRAL_ARCH]["reorder"],
+                             **{p: n["reorder"] for p, n in ex.items()
+                                if n["reorder"]}},
         "max_abs_err": max(r["max_abs_err"] for r in reorder_rows),
         "ms": swz["ms"],
         "plain_ms": swz["plain_ms"], "bound_ms": swz["bound_ms"],
@@ -7505,7 +7892,8 @@ def main() -> int:
         _flash_bwd_entry(kern["flash_backward"], {
             f"{ARCH}/train": train_res["flash_bwd_launches"],
             f"{ARCH}/checkpoint": ckpt_res["flash_bwd_launches"],
-            **{f"{a}/train": mr[a]["flash_bwd"] for a in mr_attn}}),
+            **{f"{a}/train": mr[a]["flash_bwd"] for a in mr_attn},
+            **{p: n["backward"] for p, n in ex.items() if n["backward"]}}),
         _rwkv6_bwd_entry(kern["rwkv6_backward"], mr[RWKV_ARCH]["rwkv6_bwd"],
                          results["kernel"]["rwkv6_backward"])],
         "total_s": round(time.perf_counter() - t_all, 3)}), flush=True)

@@ -43,7 +43,10 @@
 //     split over a thread-block cluster of up to 8 CTAs (grid.y), and rank
 //     0 merges the others' partials from distributed shared memory: no
 //     scratch in device memory, no counter, one launch. f32 takes the same
-//     layout.
+//     layout. K and V (and the int8 scales) may have a strided lead: row b
+//     starts at (b / lead) * kv_c + (b % lead) * kv_b, so decode reads one
+//     unit's slice of a cube cache (*cube, units, B, S, KV, hd) where it
+//     lies, without a copy; the (S, KV, hd) tail is dense.
 //     The int8 decode form (repro_flash_decode_int8) is the same kernel
 //     reading the int8 KV cache directly: K and V int8 codes, and beside
 //     them one f32 scale a (key, kv head) for each (the paper's §V-C 8-bit
@@ -99,7 +102,10 @@
 // to bf16 for p v (the forward always does). 2: besides, each score is
 // rounded to bf16 before the mask (masked keys score bf16(-1e30)) and the
 // row max, and p = bf16(exp(bf16(s - bf16(m)))); l and the output
-// accumulate in f32. The f32 forms and the int8 decode form take mode 0
+// accumulate in f32. In the decode form m is the row's max over all its
+// keys, found by a first pass over K (the reference's m over a chunk of up
+// to 1,024 keys); the forward form rounds against the running max of its
+// 64-key tiles. The f32 forms and the int8 decode form take mode 0
 // only (the entry points refuse any other): on f32 q the reference
 // computes the mode-0 function under every mode, and the int8 cache exists
 // in decode alone, which runs mode 0. Mode 0 is the code as it was.
@@ -282,7 +288,7 @@ constexpr int decode_smem_bytes() {
 // 1), block 32 * kDecodeWarps, dynamic shared memory
 // decode_smem_bytes<KT, HD, RM>(). CTA (x, y) takes keys [y * chunk,
 // (y + 1) * chunk).
-template <typename T, typename KT, int HD, int RM>
+template <typename T, typename KT, int HD, int RM, bool ROWMAX>
 __global__ void __launch_bounds__(32 * kDecodeWarps)
 flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
                     const KT* __restrict__ v, const float* __restrict__ k_scale,
@@ -292,7 +298,8 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
                     float* __restrict__ acc_out, float* __restrict__ m_out,
                     float* __restrict__ l_out, int Sq, int Sk, int H, int KV,
                     int causal, int window, float scale, int chunk,
-                    int lowp) {
+                    int lowp, long long kv_c, long long kv_b,
+                    long long s_c, long long s_b) {
   using L = DecodeLayout<KT, HD>;
   constexpr int VEC = L::VEC, LG = L::LG, NP = L::NP, E = L::E;
   constexpr int KPW = 32 / LG;          // keys per warp step
@@ -307,11 +314,15 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
   __shared__ float red_ml[kDecodeWarps][RM][2];
   __shared__ float fin_acc[RM][HD];
   __shared__ float fin_ml[RM][2];
+  __shared__ float fin_max[RM];         // lowp 2: the CTA's row maxima
   __shared__ __align__(16) float q_sh[Q_SHARED ? RM : 1][Q_SHARED ? HD : 4];
 
   const int G = H / KV;
   const int R = Sq * G;
-  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  // grid (lead * KV, splits, B / lead): CTA (x, y, z) serves row b = z *
+  // lead + x / KV of the flattened lead, kv head x % KV
+  const int bi = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int b = blockIdx.z * (gridDim.x / KV) + bi;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LG, sub = lane % LG;
   const bool holds = sub < L::ACT;      // this lane holds pieces of the key
@@ -380,13 +391,22 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
     for (int i = 0; i < E; ++i) acc[r][i] = 0.f;
   }
 
+  // the strided lead: row b = c * lead + i of K / V (c = blockIdx.z, i =
+  // bi) starts at c * kv_c + i * kv_b elements (its scales at c * s_c + i *
+  // s_b), and its (Sk, KV, HD) tail is dense. A contiguous (B, Sk, KV, HD)
+  // cache is lead B, kv_b = Sk * KV * HD; one unit's view of a cube cache,
+  // (*cube, B, Sk, KV, HD) behind the units axis, is lead B, kv_b = Sk * KV
+  // * HD and kv_c the stride of the flattened cube axes: no copy of the
+  // slice is made.
+  const size_t kv_off = (size_t)blockIdx.z * kv_c + (size_t)bi * kv_b;
   const size_t kv_row = (size_t)KV * HD;
-  const KT* kb = k + ((size_t)b * Sk * KV + kvh) * HD + sub * VEC;
-  const KT* vb = v + ((size_t)b * Sk * KV + kvh) * HD + sub * VEC;
+  const KT* kb = k + kv_off + (size_t)kvh * HD + sub * VEC;
+  const KT* vb = v + kv_off + (size_t)kvh * HD + sub * VEC;
   const int* kpb = k_pos + (size_t)b * Sk;
   // the int8 cache's scales of this (batch, kv head): key s at s * KV
-  const float* ksb = SCALED ? k_scale + (size_t)b * Sk * KV + kvh : nullptr;
-  const float* vsb = SCALED ? v_scale + (size_t)b * Sk * KV + kvh : nullptr;
+  const size_t s_off = (size_t)blockIdx.z * s_c + (size_t)bi * s_b;
+  const float* ksb = SCALED ? k_scale + s_off + kvh : nullptr;
+  const float* vsb = SCALED ? v_scale + s_off + kvh : nullptr;
   // this lane's ring: NST warp steps of its NP 16-byte pieces of K and of V
   // and its key's position, brought by cp.async. A lane reads back only
   // what it copied itself, so its own wait_group orders it: no barrier.
@@ -402,7 +422,8 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
   float* ring_vs = ring_ks + kDecodeWarps * NST * 32;
   const int first = k_begin + warp * KPW;     // the warp's first step
   const int steps = first < k_end ? (k_end - first + STEP - 1) / STEP : 0;
-  const auto fetch = [&](int n) {             // step n into slot n % NST
+  // step n into slot n % NST; with_v false: K and the position only
+  const auto fetch = [&](int n, bool with_v) {
     const int s = first + grp + n * STEP, slot = n % NST;
     if (n < steps && s < k_end) {   // else the slot is never read
       const size_t off = (size_t)s * kv_row;
@@ -411,8 +432,9 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
         for (int j = 0; j < NP; ++j) {
           cp_async16(ring_k + (slot * NP + j) * 32, kb + off + j * LG * VEC,
                      true);
-          cp_async16(ring_v + (slot * NP + j) * 32, vb + off + j * LG * VEC,
-                     true);
+          if (with_v)
+            cp_async16(ring_v + (slot * NP + j) * 32,
+                       vb + off + j * LG * VEC, true);
         }
       }
       cp_async4(ring_p + slot * 32, kpb + s, true);
@@ -423,17 +445,11 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
     }
     cp_async_commit();
   };
-#pragma unroll
-  for (int n = 0; n < NST - 1; ++n) fetch(n);
-  for (int n = 0; n < steps; ++n) {           // warp-uniform
-    cp_async_wait<NST - 2>();                 // step n has landed
-    const int slot = n % NST;
-    const bool exists = first + grp + n * STEP < k_end;
+  // each row's score over the key in `slot` (the int8 cache: over its
+  // codes, times the key's scale; the scale is 1 for bf16 and f32 K/V, and
+  // the product by it folds away)
+  const auto scores = [&](int slot, float* sc) {
     const int kp = ring_p[slot * 32];
-    // each row's score over K (the int8 cache: over its codes, times the
-    // key's scale), then V (the int8 cache: its codes times p * its scale);
-    // K's registers are free before V's are taken. The scales are 1 for
-    // bf16 and f32 K/V, and the products by them fold away.
     float kf[E];
 #pragma unroll
     for (int i = 0; i < E; ++i) kf[i] = 0.f;
@@ -444,7 +460,6 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
     }
     float ks = 1.f;
     if constexpr (SCALED) ks = ring_ks[slot * 32];
-    float sc[RM];
 #pragma unroll
     for (int r = 0; r < RM; ++r) {
       if (r >= R) break;
@@ -458,6 +473,84 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
       if (lowp >= 2) x = bf16r(x);
       sc[r] = visible(qp[r], kp, causal, window) ? x : masked;
     }
+  };
+
+  // lowp 2 (ROWMAX, the instances mode 2 launches): p is rounded against
+  // the row's max, as the reference rounds it (bf16(exp(bf16(s -
+  // bf16(m)))) with m the max over a chunk of up to 1,024 keys, the whole
+  // row here). A first pass over K alone finds each row's max over the
+  // CTA's keys, the lane groups, the warps and the cluster's CTAs; the key
+  // loop below then starts from it, so its running max never moves, every
+  // rescale factor is exp(0) = 1 and every merge adds. It reads K twice:
+  // the mode's price in this form. The other modes' instances hold no
+  // trace of this pass.
+  if constexpr (ROWMAX) {
+    float rmax[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) rmax[r] = kNegInf;
+#pragma unroll
+    for (int n = 0; n < NST - 1; ++n) fetch(n, false);
+    for (int n = 0; n < steps; ++n) {         // warp-uniform
+      cp_async_wait<NST - 2>();
+      const int slot = n % NST;
+      float sc[RM];
+      scores(slot, sc);
+      if (first + grp + n * STEP < k_end) {
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          if (r >= R) break;
+          rmax[r] = fmaxf(rmax[r], sc[r]);
+        }
+      }
+      fetch(n + NST - 1, false);
+    }
+    cp_async_wait<0>();   // the ring is free for the key loop
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (r >= R) break;
+#pragma unroll
+      for (int o = LG; o < 32; o <<= 1)
+        rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(kFull, rmax[r], o));
+      if (lane == 0) red_ml[warp][r][0] = rmax[r];
+    }
+    __syncthreads();      // red_ml is written again after the key loop
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      if (r >= R) break;
+      float mm = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kDecodeWarps; ++w) mm = fmaxf(mm, red_ml[w][r][0]);
+      m[r] = mm;
+    }
+    if (gridDim.y > 1) {  // the cluster's CTAs: fin_max is written once
+      if (threadIdx.x == 0) {
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+          if (r < R) fin_max[r] = m[r];
+      }
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        if (r >= R) break;
+        float mm = kNegInf;
+        for (int c = 0; c < (int)gridDim.y; ++c)
+          mm = fmaxf(mm, *cluster.map_shared_rank(&fin_max[r], c));
+        m[r] = mm;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int n = 0; n < NST - 1; ++n) fetch(n, true);
+  for (int n = 0; n < steps; ++n) {           // warp-uniform
+    cp_async_wait<NST - 2>();                 // step n has landed
+    const int slot = n % NST;
+    const bool exists = first + grp + n * STEP < k_end;
+    // each row's score over K, then V (the int8 cache: its codes times p *
+    // its scale); K's registers are free before V's are taken
+    float sc[RM];
+    scores(slot, sc);
     if (exists) {
       float vf[E];
 #pragma unroll
@@ -484,7 +577,7 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
         m[r] = mn;
       }
     }
-    fetch(n + NST - 1);   // into the slot of step n - 1, consumed
+    fetch(n + NST - 1, true);   // into the slot of step n - 1, consumed
   }
 
   // lane groups of the warp -> the warp's state, in lanes 0 .. LG-1
@@ -1190,14 +1283,18 @@ struct Args {
   const float* ks = nullptr;   // the int8 cache's scales
   const float* vs = nullptr;
   int lowp = 0;                // the low-precision mode (bf16 forms)
+  // the decode form's K / V lead (see flash_decode_kernel): row b at (b /
+  // lead) * kv_c + (b % lead) * kv_b elements, its scales at s_c / s_b;
+  // the grid's z axis is b / lead
+  long long kv_c = 0, kv_b = 0, s_c = 0, s_b = 0;
 };
 
-template <typename T, typename KT, int HD, int RM>
-cudaError_t launch_decode(const Args& a, dim3 grid, int chunk,
-                          cudaStream_t stream) {
+template <typename T, typename KT, int HD, int RM, bool ROWMAX>
+cudaError_t launch_decode_kernel(const Args& a, dim3 grid, int chunk,
+                                 cudaStream_t stream) {
   constexpr int bytes = decode_smem_bytes<KT, HD, RM>();
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_decode_kernel<T, KT, HD, RM>,
+      flash_decode_kernel<T, KT, HD, RM, ROWMAX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
@@ -1213,10 +1310,25 @@ cudaError_t launch_decode(const Args& a, dim3 grid, int chunk,
   cfg.attrs = attr;
   cfg.numAttrs = grid.y > 1 ? 1 : 0;
   return cudaLaunchKernelEx(
-      &cfg, flash_decode_kernel<T, KT, HD, RM>, static_cast<const T*>(a.q),
+      &cfg, flash_decode_kernel<T, KT, HD, RM, ROWMAX>,
+      static_cast<const T*>(a.q),
       static_cast<const KT*>(a.k), static_cast<const KT*>(a.v), a.ks, a.vs,
       a.qp, a.kp, static_cast<T*>(a.out), a.acc, a.m, a.l, a.Sq, a.Sk, a.H,
-      a.KV, a.causal, a.window, a.scale, chunk, a.lowp);
+      a.KV, a.causal, a.window, a.scale, chunk, a.lowp, a.kv_c, a.kv_b,
+      a.s_c, a.s_b);
+}
+
+// mode 2 on bf16 K / V takes the ROWMAX instances; every other launch the
+// plain ones
+template <typename T, typename KT, int HD, int RM>
+cudaError_t launch_decode(const Args& a, dim3 grid, int chunk,
+                          cudaStream_t stream) {
+  if constexpr (std::is_same<KT, __nv_bfloat16>::value) {
+    if (a.lowp == 2)
+      return launch_decode_kernel<T, KT, HD, RM, true>(a, grid, chunk,
+                                                       stream);
+  }
+  return launch_decode_kernel<T, KT, HD, RM, false>(a, grid, chunk, stream);
 }
 
 template <typename T, typename KT, int HD>
@@ -1284,10 +1396,16 @@ cudaError_t decode_hd(int hd, const Args& a, int rows, dim3 grid, int chunk,
   }
 }
 
-// the decode geometry's checks, shared by both entry points
-bool decode_geometry_ok(int R, int Sk, int row_tile, int splits) {
+// the decode geometry's checks, shared by both entry points: the rows and
+// splits, and a K / V lead that divides B with 16-byte aligned row starts
+// (`elem` bytes an element)
+bool decode_geometry_ok(int R, int Sk, int row_tile, int splits, int B,
+                        int lead, long long kv_c, long long kv_b, int elem) {
   if (row_tile != R || R > kMaxRows || splits < 1 || splits > kMaxSplits ||
       splits > Sk)
+    return false;
+  if (lead < 1 || B % lead != 0 || B / lead > 65535 || kv_c < 0 ||
+      kv_b < 0 || (kv_c * elem) % 16 != 0 || (kv_b * elem) % 16 != 0)
     return false;
   const int chunk = (Sk + splits - 1) / splits;
   return (splits - 1) * chunk < Sk;
@@ -1350,6 +1468,11 @@ int repro_flash_forward(int dtype, const void* q, const void* k,
 // head) in one cluster), form 1 = forward (row_tile query rows per CTA: 16,
 // 32 or 64 in bf16, 32 in f32; splits = 1) -- flash.launch_geometry.
 // `lowp`: the low-precision mode, 0, 1 or 2 in bf16 and 0 in f32.
+// `lead`, `kv_c`, `kv_b`: the lead of k and v, in elements (row b at (b /
+// lead) * kv_c + (b % lead) * kv_b, its (Sk, KV, hd) tail dense): any
+// lead dividing B (B / lead <= 65535, the grid's z) in the decode form, a
+// contiguous one (kv_b = Sk * KV * hd, kv_c = lead * kv_b) in the forward
+// form.
 // Returns the cudaError_t of the launch, or of setting the forward's
 // dynamic shared-memory size (0 on success); nothing is synchronized and
 // nothing is allocated.
@@ -1358,7 +1481,8 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
                           void* out, void* acc, void* m, void* l, int B,
                           int Sq, int Sk, int H, int KV, int hd, int causal,
                           int window, float scale, int form, int row_tile,
-                          int splits, int lowp, void* stream) {
+                          int splits, int lowp, int lead, long long kv_c,
+                          long long kv_b, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
       (dtype != 0 && dtype != 1) || lowp < 0 || lowp > 2 ||
       (dtype == 0 && lowp != 0))
@@ -1369,16 +1493,22 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
                static_cast<float*>(acc), static_cast<float*>(m),
                static_cast<float*>(l), Sq, Sk, H, KV, causal, window, scale};
   a.lowp = lowp;
+  a.kv_c = kv_c;
+  a.kv_b = kv_b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (form == 0) {
-    if (!decode_geometry_ok(R, Sk, row_tile, splits))
+    if (!decode_geometry_ok(R, Sk, row_tile, splits, B, lead, kv_c, kv_b,
+                            dtype == 0 ? 4 : 2))
       return cudaErrorInvalidValue;
     const int chunk = (Sk + splits - 1) / splits;
-    const dim3 grid(B * KV, splits);
+    const dim3 grid(lead * KV, splits, B / lead);
     return dtype == 0 ? decode_hd<float>(hd, a, R, grid, chunk, s)
                       : decode_hd<__nv_bfloat16>(hd, a, R, grid, chunk, s);
   }
-  if (form != 1 || splits != 1) return cudaErrorInvalidValue;
+  // the forward forms take contiguous K / V only
+  if (form != 1 || splits != 1 || kv_b != (long long)Sk * KV * hd ||
+      (B / lead > 1 && kv_c != lead * kv_b))
+    return cudaErrorInvalidValue;
   return repro_flash_forward(dtype, q, k, v, q_pos, k_pos, out, acc, m, l, B,
                              Sq, Sk, H, KV, hd, causal, window, scale,
                              row_tile, lowp, stream);
@@ -1394,19 +1524,23 @@ const char* repro_cuda_error_string(int code) {
 // float32, 1 = bfloat16); k, v int8 codes (B, Sk, KV, hd); k_scale,
 // v_scale f32 (B, Sk, KV). Key j of kv head h is k[j, h] * k_scale[j, h].
 // The decode geometry only (row_tile = Sq * G <= 8, `splits` CTAs a
-// (batch, kv head) in one cluster), as form 0 above.
+// (batch, kv head) in one cluster), as form 0 above, with the lead of k /
+// v (`lead`, `kv_c`, `kv_b`) and of the scales (`s_c`, `s_b`).
 int repro_flash_decode_int8(int dtype, const void* q, const void* k,
                             const void* v, const void* k_scale,
                             const void* v_scale, const void* q_pos,
                             const void* k_pos, void* out, void* acc, void* m,
                             void* l, int B, int Sq, int Sk, int H, int KV,
                             int hd, int causal, int window, float scale,
-                            int row_tile, int splits, void* stream) {
+                            int row_tile, int splits, int lead,
+                            long long kv_c, long long kv_b, long long s_c,
+                            long long s_b, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
-      (dtype != 0 && dtype != 1) || k_scale == nullptr || v_scale == nullptr)
+      (dtype != 0 && dtype != 1) || k_scale == nullptr || v_scale == nullptr ||
+      s_c < 0 || s_b < 0)
     return cudaErrorInvalidValue;
   const int R = Sq * (H / KV);
-  if (!decode_geometry_ok(R, Sk, row_tile, splits))
+  if (!decode_geometry_ok(R, Sk, row_tile, splits, B, lead, kv_c, kv_b, 1))
     return cudaErrorInvalidValue;
   Args a{q, k, v, static_cast<const int*>(q_pos),
          static_cast<const int*>(k_pos), out, static_cast<float*>(acc),
@@ -1414,8 +1548,12 @@ int repro_flash_decode_int8(int dtype, const void* q, const void* k,
          causal, window, scale};
   a.ks = static_cast<const float*>(k_scale);
   a.vs = static_cast<const float*>(v_scale);
+  a.kv_c = kv_c;
+  a.kv_b = kv_b;
+  a.s_c = s_c;
+  a.s_b = s_b;
   const int chunk = (Sk + splits - 1) / splits;
-  const dim3 grid(B * KV, splits);
+  const dim3 grid(lead * KV, splits, B / lead);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
              ? decode_hd<float, int8_t>(hd, a, R, grid, chunk, s)

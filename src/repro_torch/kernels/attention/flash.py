@@ -20,11 +20,20 @@ run-time argument of the bf16 forms, decode and forward: a launch under a
 mode counts in ``LAUNCHES`` and in ``LOWP_LAUNCHES[mode]``. f32 q runs mode
 0 whatever is asked (the reference's function on f32 q), and the int8
 cache refuses a mode.
+
+The decode form also reads K / V (and the int8 scales) through a strided
+lead: k, v (C, B_l, Sk, KV, hd) with C * B_l = B, whose (Sk, KV, hd) tail
+is dense and whose two lead axes may have any strides (``lead_strides``;
+the scales likewise (C, B_l, Sk, KV), or either contiguous).
+That is one unit's view of a cube cache, ``cache.select(cube_ndim, u)``
+with the cube axes flattened, which decode reads where it lies instead of
+copying it.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
 
@@ -35,6 +44,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 _MAX_ROW_TILES = 65535        # grid.y limit: the forward's row tiles
 _MAX_CTAS_X = 2 ** 31 - 1     # grid.x limit: B * KV
+_MAX_LEAD_BLOCKS = 65535      # grid.z limit: blocks of a strided lead
 SMS = 132                     # H100 SXM streaming multiprocessors
 DECODE_ROWS = 8               # decode form: Sq * G rows at most
 DECODE_WARPS = 8
@@ -117,12 +127,15 @@ def _lib() -> ctypes.CDLL:
     fn = lib.repro_flash_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
+        ll = ctypes.c_longlong
         fn.argtypes = [i, p, p, p, p, p, p, p, p, p,
-                       i, i, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, p]
+                       i, i, i, i, i, i, i, i, ctypes.c_float, i, i, i, i,
+                       i, ll, ll, p]
         fn.restype = i
         lib.repro_flash_decode_int8.argtypes = [
             i, p, p, p, p, p, p, p, p, p, p, p,
-            i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+            i, i, i, i, i, i, i, i, ctypes.c_float, i, i,
+            i, ll, ll, ll, ll, p]
         lib.repro_flash_decode_int8.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -138,25 +151,72 @@ def _check(q, k, v, q_pos, k_pos, k_scale=None, v_scale=None) -> Geometry:
     return _check_layout(q, k, v, q_pos, k_pos, k_scale, v_scale)
 
 
+def lead_strides(t: torch.Tensor, tail: int,
+                 lead: int = 1) -> tuple[int, int]:
+    """``(stride_c, stride_b)`` in elements of a K / V (``tail`` 3) or
+    scale (``tail`` 2) tensor read with ``lead`` rows a lead block: row b =
+    c * lead + i starts at c * stride_c + i * stride_b. A contiguous
+    tensor with one lead axis takes any lead; one with two, (C, B_l, ...),
+    takes lead B_l, with any strides over a dense tail. Raises on any other
+    layout."""
+    if t.dim() == tail + 1 and t.is_contiguous():
+        row = math.prod(t.shape[1:])
+        return lead * row, row
+    dense = all(t.stride(d) == math.prod(t.shape[d + 1:])
+                for d in range(t.dim() - tail, t.dim()) if t.shape[d] > 1)
+    if t.dim() != tail + 2 or not dense or t.shape[1] != lead:
+        raise ValueError(
+            f"flash_attention takes contiguous tensors, or k / v / scales "
+            f"with a strided lead (C, B_l, *tail) and a dense tail, one B_l "
+            f"for all; got shape {tuple(t.shape)}, strides {t.stride()}")
+    # a lead axis of size 1 never moves the row: its stride is 0
+    return (t.stride(0) if t.shape[0] > 1 else 0,
+            t.stride(1) if t.shape[1] > 1 else 0)
+
+
+def _strided(k, k_scale=None) -> bool:
+    """Whether k (and v) or the scales carry a strided lead (C, B_l, ...)."""
+    return k.dim() == 5 or (k_scale is not None and k_scale.dim() == 4)
+
+
+def _lead(k, k_scale=None) -> int:
+    """Rows a lead block: B_l of whichever of k and the scales has a
+    strided lead (both: the same B_l), else every row, B (one block: the
+    kernel's grid.z counts the blocks)."""
+    if k.dim() == 5:
+        return k.shape[1]
+    if k_scale is not None and k_scale.dim() == 4:
+        return k_scale.shape[1]
+    return k.shape[0]
+
+
 def _check_scales(k, k_scale, v_scale) -> None:
-    """The int8 cache: int8 k / v and contiguous f32 scales (B, Sk, KV)."""
+    """The int8 cache: int8 k / v and f32 scales (B, Sk, KV), or (C, B_l,
+    Sk, KV) in ``lead_strides``' layout, both in one layout."""
     if k.dtype != torch.int8 or v_scale is None:
         raise TypeError("flash_attention: k_scale and v_scale go with int8 "
                         f"k / v (the int8 KV cache), got k {k.dtype}")
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-        if t.dtype != torch.float32 or tuple(t.shape) != tuple(k.shape[:3]):
-            raise ValueError(f"flash_attention: {name} must be f32 "
-                             f"{tuple(k.shape[:3])}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous() or t.data_ptr() % 4:
-            raise ValueError(f"flash_attention: {name} must be contiguous "
-                             "and 4-byte aligned")
+        if (t.dtype != torch.float32 or t.shape[-2:] != k.shape[-3:-1]
+                or math.prod(t.shape[:-2]) != math.prod(k.shape[:-3])):
+            raise ValueError(f"flash_attention: {name} must be f32 (*lead, "
+                             f"Sk, KV) beside k {tuple(k.shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        lead_strides(t, 2, _lead(k, k_scale))
+        if t.data_ptr() % 4:
+            raise ValueError(f"flash_attention: {name} must be 4-byte "
+                             "aligned")
+    if k_scale.stride() != v_scale.stride():
+        raise ValueError("flash_attention: k_scale and v_scale must share "
+                         "their strides")
 
 
 def _check_layout(q, k, v, q_pos, k_pos, k_scale=None,
                   v_scale=None) -> Geometry:
     """Types, shapes, contiguity and alignment the kernel takes, on any
-    device; returns the launch geometry."""
+    device; returns the launch geometry. k / v (and the scales) may have a
+    strided lead (``lead_strides``) where the decode form takes the
+    call."""
     kv_dtype = q.dtype
     if k_scale is not None:
         _check_scales(k, k_scale, v_scale)
@@ -167,34 +227,48 @@ def _check_layout(q, k, v, q_pos, k_pos, k_scale=None,
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32:
         raise TypeError("flash_attention positions must be int32")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: q (B,Sq,H,hd), k/v (B,Sk,KV,hd); "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() not in (4, 5) or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q (B,Sq,H,hd), k/v (B,Sk,KV,hd) "
+                         f"or (C,B_l,Sk,KV,hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, H, hd = q.shape
-    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
+    Sk, KV = k.shape[-3], k.shape[-2]
+    if math.prod(k.shape[:-3]) != B or k.shape[-1] != hd or H % KV:
         raise ValueError(f"flash_attention: incompatible q {tuple(q.shape)} "
                          f"and k {tuple(k.shape)}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {hd}")
-    if tuple(q_pos.shape) != (B, Sq) or tuple(k_pos.shape) != (B, k.shape[1]):
+    if tuple(q_pos.shape) != (B, Sq) or tuple(k_pos.shape) != (B, Sk):
         raise ValueError("flash_attention: positions must be (B, Sq) and "
                          "(B, Sk)")
-    for t in (q, k, v, q_pos, k_pos):
+    for t in (q, q_pos, k_pos):
         if not t.is_contiguous():
             raise ValueError("flash_attention takes contiguous tensors")
+    stride_c, stride_b = lead_strides(k, 3, _lead(k, k_scale))
+    if v.stride() != k.stride():
+        raise ValueError("flash_attention: k and v must share their strides")
     # 16-byte vector loads and cp.async: aligned bases and row pitches
+    esize = k.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16 or (hd * t.element_size()) % 16:
             raise ValueError(f"flash_attention: {name} must start on a "
                              f"16-byte boundary with 16-byte rows")
+    if (stride_c * esize) % 16 or (stride_b * esize) % 16:
+        raise ValueError("flash_attention: every row of k / v's lead must "
+                         "start on a 16-byte boundary")
     for name, t in (("q_pos", q_pos), ("k_pos", k_pos)):
         if t.data_ptr() % 4:
             raise ValueError(f"flash_attention: {name} must be 4-byte "
                              f"aligned")
-    geo = launch_geometry(B, Sq, k.shape[1], H, k.shape[2], hd, q.dtype,
-                          kv_dtype)
+    geo = launch_geometry(B, Sq, Sk, H, KV, hd, q.dtype, kv_dtype)
+    if geo.form != "decode" and _strided(k, k_scale):
+        raise ValueError("flash_attention: a strided k / v lead takes the "
+                         f"decode form only (Sq * G <= {DECODE_ROWS} rows "
+                         f"a kv head), got {Sq * (H // KV)} rows")
+    if B // _lead(k, k_scale) > _MAX_LEAD_BLOCKS:
+        raise ValueError(f"flash_attention: more than {_MAX_LEAD_BLOCKS} "
+                         "blocks of a strided lead (the grid's z)")
     if geo.grid[1] > _MAX_ROW_TILES or geo.grid[0] > _MAX_CTAS_X:
         raise ValueError("flash_attention: too many query rows for one grid")
     return geo
@@ -206,7 +280,9 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                     lowp: int = 0):
     """Launch the kernel on CUDA tensors (see ``ref.flash_attention`` for
     the function): q (B, Sq, H, hd), k/v (B, Sk, KV, hd), int32 positions
-    (B, Sq)/(B, Sk). With ``stats`` (and not ``partial``) it returns
+    (B, Sq)/(B, Sk); k / v may be (C, B_l, Sk, KV, hd) with a strided
+    lead where the decode form takes the call (module docstring). With
+    ``stats`` (and not ``partial``) it returns
     ``(out, m, l)``: the output and the f32 row statistics (B, H, Sq) the
     backward reads, from the same launch (``out`` is bit-identical to the
     launch without them). With ``k_scale`` / ``v_scale`` (B, Sk, KV) f32,
@@ -231,7 +307,9 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
         raise ValueError("flash_attention: the int8 cache has no training "
                          "forward (stats=True)")
     B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    Sk, KV = k.shape[-3], k.shape[-2]
+    lead = _lead(k, k_scale)
+    kv_c, kv_b = lead_strides(k, 3, lead)
     out = acc = m = l = None
     if partial or stats:
         m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -249,19 +327,21 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if int8:
+            s_c, s_b = lead_strides(k_scale, 2, lead)
             rc = lib.repro_flash_decode_int8(
                 _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 k_scale.data_ptr(), v_scale.data_ptr(), q_pos.data_ptr(),
                 k_pos.data_ptr(), ptr(out), ptr(acc), ptr(m), ptr(l), B, Sq,
                 Sk, H, KV, hd, int(causal), int(window), hd ** -0.5,
-                geo.row_tile, geo.key_splits, stream)
+                geo.row_tile, geo.key_splits, lead, kv_c, kv_b, s_c, s_b,
+                stream)
         else:
             rc = lib.repro_flash_attention(
                 _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 q_pos.data_ptr(), k_pos.data_ptr(), ptr(out), ptr(acc),
                 ptr(m), ptr(l), B, Sq, Sk, H, KV, hd, int(causal),
                 int(window), hd ** -0.5, 0 if geo.form == "decode" else 1,
-                geo.row_tile, geo.key_splits, mode, stream)
+                geo.row_tile, geo.key_splits, mode, lead, kv_c, kv_b, stream)
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

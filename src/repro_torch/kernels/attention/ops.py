@@ -21,12 +21,14 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                     window: int = -1, partial: bool = False,
                     k_scale=None, v_scale=None, lowp: int = 0):
     """``k_scale`` / ``v_scale`` (B, Sk, KV) f32 with int8 k / v: the int8
-    KV cache, on the kernel's int8 decode form on CUDA. ``lowp``: the
+    KV cache, on the kernel's int8 decode form on CUDA. k / v (and the
+    scales) may carry a strided lead (C, B_l, ...) where the decode form
+    takes the call (``flash.lead_strides``). ``lowp``: the
     low-precision mode (``ref.flash_attention``), which acts on bf16 q
     only; both forms refuse it with the int8 cache."""
     scales = {}
     if k_scale is not None:
-        rows = q.shape[1] * (q.shape[2] // k.shape[2])
+        rows = q.shape[1] * (q.shape[2] // k.shape[-2])
         if rows > flash.DECODE_ROWS:
             raise ValueError(
                 f"flash_attention over an int8 cache takes the decode form "

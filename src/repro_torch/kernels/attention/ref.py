@@ -57,7 +57,10 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                     stats: bool = False, k_scale=None, v_scale=None,
                     lowp: int = 0):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); q_pos: (B, Sq), k_pos:
-    (B, Sk) int. Returns (B, Sq, H, hd) in q's dtype, or with ``partial``
+    (B, Sk) int; k, v (and the scales) may also be (C, B_l, Sk, KV, hd)
+    with C * B_l = B, the kernel's strided lead (``flash.lead_strides``),
+    read as the (B, Sk, KV, hd) they flatten to. Returns (B, Sq, H, hd) in
+    q's dtype, or with ``partial``
     the f32 ``(acc (B, H, Sq, hd), m (B, H, Sq), l (B, H, Sq))``, or with
     ``stats`` the output and the row statistics ``(out, m, l)``. With
     ``k_scale`` / ``v_scale`` (B, Sk, KV) f32, k and v are int8 codes (the
@@ -69,17 +72,22 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
         if lowp:
             raise ValueError("flash_attention: the int8 KV cache takes no "
                              f"low-precision mode, got lowp={lowp}")
-        k, v = dequantize(k, k_scale), dequantize(v, v_scale)
+        k, v = (dequantize(t, sc.reshape(t.shape[:-1]))
+                for t, sc in ((k, k_scale), (v, v_scale)))
     lowp = lowp if q.dtype == torch.bfloat16 else 0
     B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    Sk, KV = k.shape[-3], k.shape[-2]
     G = H // KV
+    # K / V in f32 (B, Sk, KV, hd): a bf16 or int8 input with a strided
+    # lead is read where it lies by the conversion, whose result is
+    # contiguous, so the reshape after it is a view
+    k, v = (t.float().reshape(B, Sk, KV, hd) for t in (k, v))
     if lowp:
         qf = bf16(q.float() * bf16_scalar(hd ** -0.5))
     else:
         qf = q.float() * hd ** -0.5
     qf = qf.reshape(B, Sq, KV, G, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.float())    # (B,KV,G,Sq,Sk)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qf, k)            # (B,KV,G,Sq,Sk)
     ok = mask(q_pos, k_pos, causal, window)[:, None, None]
     if lowp >= 2:
         s = torch.where(ok, bf16(s), bf16_scalar(NEG_INF))
@@ -90,8 +98,7 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
         m = s.amax(dim=-1)                                   # (B,KV,G,Sq)
         p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
-    acc = torch.einsum("bkgqs,bskh->bkgqh", bf16(p) if lowp == 1 else p,
-                       v.float())
+    acc = torch.einsum("bkgqs,bskh->bkgqh", bf16(p) if lowp == 1 else p, v)
     acc, m, l = (acc.reshape(B, H, Sq, hd), m.reshape(B, H, Sq),
                  l.reshape(B, H, Sq))
     if partial:

@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.attention import flash
 from repro_torch.kernels.attention import ops as attention_ops
 
 NEG_INF = -1e30
@@ -90,6 +91,30 @@ def _positions(offset, n: int, lead: tuple, device) -> torch.Tensor:
     return pos.expand(lead + (n,))
 
 
+def _flat_lead(t: torch.Tensor, lead: tuple) -> torch.Tensor:
+    """``t`` (*lead, *tail) as a contiguous (n, *tail)."""
+    return t.reshape((math.prod(lead),) + tuple(t.shape[len(lead):])) \
+        .contiguous()
+
+
+def _decode_lead(t: torch.Tensor, lead: tuple) -> torch.Tensor:
+    """``t`` (*lead, *tail) as the flash decode form reads it, without a
+    copy where its layout allows: (n, *tail) where ``t`` is contiguous, (n
+    / B_l, B_l, *tail) where the axes before the last lead axis merge and
+    the kernel takes that strided lead (``flash.lead_strides``: one unit's
+    view of a cube cache, whose units axis lies between the cube's axes
+    and the batch), else a contiguous copy."""
+    if t.is_contiguous() or not lead:
+        return _flat_lead(t, lead)
+    try:
+        view = t.view((math.prod(lead[:-1]), lead[-1])
+                      + tuple(t.shape[len(lead):]))
+        flash.lead_strides(view, t.dim() - len(lead), lead[-1])
+    except (RuntimeError, ValueError):  # no such view, or not the kernel's
+        return _flat_lead(t, lead)
+    return view
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = -1, q_offset=0,
                       k_offset=0, q_pos: torch.Tensor | None = None,
@@ -132,16 +157,19 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k_pos is None:
         k_pos = _positions(k_offset, Sk, lead, q.device)
     n = math.prod(lead)
-    args = (q.reshape(n, Sq, H, hd).contiguous(),
-            k.reshape(n, Sk, KV, hd).contiguous(),
-            v.reshape(n, Sk, KV, hd).contiguous(),
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    # the decode form reads K / V (and the scales) through a strided lead:
+    # one unit's slice of a cube cache is passed as it lies, not copied
+    decode = not grad and Sq * (H // KV) <= flash.DECODE_ROWS
+    kv = _decode_lead if decode else _flat_lead
+    args = (q.reshape(n, Sq, H, hd).contiguous(), kv(k, lead), kv(v, lead),
             q_pos.expand(lead + (Sq,)).reshape(n, Sq).to(torch.int32),
             k_pos.expand(lead + (Sk,)).reshape(n, Sk).to(torch.int32))
     scales = {}
     if k_scale is not None:
-        scales = {"k_scale": k_scale.reshape(n, Sk, KV).contiguous(),
-                  "v_scale": v_scale.reshape(n, Sk, KV).contiguous()}
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        scales = {"k_scale": kv(k_scale, lead), "v_scale": kv(v_scale, lead)}
+    if grad:
         if scales:
             raise NotImplementedError(
                 "chunked_attention over an int8 cache under grad: the int8 "

@@ -185,6 +185,16 @@ GEOMETRY_SHAPES = [
 ]
 
 
+def _add_block(count, b, heads, pos, keys):
+    """count[b, heads[i], pos[i], keys[j]] += 1 for every row i and key j
+    of one CTA, a row or key listed twice counted twice."""
+    rows, r_times = np.unique(np.stack([heads, pos]), axis=1,
+                              return_counts=True)
+    ks, k_times = np.unique(keys, return_counts=True)
+    count[b, rows[0][:, None], rows[1][:, None], ks[None, :]] += \
+        r_times[:, None] * k_times[None, :]
+
+
 def _coverage(geo, B, Sq, Sk, H, KV, dtype):
     """How often each (batch, query head, query position, key) is scored
     by the launch ``geo`` describes: CTAs, their warps, lane groups."""
@@ -197,21 +207,24 @@ def _coverage(geo, B, Sq, Sk, H, KV, dtype):
         b, kvh = divmod(x, KV)
         for y in range(geo.grid[1]):
             if geo.form == "decode":
-                rows = range(R)
+                rows = np.arange(R)
                 lo = y * geo.keys_per_split
                 hi = min(Sk, lo + geo.keys_per_split)
                 kpw = geo.key_tile // warps      # lane groups per warp
-                keys = [s for w in range(warps) for g in range(kpw)
-                        for s in range(lo + w * kpw + g, hi, geo.key_tile)]
+                keys = np.concatenate(
+                    [np.arange(lo + w * kpw + g, hi, geo.key_tile)
+                     for w in range(warps) for g in range(kpw)])
             else:
                 per_warp = geo.row_tile // warps
-                rows = [y * geo.row_tile + w * per_warp + i
-                        for w in range(warps) for i in range(per_warp)
-                        if y * geo.row_tile + w * per_warp + i < R]
-                keys = [t + j for t in range(0, Sk, geo.key_tile)
-                        for j in range(geo.key_tile) if t + j < Sk]
-            for r in rows:
-                count[b, kvh * G + r % G, r // G, keys] += 1
+                rows = y * geo.row_tile + (
+                    np.arange(warps)[:, None] * per_warp
+                    + np.arange(per_warp)).ravel()
+                rows = rows[rows < R]
+                keys = (np.arange(0, Sk, geo.key_tile)[:, None]
+                        + np.arange(geo.key_tile)).ravel()
+                keys = keys[keys < Sk]
+            if len(rows) and len(keys):
+                _add_block(count, b, kvh * G + rows % G, rows // G, keys)
     return count
 
 
@@ -283,6 +296,178 @@ def test_check_raises_on_misaligned_tensor(which, dtype):
     assert ts[which].is_contiguous() and ts[which].data_ptr() % 16
     with pytest.raises(ValueError, match="16-byte"):
         flash._check_layout(*args())
+
+
+# ------------------------------------------------ the strided lead (decode)
+def _unit_view(dtype, cube=(2, 4), units=3, u=1, B=2, S=24, KV=2, hd=32,
+               seed=5):
+    """One unit's view of a cube cache ``(*cube, units, B, S, KV, hd)``,
+    as ``Server.decode_shard`` selects it: (*cube, B, S, KV, hd), not
+    contiguous, its (S, KV, hd) tail dense."""
+    g = torch.Generator().manual_seed(seed)
+    full = torch.randn(cube + (units, B, S, KV, hd), generator=g)
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, full.shape, generator=g,
+                             dtype=torch.int8).select(len(cube), u)
+    return full.to(dtype).select(len(cube), u)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("partial", [False, True])
+def test_plain_version_on_a_unit_view_equals_a_contiguous_copy(dtype,
+                                                               partial):
+    """Decode hands the flash decode form one unit's slice of the cube
+    cache as it lies (``layers._decode_lead``: (C, B_l, S, KV, hd) over the
+    flattened cube axes); the plain version reads that view to the same
+    bits as a contiguous copy of it, int8 codes with their scales too."""
+    cube, B, S, H, KV, hd = (2, 4), 2, 24, 8, 2, 32
+    k, v = _unit_view(dtype, seed=5), _unit_view(dtype, seed=6)
+    assert not k.is_contiguous()
+    scales = {}
+    if dtype == torch.int8:
+        ks, vs = ((torch.rand(cube + (3, B, S, KV)) + 0.01).select(2, 1)
+                  for _ in range(2))
+        scales = {"k_scale": ks, "v_scale": vs}
+    qdt = torch.float32 if dtype == torch.int8 else dtype
+    q = torch.randn(cube + (B, 1, H, hd), generator=torch.Generator()
+                    .manual_seed(7)).to(qdt)
+    q_pos = torch.full(cube + (B, 1), S - 3)
+    k_pos = torch.arange(S).expand(cube + (B, S))
+    lead = cube + (B,)
+    kv = layers._decode_lead(k, lead)
+    assert kv.shape == (8, B, S, KV, hd) and kv.data_ptr() == k.data_ptr()
+    assert flash.lead_strides(kv, 3, B) == (k.stride(1), k.stride(2))
+    kw = dict(q_pos=q_pos, k_pos=k_pos, partial=partial, window=9)
+    got = layers.chunked_attention(q, k, v, **kw, **scales)
+    want = layers.chunked_attention(
+        q, k.contiguous(), v.contiguous(), **kw,
+        **{n: t.contiguous() for n, t in scales.items()})
+    for g_, w_ in zip(got if partial else (got,), want if partial else
+                      (want,)):
+        assert torch.equal(g_, w_)
+
+
+def _check_args(k, v, B=8, Sq=1, H=4, hd=32, dtype=torch.bfloat16):
+    q = torch.zeros((B, Sq, H, hd), dtype=dtype)
+    q_pos = torch.zeros((B, Sq), dtype=torch.int32)
+    k_pos = torch.zeros((B, k.shape[-3]), dtype=torch.int32)
+    return q, k, v, q_pos, k_pos
+
+
+def test_checks_accept_the_strided_lead_and_refuse_other_layouts():
+    """``_check_layout`` / ``_check_scales`` take a (C, B_l, Sk, KV, hd)
+    lead with any strides over a dense tail, in the decode form only, with
+    16-byte row starts; every other non-contiguous k / v / scale is
+    refused, as before."""
+    k = layers._decode_lead(_unit_view(torch.bfloat16, B=2), (2, 4, 2))
+    v = layers._decode_lead(_unit_view(torch.bfloat16, B=2), (2, 4, 2))
+    geo = flash._check_layout(*_check_args(k, v, B=16))
+    assert geo.form == "decode" and not k.is_contiguous()
+    # the int8 cache with its scales in the same layout
+    k8 = layers._decode_lead(_unit_view(torch.int8, B=2), (2, 4, 2))
+    sc = torch.ones((2, 4, 3, 2, 24, 2)).select(2, 1)
+    sc = layers._decode_lead(sc, (2, 4, 2))
+    assert flash._check_layout(*_check_args(k8, k8, B=16), sc,
+                               sc).form == "decode"
+    # either of k and the scales may be contiguous beside the other's lead
+    assert flash._check_layout(*_check_args(k8.contiguous(),
+                                            k8.contiguous(), B=16),
+                               sc, sc).form == "decode"
+    flat = sc.reshape(16, 24, 2)
+    assert flash._check_layout(*_check_args(k8, k8, B=16), flat,
+                               flat).form == "decode"
+    # a 4-D k that is not contiguous (the old layout's refusal)
+    with pytest.raises(ValueError, match="contiguous"):
+        kt = torch.zeros((16, 2, 24, 32), dtype=torch.bfloat16).transpose(1, 2)
+        flash._check_layout(*_check_args(kt, kt, B=16))
+    # a strided lead whose tail is not dense (KV and S swapped)
+    kt = torch.zeros((8, 2, 2, 24, 32), dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError, match="dense tail"):
+        flash._check_layout(*_check_args(kt, kt, B=16))
+    # k and v in other layouts
+    with pytest.raises(ValueError, match="share"):
+        flash._check_layout(*_check_args(k, v.contiguous(), B=16))
+    # a lead row that starts off 16 bytes (one bf16 element in)
+    base = torch.zeros(8 * 2 * 24 * 2 * 32 + 8, dtype=torch.bfloat16)
+    odd = base.as_strided((8, 2, 24, 2, 32), (2 * 24 * 2 * 32 + 1,
+                                              24 * 2 * 32, 64, 32, 1))
+    with pytest.raises(ValueError, match="16-byte"):
+        flash._check_layout(*_check_args(odd, odd, B=16))
+    # the forward form (Sq * G > 8) takes contiguous k / v only
+    with pytest.raises(ValueError, match="decode form only"):
+        flash._check_layout(*_check_args(k, v, B=16, Sq=5))
+    # scales that are neither contiguous nor a strided lead
+    st = torch.ones((16, 2, 24)).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash._check_layout(*_check_args(k8, k8, B=16), st, st)
+    # a strided lead of another B_l than k's
+    st = torch.ones((4, 4, 3, 24, 2)).select(2, 0)
+    with pytest.raises(ValueError, match="one B_l"):
+        flash._check_layout(*_check_args(k8, k8, B=16), st, st)
+
+
+# ------------------------------------------- mode 2's p in the decode form
+@pytest.mark.parametrize("Sk", [37, 300, 1024])
+def test_mode2_p_is_rounded_against_the_row_max_as_jax_rounds_it(
+        monkeypatch, Sk):
+    """For a row of at most 1,024 keys the reference's mode 2 runs one key
+    chunk: p = bf16(exp(bf16(s - bf16(m)))) with m the row's max. The
+    plain version's p, read one key at a time through one-hot v (each
+    batch entry's v picks a block of hd keys: acc[d] is one key's p), is
+    JAX's ``_chunked_attention`` at ``LOWP = 2`` bit for bit on inputs
+    whose scores are exact in bf16 (small integers, hd 64: the scale 1/8 is
+    a power of two). p rounded against a running max over 64-key blocks
+    instead, and rescaled in f32 as a merge does, is not."""
+    import repro.models.layers as jax_layers
+    monkeypatch.setattr(jax_layers, "LOWP", 2)
+    hd, H, KV, Sq = 64, 8, 2, 1
+    nb = -(-Sk // hd)
+    rng = np.random.RandomState(Sk)
+    q1 = rng.randint(-1, 2, (1, Sq, H, hd)).astype(np.float32)
+    k1 = rng.randint(-1, 2, (1, Sk, KV, hd)).astype(np.float32)
+    q, k = np.repeat(q1, nb, 0), np.repeat(k1, nb, 0)
+    v = np.zeros((nb, Sk, KV, hd), np.float32)
+    for b in range(nb):                 # batch b: keys [b hd, (b + 1) hd)
+        for d in range(min(hd, Sk - b * hd)):
+            v[b, b * hd + d, :, d] = 1.0
+    q0 = Sk - 5                         # the last 4 keys are masked
+    j_acc, j_m, j_l = jax_layers._chunked_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=True,
+        q_offset=q0, partial=True)
+    t = [torch.from_numpy(a).bfloat16() for a in (q, k, v)]
+    acc, m, l = ref.flash_attention(
+        *t, torch.full((nb, Sq), q0, dtype=torch.int32),
+        torch.arange(Sk, dtype=torch.int32).expand(nb, Sk), partial=True,
+        lowp=2)
+    # JAX's (B, KV, G, Sq, hd) partials are the port's (B, H, Sq, hd)
+    j_acc = np.array(j_acc).reshape(acc.shape)
+    p_port = acc.permute(1, 2, 0, 3).reshape(H, Sq, nb * hd)[..., :Sk]
+    p_jax = torch.from_numpy(j_acc).permute(1, 2, 0, 3).reshape(
+        H, Sq, nb * hd)[..., :Sk]
+    assert torch.equal(p_port, p_jax)
+    assert torch.equal(m, torch.from_numpy(np.array(j_m)).reshape(m.shape))
+    # l sums the same p in f32 (JAX's CPU sum of its bf16 p reads 4e-4
+    # apart, so l is held to the port's own p)
+    torch.testing.assert_close(l, p_port.sum(-1).expand_as(l), rtol=1e-6,
+                               atol=0)
+    assert (p_port[..., :Sk - 4] > 0).all()
+    assert (p_port[..., Sk - 4:] == 0).all()
+    # the control: p against a running max over 64-key blocks
+    s = ref.bf16(torch.einsum("qhd,khd->hqk", ref.bf16(
+        torch.from_numpy(q1[0]).reshape(Sq, KV, H // KV, hd)
+        .reshape(Sq, H, hd) * 0.125),
+        torch.from_numpy(k1[0]).repeat_interleave(H // KV, dim=1)))
+    s = torch.where(torch.arange(Sk) <= q0, s, ref.bf16_scalar(ref.NEG_INF))
+    run = torch.cat([s[..., :i + 1].amax(-1, keepdim=True) if i < 64 else
+                     torch.maximum(s[..., :64].amax(-1, keepdim=True),
+                                   s[..., 64:i + 1].amax(-1, keepdim=True))
+                     for i in range(Sk)], dim=-1)
+    m_row = s.amax(-1, keepdim=True)
+    p_blocks = ref.bf16(torch.exp(ref.bf16(s - ref.bf16(run)))) \
+        * torch.exp(run - m_row)
+    assert torch.allclose(p_blocks, p_port, rtol=1e-2, atol=0)
+    if Sk > 64:
+        assert not torch.equal(p_blocks, p_port)
 
 
 # (B, Sq, Sk, H, KV, hd, window, q0, k0): one case per form, and a forward

@@ -1,14 +1,15 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` and nothing in
-``chip_smoke.py`` imports ``jax`` (or ``jaxlib``) or the JAX package
-``repro`` -- checked on the syntax tree, so imports inside functions count
-too."""
+"""The port stands alone: nothing under ``src/repro_torch/``, nothing under
+``examples_torch/`` and nothing in ``chip_smoke.py`` imports ``jax`` (or
+``jaxlib``) or the JAX package ``repro`` -- checked on the syntax tree, so
+imports inside functions count too."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + EXAMPLES + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -30,6 +31,9 @@ def _imported(tree):
 
 def test_port_files_exist():
     assert len(FILES) > 10 and all(f.is_file() for f in FILES)
+    # one port of each example script of the JAX package, by name
+    assert [f.name for f in EXAMPLES] == sorted(
+        f.name for f in (ROOT / "examples").glob("*.py"))
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
