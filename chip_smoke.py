@@ -49,7 +49,11 @@ Phases, each printed as one JSON line:
           32, grids under and over the 132 SMs; and the flash backward
           kernel (flash_bwd.cu) against its plain version on dq, dk and dv
           (f32 within 1e-4, bf16 within 5e-2 of each output's own
-          max|plain|), fed
+          max|plain|) -- and its partial form (ring attention's hops, m
+          held fixed) on PARTIAL_BWD_CASES: hd 64 / 128 / 256, G = 1, 2
+          and 7, f32 and bf16, a hop on the diagonal, wholly visible,
+          wholly masked (m = -1e30, p = 1), windowed, and with dacc zero
+          (dl alone) --, fed
           the forward kernel's output and row statistics (those held to
           the plain forward's, and the output bit-identical to a launch
           without them) at every head dim (16, 32, 64, 96, 128, 256): G =
@@ -307,6 +311,16 @@ Phases, each printed as one JSON line:
           off: bf16 within 5e-2 and f32 within 1e-4 x max(1, max|ref|),
           exactly n_layers x cp partial flash launches a fused forward (ring
           attention's hops) and n_layers unfused;
+  train_ring  ``ring_attention`` under grad on a ring of 8 PEs (``cp``;
+          B 1 and 1,024 tokens a PE: one causal sequence of 8,192) at
+          qwen3-1.7b's attention widths (16 / 8 heads of 128) in bf16 and
+          f32 (TF32 off) and at gemma3-1b's (4 / 1 heads of 256, window
+          512) in bf16: dq, dk and dv each within FLASH_BWD_TOL of its own
+          max|ref| against the gather-then-attend plain version in f32
+          under autograd (global positions); exactly 8 partial forward and
+          8 partial backward launches a step (one a hop), no full backward
+          launch and no plain version called. The inputs of the last bf16
+          qwen3 step's partial backwards, one a hop, are kept;
   train   full-width qwen3-1.7b (TRAIN_LAYERS = 10 of its 28 layers)
           training through ``Trainer`` at 1 PE, at
           8 PEs as the launcher lays them out (tp 8) and at 8 PEs as data
@@ -449,6 +463,12 @@ Phases, each printed as one JSON line:
           rows of up to 1,024 keys (a cluster split among them), with the
           lane-group rounding the form had before as the control that must
           fail; mode 2's decode time beside mode 0's (LOWP_DECODE_ROWS).
+          Over several key chunks (LOWP_CHUNK_P_CASES: the forward form at
+          1,024, 2,048 and 3,008 keys, the decode form at 512, 3,008 and
+          4,096, clusters of 8 among them) mode 2's p, rounded against the
+          reference's running chunk max, is held the same way, with p
+          rounded against 64-key tiles (forward) and against the row max
+          (decode) as the controls that must fail.
           The kernel phase also holds decode's strided launch: qwen3's
           decode shape on one unit's view of a (1, 8) cube cache (not
           contiguous; the launch must get it so) and of a 1-PE one (dense,
@@ -474,6 +494,9 @@ Phases, each printed as one JSON line:
   main_path  each kernel on the inputs the serve, serve_mixtral,
           serve_prefill, serve_llava, serve_jamba, fused_forward, train,
           train_moe_rwkv, train_llava, train_jamba and apps phases kept
+          (and train_ring's partial backwards: the last, hop 0, checked
+          and timed, every hop timed and summed beside autograd of SDPA
+          over the gathered sequence, the whole ring's gradient)
           (the G = 7 and G = 8 rows, llava's and jamba's, also listed
           apart in the kernels line's ``group_rows``; the
           shapes and positions the path gives it; for
@@ -1160,7 +1183,8 @@ def _strided_decode_checks(dev) -> dict:
     copy of the same slice, within KERNEL_TOL (int8: q's); records whether
     the launch got a non-contiguous k (required at 8 PEs, dense at 1 PE)
     and, at 8 PEs, times the launch on the view, on a contiguous copy and
-    the copy itself (what decode no longer does: K and V, each layer)."""
+    the copy itself (what decode no longer does: K and V, each layer),
+    with the launch's bound and SDPA on the same view (none for int8)."""
     from repro_torch.kernels.attention import flash, ref
     from repro_torch.models import layers
     from repro_torch.models.blocks import quantize_kv
@@ -1236,6 +1260,18 @@ def _strided_decode_checks(dev) -> dict:
                 row["copy_ms"] = time_ms(lambda: (
                     view.contiguous(), vview.contiguous(),
                     *(t.contiguous() for t in sview.values())))
+                row.update(_int8_bound(qf, view, sview["k_scale"], qp, kp,
+                                       True, -1, True) if scales else
+                           _bound(qf, view, qp, kp, True, -1, True))
+                row["library_ms"] = None    # no PyTorch call takes int8 K/V
+                if not scales:   # SDPA on the same view: its (C, B_l) lead
+                    # as SDPA's batch dims; every key is visible (no mask)
+                    qv = qf.reshape(tuple(view.shape[:2]) + (1, sh["H"],
+                                                             sh["hd"]))
+                    row["library_ms"] = time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qv.transpose(-3, -2), view.transpose(-3, -2),
+                            vview.transpose(-3, -2), enable_gqa=True))
             ok_all &= row["ok"]
             rows.append(row)
             del kc, vc, k, v, got, want, flat
@@ -1359,11 +1395,112 @@ def _lowp_decode_p(dev) -> dict:
             for mode in (0, 2)}
         rows.append({"name": name, "q": [B, Sq, H, 128],
                      "kv": [B, Sk, KV, 128], "ms_mode0": ms[0],
-                     "ms_mode2": ms[2], "ratio": ms[2] / ms[0]})
+                     "ms_mode2": ms[2], "ratio": ms[2] / ms[0],
+                     **_bound(q, k, q_pos, k_pos, True, -1, True)})
     return {"ok": (all(c["form"] == "decode" for c in cases)
                    and dev_all <= LOWP_DECODE_P_TOL < ctrl_all),
             "dev": dev_all, "control_dev": ctrl_all,
             "tol": LOWP_DECODE_P_TOL, "cases": cases, "timing": rows}
+
+
+# Mode 2's p over several key chunks (C4): the reference rounds p against
+# M_c, the running max over its chunks of C = Sk / nc keys (nc = Sk //
+# 1,024 from 2,048 keys on; the last takes any remainder), and rescales
+# an earlier chunk's p by exp(M_c - m) in f32. Read one key at a time
+# through one-hot v (``_onehot_p``) in each bf16 form and held, as
+# LOWP_DECODE_P_CASES are, within LOWP_DECODE_P_TOL of the plain version's
+# p (sum |p - p_plain| / sum p_plain over the visible keys). The controls
+# must lie beyond it: in the forward form p rounded against the running
+# max of its 64-key tiles (the form before the repair), in the decode form
+# p rounded against the row's max (the ROWMAX form before it) where there
+# are several chunks. B, Sq, Sk, H, KV, hd, window, q0 (causal; the
+# forward form: Sq * G > 8 rows a kv head).
+LOWP_CHUNK_P_CASES = {
+    "forward": [(1, 16, 1024, 8, 2, 128, -1, 1030),
+                (1, 16, 2048, 8, 2, 128, -1, 2040),
+                (1, 16, 3008, 8, 2, 128, -1, 3000),
+                (1, 16, 3008, 4, 1, 256, -1, 3000),
+                (2, 32, 2048, 8, 8, 64, 1500, 2047)],
+    "decode": [(2, 1, 512, 16, 8, 128, -1, 520),
+               (2, 1, 4096, 16, 8, 128, -1, 4100),
+               (17, 1, 4096, 8, 8, 64, -1, 4100),
+               (2, 1, 3008, 8, 2, 128, 2500, 3007),
+               (2, 1, 4096, 8, 1, 256, -1, 4095)]}
+
+
+def _p_tiles(s, tile: int = 64):
+    """p of each key rounded against the running max of the ``tile``-key
+    tiles up to its own, times exp(running max - row max): the forward
+    form's mode-2 p before C4's repair."""
+    from repro_torch.kernels.attention import ref
+    Sk = s.shape[-1]
+    x = torch.nn.functional.pad(s, (0, -Sk % tile), value=-3e38)
+    run = x.reshape(s.shape[:-1] + (-1, tile)).amax(-1).cummax(-1).values
+    run = run.repeat_interleave(tile, -1)[..., :Sk].clamp_min(ref.NEG_INF)
+    m = s.amax(-1, keepdim=True).clamp_min(ref.NEG_INF)
+    return ref.bf16(torch.exp(ref.bf16(s - ref.bf16(run)))) \
+        * torch.exp(run - m)
+
+
+def _p_row_max(s):
+    """p of each key rounded against the row's max: the decode form's
+    mode-2 p before C4's repair."""
+    from repro_torch.kernels.attention import ref
+    m = s.amax(-1, keepdim=True).clamp_min(ref.NEG_INF)
+    return ref.bf16(torch.exp(ref.bf16(s - ref.bf16(m))))
+
+
+def _lowp_chunk_p(dev) -> dict:
+    """Mode 2's p one key at a time in both bf16 forms against the plain
+    version's on LOWP_CHUNK_P_CASES, with each form's control."""
+    from repro_torch.kernels.attention import flash, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    forms, cases = {}, []
+    for form, rows in LOWP_CHUNK_P_CASES.items():
+        # mass, deviation; the control's mass and deviation (its cases)
+        sums = [0.0, 0.0, 0.0, 0.0]
+        for (B, Sq, Sk, H, KV, hd, window, q0) in rows:
+            q, k, _ = _attn_inputs(gen, torch.bfloat16, B, Sq, Sk, H, KV, hd,
+                                   dev)
+            q_pos, k_pos = _case_positions(B, Sq, Sk, q0, 0, False, dev)
+            geo = flash.launch_geometry(B, Sq, Sk, H, KV, hd, torch.bfloat16)
+            got = _onehot_p(flash.flash_attention, q, k, q_pos, k_pos, True,
+                            window)
+            torch.cuda.synchronize()
+            want = _onehot_p(ref.flash_attention, q, k, q_pos, k_pos, True,
+                             window)
+            s = _mode2_scores(q, k, q_pos, k_pos, True, window)
+            nc = ref.lowp_chunks(Sk)[0]
+            ctrl = _p_tiles(s) if form == "forward" else (
+                _p_row_max(s) if nc > 1 else None)
+            vis = ref.mask(q_pos, k_pos, True, window)[:, None].expand(
+                want.shape)
+            mass = float(want[vis].sum())
+            dev_k = float((got - want).abs()[vis].sum())
+            row = {"form": geo.form, "shape": [B, Sq, Sk, H, KV, hd],
+                   "window": window, "chunks": nc,
+                   "key_splits": geo.key_splits, "dev": dev_k / mass,
+                   "ok": geo.form == form}
+            sums[0] += mass
+            sums[1] += dev_k
+            if ctrl is not None:
+                dev_c = float((ctrl - want).abs()[vis].sum())
+                row["control_dev"] = dev_c / mass
+                sums[2] += mass
+                sums[3] += dev_c
+            cases.append(row)
+            del got, want, s, ctrl
+        f = {"dev": sums[1] / sums[0],
+             "control": ("64-key tiles" if form == "forward"
+                         else "row max, where there are several chunks"),
+             "control_dev": sums[3] / max(sums[2], 1e-30),
+             "tol": LOWP_DECODE_P_TOL}
+        f["ok"] = sums[2] > 0 and f["dev"] <= LOWP_DECODE_P_TOL < \
+            f["control_dev"]
+        forms[form] = f
+    return {"ok": all(f["ok"] for f in forms.values())
+            and all(c["ok"] for c in cases), "forms": forms, "cases": cases}
 
 
 # flash backward sweep: B, Sq, Sk, H, KV, causal, window, q0, k0, hd.
@@ -1479,6 +1616,83 @@ def _flash_bwd_checks(dev) -> dict:
                                bool(torch.equal(base, o)),
                            "deterministic": same, "ok": ok})
     return {"ok": ok_all, "checks": checks}
+
+
+# The backward kernel's partial form (ring attention's hops): B, S, H, KV,
+# hd, window, q hop, k hop, dacc (False: zero, so that dl alone drives
+# ds). Queries sit at q_hop * S + arange(S), keys at k_hop * S + arange(S),
+# causal: a hop on the diagonal (q_hop = k_hop), a hop wholly visible
+# (q_hop > k_hop), a hop wholly masked (keys all ahead: m = -1e30, p = 1 on
+# every key), a windowed hop; at hd 64, 128 and 256, G = 1, 2 and 7.
+PARTIAL_BWD_CASES = [
+    *[(2, 256, G * kv, kv, hd, -1, 1, 1, True)
+      for hd in (64, 128, 256) for G, kv in ((1, 4), (2, 4), (7, 2))],
+    (2, 256, 16, 8, 128, -1, 2, 1, True),       # wholly visible
+    (2, 256, 16, 8, 128, -1, 0, 1, True),       # wholly masked
+    (1, 256, 14, 2, 128, -1, 0, 3, True),       # wholly masked, G = 7
+    (2, 256, 16, 8, 128, 300, 2, 1, True),      # windowed
+    (2, 256, 4, 1, 256, 100, 1, 1, True),       # windowed, hd 256
+    (2, 256, 16, 8, 128, -1, 1, 1, False),      # dl alone
+    (2, 200, 8, 4, 64, -1, 1, 1, False),        # dl alone, off the tiles
+]
+
+
+def _partial_bwd_inputs(gen, dtype, case, dev):
+    """A PARTIAL_BWD_CASES row's q, k, v, the forward kernel's partial m
+    on them, random cotangents dacc (or zeros) and dl, and positions."""
+    from repro_torch.kernels.attention import flash
+    B, S, H, KV, hd, window, qh, kh, with_dacc = case
+    q, k, v = _attn_inputs(gen, dtype, B, S, S, H, KV, hd, dev)
+    q_pos, k_pos = _case_positions(B, S, S, qh * S, kh * S, False, dev)
+    m = flash.flash_attention(q, k, v, q_pos, k_pos, window=window,
+                              partial=True)[1]
+    dacc = torch.randn((B, H, S, hd), generator=gen, device=dev)
+    if not with_dacc:
+        dacc.zero_()
+    dl = torch.randn((B, H, S), generator=gen, device=dev)
+    return (q, k, v, m, dacc, dl, q_pos, k_pos), {"causal": True,
+                                                  "window": window}
+
+
+def _partial_bwd_checks(dev) -> dict:
+    """The backward kernel's partial form against
+    ``ref.flash_attention_partial_backward`` on PARTIAL_BWD_CASES in f32
+    and bf16: dq, dk and dv each within FLASH_BWD_TOL of its own
+    max|plain| (a zero output exactly 0); two launches bit-identical; each
+    launch counted in ``PARTIAL_LAUNCHES`` and none in ``LAUNCHES``."""
+    from repro_torch.kernels.attention import flash_bwd, ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    checks, ok_all = [], True
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in PARTIAL_BWD_CASES:
+            args, kw = _partial_bwd_inputs(gen, dtype, case, dev)
+            full0, part0 = flash_bwd.LAUNCHES, flash_bwd.PARTIAL_LAUNCHES
+            got = flash_bwd.flash_attention_partial_backward(*args, **kw)
+            again = flash_bwd.flash_attention_partial_backward(*args, **kw)
+            torch.cuda.synchronize()
+            counted = (flash_bwd.PARTIAL_LAUNCHES - part0 == 2
+                       and flash_bwd.LAUNCHES == full0)
+            want = ref.flash_attention_partial_backward(*args, **kw)
+            errs, peaks = _rel_to_peak(got, want)
+            same = all(torch.equal(_bits(a), _bits(b))
+                       for a, b in zip(got, again))
+            dead = int((args[3] <= -1e29).sum())
+            ok = (max(errs) <= FLASH_BWD_TOL[dtype] and same and counted
+                  and all(bool(torch.isfinite(g).all()) for g in got))
+            ok_all &= ok
+            B, S, H, KV, hd, window, qh, kh, with_dacc = case
+            checks.append({"dtype": str(dtype).split(".")[-1],
+                           "shape": [B, S, S, H, KV, hd], "window": window,
+                           "hops": [qh, kh], "dacc": with_dacc,
+                           "rows_without_key": dead,
+                           "dq_err": errs[0], "dk_err": errs[1],
+                           "dv_err": errs[2], "max_abs_plain": peaks,
+                           "deterministic": same, "counted": counted,
+                           "ok": ok})
+    return {"ok": ok_all, "tol": {str(d).split(".")[-1]: t
+                                  for d, t in FLASH_BWD_TOL.items()},
+            "checks": checks}
 
 
 # the flash kernel's int8 decode form (the int8 KV cache: int8 codes, one
@@ -1654,8 +1868,10 @@ def phase_kernel(dev) -> dict:
     lowp = _lowp_checks(dev)
     lowp_rows = _lowp_rows(dev)
     lowp_decode_p = _lowp_decode_p(dev)
+    lowp_chunk_p = _lowp_chunk_p(dev)
     strided = _strided_decode_checks(dev)
     bwd = _flash_bwd_checks(dev)
+    partial_bwd = _partial_bwd_checks(dev)
     reorder = _reorder_checks(dev)
     sweep = _reorder_sweep(dev)
     reorder_grad = _reorder_grad_checks(dev)
@@ -1663,15 +1879,19 @@ def phase_kernel(dev) -> dict:
     rwkv_bwd = _rwkv6_bwd_checks(dev)
     return {"ok": (attn["ok"] and all(r["ok"] for r in long_rows)
                    and lowp["ok"] and all(r["ok"] for r in lowp_rows)
-                   and lowp_decode_p["ok"] and strided["ok"]
+                   and lowp_decode_p["ok"] and lowp_chunk_p["ok"]
+                   and strided["ok"]
                    and int8["ok"] and all(r["ok"] for r in int8_rows)
-                   and bwd["ok"] and reorder["ok"] and sweep["ok"]
+                   and bwd["ok"] and partial_bwd["ok"]
+                   and reorder["ok"] and sweep["ok"]
                    and reorder_grad["ok"] and rwkv["ok"] and rwkv_bwd["ok"]),
             "checks": attn["checks"], "flash_long_rows": long_rows,
             "lowp": lowp, "lowp_rows": lowp_rows,
-            "lowp_decode_p": lowp_decode_p, "strided_decode": strided,
+            "lowp_decode_p": lowp_decode_p, "lowp_chunk_p": lowp_chunk_p,
+            "strided_decode": strided,
             "int8_decode": int8, "int8_rows": int8_rows,
-            "flash_backward": bwd, "reorder": reorder,
+            "flash_backward": bwd, "flash_partial_backward": partial_bwd,
+            "reorder": reorder,
             "reorder_sweep": sweep,
             "reorder_backward": reorder_grad, "rwkv6": rwkv,
             "rwkv6_backward": rwkv_bwd}
@@ -3232,6 +3452,196 @@ def phase_fused_forward(dev, kept: dict) -> dict:
             "cube": cube.describe(), "tokens": [FUSED_BATCH, FUSED_SEQ],
             "s_loc": FUSED_SEQ // cp, "runs": runs,
             "flash_launches": launches, "peak_mem_gb": peak}
+
+
+# Ring attention under grad (B6): ``ring_attention`` over ``cp`` on a
+# virtual ring of RING_PES PEs, one sequence of RING_PES x RING_S_LOC
+# tokens (B 1 a PE), each hop's partial forward and backward one launch of
+# the kernels'; name: (arch, H, KV, hd, window, dtypes). qwen3-1.7b's
+# attention widths causal, and gemma3-1b's with its local window.
+RING_PES, RING_S_LOC = 8, 1024
+RING_CELLS = {"qwen3": (ARCH, 16, 8, 128, -1,
+                        (torch.bfloat16, torch.float32)),
+              "gemma3": ("gemma3-1b", 4, 1, 256, 512, (torch.bfloat16,))}
+
+
+def _ring_reference(q, k, v, w, window):
+    """Gradients of sum(out * w), out the gather-then-attend plain version
+    in f32 under autograd over the ring's concatenated sequence at its
+    global positions (PE r's keys and queries at r * S_loc + arange), in
+    the ring's layout (g, B, S_loc, heads, hd)."""
+    from repro_torch.kernels.attention import ref
+    g, B, S, _, hd = q.shape
+
+    def gathered(t):
+        return (t.detach().float().transpose(0, 1)
+                .reshape(B, g * S, t.shape[-2], hd).requires_grad_())
+    qf, kf, vf = gathered(q), gathered(k), gathered(v)
+    pos = torch.arange(g * S, device=q.device, dtype=torch.int32).expand(
+        B, -1).contiguous()
+    out = ref.flash_attention(qf, kf, vf, pos, pos, causal=True,
+                              window=window)
+    (out * gathered(w).detach()).sum().backward()
+    return [t.grad.reshape(B, g, S, t.shape[-2], hd).transpose(0, 1)
+            for t in (qf, kf, vf)]
+
+
+def phase_train_ring(dev, kept_ring: dict) -> dict:
+    """``ring_attention`` under grad on RING_CELLS: sum(out * w) with w a
+    random cotangent, backward through the ring. Gates: dq, dk and dv each
+    within FLASH_BWD_TOL of its own max|ref| (``_ring_reference``);
+    exactly RING_PES partial forward launches and RING_PES partial
+    backward launches a step (one each a hop), no full backward launch and
+    no plain version called (counted from 0 just before the step, read
+    just after). In the bf16 qwen3 step every hop's partial backward is
+    timed on its inputs (``hop_ms``), and the last one's inputs are kept
+    for main_path."""
+    from repro_torch.core.hypercube import Hypercube
+    from repro_torch.kernels.attention import flash, flash_bwd, ref
+    from repro_torch.kernels.collective import ring_attention
+    comm = Hypercube.build({"cp": RING_PES}).comm("cp")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    cells, ok_all, launches = {}, True, 0
+    for name, (arch, H, KV, hd, window, dtypes) in RING_CELLS.items():
+        for dtype in dtypes:
+            shape = (RING_PES, 1, RING_S_LOC)
+            q, k, v = (torch.randn(shape + (n, hd), generator=gen,
+                                   device=dev).to(dtype)
+                       for n in (H, KV, KV))
+            w = torch.randn(shape + (H, hd), generator=gen, device=dev)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            hops, plain, forms, last = [], [], [], {}
+
+            def keep(fn):
+                def kept_call(*a, **kw):
+                    # the saved q, k, v are the leaves: kept detached
+                    hops.append((tuple(t.detach() for t in a), kw))
+                    return fn(*a, **kw)
+                return kept_call
+
+            def count(fn):
+                def counted(*a, **kw):
+                    plain.append(fn.__name__)
+                    return fn(*a, **kw)
+                return counted
+            flash.LAUNCHES = 0
+            flash_bwd.LAUNCHES = flash_bwd.PARTIAL_LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as st:
+                st.enter_context(watch_flash(forms, last))
+                st.enter_context(patched(
+                    flash_bwd, "flash_attention_partial_backward", keep))
+                for fn in ("flash_attention", "flash_attention_backward",
+                           "flash_attention_partial_backward"):
+                    st.enter_context(patched(ref, fn, count))
+                out = ring_attention(comm, *leaves, causal=True,
+                                     window=window)
+                fwd = flash.LAUNCHES
+                (out.float() * w).sum().backward()
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {"forward": fwd, "forward_partial": sum(forms),
+                      "partial_backward": flash_bwd.PARTIAL_LAUNCHES,
+                      "full_backward": flash_bwd.LAUNCHES,
+                      "plain_calls": len(plain)}
+            want = _ring_reference(q, k, v, w, window)
+            got = [t.grad for t in leaves]
+            errs, peaks = _rel_to_peak(got, want)
+            tol = FLASH_BWD_TOL[dtype]
+            row = {"arch": arch, "q": list(q.shape), "kv": list(k.shape),
+                   "window": window, "dtype": str(dtype).split(".")[-1],
+                   "dq_err": errs[0], "dk_err": errs[1], "dv_err": errs[2],
+                   "max_abs_ref": peaks, "tol": tol,
+                   "max_abs_err": max(float((g.float() - r).abs().max())
+                                      for g, r in zip(got, want)),
+                   "launches": counts, "s": secs}
+            row["ok"] = (max(errs) <= tol and counts == {
+                "forward": RING_PES, "forward_partial": RING_PES,
+                "partial_backward": RING_PES, "full_backward": 0,
+                "plain_calls": 0}
+                and all(bool(torch.isfinite(g).all()) for g in got))
+            ok_all &= row["ok"]
+            launches += counts["partial_backward"]
+            cells[f"{name}/{row['dtype']}"] = row
+            if name == "qwen3" and dtype == torch.bfloat16:
+                # every hop's partial backward timed; the last kept
+                kept_ring["hop_ms"] = [
+                    time_ms(lambda a=a, k2=k2:
+                            flash_bwd.flash_attention_partial_backward(
+                                *a, **k2)) for a, k2 in hops]
+                kept_ring["hop_rows_without_key"] = [
+                    int((a[3] <= -1e29).sum()) for a, _ in hops]
+                kept_ring["hop"] = hops[-1]
+                kept_ring["gathered"] = (q, k, v, w, window)
+            del q, k, v, w, leaves, out, got, want
+            torch.cuda.empty_cache()
+    return {"ok": ok_all and len(kept_ring.get("hop_ms", ())) == RING_PES,
+            "pes": RING_PES, "s_loc": RING_S_LOC, "cells": cells,
+            "partial_backward_launches": launches}
+
+
+def _partial_bwd_main_path(kept_ring: dict) -> dict:
+    """The partial backward on train_ring's last hop (qwen3, bf16) against
+    the plain version (FLASH_BWD_TOL of each output's own max|plain|),
+    then timed with the plain version and the bound (10 hd FLOPs a visible
+    (query head, key) pair of this hop; each input and output byte once:
+    q, k, v, m, dacc, dl, positions; dq, dk, dv); beside it every hop of
+    that step as train_ring timed it (``ring_ms``, their sum: the ring's
+    backward launches; the backward runs the hops last to first, so the
+    last is hop 0, the PE's own block). The
+    library yardstick is the whole ring's gradient: autograd of SDPA over
+    the gathered sequence with a boolean mask, between CUDA events
+    (``library_ms``), which the port never calls. Its profiled device time
+    is not reported: on the H100 that profile missed kernels (its sum read
+    below the tensor-core time of the pairs it computes)."""
+    from repro_torch.kernels.attention import flash_bwd, ref
+    args, kw = kept_ring["hop"]
+    got = flash_bwd.flash_attention_partial_backward(*args, **kw)
+    want = ref.flash_attention_partial_backward(*args, **kw)
+    torch.cuda.synchronize()
+    errs, peaks = _rel_to_peak(got, want)
+    abs_err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+    del got, want
+    q, k, v, m, dacc, dl, q_pos, k_pos = args
+    B, Sq, H, hd = q.shape
+    es = q.element_size()
+    nbytes = (es * 2 * (q.numel() + k.numel() + v.numel())
+              + 4 * (m.numel() + dacc.numel() + dl.numel() + q_pos.numel()
+                     + k_pos.numel()))
+    visible = int(ref.mask(q_pos, k_pos, kw["causal"], kw["window"]).sum())
+    flops = 10 * hd * H * visible
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[q.dtype]
+    hop_ms = kept_ring["hop_ms"]
+    gq, gk, gv, w, window = kept_ring["gathered"]
+    g, Bg, S, _, _ = gq.shape
+    full = [t.transpose(0, 1).reshape(Bg, g * S, t.shape[-2], hd)
+            .contiguous() for t in (gq, gk, gv)]
+    do = w.transpose(0, 1).reshape(Bg, g * S, H, hd).to(gq.dtype)
+    pos = torch.arange(g * S, device=gq.device, dtype=torch.int32).expand(
+        Bg, -1).contiguous()
+    mask = {"attn_mask": _sdpa_forms(pos, pos, True, window)["attn_mask"][
+        "attn_mask"]}
+    lib_ms = _event_ms(_sdpa_backward(*full, do, mask))
+    return {"name": f"train_ring/{RING_PES}pe", "dtype": "bfloat16",
+            "q": list(q.shape), "kv": list(k.shape), **kw,
+            "rows_without_key": int((m <= -1e29).sum()),
+            "err": dict(zip(("dq", "dk", "dv"), errs)),
+            "max_abs_plain": dict(zip(("dq", "dk", "dv"), peaks)),
+            "max_abs_err": abs_err, "ok": max(errs) <= FLASH_BWD_TOL[q.dtype],
+            "ms": hop_ms[-1], "hop_ms": hop_ms, "ring_ms": sum(hop_ms),
+            "hop_rows_without_key": kept_ring["hop_rows_without_key"],
+            "plain_ms": time_ms(lambda: ref.flash_attention_partial_backward(
+                *args, **kw), reps=2, iters=5),
+            "library_ms": lib_ms,
+            "library": "autograd of SDPA over the gathered sequence "
+                       f"({Bg}, {g * S}, {H}, {hd}), boolean mask: the "
+                       "whole ring's gradient",
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
 
 
 def _moe_run(dev, pes, dtype, kept=None, kept_reorder=None, *,
@@ -7246,7 +7656,7 @@ def phase_examples(dev) -> dict:
 
 def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
                     kept_bwd: dict, kept_rwkv6_train: dict,
-                    kept_rwkv6_bwd: dict) -> dict:
+                    kept_rwkv6_bwd: dict, kept_ring: dict) -> dict:
     """Each kernel on the inputs of its last launch in each form and run of
     the serve, serve_moe, serve_rwkv, serve_dense, fused_forward, train
     and train_moe_rwkv phases (and the reorder's first launch of a DLRM
@@ -7320,6 +7730,7 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
     rwkv_bwd = [_rwkv6_bwd_main_path(name, kept_rwkv6_bwd[name])
                 for name in sorted(kept_rwkv6_bwd)]
     rwkv_states = _rwkv6_states_main_path(kept_rwkv6_train)
+    ring_bwd = _partial_bwd_main_path(kept_ring)
     # every training layout's rows: flash at qwen3's and at each attention
     # arch's of train_moe_rwkv, RWKV6 at rwkv6's
     flash_lays = list(TRAIN_LAYOUTS) + [
@@ -7349,14 +7760,16 @@ def phase_main_path(kept: dict, kept_reorder: dict, kept_rwkv6: dict,
                    and len(rwkv_bwd) == len(TRAIN_MR_PES)
                    and all(t["ok"] for t in rwkv_bwd)
                    and len(rwkv_states) == len(TRAIN_MR_PES)
-                   and all(t["ok"] for t in rwkv_states)),
+                   and all(t["ok"] for t in rwkv_states)
+                   and ring_bwd["ok"]),
             "missing_training_rows": missing,
             "main_path": timings, "reorder": reorder, "reorder_dlrm": dlrm,
             "reorder_prefill": reshard, "reorder_train": train_swz,
             "reorder_mixtral": mixtral_swz, "reorder_whisper": whisper_swz,
             "reorder_llava_jamba": new_swz,
             "rwkv6": rwkv, "rwkv6_train_forward": rwkv_states,
-            "flash_backward": bwd, "rwkv6_backward": rwkv_bwd}
+            "flash_backward": bwd, "rwkv6_backward": rwkv_bwd,
+            "flash_partial_backward": ring_bwd}
 
 
 def _event_ms(fn, iters: int = 10) -> float:
@@ -7375,13 +7788,14 @@ def _event_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int = 10, attempts: int = 3) -> float:
+def _device_ms(fn, iters: int = 10, attempts: int = 5) -> float:
     """Device time of one ``fn()`` call: the durations of the kernels it
     launches under ``torch.profiler``, summed, without the host's gaps
     between them (for a call that autograd drives, which ``time_ms`` cannot
     capture in a graph). A profile that traced no device event is taken
     again, up to ``attempts`` times: late in a run that has profiled many
-    times, one such profile came back empty on the H100."""
+    times, one such profile came back empty on the H100, and once three
+    in a row."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
@@ -7564,6 +7978,36 @@ def _rwkv6_bwd_entry(rows: list, launches: int, kernel: dict) -> dict:
         "off_main_path": kernel["timed"]}
 
 
+def _partial_bwd_entry(row: dict, ring: dict) -> dict:
+    """The kernels line's entry of the backward kernel's partial form
+    (``flash_bwd.flash_attention_partial_backward``, under
+    ``ops.FlashAttentionPartial``: ring attention's hops under grad): its
+    numbers on train_ring's last hop, every hop of that step and the ring's
+    sum beside the library's whole-ring gradient. The JAX package has no
+    Pallas backward: ``replaces`` names the jnp function whose autodiff
+    ``jax.grad`` of its ring attention takes."""
+    return {
+        "name": "flash_attention_partial_backward", "route": "cuda",
+        "source": FLASH_BWD_SOURCE, "replaces": FLASH_BWD_REPLACES,
+        "entry": "flash_bwd.flash_attention_partial_backward "
+                 "(ops.FlashAttentionPartial)",
+        "launches": ring["partial_backward_launches"],
+        "launches_by_path": {f"{ARCH}/train_ring": sum(
+            c["launches"]["partial_backward"] for c in ring["cells"].values()
+            if c["arch"] == ARCH),
+            "gemma3-1b/train_ring": sum(
+                c["launches"]["partial_backward"]
+                for c in ring["cells"].values() if c["arch"] != ARCH)},
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "at": row["name"],
+        "q": row["q"], "kv": row["kv"],
+        "rows_without_key": row["rows_without_key"],
+        "hop_ms": row["hop_ms"], "ring_ms": row["ring_ms"],
+        "library": row["library"]}
+
+
 def _why(res, path: str = "") -> list:
     """Where a failed phase's result says it failed: its ``error``, each
     nested ``"ok": false`` and each ``failed_gates`` list, by path."""
@@ -7609,7 +8053,10 @@ def _lowp_entry(mode: int, kernel: dict, lowp: dict) -> dict:
                       for form, st in kernel["lowp"]["row_stats"].items()
                       if form.startswith(f"lowp{mode}/")},
         **({"p_rounding": {k: kernel["lowp"]["p_rounding"][k] for k in (
-            "dev", "control_dev")}} if mode == 2 else {}),
+            "dev", "control_dev")},
+            "p_chunks": {form: {k: f[k] for k in ("dev", "control_dev")}
+                         for form, f in kernel["lowp_chunk_p"][
+                             "forms"].items()}} if mode == 2 else {}),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "at": head["name"],
@@ -7645,7 +8092,7 @@ def main() -> int:
     t_all = time.perf_counter()
     results, failed, kept, kept_reorder, kept_rwkv6 = {}, [], {}, {}, {}
     kept_bwd, moe_sort, kept_rwkv6_bwd, kept_rwkv6_train = {}, {}, {}, {}
-    kept_int8 = {}
+    kept_int8, kept_ring = {}, {}
     kept_train = {"flash": kept, "flash_bwd": kept_bwd,
                   "reorder": kept_reorder, "rwkv6": kept_rwkv6_train,
                   "rwkv6_bwd": kept_rwkv6_bwd}
@@ -7687,6 +8134,8 @@ def main() -> int:
                      ("tune", lambda: phase_tune(dev)),
                      ("fused_forward", lambda: phase_fused_forward(dev,
                                                                    kept)),
+                     ("train_ring", lambda: phase_train_ring(dev,
+                                                             kept_ring)),
                      ("train", lambda: phase_train(dev, kept, kept_bwd)),
                      ("train_moe_rwkv", lambda: phase_train_moe_rwkv(
                          dev, kept_train)),
@@ -7700,12 +8149,13 @@ def main() -> int:
                      ("examples", lambda: phase_examples(dev)),
                      ("main_path", lambda: phase_main_path(
                          kept, kept_reorder, kept_rwkv6, kept_bwd,
-                         kept_rwkv6_train, kept_rwkv6_bwd))):
+                         kept_rwkv6_train, kept_rwkv6_bwd, kept_ring))):
         needs = {"main_path": ("serve", "serve_moe", "serve_rwkv",
                                "serve_mixtral", "serve_dense",
                                "serve_whisper", "serve_llava",
                                "serve_jamba", "serve_prefill", "apps",
-                               "fused_forward", "train", "train_moe_rwkv",
+                               "fused_forward", "train_ring", "train",
+                               "train_moe_rwkv",
                                "train_llava", "train_jamba", "checkpoint"),
                  "serve_prefill": ("build", "serve_moe"),
                  "checkpoint": ("build", "train")}.get(name, ("build",))
@@ -7895,7 +8345,9 @@ def main() -> int:
             **{f"{a}/train": mr[a]["flash_bwd"] for a in mr_attn},
             **{p: n["backward"] for p, n in ex.items() if n["backward"]}}),
         _rwkv6_bwd_entry(kern["rwkv6_backward"], mr[RWKV_ARCH]["rwkv6_bwd"],
-                         results["kernel"]["rwkv6_backward"])],
+                         results["kernel"]["rwkv6_backward"]),
+        _partial_bwd_entry(kern["flash_partial_backward"],
+                           results["train_ring"])],
         "total_s": round(time.perf_counter() - t_all, 3)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -101,14 +101,20 @@
 // (accumulated in f32), and no scale follows it; the decode form rounds p
 // to bf16 for p v (the forward always does). 2: besides, each score is
 // rounded to bf16 before the mask (masked keys score bf16(-1e30)) and the
-// row max, and p = bf16(exp(bf16(s - bf16(m)))); l and the output
-// accumulate in f32. In the decode form m is the row's max over all its
-// keys, found by a first pass over K (the reference's m over a chunk of up
-// to 1,024 keys); the forward form rounds against the running max of its
-// 64-key tiles. The f32 forms and the int8 decode form take mode 0
-// only (the entry points refuse any other): on f32 q the reference
-// computes the mode-0 function under every mode, and the int8 cache exists
-// in decode alone, which runs mode 0. Mode 0 is the code as it was.
+// row max, and p = bf16(exp(bf16(s - bf16(M_c)))) with M_c the reference's
+// running max over its key chunks (nc = max(Sk / min(1024, Sk), 1) chunks
+// of C = Sk / nc keys, the last taking any remainder; M_c the max over
+// chunks 0 .. c, at least -1e30), weighed by exp(M_c - m) in f32; l and the
+// output accumulate in f32. Below 2,048 keys that is one chunk, M_c the
+// row's max. Both bf16 forms find the chunk maxima by a first pass over K
+// in instances of their own (decode: ROWMAX; forward: CHUNKED), which mode
+// 2 alone launches; modes 0 and 1 run the other instances, whose
+// arithmetic does not know of it. The decode form holds at most kMaxChunks
+// chunks a row (the entry point refuses more). The f32 forms and the int8
+// decode form take mode 0 only (the entry points refuse any other): on f32
+// q the reference computes the mode-0 function under every mode, and the
+// int8 cache exists in decode alone, which runs mode 0. Mode 0's arithmetic
+// is as it was.
 //
 // Registers (ptxas, printed by chip_smoke.py's build phase): see PERF.md.
 
@@ -139,6 +145,8 @@ constexpr int kDecodeWarps = 8;
 constexpr int kMaxRows = 8;        // decode form: Sq * G rows at most
 constexpr int kMaxSplits = 8;      // portable cluster size
 constexpr int kRing = 4;           // decode: warp steps in each lane's ring
+constexpr int kMaxChunks = 128;    // decode, lowp 2: the reference's key
+                                   // chunks of a row (Sk < 129 x 1,024)
 constexpr int kTileKeys = 64;      // bf16 forward key tile
 constexpr int kMaxFwdWarps = 4;    // bf16 forward: warps of a CTA
 constexpr int kMaxListTiles = 1024;  // bf16 forward: tiles with a skip list
@@ -153,6 +161,15 @@ __device__ __forceinline__ float ex<float>(float x) { return expf(x); }
 // x rounded to bf16 (nearest even), back in f32: the low-precision modes
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// a float as an int of the same order (for an integer atomicMax), and back
+__device__ __forceinline__ int ordered(float x) {
+  const int i = __float_as_int(x);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float unordered(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -314,7 +331,10 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
   __shared__ float red_ml[kDecodeWarps][RM][2];
   __shared__ float fin_acc[RM][HD];
   __shared__ float fin_ml[RM][2];
-  __shared__ float fin_max[RM];         // lowp 2: the CTA's row maxima
+  // lowp 2 (ROWMAX): each row's key-chunk maxima, as ordered ints for the
+  // atomics, then as the running max over the chunks
+  __shared__ int chunk_ord[ROWMAX ? RM : 1][ROWMAX ? kMaxChunks : 1];
+  __shared__ float chunk_max[ROWMAX ? RM : 1][ROWMAX ? kMaxChunks : 1];
   __shared__ __align__(16) float q_sh[Q_SHARED ? RM : 1][Q_SHARED ? HD : 4];
 
   const int G = H / KV;
@@ -475,19 +495,45 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
     }
   };
 
-  // lowp 2 (ROWMAX, the instances mode 2 launches): p is rounded against
-  // the row's max, as the reference rounds it (bf16(exp(bf16(s -
-  // bf16(m)))) with m the max over a chunk of up to 1,024 keys, the whole
-  // row here). A first pass over K alone finds each row's max over the
-  // CTA's keys, the lane groups, the warps and the cluster's CTAs; the key
-  // loop below then starts from it, so its running max never moves, every
-  // rescale factor is exp(0) = 1 and every merge adds. It reads K twice:
-  // the mode's price in this form. The other modes' instances hold no
-  // trace of this pass.
+  // lowp 2 (ROWMAX, the instances mode 2 launches): p is rounded as the
+  // reference rounds it, against the running max over its key chunks: nc =
+  // max(Sk / min(1024, Sk), 1) chunks of C = Sk / nc keys (the last takes
+  // any remainder), a key of chunk c rounded as bf16(exp(bf16(s -
+  // bf16(M_c)))) with M_c the f32 max of chunks 0 .. c (at least -1e30), and
+  // weighed by exp(M_c - m) in f32, m the row's max (M_{nc-1}). A first pass
+  // over K alone finds each chunk's max: each lane group keeps the max of
+  // its keys in the chunk they are in and folds it into the CTA's (an
+  // atomic max on ordered ints in shared memory) as its keys leave the
+  // chunk; the cluster's CTAs combine theirs through distributed shared
+  // memory, and the running max over the chunks follows. The key loop
+  // below then starts from m, so its running max never moves, every
+  // rescale factor is exp(0) = 1 and every merge adds. Below 2,048 keys
+  // there is one chunk: p against the row's max. It reads K twice: the
+  // mode's price in this form. The other modes' instances hold no trace of
+  // this pass.
+  const int nc = ROWMAX ? max(Sk / min(1024, Sk), 1) : 1;
+  const int C = ROWMAX ? Sk / nc : Sk;
+  // the chunk of this lane group's key of step 0, tracked as the keys move
+  const int c_first = ROWMAX ? min((first + grp) / C, nc - 1) : 0;
   if constexpr (ROWMAX) {
+    for (int e = threadIdx.x; e < RM * nc; e += blockDim.x)
+      chunk_ord[e / nc][e % nc] = ordered(kAbsent);
+    __syncthreads();
     float rmax[RM];
 #pragma unroll
-    for (int r = 0; r < RM; ++r) rmax[r] = kNegInf;
+    for (int r = 0; r < RM; ++r) rmax[r] = kAbsent;
+    int c = c_first;
+    const auto fold = [&]() {   // the group's maxima into chunk c's
+      if (sub == 0) {
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          if (r >= R) break;
+          if (rmax[r] != kAbsent)
+            atomicMax(&chunk_ord[r][c], ordered(rmax[r]));
+          rmax[r] = kAbsent;
+        }
+      }
+    };
 #pragma unroll
     for (int n = 0; n < NST - 1; ++n) fetch(n, false);
     for (int n = 0; n < steps; ++n) {         // warp-uniform
@@ -495,7 +541,12 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
       const int slot = n % NST;
       float sc[RM];
       scores(slot, sc);
-      if (first + grp + n * STEP < k_end) {
+      const int s = first + grp + n * STEP;
+      if (s < k_end) {
+        while (c < nc - 1 && s >= (c + 1) * C) {
+          fold();
+          ++c;
+        }
 #pragma unroll
         for (int r = 0; r < RM; ++r) {
           if (r >= R) break;
@@ -504,43 +555,39 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
       }
       fetch(n + NST - 1, false);
     }
+    fold();
     cp_async_wait<0>();   // the ring is free for the key loop
+    __syncthreads();      // every group's maxima are in chunk_ord
+    // each (row, chunk)'s max over the cluster's CTAs, then the running
+    // max over the chunks (chunk_ord is not written again)
+    if (gridDim.y > 1) cg::this_cluster().sync();
+    for (int e = threadIdx.x; e < R * nc; e += blockDim.x) {
+      const int r = e / nc, c2 = e % nc;
+      int x = chunk_ord[r][c2];
+      if (gridDim.y > 1) {
+        cg::cluster_group cluster = cg::this_cluster();
+        for (int y = 0; y < (int)gridDim.y; ++y)
+          x = max(x, *cluster.map_shared_rank(&chunk_ord[r][c2], y));
+      }
+      chunk_max[r][c2] = unordered(x);
+    }
+    __syncthreads();
+    if (threadIdx.x < R) {
+      float run = kNegInf;
+      for (int c2 = 0; c2 < nc; ++c2) {
+        run = fmaxf(run, chunk_max[threadIdx.x][c2]);
+        chunk_max[threadIdx.x][c2] = run;
+      }
+    }
+    __syncthreads();
 #pragma unroll
     for (int r = 0; r < RM; ++r) {
       if (r >= R) break;
-#pragma unroll
-      for (int o = LG; o < 32; o <<= 1)
-        rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(kFull, rmax[r], o));
-      if (lane == 0) red_ml[warp][r][0] = rmax[r];
-    }
-    __syncthreads();      // red_ml is written again after the key loop
-#pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      if (r >= R) break;
-      float mm = kNegInf;
-#pragma unroll
-      for (int w = 0; w < kDecodeWarps; ++w) mm = fmaxf(mm, red_ml[w][r][0]);
-      m[r] = mm;
-    }
-    if (gridDim.y > 1) {  // the cluster's CTAs: fin_max is written once
-      if (threadIdx.x == 0) {
-#pragma unroll
-        for (int r = 0; r < RM; ++r)
-          if (r < R) fin_max[r] = m[r];
-      }
-      cg::cluster_group cluster = cg::this_cluster();
-      cluster.sync();
-#pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        if (r >= R) break;
-        float mm = kNegInf;
-        for (int c = 0; c < (int)gridDim.y; ++c)
-          mm = fmaxf(mm, *cluster.map_shared_rank(&fin_max[r], c));
-        m[r] = mm;
-      }
+      m[r] = chunk_max[r][nc - 1];
     }
   }
 
+  [[maybe_unused]] int c_key = c_first;   // ROWMAX: the group's key's chunk
 #pragma unroll
   for (int n = 0; n < NST - 1; ++n) fetch(n, true);
   for (int n = 0; n < steps; ++n) {           // warp-uniform
@@ -551,6 +598,10 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
     // its scale); K's registers are free before V's are taken
     float sc[RM];
     scores(slot, sc);
+    if constexpr (ROWMAX) {   // the chunk of this group's key
+      const int s = first + grp + n * STEP;
+      while (exists && c_key < nc - 1 && s >= (c_key + 1) * C) ++c_key;
+    }
     if (exists) {
       float vf[E];
 #pragma unroll
@@ -567,8 +618,15 @@ flash_decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
         if (r >= R) break;
         const float mn = fmaxf(m[r], sc[r]);
         const float c = ex<T>(m[r] - mn);
-        const float p = lowp >= 2 ? bf16r(ex<T>(bf16r(sc[r] - bf16r(mn))))
-                                  : ex<T>(sc[r] - mn);
+        float p;
+        if constexpr (ROWMAX) {   // mn is the row's max: see the first pass
+          const float mc = chunk_max[r][c_key];
+          p = bf16r(ex<T>(bf16r(sc[r] - bf16r(mc))));
+          if (mc != mn) p *= ex<T>(mc - mn);
+        } else {
+          p = lowp >= 2 ? bf16r(ex<T>(bf16r(sc[r] - bf16r(mn))))
+                        : ex<T>(sc[r] - mn);
+        }
         l[r] = l[r] * c + p;
         const float pv = (lowp == 1 ? bf16r(p) : p) * vs;
 #pragma unroll
@@ -735,9 +793,14 @@ constexpr int mma_smem_bytes() {
 }
 
 // grid = (B * KV, ceil(Sq * G / (16 * NW))), block = 32 * NW (NW = 1, 2, 4),
-// dynamic shared memory mma_smem_bytes<HD>().
-template <int HD>
-__global__ void __launch_bounds__(128)
+// dynamic shared memory mma_smem_bytes<HD>(). CHUNKED: the instances mode 2
+// launches (see the key loop), over nc chunks of C keys (the launcher's
+// count). At least one CTA an SM: with the 128-thread bound alone ptxas
+// spilled in chunked instances and held the others to fewer registers
+// (hd 128: 173 against 218); the arithmetic, and so every bit, is the same.
+// Its time at each head dim against another tree: tools/flash_mode_ab.py.
+template <int HD, bool CHUNKED>
+__global__ void __launch_bounds__(128, 1)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -746,7 +809,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      __nv_bfloat16* __restrict__ out,
                      float* __restrict__ acc_out, float* __restrict__ m_out,
                      float* __restrict__ l_out, int Sq, int Sk, int H,
-                     int KV, int causal, int window, float scale, int lowp) {
+                     int KV, int causal, int window, float scale, int lowp,
+                     int nc, int C) {
   using bf16 = __nv_bfloat16;
   using F = FwdLayout<HD>;
   constexpr int LD = F::LD;
@@ -837,7 +901,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const bf16* kb = k + ((size_t)b * Sk * KV + kvh) * HD;
   const bf16* vb = v + ((size_t)b * Sk * KV + kvh) * HD;
   const int* kpb = k_pos + (size_t)b * Sk;
-  const auto load_tile = [&](int t, int st) {
+  // with_v false: K and the positions only (the chunk-max pass)
+  const auto load_tile = [&](int t, int st, bool with_v = true) {
     bf16* kd = ks + st * kTileKeys * LD;
     bf16* vd = vs + st * kTileKeys * LD;
     for (int e = threadIdx.x; e < kTileKeys * CH; e += blockDim.x) {
@@ -845,7 +910,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const bool ok = s < Sk;
       const size_t off = (size_t)(ok ? s : 0) * kv_row + c * 8;
       cp_async16(kd + j * LD + c * 8, kb + off, ok);
-      cp_async16(vd + j * LD + c * 8, vb + off, ok);
+      if (with_v) cp_async16(vd + j * LD + c * 8, vb + off, ok);
     }
     for (int j = threadIdx.x; j < kTileKeys; j += blockDim.x) {
       const int s = t * kTileKeys + j;
@@ -863,13 +928,37 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  r < R);
     }
   }
-  // a ring of kStages tiles: tile i sits in stage i % kStages; one commit
-  // group per tile (empty past the last), kStages - 1 of them ahead
+  // a pass runs list entries lo .. hi - 1 through a ring of kStages tiles:
+  // entry i in stage (i - lo) % kStages, one commit group per entry (empty
+  // past the last), kStages - 1 of them ahead (with_v false: K alone), and
+  // drain() empties the ring at the pass's end. Modes 0 and 1 run one pass
+  // over every live tile, its ring filled here with Q's copies in entry 0's
+  // group; the chunked instances run two a chunk (see the key loop), and
+  // Q's copies go in a group of their own.
+  const auto tile_of = [&](int i) { return listed ? tiles[i] / 2 : i; };
+  const auto preload = [&](int lo, int hi, bool with_v) {
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < n_live) load_tile(listed ? tiles[i] / 2 : i, i);
+    for (int n = 0; n < kStages - 1; ++n) {
+      if (lo + n < hi) load_tile(tile_of(lo + n), n, with_v);
+      cp_async_commit();
+    }
+  };
+  const auto advance = [&](int i, int lo, int hi, bool with_v) {
+    cp_async_wait<kStages - 2>();   // entry i has landed
+    __syncthreads();   // ... for every thread; entry i - 1 is consumed
+    const int nx = i + kStages - 1;
+    if (nx < hi) load_tile(tile_of(nx), (nx - lo) % kStages, with_v);
     cp_async_commit();
-  }
+    return (i - lo) % kStages;
+  };
+  const auto drain = [&]() {
+    cp_async_wait<0>();
+    __syncthreads();   // the ring is free for the next pass
+  };
+  if constexpr (CHUNKED)
+    cp_async_commit();
+  else
+    preload(0, n_live, true);
 
   // this warp's 16 rows: q fragments (unless Q_SHARED), positions
   const int r0 = cta_row0 + warp * 16 + quad, r1 = r0 + 8;
@@ -894,7 +983,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const float qscale = bf16r(scale);
   if (lowp) {
     if constexpr (F::Q_SHARED) {
-      cp_async_wait<kStages - 2>();   // Q came with tile 0's group
+      if constexpr (CHUNKED)
+        cp_async_wait<0>();             // Q's own group
+      else
+        cp_async_wait<kStages - 2>();   // Q came with tile 0's group
       __syncwarp();
       bf16* qw = qsm + warp * 16 * LD;
       for (int e = lane; e < 16 * HD / 2; e += 32) {
@@ -916,7 +1008,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         }
     }
   }
-  const float masked = lowp >= 2 ? bf16r(kNegInf) : kNegInf;
+  const float masked = CHUNKED ? bf16r(kNegInf) : kNegInf;
   const int qp0 = ok0 ? q_pos[(size_t)b * Sq + r0 / G] : 0;
   const int qp1 = ok1 ? q_pos[(size_t)b * Sq + r1 / G] : 0;
 
@@ -926,26 +1018,17 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int nb = 0; nb < NB; ++nb)
     o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
 
-  for (int i = 0; i < n_live; ++i) {
-    const int t = listed ? tiles[i] / 2 : i, st = i % kStages;
-    const bool full = listed && (tiles[i] & 1);
-    cp_async_wait<kStages - 2>();   // tile i has landed
-    __syncthreads();   // ... for every thread; tile i - 1 is consumed
-    const int nx = i + kStages - 1;
-    if (nx < n_live)
-      load_tile(listed ? tiles[nx] / 2 : nx, nx % kStages);
-    cp_async_commit();
-    const bf16* kt = ks + st * kTileKeys * LD;
-    const bf16* vt = vs + st * kTileKeys * LD;
-    const int* kpt = kps + st * kTileKeys;
-
-    float s[8][4];
+  // the warp's 16 rows against the 64 keys of the tile at kt: q k^T in f32
+  // accumulators (no scale applied)
+  const auto score = [&](const bf16* kt, float (&s)[8][4]) {
     if constexpr (F::Q_SHARED) {
       // two k-steps at a time: their Q fragments by ldmatrix.x4 (rows
       // lane % 16, columns + 8 for lanes 16-31), then every key block
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const bf16* qr = qsm + (warp * 16 + (lane & 15)) * LD + 8 * (lane >> 4);
+      for (int j = 0; j < 8; ++j)
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const bf16* qr =
+          qsm + (warp * 16 + (lane & 15)) * LD + 8 * (lane >> 4);
 #pragma unroll
       for (int kk = 0; kk < KT; kk += 2) {
         uint32_t a0[4], a1[4];
@@ -982,19 +1065,27 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
-    // mask and row max (over keys that exist; masked ones score -1e30)
-    float mx0 = kAbsent, mx1 = kAbsent;
+  };
+  // the scores of tile t, scaled (mode 0; the other modes scaled q) and in
+  // mode 2 rounded to bf16, then masked: masked pairs score `masked`, keys
+  // outside [k_lo, k_hi) kAbsent; full: no mask to apply. mx0 / mx1: each
+  // row's max over the keys in range (masked ones score -1e30)
+  const auto mask = [&](float (&s)[8][4], int t, bool full, const int* kpt,
+                        int k_lo, int k_hi, float& mx0, float& mx1) {
+    mx0 = kAbsent;
+    mx1 = kAbsent;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = lowp ? s[j][e] : s[j][e] * scale;
-        if (lowp >= 2) x = bf16r(x);
+        float x = CHUNKED || lowp ? s[j][e] : s[j][e] * scale;
+        if (CHUNKED) x = bf16r(x);
         if (!full) {   // CTA-uniform
           const int jj = 8 * j + 2 * qlane + (e & 1);
           const int qp = e < 2 ? qp0 : qp1;
+          const int kk = t * kTileKeys + jj;
           x = visible(qp, kpt[jj], causal, window) ? x : masked;
-          x = t * kTileKeys + jj < Sk ? x : kAbsent;
+          x = kk >= k_lo && kk < k_hi ? x : kAbsent;
         }
         s[j][e] = x;
         if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
@@ -1005,14 +1096,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
     }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = __expf(m0 - mn0), c1 = __expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    // lowp 2: p = bf16(exp(bf16(s - bf16(m))))
-    const float mb0 = lowp >= 2 ? bf16r(mn0) : mn0;
-    const float mb1 = lowp >= 2 ? bf16r(mn1) : mn1;
-    float ps0 = 0.f, ps1 = 0.f;
+  };
+  // p in place of each score, against its row's r0 / r1: exp(s - r), in
+  // mode 2 bf16(exp(bf16(s - r))) with r in bf16 (absent keys: 0); ps0 /
+  // ps1 each row's sum of this thread's p
+  const auto probs = [&](float (&s)[8][4], float r0, float r1, float& ps0,
+                         float& ps1) {
+    ps0 = ps1 = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -1020,15 +1110,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const float x = s[j][e];
         float p = 0.f;
         if (x != kAbsent) {
-          p = lowp >= 2 ? bf16r(__expf(bf16r(x - (e < 2 ? mb0 : mb1))))
-                        : __expf(x - (e < 2 ? mn0 : mn1));
+          p = CHUNKED ? bf16r(__expf(bf16r(x - (e < 2 ? r0 : r1))))
+                      : __expf(x - (e < 2 ? r0 : r1));
         }
         s[j][e] = p;
         if (e < 2) ps0 += p; else ps1 += p;
       }
     }
-    l0 = l0 * c0 + ps0;
-    l1 = l1 * c1 + ps1;
+  };
+  const auto rescale = [&](float c0, float c1) {
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
       o[nb][0] *= c0;
@@ -1036,8 +1126,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       o[nb][2] *= c1;
       o[nb][3] *= c1;
     }
-    // o += p v: p from the score accumulators (rounded to bf16), v by
-    // ldmatrix.trans, two n-blocks per load
+  };
+  // o += p v: p from the score accumulators (rounded to bf16), v of the
+  // tile at vt by ldmatrix.trans, two n-blocks per load
+  const auto add_pv = [&](const bf16* vt, const float (&s)[8][4]) {
 #pragma unroll
     for (int kt2 = 0; kt2 < kTileKeys / 16; ++kt2) {
       uint32_t a[4];
@@ -1045,8 +1137,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       a[1] = pack_bf16(s[2 * kt2][2], s[2 * kt2][3]);
       a[2] = pack_bf16(s[2 * kt2 + 1][0], s[2 * kt2 + 1][1]);
       a[3] = pack_bf16(s[2 * kt2 + 1][2], s[2 * kt2 + 1][3]);
-      const bf16* vr = vt + (16 * kt2 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD
-                       + 8 * (lane >> 4);
+      const bf16* vr =
+          vt + (16 * kt2 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
+          8 * (lane >> 4);
 #pragma unroll
       for (int nb2 = 0; nb2 < NB / 2; ++nb2) {
         uint32_t bv[4];
@@ -1054,6 +1147,85 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         mma16816(o[2 * nb2], a, bv[0], bv[1]);
         mma16816(o[2 * nb2 + 1], a, bv[2], bv[3]);
       }
+    }
+  };
+
+  if constexpr (!CHUNKED) {
+    // modes 0 and 1: one pass; a tile's p against the running max of the
+    // tiles so far, (l, o) rescaled by exp(m_old - m_new) in f32 a tile
+    for (int i = 0; i < n_live; ++i) {
+      const int st = advance(i, 0, n_live, true);
+      float s[8][4], mx0, mx1, ps0, ps1;
+      score(ks + st * kTileKeys * LD, s);
+      mask(s, tile_of(i), listed && (tiles[i] & 1), kps + st * kTileKeys, 0,
+           Sk, mx0, mx1);
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = __expf(m0 - mn0), c1 = __expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      probs(s, mn0, mn1, ps0, ps1);
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+      rescale(c0, c1);
+      add_pv(vs + st * kTileKeys * LD, s);
+    }
+  } else {
+    // Mode 2 (the reference's LOWP 2) rounds p against the running max
+    // over the reference's key chunks: nc = max(Sk / min(1024, Sk), 1)
+    // chunks of C = Sk / nc keys (the last takes any remainder), and a key
+    // of chunk c has p = bf16(exp(bf16(s - bf16(M_c)))), M_c the f32 max
+    // of the rounded scores of chunks 0 .. c (at least -1e30). Each chunk
+    // runs two passes over its live tiles: the first reads K alone and
+    // raises M to M_c, the second rounds and sums p; (l, o) are rescaled by
+    // exp(M_{c-1} - M_c) in f32 once at the chunk's start, as the
+    // reference's chunk loop rescales. A tile across a chunk's boundary
+    // runs in both chunks, each pass taking its own keys. Below 2,048 keys
+    // there is one chunk, p against the row's max. K is read twice: the
+    // mode's price in this form.
+    float M0 = kNegInf, M1 = kNegInf;
+    int lo = 0;   // the first list entry that meets chunk c
+    for (int c = 0; c < nc; ++c) {
+      const int k_lo = c * C, k_hi = c == nc - 1 ? Sk : k_lo + C;
+      while (lo < n_live && (tile_of(lo) + 1) * kTileKeys <= k_lo) ++lo;
+      int hi = lo;
+      while (hi < n_live && tile_of(hi) * kTileKeys < k_hi) ++hi;
+      // no mask: a tile visible to every row, wholly inside the chunk
+      const auto full = [&](int i) {
+        const int t = tile_of(i);
+        return listed && (tiles[i] & 1) && t * kTileKeys >= k_lo &&
+               (t + 1) * kTileKeys <= k_hi;
+      };
+      preload(lo, hi, false);   // pass 1: M up to M_c
+      for (int i = lo; i < hi; ++i) {
+        const int st = advance(i, lo, hi, false);
+        float s[8][4], mx0, mx1;
+        score(ks + st * kTileKeys * LD, s);
+        mask(s, tile_of(i), full(i), kps + st * kTileKeys, k_lo, k_hi, mx0,
+             mx1);
+        M0 = fmaxf(M0, mx0);
+        M1 = fmaxf(M1, mx1);
+      }
+      drain();
+      const float c0 = __expf(m0 - M0), c1 = __expf(m1 - M1);
+      m0 = M0;
+      m1 = M1;
+      l0 *= c0;
+      l1 *= c1;
+      rescale(c0, c1);
+      const float mb0 = bf16r(M0), mb1 = bf16r(M1);
+      preload(lo, hi, true);    // pass 2: p, l and o
+      for (int i = lo; i < hi; ++i) {
+        const int st = advance(i, lo, hi, true);
+        float s[8][4], mx0, mx1, ps0, ps1;
+        score(ks + st * kTileKeys * LD, s);
+        mask(s, tile_of(i), full(i), kps + st * kTileKeys, k_lo, k_hi, mx0,
+             mx1);
+        probs(s, mb0, mb1, ps0, ps1);
+        l0 += ps0;
+        l1 += ps1;
+        add_pv(vs + st * kTileKeys * LD, s);
+      }
+      drain();
     }
   }
   cp_async_wait<0>();   // Q_SHARED with every tile skipped: Q's copies
@@ -1340,21 +1512,30 @@ cudaError_t decode_rows(const Args& a, int rows, dim3 grid, int chunk,
   return launch_decode<T, KT, HD, 8>(a, grid, chunk, s);
 }
 
-template <int HD>
-cudaError_t launch_forward_bf16(const Args& a, dim3 grid, int warps,
-                                cudaStream_t s) {
+template <int HD, bool CHUNKED>
+cudaError_t launch_forward_mma(const Args& a, dim3 grid, int warps,
+                               cudaStream_t s) {
   constexpr int bytes = mma_smem_bytes<HD>();
+  const int nc = a.Sk < 1024 ? 1 : a.Sk / 1024;   // the reference's chunks
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_mma_kernel<HD, CHUNKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   using bf16 = __nv_bfloat16;
-  flash_fwd_mma_kernel<HD><<<grid, 32 * warps, bytes, s>>>(
+  flash_fwd_mma_kernel<HD, CHUNKED><<<grid, 32 * warps, bytes, s>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.qp, a.kp, static_cast<bf16*>(a.out),
       a.acc, a.m, a.l, a.Sq, a.Sk, a.H, a.KV, a.causal, a.window, a.scale,
-      a.lowp);
+      a.lowp, nc, a.Sk / nc);
   return cudaGetLastError();
+}
+
+// mode 2 takes the CHUNKED instances; modes 0 and 1 the others
+template <int HD>
+cudaError_t launch_forward_bf16(const Args& a, dim3 grid, int warps,
+                                cudaStream_t s) {
+  return a.lowp == 2 ? launch_forward_mma<HD, true>(a, grid, warps, s)
+                     : launch_forward_mma<HD, false>(a, grid, warps, s);
 }
 
 template <int HD>
@@ -1486,6 +1667,9 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
       (dtype != 0 && dtype != 1) || lowp < 0 || lowp > 2 ||
       (dtype == 0 && lowp != 0))
+    return cudaErrorInvalidValue;
+  // the decode form's mode 2 keeps a row's chunk maxima in shared memory
+  if (form == 0 && lowp == 2 && (Sk < 1024 ? 1 : Sk / 1024) > kMaxChunks)
     return cudaErrorInvalidValue;
   const int R = Sq * (H / KV);
   Args a{q, k, v, static_cast<const int*>(q_pos),

@@ -100,6 +100,17 @@
 // a bank. T = 64 up to head dim 128; 32 at 256, where four 64 x 257 f32
 // tiles (263 KB) would not fit in shared memory.
 //
+// The partial form (a run-time flag, one branch before each dq pass's key
+// loop): the backward of the forward's partial (acc, m, l) with m held
+// fixed, from the cotangents dacc and dl. p = exp(s - m) (1 / l taken as 1;
+// a row that sees no key has m = -1e30 and p = 1 on every key), ds = p
+// (dacc v^T + dl): the full form's arithmetic with do = dacc, D = -dl and
+// l = 1. The wrapper puts -dl and 1 into the delta scratch, and the dq pass
+// reads D where the full form computes and writes it. Exact for a loss
+// that sees (acc, m, l) only through acc e^m and l e^m (ring attention's
+// merge): the total derivative through m is zero there. A row whose dacc
+// and dl are 0 (a wholly masked ring hop's) still costs its tile loop.
+//
 // Registers, shared memory and spills of every instance (ptxas, printed by
 // chip_smoke.py's build phase): see PERF.md.
 
@@ -150,6 +161,7 @@ __device__ __forceinline__ bool sees_all(int qmin, int qmax, int kmin,
 struct Shape {
   int Sq, Sk, H, KV, causal, window;
   float scale;
+  int partial;   // the partial form: D = -dl comes in the delta scratch
 };
 
 // Row r of kv head kvh (r < G * Sq): position r / G of query head
@@ -238,9 +250,14 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       atomicMax(&bounds[1], qp[t]);
     }
   }
-  // D: warp w sums rows w T / 8 .. (w + 1) T / 8 - 1, lane over the head dim
+  // D: warp w sums rows w T / 8 .. (w + 1) T / 8 - 1, lane over the head
+  // dim; the partial form reads it instead (o is not read)
   for (int i = 0; i < T / 8; ++i) {
     const int rr = warp * (T / 8) + i, r = row0 + rr;
+    if (s.partial) {
+      if (lane == 0) Dr[rr] = r < R ? delta[stat_row(s, b, kvh, r)] : 0.f;
+      continue;
+    }
     float acc = 0.f;
     if (r < R) {
       const size_t off = qrow<HD>(s, b, kvh, r);
@@ -750,7 +767,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // this thread's rows r0 and r1 = r0 + 8: position, m log2(e),
   // 1 / max(l, 1e-30), and D, which the warp sums over its 16 rows (lanes
-  // over the head dim, 4 elements at a time) and writes
+  // over the head dim, 4 elements at a time) and writes; the partial form
+  // reads D and writes nothing (its 1 / l, 1, is in the scratch already)
   const int r0 = row0 + warp * 16 + quad, r1 = r0 + 8;
   const bool ok0 = r0 < R, ok1 = r1 < R;
   const int qp0 = ok0 ? q_pos[(size_t)b * s.Sq + r0 / G] : 0;
@@ -762,7 +780,11 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float li1 =
       ok1 ? 1.f / fmaxf(l_in[stat_row(s, b, kvh, r1)], 1e-30f) : 0.f;
   float D0 = 0.f, D1 = 0.f;
-  for (int i = 0; i < 16; ++i) {
+  if (s.partial) {
+    D0 = ok0 ? delta[stat_row(s, b, kvh, r0)] : 0.f;
+    D1 = ok1 ? delta[stat_row(s, b, kvh, r1)] : 0.f;
+  }
+  for (int i = 0; i < 16 && !s.partial; ++i) {
     const int r = row0 + warp * 16 + i;
     float acc = 0.f;
     if (r < R) {
@@ -1399,6 +1421,11 @@ extern "C" {
 // shared memory fits), f32 the CUDA-core ones (256). Two launches on
 // `stream`; returns the first cudaError_t that is not cudaSuccess, or 0.
 // Nothing is synchronized and nothing is allocated.
+// `partial`: the backward of the forward's partial form with m held fixed
+// (see the note at the top). The caller fills the delta scratch, -dl then
+// 1, and passes the cotangent of acc, in q's layout and dtype, as `dout`, 1
+// (the scratch's second half) as `l`, and any pointer as `o`: it is not
+// read. Then neither pass writes the scratch.
 int repro_flash_attention_backward(int dtype, const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* m,
@@ -1409,12 +1436,13 @@ int repro_flash_attention_backward(int dtype, const void* q, const void* k,
                                    int window, float scale, int dq_grid_y,
                                    int dq_block, int dq_smem,
                                    int dkdv_grid_y, int dkdv_block,
-                                   int dkdv_smem, void* stream) {
+                                   int dkdv_smem, int partial,
+                                   void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
       (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   if (dq_grid_y > 65535 || dkdv_grid_y > 65535) return cudaErrorInvalidValue;
-  const Shape s{Sq, Sk, H, KV, causal, window, scale};
+  const Shape s{Sq, Sk, H, KV, causal, window, scale, partial != 0};
   const Args a{q,  k,  v,  o,  dout,
                static_cast<const float*>(m), static_cast<const float*>(l),
                static_cast<const int*>(q_pos), static_cast<const int*>(k_pos),

@@ -19,7 +19,10 @@ The low-precision modes (``lowp`` 1 / 2, the reference's ``LOWP``) are a
 run-time argument of the bf16 forms, decode and forward: a launch under a
 mode counts in ``LAUNCHES`` and in ``LOWP_LAUNCHES[mode]``. f32 q runs mode
 0 whatever is asked (the reference's function on f32 q), and the int8
-cache refuses a mode.
+cache refuses a mode. Mode 2 rounds p against the reference's running max
+over its key chunks (``ref.lowp_chunks``), in instances of each form of
+their own; the decode form holds up to ``LOWP_DECODE_MAX_CHUNKS`` chunks a
+row and refuses more.
 
 The decode form also reads K / V (and the int8 scales) through a strided
 lead: k, v (C, B_l, Sk, KV, hd) with C * B_l = B, whose (Sk, KV, hd) tail
@@ -53,6 +56,7 @@ MIN_SPLIT_KEYS = 256          # fewest keys worth a CTA of their own
 SPLIT_TARGET_CTAS = 2 * SMS   # a split cache aims at two CTAs per SM
 FORWARD_KEY_TILE = {torch.bfloat16: 64, torch.float32: 32}
 F32_ROW_TILE = 32             # 8 warps x 4 rows
+LOWP_DECODE_MAX_CHUNKS = 128  # decode, mode 2: key chunks a row holds
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,6 +312,12 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
                          "forward (stats=True)")
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[-3], k.shape[-2]
+    if (mode == 2 and geo.form == "decode"
+            and max(Sk // min(1024, Sk), 1) > LOWP_DECODE_MAX_CHUNKS):
+        raise ValueError(
+            f"flash_attention: the decode form in mode 2 holds at most "
+            f"{LOWP_DECODE_MAX_CHUNKS} key chunks of 1,024 a row, got Sk = "
+            f"{Sk}")
     lead = _lead(k, k_scale)
     kv_c, kv_b = lead_strides(k, 3, lead)
     out = acc = m = l = None

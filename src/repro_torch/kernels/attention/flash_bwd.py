@@ -7,6 +7,10 @@ replaces no TPU kernel; it is the backward of ``flash.py``'s forward, and
 ``ref.flash_attention_backward`` is its plain version. One call is one
 count in ``LAUNCHES``: it launches the dq pass (which also writes D =
 rowsum(do * o)) and then the dk / dv pass on the current stream.
+``flash_attention_partial_backward`` is the backward of the forward's
+partial form (ring attention's hops), the same two passes with one run-time
+flag set, counted in ``PARTIAL_LAUNCHES`` and not in ``LAUNCHES``;
+``ref.flash_attention_partial_backward`` is its plain version.
 ``launch_geometry`` picks each pass's form, grid and CTA size from the
 shapes (a pure function, so the CPU tests can check it): bf16 takes the
 tensor-core passes (mma.sync, a cp.async ring of bf16 tiles), f32 the
@@ -35,6 +39,7 @@ from repro_torch.kernels.attention.flash import _DTYPES, SMS
 
 HEAD_DIMS = flash.HEAD_DIMS
 LAUNCHES = 0
+PARTIAL_LAUNCHES = 0
 MAX_GRID_Y = 65535
 MAX_SMEM = 232448             # shared memory a CTA may have (bytes)
 MMA_STATIC_SMEM = (1024 + 4) * 4   # bf16 kernels' static tile list
@@ -133,10 +138,11 @@ def mma_warps(name: str, hd: int) -> tuple[int, ...]:
                  if _mma_smem(name, w, hd) + MMA_STATIC_SMEM <= MAX_SMEM)
 
 
-def _check_head_dim(hd: int) -> None:
+def _check_head_dim(hd: int, name: str = "flash_attention_backward"
+                    ) -> None:
     if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_backward kernel takes head_dim "
-                         f"in {HEAD_DIMS}, got {hd}")
+        raise ValueError(f"{name} kernel takes head_dim in {HEAD_DIMS}, "
+                         f"got {hd}")
 
 
 def launch_geometry(B: int, Sq: int, Sk: int, H: int, KV: int, hd: int,
@@ -174,81 +180,70 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         # dtype, 13 pointers, B .. window, scale, 3 ints of each pass's
-        # geometry, stream
+        # geometry, partial, stream
         fn.argtypes = ([i] + [p] * 13 + [i] * 8 + [ctypes.c_float]
-                       + [i] * 6 + [p])
+                       + [i] * 7 + [p])
         fn.restype = i
         lib.repro_flash_bwd_error_string.argtypes = [i]
         lib.repro_flash_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def check_layout(q, k, v, o, m, l, do, q_pos, k_pos) -> Geometry:
+def check_layout(q, k, v, o, m, l, do, q_pos, k_pos, *,
+                 name: str = "flash_attention_backward") -> Geometry:
     """Types, shapes, contiguity and alignment the kernel takes, on any
-    device; returns the launch geometry."""
+    device; returns the launch geometry. ``name``: the entry point the
+    messages name."""
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype
                                      for t in (k, v, o, do)):
-        raise TypeError("flash_attention_backward takes f32 or bf16 q/k/v/o/"
-                        "do of one dtype")
+        raise TypeError(f"{name} takes f32 or bf16 q/k/v/o/do of one "
+                        "dtype")
     if m.dtype != torch.float32 or l.dtype != torch.float32:
-        raise TypeError("flash_attention_backward: m and l must be f32")
+        raise TypeError(f"{name}: m and l must be f32")
     if q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32:
-        raise TypeError("flash_attention_backward: positions must be int32")
+        raise TypeError(f"{name}: positions must be int32")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("flash_attention_backward: q (B,Sq,H,hd), k/v "
-                         "(B,Sk,KV,hd)")
+        raise ValueError(f"{name}: q (B,Sq,H,hd), k/v (B,Sk,KV,hd)")
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != hd or H % KV:
-        raise ValueError(f"flash_attention_backward: incompatible q "
-                         f"{tuple(q.shape)} and k {tuple(k.shape)}")
-    _check_head_dim(hd)
+        raise ValueError(f"{name}: incompatible q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)}")
+    _check_head_dim(hd, name)
     if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError("flash_attention_backward: o and do must be q's "
-                         "shape")
+        raise ValueError(f"{name}: o and do must be q's shape")
     if tuple(m.shape) != (B, H, Sq) or tuple(l.shape) != (B, H, Sq):
-        raise ValueError("flash_attention_backward: m and l must be "
-                         "(B, H, Sq)")
+        raise ValueError(f"{name}: m and l must be (B, H, Sq)")
     if tuple(q_pos.shape) != (B, Sq) or tuple(k_pos.shape) != (B, Sk):
-        raise ValueError("flash_attention_backward: positions must be "
-                         "(B, Sq) and (B, Sk)")
+        raise ValueError(f"{name}: positions must be (B, Sq) and (B, Sk)")
     for t in (q, k, v, o, m, l, do, q_pos, k_pos):
         if not t.is_contiguous():
-            raise ValueError("flash_attention_backward takes contiguous "
-                             "tensors")
+            raise ValueError(f"{name} takes contiguous tensors")
     geo = launch_geometry(B, Sq, Sk, H, KV, hd, q.dtype)
     if geo.dq.form == "mma":   # 16-byte cp.async pieces, 8-byte do / o loads
-        for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        for arg, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
             if t.data_ptr() % 16:
-                raise ValueError(f"flash_attention_backward: {name} must "
-                                 f"start on a 16-byte boundary")
+                raise ValueError(f"{name}: {arg} must start on a 16-byte "
+                                 "boundary")
     for p in (geo.dq, geo.dkdv):
         static = MMA_STATIC_SMEM if p.form == "mma" else 0
         if p.grid[1] > MAX_GRID_Y or p.smem + static > MAX_SMEM:
-            raise ValueError(f"flash_attention_backward: the {p.name} pass "
-                             f"needs grid.y {p.grid[1]} and {p.smem} bytes "
-                             f"of shared memory")
+            raise ValueError(f"{name}: the {p.name} pass needs grid.y "
+                             f"{p.grid[1]} and {p.smem} bytes of shared "
+                             "memory")
     return geo
 
 
-def flash_attention_backward(q, k, v, o, m, l, do, q_pos, k_pos, *,
-                             causal: bool = True, window: int = -1):
-    """Launch the backward on CUDA tensors (see
-    ``ref.flash_attention_backward`` for the function). Returns
-    ``(dq, dk, dv)`` in the inputs' dtype. Deterministic: two calls on the
-    same inputs give the same bits."""
-    global LAUNCHES
-    guard_grad("flash_attention_backward", q, k, v, o, do)
+def _launch(name, q, k, v, o, m, l, do, q_pos, k_pos, delta, causal,
+            window, partial: bool):
+    """Both passes on ``q``'s current stream; returns (dq, dk, dv)."""
     tensors = (q, k, v, o, m, l, do, q_pos, k_pos)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("flash_attention_backward: every tensor must be on "
-                         "one CUDA device")
-    geo = check_layout(*tensors)
+        raise ValueError(f"{name}: every tensor must be on one CUDA device")
+    geo = check_layout(*tensors, name=name)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # scratch: D = rowsum(do * o), then (bf16) 1 / max(l, 1e-30)
-    delta = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -259,10 +254,58 @@ def flash_attention_backward(q, k, v, o, m, l, do, q_pos, k_pos, *,
             B, Sq, Sk, H, KV, hd, int(causal), int(window), hd ** -0.5,
             *(x for p in (geo.dq, geo.dkdv)
               for x in (p.grid[1], p.block, p.smem)),
-            stream)
+            int(partial), stream)
     if rc != 0:
         msg = lib.repro_flash_bwd_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention_backward kernel launch failed: "
-                           f"CUDA error {rc} ({msg})")
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")
     return dq, dk, dv
+
+
+def flash_attention_backward(q, k, v, o, m, l, do, q_pos, k_pos, *,
+                             causal: bool = True, window: int = -1):
+    """Launch the backward on CUDA tensors (see
+    ``ref.flash_attention_backward`` for the function). Returns
+    ``(dq, dk, dv)`` in the inputs' dtype. Deterministic: two calls on the
+    same inputs give the same bits."""
+    global LAUNCHES
+    guard_grad("flash_attention_backward", q, k, v, o, do)
+    B, Sq, H, _ = q.shape
+    # scratch: D = rowsum(do * o), then (bf16) 1 / max(l, 1e-30)
+    delta = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+    out = _launch("flash_attention_backward", q, k, v, o, m, l, do, q_pos,
+                  k_pos, delta, causal, window, False)
+    LAUNCHES += 1
+    return out
+
+
+def flash_attention_partial_backward(q, k, v, m, dacc, dl, q_pos, k_pos, *,
+                                     causal: bool = True, window: int = -1):
+    """Launch the backward of the forward's partial form on CUDA tensors
+    (see ``ref.flash_attention_partial_backward`` for the function): m,
+    dl f32 (B, H, Sq), dacc f32 (B, H, Sq, hd). Returns ``(dq, dk, dv)`` in
+    the inputs' dtype; deterministic. dacc goes to the kernel as its do, in
+    q's layout and dtype (one copy), and the delta scratch holds -dl and
+    1."""
+    global PARTIAL_LAUNCHES
+    name = "flash_attention_partial_backward"
+    guard_grad(name, q, k, v, dacc, dl)
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be (B, Sq, H, hd), got "
+                         f"{tuple(q.shape)}")
+    B, Sq, H, hd = q.shape
+    for arg, t, shape in (("m", m, (B, H, Sq)), ("dacc", dacc, (B, H, Sq, hd)),
+                          ("dl", dl, (B, H, Sq))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} must be f32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if not all(t.is_cuda and t.device == q.device for t in (dacc, dl)):
+        raise ValueError(f"{name}: every tensor must be on one CUDA device")
+    do = dacc.transpose(1, 2).to(q.dtype).contiguous()     # (B, Sq, H, hd)
+    delta = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+    torch.neg(dl, out=delta[0])
+    delta[1].fill_(1.0)
+    out = _launch(name, q, k, v, do, m, delta[1], do, q_pos, k_pos, delta,
+                  causal, window, True)
+    PARTIAL_LAUNCHES += 1
+    return out

@@ -5,7 +5,8 @@ version (``ref.py``).
 ``FlashAttention`` is the differentiable form, which training takes: its
 forward is the forward kernel asked for the row statistics as well, and
 its backward the backward kernel (``flash_bwd.py``); on CPU tensors the
-plain versions of both."""
+plain versions of both. ``FlashAttentionPartial`` is the same for the
+partial form, which ring attention's hops take."""
 from __future__ import annotations
 
 import torch
@@ -44,6 +45,11 @@ def _backward(q):
             else ref.flash_attention_backward)
 
 
+def _partial_backward(q):
+    return (flash_bwd.flash_attention_partial_backward if q.is_cuda
+            else ref.flash_attention_partial_backward)
+
+
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` (not partial) with a backward: q (B, Sq, H, hd),
     k / v (B, Sk, KV, hd), int32 positions (B, Sq) / (B, Sk). Saves q, k,
@@ -68,4 +74,35 @@ class FlashAttention(torch.autograd.Function):
         causal, window = ctx.mask
         dq, dk, dv = _backward(q)(q, k, v, out, m, l, do.contiguous(), q_pos,
                                   k_pos, causal=causal, window=window)
+        return dq, dk, dv, None, None, None, None, None
+
+
+class FlashAttentionPartial(torch.autograd.Function):
+    """``flash_attention(partial=True)`` with a backward: returns the f32
+    ``(acc, m, l)`` of the forward kernel's partial form and saves q, k, v,
+    m and the positions. The backward is the backward kernel's partial
+    form (``flash_bwd.flash_attention_partial_backward``; the plain version
+    on CPU tensors) from the cotangents of acc and l, with m held fixed:
+    m carries no gradient, which is exact for the LSE merges that consume
+    partials (``ref.flash_attention_partial_backward``). Under a
+    low-precision mode the backward stays in f32, as ``FlashAttention``'s
+    does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal: bool, window: int,
+                lowp: int = 0):
+        acc, m, l = _forward(q)(q, k, v, q_pos, k_pos, causal=causal,
+                                window=window, partial=True, lowp=lowp)
+        ctx.save_for_backward(q, k, v, m, q_pos, k_pos)
+        ctx.mark_non_differentiable(m)
+        ctx.mask = (causal, window)
+        return acc, m, l
+
+    @staticmethod
+    def backward(ctx, dacc, dm, dl):
+        q, k, v, m, q_pos, k_pos = ctx.saved_tensors
+        causal, window = ctx.mask
+        dq, dk, dv = _partial_backward(q)(
+            q, k, v, m, dacc.contiguous(), dl.contiguous(), q_pos, k_pos,
+            causal=causal, window=window)
         return dq, dk, dv, None, None, None, None, None

@@ -14,6 +14,15 @@ masked: the kernel's contract gives such a row ``m = -1e30`` and ``l = Sk``
 (the mean of v), and the merge weighs it by ``exp(-1e30 - m) = 0`` once a
 visible hop has set ``m`` -- hop 0 is the PE's own block, whose diagonal
 every causal or windowed row sees.
+
+It trains: under grad each hop's partial form is
+``ops.FlashAttentionPartial`` (through ``chunked_attention``), whose
+backward is one launch of the backward kernel's partial form a hop, with
+the hop's m held fixed -- exact here, since the merge depends on each hop's
+(acc, m, l) only through ``acc e^m`` and ``l e^m``. Autograd carries dk and
+dv back through the ring's rolls (``dispatch_fused``), so the backward of
+a ring of g members costs g partial backward launches and the rolls'
+transposes, and, as the forward, never gathers the sequence.
 """
 from __future__ import annotations
 

@@ -145,7 +145,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     under; it changes bf16 q only (``ref.flash_attention``).
 
     Under grad it goes through ``FlashAttention``, whose forward also
-    writes the row statistics the backward reads. Without grad (serving)
+    writes the row statistics the backward reads, or with ``partial``
+    through ``FlashAttentionPartial``, whose backward holds m fixed: exact
+    for the LSE merges that consume partials (ring attention's,
+    ``finish_partial_attention``). Without grad (serving)
     it launches the forward alone: no statistics are written for a
     backward that never comes, and the output is the same bits.
     """
@@ -174,18 +177,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise NotImplementedError(
                 "chunked_attention over an int8 cache under grad: the int8 "
                 "KV cache is a decode-time layout")
-        if partial:
-            raise NotImplementedError(
-                "chunked_attention(partial=True) under grad: the partial "
-                "form is fused_comm's ring attention over cp, and no "
-                "training path reaches it, since loss_shard refuses "
-                "context parallelism as the reference's does (fused_comm "
-                "training at cp 1 runs the full form)")
-        out = attention_ops.FlashAttention.apply(*args, causal, window,
-                                                 lowp)
-        return out.reshape(lead + (Sq, H, hd))
-    res = attention_ops.flash_attention(*args, causal=causal, window=window,
-                                        partial=partial, lowp=lowp, **scales)
+        fn = (attention_ops.FlashAttentionPartial if partial
+              else attention_ops.FlashAttention)
+        res = fn.apply(*args, causal, window, lowp)
+    else:
+        res = attention_ops.flash_attention(
+            *args, causal=causal, window=window, partial=partial, lowp=lowp,
+            **scales)
     if partial:
         acc, m, l = res
         return (acc.reshape(lead + (H, Sq, hd)), m.reshape(lead + (H, Sq)),
@@ -196,7 +194,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def finish_partial_attention(acc, m, l, *, comm, dtype):
     """LSE-combine ``partial=True`` results across the shards of ``comm``
     (a communicator bound to the flash-decode axes): one max and two
-    additive all-reduces. Returns (..., Sq, H, hd) in ``dtype``."""
+    additive all-reduces. Returns (..., Sq, H, hd) in ``dtype``. It
+    depends on each shard's (acc, m, l) only through ``acc e^m`` and ``l
+    e^m``: the total derivative through m is zero, which the partial
+    form's backward (``FlashAttentionPartial``) relies on."""
     m_max = comm.all_reduce(m, op="max")
     w = torch.exp(m - m_max)
     acc = comm.all_reduce(acc * w[..., None])

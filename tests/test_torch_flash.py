@@ -407,44 +407,69 @@ def test_checks_accept_the_strided_lead_and_refuse_other_layouts():
 
 
 # ------------------------------------------- mode 2's p in the decode form
-@pytest.mark.parametrize("Sk", [37, 300, 1024])
-def test_mode2_p_is_rounded_against_the_row_max_as_jax_rounds_it(
-        monkeypatch, Sk):
-    """For a row of at most 1,024 keys the reference's mode 2 runs one key
-    chunk: p = bf16(exp(bf16(s - bf16(m)))) with m the row's max. The
-    plain version's p, read one key at a time through one-hot v (each
-    batch entry's v picks a block of hd keys: acc[d] is one key's p), is
-    JAX's ``_chunked_attention`` at ``LOWP = 2`` bit for bit on inputs
-    whose scores are exact in bf16 (small integers, hd 64: the scale 1/8 is
-    a power of two). p rounded against a running max over 64-key blocks
-    instead, and rescaled in f32 as a merge does, is not."""
-    import repro.models.layers as jax_layers
-    monkeypatch.setattr(jax_layers, "LOWP", 2)
+def _mode2_onehot_case(Sk):
+    """Inputs whose scores are exact in bf16 (small integers, hd 64: the
+    scale 1/8 is a power of two), repeated over nb = ceil(Sk / hd) batch
+    entries whose one-hot v picks a block of hd keys each (acc[d] is one
+    key's p), the last 4 keys masked (causal, q at Sk - 5). From 2,048 keys
+    on, key Sk - 10 (in the last chunk) is each group's first query head,
+    so a later chunk raises that head's max."""
     hd, H, KV, Sq = 64, 8, 2, 1
     nb = -(-Sk // hd)
     rng = np.random.RandomState(Sk)
     q1 = rng.randint(-1, 2, (1, Sq, H, hd)).astype(np.float32)
     k1 = rng.randint(-1, 2, (1, Sk, KV, hd)).astype(np.float32)
+    if Sk >= 2048:
+        k1[0, Sk - 10] = q1[0, 0, ::H // KV]
     q, k = np.repeat(q1, nb, 0), np.repeat(k1, nb, 0)
     v = np.zeros((nb, Sk, KV, hd), np.float32)
     for b in range(nb):                 # batch b: keys [b hd, (b + 1) hd)
         for d in range(min(hd, Sk - b * hd)):
             v[b, b * hd + d, :, d] = 1.0
-    q0 = Sk - 5                         # the last 4 keys are masked
+    q0 = Sk - 5
+    pos = (torch.full((nb, Sq), q0, dtype=torch.int32),
+           torch.arange(Sk, dtype=torch.int32).expand(nb, Sk))
+    return (q1, k1), (q, k, v), q0, pos
+
+
+def _onehot_p(acc, Sk):
+    """(H, Sq, Sk) p of the one-hot partials (B, H, Sq, hd)."""
+    nb, H, Sq, hd = acc.shape
+    return acc.permute(1, 2, 0, 3).reshape(H, Sq, nb * hd)[..., :Sk]
+
+
+@pytest.mark.parametrize("Sk", [37, 300, 1024, 2048, 3008])
+def test_mode2_p_is_rounded_against_the_row_max_as_jax_rounds_it(
+        monkeypatch, Sk):
+    """The reference's mode 2 runs its keys in nc = Sk // min(1024, Sk)
+    chunks and rounds p = bf16(exp(bf16(s - bf16(M_c)))) against M_c, the
+    running max over the chunks up to the key's own: the row's max below
+    2,048 keys (one chunk), 2 x 1,024 and 2 x 1,504 chunks at 2,048 and
+    3,008. The plain version's p, read one key at a time through one-hot
+    v, is JAX's ``_chunked_attention`` at ``LOWP = 2`` bit for bit in the
+    last chunk and, in an earlier one, within one f32 exp (JAX rescales it
+    by exp(M_0 - M_1) in f32, the port by exp(M_c - m)); m is JAX's bit for
+    bit. The controls: p rounded against a running max over 64-key blocks
+    (one chunk), or against the row's max (several chunks), is not."""
+    import repro.models.layers as jax_layers
+    monkeypatch.setattr(jax_layers, "LOWP", 2)
+    (q1, k1), arrs, q0, pos = _mode2_onehot_case(Sk)
+    Sq, H, hd = q1.shape[1:]
+    KV = k1.shape[2]
     j_acc, j_m, j_l = jax_layers._chunked_attention(
-        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=True,
+        *(jnp.asarray(a, jnp.bfloat16) for a in arrs), causal=True,
         q_offset=q0, partial=True)
-    t = [torch.from_numpy(a).bfloat16() for a in (q, k, v)]
-    acc, m, l = ref.flash_attention(
-        *t, torch.full((nb, Sq), q0, dtype=torch.int32),
-        torch.arange(Sk, dtype=torch.int32).expand(nb, Sk), partial=True,
-        lowp=2)
+    t = [torch.from_numpy(a).bfloat16() for a in arrs]
+    acc, m, l = ref.flash_attention(*t, *pos, partial=True, lowp=2)
     # JAX's (B, KV, G, Sq, hd) partials are the port's (B, H, Sq, hd)
-    j_acc = np.array(j_acc).reshape(acc.shape)
-    p_port = acc.permute(1, 2, 0, 3).reshape(H, Sq, nb * hd)[..., :Sk]
-    p_jax = torch.from_numpy(j_acc).permute(1, 2, 0, 3).reshape(
-        H, Sq, nb * hd)[..., :Sk]
-    assert torch.equal(p_port, p_jax)
+    p_port = _onehot_p(acc, Sk)
+    p_jax = _onehot_p(torch.from_numpy(np.array(j_acc)).reshape(acc.shape),
+                      Sk)
+    nc, C = ref.lowp_chunks(Sk)
+    last = (nc - 1) * C
+    assert torch.equal(p_port[..., last:], p_jax[..., last:])
+    torch.testing.assert_close(p_port[..., :last], p_jax[..., :last],
+                               rtol=1e-6, atol=0)
     assert torch.equal(m, torch.from_numpy(np.array(j_m)).reshape(m.shape))
     # l sums the same p in f32 (JAX's CPU sum of its bf16 p reads 4e-4
     # apart, so l is held to the port's own p)
@@ -452,22 +477,68 @@ def test_mode2_p_is_rounded_against_the_row_max_as_jax_rounds_it(
                                atol=0)
     assert (p_port[..., :Sk - 4] > 0).all()
     assert (p_port[..., Sk - 4:] == 0).all()
-    # the control: p against a running max over 64-key blocks
     s = ref.bf16(torch.einsum("qhd,khd->hqk", ref.bf16(
-        torch.from_numpy(q1[0]).reshape(Sq, KV, H // KV, hd)
-        .reshape(Sq, H, hd) * 0.125),
+        torch.from_numpy(q1[0]) * 0.125),
         torch.from_numpy(k1[0]).repeat_interleave(H // KV, dim=1)))
     s = torch.where(torch.arange(Sk) <= q0, s, ref.bf16_scalar(ref.NEG_INF))
+    m_row = s.amax(-1, keepdim=True)
+    if nc > 1:
+        # the control: p against the row's max, which a later chunk raised
+        assert bool((ref.chunk_max(s)[..., 0] < m_row[..., 0]).any())
+        p_row = ref.bf16(torch.exp(ref.bf16(s - ref.bf16(m_row))))
+        live = p_port > 0
+        rel = ((p_row - p_port).abs()[live] / p_port[live]).max()
+        assert float(rel) >= 2.0 ** -9
+        return
+    # the control: p against a running max over 64-key blocks
     run = torch.cat([s[..., :i + 1].amax(-1, keepdim=True) if i < 64 else
                      torch.maximum(s[..., :64].amax(-1, keepdim=True),
                                    s[..., 64:i + 1].amax(-1, keepdim=True))
                      for i in range(Sk)], dim=-1)
-    m_row = s.amax(-1, keepdim=True)
     p_blocks = ref.bf16(torch.exp(ref.bf16(s - ref.bf16(run)))) \
         * torch.exp(run - m_row)
     assert torch.allclose(p_blocks, p_port, rtol=1e-2, atol=0)
     if Sk > 64:
         assert not torch.equal(p_blocks, p_port)
+
+
+@pytest.mark.parametrize("Sk", [2048, 3008])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_modes_0_and_1_keep_their_function_over_several_chunks(
+        monkeypatch, Sk, mode):
+    """The chunk rule is mode 2's alone: at the lengths where the
+    reference runs two key chunks, modes 0 and 1 of the plain version keep
+    their single-pass p, exp(s - m) against the row's max (mode 1 rounded
+    to bf16 for p v alone), and hold to JAX's ``_chunked_attention`` in
+    the same mode: m bit for bit, l within f32 rounding, acc within one f32
+    exp in mode 0. In mode 1 JAX rounds p for p v against its chunk's
+    running max, the port against the row's: acc within two bf16 roundings
+    of p (2^-7 relative), a difference the bf16 tolerance holds."""
+    import repro.models.layers as jax_layers
+    monkeypatch.setattr(jax_layers, "LOWP", mode)
+    _, arrs, q0, pos = _mode2_onehot_case(Sk)
+    j_acc, j_m, j_l = jax_layers._chunked_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in arrs), causal=True,
+        q_offset=q0, partial=True)
+    t = [torch.from_numpy(a).bfloat16() for a in arrs]
+    acc, m, l = ref.flash_attention(*t, *pos, partial=True, lowp=mode)
+    assert torch.equal(m, torch.from_numpy(np.array(j_m)).reshape(m.shape))
+    torch.testing.assert_close(
+        acc, torch.from_numpy(np.array(j_acc)).reshape(acc.shape),
+        rtol=2.0 ** -7 if mode else 1e-6, atol=0)
+    torch.testing.assert_close(
+        l, torch.from_numpy(np.array(j_l)).reshape(l.shape), rtol=1e-5,
+        atol=0)
+    # p against the row's max: the single-pass softmax of the scores
+    p = _onehot_p(acc, Sk)
+    qs = (ref.bf16(t[0].float() * ref.bf16_scalar(0.125)) if mode
+          else t[0].float() * 0.125)
+    s = torch.einsum("qhd,khd->hqk", qs[0], t[1][0].float()
+                     .repeat_interleave(qs.shape[2] // t[1].shape[2], 1))
+    s = torch.where(torch.arange(Sk) <= q0, s, ref.NEG_INF)
+    want = torch.exp(s - s.amax(-1, keepdim=True))
+    torch.testing.assert_close(p, ref.bf16(want) if mode else want,
+                               rtol=1e-6, atol=0)
 
 
 # (B, Sq, Sk, H, KV, hd, window, q0, k0): one case per form, and a forward

@@ -143,8 +143,9 @@ def test_flash_attention_function_carries_gradients(monkeypatch, case):
 
 
 def test_chunked_attention_trains_through_flash_attention(monkeypatch):
-    """Under grad the model's attention goes through ``FlashAttention``;
-    without grad it takes the plain dispatch (bit-identical outputs)."""
+    """Under grad the model's attention goes through ``FlashAttention``
+    (the partial form through ``FlashAttentionPartial``); without grad it
+    takes the plain dispatch (bit-identical outputs)."""
     arrs, q_pos, k_pos, causal, window = _inputs("causal")
     seen = []
     real = ops.FlashAttention.apply
@@ -156,8 +157,16 @@ def test_chunked_attention_trains_through_flash_attention(monkeypatch):
     with torch.no_grad():
         again = layers.chunked_attention(q, k, v, causal=True)
     assert seen == [1] and torch.equal(out.detach(), again)
-    with pytest.raises(NotImplementedError, match="fused_comm"):
-        layers.chunked_attention(q, k, v, causal=True, partial=True)
+    part = []
+    real_p = ops.FlashAttentionPartial.apply
+    monkeypatch.setattr(ops.FlashAttentionPartial, "apply",
+                        lambda *a: part.append(1) or real_p(*a))
+    acc, m, l = layers.chunked_attention(q, k, v, causal=True, partial=True)
+    assert part == [1] and acc.grad_fn is not None and l.grad_fn is not None
+    with torch.no_grad():
+        again = layers.chunked_attention(q, k, v, causal=True, partial=True)
+    assert part == [1] and all(torch.equal(a.detach(), b)
+                               for a, b in zip((acc, m, l), again))
 
 
 def test_launchers_raise_under_grad():
@@ -173,6 +182,9 @@ def test_launchers_raise_under_grad():
     with pytest.raises(RuntimeError, match="requires grad"):
         flash_bwd.flash_attention_backward(
             q, q, q, o, st, st, o, pos, pos)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        flash_bwd.flash_attention_partial_backward(
+            q, q, q, st, o, st, pos, pos)
     x = torch.zeros(8, 4, requires_grad=True)
     with pytest.raises(RuntimeError, match="requires grad"):
         reorder.tile_swizzle(x, [1, 0])
@@ -242,3 +254,32 @@ def test_backward_kernel_matches_plain_version_on_the_card(dtype, shape, hd):
         assert torch.equal(g, a)
         assert float((g.float() - w.float()).abs().max()) <= tol * float(
             w.float().abs().max())
+
+
+def test_partial_backward_refuses_by_name():
+    """The partial backward's wrapper checks its cotangents' types and
+    shapes and the layout (``check_layout``) before it looks at the device,
+    naming itself: f32 m, dacc (B, H, Sq, hd) and dl (B, H, Sq), a head
+    dim the kernel takes, one CUDA device."""
+    name = "flash_attention_partial_backward"
+    B, S, H, KV, hd = 1, 4, 2, 1, 16
+    q, k = torch.zeros(B, S, H, hd), torch.zeros(B, S, KV, hd)
+    st, dacc = torch.zeros(B, H, S), torch.zeros(B, H, S, hd)
+    pos = torch.zeros(B, S, dtype=torch.int32)
+    fn = flash_bwd.flash_attention_partial_backward
+    with pytest.raises(ValueError, match=f"{name}: dacc must be f32"):
+        fn(q, k, k, st, dacc[..., :8], st, pos, pos)
+    with pytest.raises(ValueError, match=f"{name}: dl must be f32"):
+        fn(q, k, k, st, dacc, st.double(), pos, pos)
+    with pytest.raises(ValueError, match=f"{name}: q must be"):
+        fn(q[0], k, k, st, dacc, st, pos, pos)
+    with pytest.raises(ValueError, match=f"{name}: every tensor"):
+        fn(q, k, k, st, dacc, st, pos, pos)
+    bad = torch.zeros(B, S, H, 48)
+    with pytest.raises(ValueError, match=f"{name} kernel takes head_dim"):
+        flash_bwd.check_layout(bad, torch.zeros(B, S, KV, 48),
+                               torch.zeros(B, S, KV, 48), bad, st, st, bad,
+                               pos, pos, name=name)
+    with pytest.raises(TypeError, match=f"{name}: m and l must be f32"):
+        flash_bwd.check_layout(q, k, k, q, st.double(), st, q, pos, pos,
+                               name=name)
